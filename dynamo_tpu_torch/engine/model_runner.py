@@ -1,0 +1,260 @@
+"""ModelRunner: prefill and decode steps over the paged KV pool.
+
+Port of `dynamo_tpu/engine/model_runner.py` for one device. The runner owns
+the weights (`models.Transformer`) and the paged KV pool, and exposes the
+host entry points the scheduler drives:
+
+  * prefill_chunk(...) — one sequence's chunk: writes its KV, samples the
+                         next token (meaningful on the final chunk)
+  * decode(...)        — one token for every slot
+  * decode_multi(...)  — K chained decode steps with no host sync: each
+                         step's sampled tokens feed the next step on the
+                         device (the JAX package's `lax.scan` block)
+
+Decode attention goes through `ops.paged_attention_decode_pool`: on the card
+that is the CUDA flash-decode kernel, always; on the CPU its plain version.
+PyTorch runs eagerly, so there is nothing to compile or bucket; the block
+table is still cut to the live context width (`bucket_table_width`) so the
+plain paths gather no more pages than they need.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models import ModelConfig, Transformer, init_params, make_kv_cache
+from ..models.transformer import forward, forward_decode, paged_attention_xla
+from ..ops.paged_attention import paged_attention_decode_pool
+from .sampler import sample, sample_with_logprobs
+
+DEFAULT_PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
+
+
+def bucket_table_width(pages_needed: int, max_pages: int) -> int:
+    """Power-of-two block-table width covering `pages_needed` (min 8,
+    capped at max_pages)."""
+    width = 8
+    while width < pages_needed:
+        width *= 2
+    return min(width, max_pages)
+
+
+@dataclasses.dataclass
+class RunnerConfig:
+    page_size: int = 16
+    num_pages: int = 2048
+    max_batch: int = 16
+    max_pages_per_seq: int = 128  # => context cap = page_size * this
+    # The largest entry is the prefill chunk budget per scheduler step (the
+    # JAX package also pads chunks up to these sizes for its compiler).
+    prefill_buckets: tuple[int, ...] = DEFAULT_PREFILL_BUCKETS
+
+    @property
+    def max_context(self) -> int:
+        return self.page_size * self.max_pages_per_seq
+
+
+class ModelRunner:
+    def __init__(
+        self,
+        model_config: ModelConfig,
+        runner_config: RunnerConfig,
+        *,
+        device: DeviceLike = "cuda",
+        params: Optional[Transformer] = None,
+        seed: int = 0,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.model_config = model_config
+        self.config = runner_config
+        if params is None:
+            params = init_params(model_config, device=self.device, seed=seed)
+        elif params.embed.device != self.device:
+            raise ValueError(f"params live on {params.embed.device}, runner "
+                             f"on {self.device}")
+        self.model = params
+        self.kv_cache = make_kv_cache(model_config, runner_config.num_pages,
+                                      runner_config.page_size,
+                                      device=self.device)
+        # The decode attention: the CUDA kernel on the card, its plain
+        # version on the CPU. A caller may swap in another function with
+        # the same signature (chip_smoke.py's parity phase does).
+        self.decode_attention_fn = paged_attention_decode_pool
+        # Decode forwards run (each launches the decode kernel once per
+        # layer on the card).
+        self.decode_steps = 0
+        self.last_prefill_sample = None
+        self.last_decode_sample = (None, None, None)
+        self.last_decode_logits = None
+
+    # -- helpers -----------------------------------------------------------
+
+    @property
+    def max_prefill_chunk(self) -> int:
+        return self.config.prefill_buckets[-1]
+
+    def _t(self, x, dtype: torch.dtype) -> torch.Tensor:
+        """Host array (or device tensor) -> tensor on the runner's device."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=dtype)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            device=self.device, dtype=dtype)
+
+    def _sampling(self, temperature, top_p, top_k, seeds):
+        return (self._t(np.asarray(temperature, np.float32), torch.float32),
+                self._t(np.asarray(top_p, np.float32), torch.float32),
+                self._t(np.asarray(top_k, np.int64), torch.int64),
+                self._t(np.asarray(seeds, np.int64), torch.int64))
+
+    # -- host API ----------------------------------------------------------
+
+    @torch.inference_mode()
+    def prefill_chunk(
+        self,
+        tokens: np.ndarray,  # [t] chunk token ids
+        start_pos: int,  # absolute position of tokens[0]
+        block_table: np.ndarray,  # [max_pages_per_seq] int32
+        kv_len_after: int,
+        sampling: tuple[float, float, int, int],  # (temp, top_p, top_k, seed)
+        return_device: bool = False,
+    ):
+        """Run one prefill chunk; returns the sampled token id (meaningful
+        only on the final chunk). `return_device=True` returns the device
+        token tensor [1] without a host sync. Otherwise the logprob data
+        lands in `last_prefill_sample`."""
+        t = len(tokens)
+        pages = -(-kv_len_after // self.config.page_size)
+        table = self._t(np.asarray(block_table, np.int32)[None, :pages],
+                        torch.int32)
+        tok = self._t(np.asarray(tokens, np.int64)[None, :], torch.int64)
+        pos = torch.arange(start_pos, start_pos + t, device=self.device)[None, :]
+        logits = forward(self.model, tok, pos, self.kv_cache, table,
+                         self._t(np.asarray([kv_len_after], np.int32),
+                                 torch.int32),
+                         attention_fn=paged_attention_xla)
+        temp, top_p, top_k, seed = sampling
+        token, lp, top_ids, top_lps = sample_with_logprobs(
+            logits[:, -1, :], *self._sampling([temp], [top_p], [top_k],
+                                              [seed]), 0)
+        if return_device:
+            self.last_prefill_sample = None
+            return token
+        self.last_prefill_sample = (float(lp.cpu()[0]), top_ids.cpu().numpy()[0],
+                                    top_lps.cpu().numpy()[0])
+        return int(token.cpu()[0])
+
+    def _decode_inputs(self, positions, block_tables, kv_lens, active):
+        return (self._t(np.asarray(positions, np.int64), torch.int64),
+                self._t(np.asarray(block_tables, np.int32), torch.int32),
+                self._t(np.asarray(kv_lens, np.int32), torch.int32),
+                self._t(np.asarray(active, bool), torch.bool))
+
+    @torch.inference_mode()
+    def decode(
+        self,
+        tokens: np.ndarray,  # [B] last token per slot
+        positions: np.ndarray,  # [B]
+        block_tables: np.ndarray,  # [B, width]
+        kv_lens: np.ndarray,  # [B] INCLUDING the current token
+        active: np.ndarray,  # [B] bool
+        temperature: np.ndarray,
+        top_p: np.ndarray,
+        top_k: np.ndarray,
+        seeds: np.ndarray,
+        steps: Optional[np.ndarray] = None,  # [B] per-slot token index
+        want_logprobs: bool = False,
+        want_logits: bool = False,
+    ) -> np.ndarray:
+        """One decode step for all slots; returns sampled tokens [B] on the
+        host. `want_logprobs` fills `last_decode_sample`; `want_logits`
+        fills `last_decode_logits` with the raw [B, V] rows."""
+        self.decode_steps += 1
+        if steps is None:
+            steps = np.zeros(len(tokens), np.int32)
+        pos, tables, lens, act = self._decode_inputs(positions, block_tables,
+                                                     kv_lens, active)
+        logits = forward_decode(
+            self.model, self._t(np.asarray(tokens, np.int64), torch.int64),
+            pos, self.kv_cache, tables, lens, act,
+            decode_attention_fn=self.decode_attention_fn)[:, 0, :]
+        samp = self._sampling(temperature, top_p, top_k, seeds)
+        step_t = self._t(np.asarray(steps, np.int64), torch.int64)
+        if want_logprobs:
+            next_tokens, lp, top_ids, top_lps = sample_with_logprobs(
+                logits, *samp, step_t)
+            self.last_decode_sample = (lp.cpu().numpy(),
+                                       top_ids.cpu().numpy(),
+                                       top_lps.cpu().numpy())
+        else:
+            next_tokens = sample(logits, *samp, step_t)
+            self.last_decode_sample = (None, None, None)
+        self.last_decode_logits = logits.cpu().numpy() if want_logits else None
+        return next_tokens.cpu().numpy()
+
+    @torch.inference_mode()
+    def decode_multi(
+        self,
+        tokens,  # [B] last token per slot: host array or device tensor
+        positions: np.ndarray,  # [B] position of that token
+        block_tables: np.ndarray,
+        kv_lens: np.ndarray,  # [B] INCLUDING the current token
+        active: np.ndarray,
+        temperature: np.ndarray,
+        top_p: np.ndarray,
+        top_k: np.ndarray,
+        seeds: np.ndarray,
+        steps: Optional[np.ndarray] = None,
+        k: int = 8,
+        return_device: bool = False,
+    ):
+        """K chained decode steps with no host sync; returns tokens [K, B].
+        Callers guarantee every active slot has >= k tokens of page budget
+        left. `return_device=True` returns the device tensor, so the
+        scheduler can feed `toks[-1]` into the next block before reading
+        this one back; otherwise the block is copied to the host once."""
+        self.decode_steps += k
+        if steps is None:
+            steps = np.zeros(len(positions), np.int32)
+        pos, tables, lens, act = self._decode_inputs(positions, block_tables,
+                                                     kv_lens, active)
+        samp = self._sampling(temperature, top_p, top_k, seeds)
+        toks = self._t(tokens if isinstance(tokens, torch.Tensor)
+                       else np.asarray(tokens, np.int64), torch.int64)
+        sidx = self._t(np.asarray(steps, np.int64), torch.int64)
+        grow = act.to(lens.dtype)  # inactive slots keep zero history
+        out = []
+        for _ in range(k):
+            logits = forward_decode(
+                self.model, toks, pos, self.kv_cache, tables, lens, act,
+                decode_attention_fn=self.decode_attention_fn)
+            nxt = sample(logits[:, 0, :], *samp, sidx)
+            out.append(nxt)
+            toks = nxt.long()
+            pos, lens, sidx = pos + 1, lens + grow, sidx + 1
+        toks_k = torch.stack(out)  # [K, B] int32
+        self.last_decode_sample = (None, None, None)
+        if return_device:
+            return toks_k
+        return toks_k.cpu().numpy()
+
+    def warmup(self) -> None:
+        """One decode step and one tiny prefill (on the card this builds the
+        decode kernel and initializes the math libraries before traffic)."""
+        b = self.config.max_batch
+        p = self.config.max_pages_per_seq
+        self.decode(
+            np.zeros(b, np.int32), np.zeros(b, np.int32),
+            np.zeros((b, p), np.int32), np.zeros(b, np.int32),
+            np.zeros(b, bool), np.ones(b, np.float32),
+            np.ones(b, np.float32), np.zeros(b, np.int32),
+            np.zeros(b, np.uint32),
+        )
+        self.prefill_chunk(
+            np.zeros(1, np.int32), 0, np.zeros(p, np.int32), 1,
+            (0.0, 1.0, 0, 0),
+        )

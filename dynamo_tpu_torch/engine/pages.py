@@ -1,0 +1,169 @@
+"""Device page pool: allocation + prefix cache over physical KV pages.
+
+Verbatim copy of `dynamo_tpu/engine/pages.py` (framework-free), kept here
+so the PyTorch port never imports the JAX package.
+
+Host-side bookkeeping for the paged KV cache (device array managed by the
+model runner). Combines a free list with a sequence-hash-keyed prefix cache
+(refcounted, LRU-evicted) so a new request reuses any cached prefix pages —
+the G1 (device) tier of the KV block manager and the source of the KV events
+the router indexes (ref: KVBM block lifecycle Reset->Complete->Registered,
+docs/design-docs/kvbm-design.md; vLLM-style prefix caching).
+
+Page 0 is reserved as a scratch page for padding writes; never allocated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Callable, Optional
+
+
+@dataclasses.dataclass
+class PageAllocation:
+    cached_pages: list[int]  # reused prefix pages (refcount bumped)
+    new_pages: list[int]  # freshly allocated pages
+    cached_blocks: int  # == len(cached_pages)
+
+    @property
+    def pages(self) -> list[int]:
+        return self.cached_pages + self.new_pages
+
+
+class PagePool:
+    def __init__(
+        self,
+        num_pages: int,
+        on_stored: Optional[Callable[[list[int], Optional[int]], None]] = None,
+        on_removed: Optional[Callable[[list[int]], None]] = None,
+    ) -> None:
+        # page 0 reserved for padding scatter writes
+        self._free: list[int] = list(range(num_pages - 1, 0, -1))
+        self.num_pages = num_pages
+        # prefix cache: block sequence-hash -> physical page
+        self._cached: OrderedDict[int, int] = OrderedDict()
+        self._refcount: dict[int, int] = {}  # hash -> pins
+        self.on_stored = on_stored or (lambda h, p: None)
+        self.on_removed = on_removed or (lambda h: None)
+
+    # -- introspection -----------------------------------------------------
+
+    def free_count(self) -> int:
+        return len(self._free)
+
+    def cached_count(self) -> int:
+        return len(self._cached)
+
+    def lookup(self, block_hash: int) -> Optional[int]:
+        """Current physical page holding a registered block, or None if it
+        was evicted (KVBM offload resolves hashes through this at gather
+        time, on the scheduler thread, so the mapping cannot go stale)."""
+        return self._cached.get(block_hash)
+
+    def usage(self) -> float:
+        usable = self.num_pages - 1
+        return 1.0 - len(self._free) / max(1, usable)
+
+    # -- allocation --------------------------------------------------------
+
+    def match_prefix(self, block_hashes: list[int]) -> int:
+        matched = 0
+        for h in block_hashes:
+            if h in self._cached:
+                matched += 1
+            else:
+                break
+        return matched
+
+    def _evict(self, n: int) -> int:
+        """Evict up to n unreferenced cached pages (LRU). Returns freed."""
+        freed = 0
+        evicted_hashes: list[int] = []
+        for h in list(self._cached):
+            if freed >= n:
+                break
+            if self._refcount.get(h, 0) == 0:
+                page = self._cached.pop(h)
+                self._refcount.pop(h, None)
+                self._free.append(page)
+                evicted_hashes.append(h)
+                freed += 1
+        if evicted_hashes:
+            self.on_removed(evicted_hashes)
+        return freed
+
+    def allocate(self, block_hashes: list[int], total_pages: int) -> Optional[PageAllocation]:
+        """Try to place a sequence needing `total_pages` pages whose leading
+        blocks hash to `block_hashes`. Returns None if it can't fit."""
+        cached_n = self.match_prefix(block_hashes)
+        # Pin the matched prefix BEFORE eviction so _evict can't free the
+        # pages this very request is about to reuse.
+        cached_pages = []
+        for h in block_hashes[:cached_n]:
+            self._cached.move_to_end(h)
+            self._refcount[h] = self._refcount.get(h, 0) + 1
+            cached_pages.append(self._cached[h])
+        need = max(0, total_pages - cached_n)
+        if len(self._free) < need:
+            self._evict(need - len(self._free))
+        if len(self._free) < need:
+            for h in block_hashes[:cached_n]:  # doesn't fit: unpin
+                self._refcount[h] = max(0, self._refcount[h] - 1)
+            return None
+        new_pages = [self._free.pop() for _ in range(need)]
+        return PageAllocation(cached_pages=cached_pages, new_pages=new_pages,
+                              cached_blocks=cached_n)
+
+    def release(
+        self,
+        alloc: PageAllocation,
+        block_hashes: list[int],
+        computed_blocks: Optional[int] = None,
+    ) -> None:
+        """Sequence finished: unpin reused prefix pages; register completed
+        prompt blocks (beyond the reused prefix) into the prefix cache; free
+        the rest (decode-token pages).
+
+        `computed_blocks` caps registration to blocks whose KV was actually
+        written — a cancelled sequence must not advertise blocks that were
+        never prefilled (mocker has the same clamp)."""
+        for h in block_hashes[: alloc.cached_blocks]:
+            if h in self._refcount:
+                self._refcount[h] = max(0, self._refcount[h] - 1)
+        if computed_blocks is None:
+            computed_blocks = len(block_hashes)
+        new_hashes = block_hashes[alloc.cached_blocks : computed_blocks]
+        stored: list[int] = []
+        for i, h in enumerate(new_hashes):
+            if i >= len(alloc.new_pages):
+                break
+            if h in self._cached:
+                # Duplicate content (another request cached it first): free
+                # our copy instead of double-registering.
+                self._free.append(alloc.new_pages[i])
+            else:
+                self._cached[h] = alloc.new_pages[i]
+                self._refcount.setdefault(h, 0)
+                stored.append(h)
+        # Pages past the hashed prompt blocks (partial block + generated
+        # tokens) go straight back to the free list.
+        for page in alloc.new_pages[len(new_hashes) :]:
+            self._free.append(page)
+        if stored:
+            parent = (
+                block_hashes[alloc.cached_blocks - 1]
+                if alloc.cached_blocks > 0 else None
+            )
+            self.on_stored(stored, parent)
+
+    def clear(self) -> list[int]:
+        """Drop the whole prefix cache (clear_kv_blocks endpoint)."""
+        hashes = [h for h, _ in self._cached.items()
+                  if self._refcount.get(h, 0) == 0]
+        for h in hashes:
+            self._free.append(self._cached.pop(h))
+            self._refcount.pop(h, None)
+        if hashes:
+            self.on_removed(hashes)
+        return hashes

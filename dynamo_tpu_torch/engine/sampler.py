@@ -1,0 +1,121 @@
+"""Batched sampling on the device.
+
+Port of `dynamo_tpu/engine/sampler.py` (`sample`, `sample_with_logprobs`).
+Only the sampled ids [B] need to cross to the host. Every slot carries
+temperature / top-k / top-p; greedy is temperature == 0 and is bit-exact
+`argmax`. The truncation masks are the JAX package's, expression for
+expression.
+
+Randomness: the contract is (seed, step) -> token, independent of whatever
+else is in the batch. JAX folds the step into a per-slot threefry key; here
+the Gumbel noise comes from a counter-based hash of (seed, step, vocab index)
+computed with integer tensor ops, so no global generator is involved and a
+row's draw never depends on its neighbours. The two frameworks therefore give
+different tokens for the same seed; the distributions agree.
+
+The JAX sampler skips the truncation sort and the noise at run time when no
+slot needs them (`lax.cond`). Deciding that here would cost a host sync per
+step, so both are always computed and `where` selects: the tokens are the
+same as with the gate.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Top alternatives returned with every sampled token.
+TOP_LOGPROBS_K = 8
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), in 16-bit halves so no
+    intermediate leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer: a bijection with full avalanche."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def gumbel_noise(seeds: torch.Tensor, steps: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """[B, vocab] f32 Gumbel(0, 1) noise, a pure function of
+    (seed, step, vocab index) per element."""
+    seeds = seeds.long() & _M32
+    steps = steps.long() & _M32
+    key_a = _fmix32(seeds ^ 0x2545F491)
+    key_b = _fmix32(_mul32(steps, 0x9E3779B1) ^ key_a)
+    idx = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    h = _fmix32((_mul32(idx, 0x9E3779B1)[None, :] + key_a[:, None]) & _M32)
+    h = _fmix32(h ^ key_b[:, None])
+    # 24 random bits -> u in (0, 1), exact in f32
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def _truncate(scaled: torch.Tensor, top_p: torch.Tensor,
+              top_k: torch.Tensor) -> torch.Tensor:
+    v = scaled.shape[-1]
+    # top-k: mask logits below the k-th largest (k = 0 -> disabled)
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    k_idx = (top_k.long() - 1).clamp(0, v - 1)
+    kth = torch.gather(sorted_desc, 1, k_idx[:, None])
+    topk_mask = (scaled >= kth) | (top_k[:, None] <= 0)
+    # top-p: smallest set of tokens with cumulative prob >= top_p
+    probs_sorted = torch.softmax(sorted_desc, dim=-1)
+    cumprobs = torch.cumsum(probs_sorted, dim=-1)
+    # a token is kept if its sorted-cumulative position (exclusive) < top_p
+    cutoff = cumprobs - probs_sorted < top_p[:, None]
+    # map back: a logit is kept if >= the smallest kept sorted logit
+    min_kept = torch.where(cutoff, sorted_desc,
+                           torch.full_like(sorted_desc, float("inf"))
+                           ).amin(dim=-1, keepdim=True)
+    topp_mask = (scaled >= min_kept) | (top_p[:, None] >= 1.0)
+    return torch.where(topk_mask & topp_mask, scaled,
+                       torch.full_like(scaled, float("-inf")))
+
+
+def sample(
+    logits: torch.Tensor,  # [B, V] f32
+    temperature: torch.Tensor,  # [B] f32
+    top_p: torch.Tensor,  # [B] f32
+    top_k: torch.Tensor,  # [B] int (0 = disabled)
+    seeds: torch.Tensor,  # [B] int, u32 range
+    step,  # [B] int tensor or int: per-slot generated-token index
+) -> torch.Tensor:
+    """Returns sampled token ids [B] int32."""
+    b, v = logits.shape
+    greedy = torch.argmax(logits, dim=-1)
+    safe_t = torch.where(temperature > 0, temperature,
+                         torch.ones_like(temperature))
+    masked = _truncate(logits / safe_t[:, None], top_p, top_k)
+    steps = torch.as_tensor(step, device=logits.device).long().expand(b)
+    sampled = torch.argmax(masked + gumbel_noise(seeds, steps, v), dim=-1)
+    return torch.where(temperature > 0, sampled, greedy).to(torch.int32)
+
+
+def sample_with_logprobs(
+    logits: torch.Tensor,  # [B, V] f32
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    top_k: torch.Tensor,
+    seeds: torch.Tensor,
+    step,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """sample() plus logprob data from the RAW model distribution.
+    Returns (tokens [B], logprob [B], top_ids [B, K], top_logprobs [B, K])."""
+    tokens = sample(logits, temperature, top_p, top_k, seeds, step)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    token_lp = torch.gather(logp, 1, tokens.long()[:, None])[:, 0]
+    k = min(TOP_LOGPROBS_K, logits.shape[-1])
+    top_lps, top_ids = torch.topk(logp, k, dim=-1)
+    return tokens, token_lp, top_ids.to(torch.int32), top_lps

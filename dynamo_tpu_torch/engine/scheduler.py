@@ -1,0 +1,533 @@
+"""Continuous-batching scheduler driving the ModelRunner.
+
+Port of `dynamo_tpu/engine/scheduler.py`, trimmed to the engine core: slot
+based continuous batching, chunked prefill, the prefix cache through
+`PagePool`, fused decode blocks with pipelined dispatch/drain, per-token
+streaming, cancellation, and the stop conditions (max_tokens, eos,
+stop_token_ids, ignore_eos). It runs in its own thread; results cross into
+asyncio through the `emit` callbacks.
+
+Scheduling per iteration, as in the JAX package:
+  1. admit waiting requests into free slots while pages allocate
+  2. DISPATCH a fused decode block (decode_multi, optionally depth-pipelined
+     on device-resident tokens) for all decode-ready slots, no readback yet
+  3. advance at most one prefill-chunk budget of prompt tokens
+  4. admit again (arrivals that landed during dispatch)
+  5. drain the decode block: the loop's one blocking device-to-host copy
+
+Each sequence's page allocation carries block * depth tokens of slack, so a
+sequence that stops inside a block writes its surplus KV into its own pages;
+the surplus tokens are discarded at drain.
+
+Not ported yet (each is a later slice): speculative decoding, KVBM tiers,
+preemption/park, logits processors and penalties, drain/handoff,
+prefill-only/disaggregated serving, LoRA, multimodal, steptrace and the
+flight recorder. Requests that need one of them finish with an error.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import queue as thread_queue
+import threading
+from typing import Callable, Optional
+
+import numpy as np
+
+from ..config import env
+from ..llm.protocols import EngineOutput, PreprocessedRequest
+from ..tokens import compute_block_hashes
+from .model_runner import ModelRunner, bucket_table_width
+from .pages import PageAllocation, PagePool
+
+log = logging.getLogger("dynamo_tpu_torch.scheduler")
+
+
+@dataclasses.dataclass
+class _Seq:
+    request: PreprocessedRequest
+    emit: Callable[[EngineOutput], None]
+    block_hashes: list[int]
+    alloc: PageAllocation
+    block_table: np.ndarray
+    slot: int
+    prompt_len: int
+    prefill_pos: int  # next prompt position to prefill
+    generated: list[int] = dataclasses.field(default_factory=list)
+    last_token: int = 0
+    cancelled: bool = False
+    finished: bool = False
+    seed: int = 0
+    # Whether the allocation includes the slack pages fused decode overruns
+    # into (False only when the slacked span would exceed capacity).
+    slack_ok: bool = True
+
+    @property
+    def decode_ready(self) -> bool:
+        return self.prefill_pos >= self.prompt_len
+
+    @property
+    def kv_len(self) -> int:
+        return self.prompt_len + len(self.generated)
+
+
+@dataclasses.dataclass
+class SchedulerStats:
+    steps: int = 0
+    prefill_tokens: int = 0  # prompt tokens computed (prefix-cache hits excluded)
+    decode_tokens: int = 0
+
+
+def _unsupported(request: PreprocessedRequest) -> Optional[str]:
+    """Why this engine cannot serve `request` yet, or None."""
+    s = request.sampling
+    if (s.logit_bias or s.frequency_penalty or s.presence_penalty
+            or s.repetition_penalty != 1.0 or (s.min_p and s.temperature > 0)
+            or request.stop.min_tokens or request.logits_processors):
+        return "logits processors / penalties are not ported yet"
+    if request.lora_name:
+        return "LoRA adapters are not ported yet"
+    if request.media_hashes or request.media_embeddings is not None:
+        return "multimodal requests are not ported yet"
+    if request.disaggregated_params or request.annotations.get("prefill_only"):
+        return "disaggregated serving is not ported yet"
+    if request.annotations.get("embed"):
+        return "embedding requests are not ported yet"
+    return None
+
+
+class InferenceScheduler:
+    def __init__(self, runner: ModelRunner) -> None:
+        self.runner = runner
+        cfg = runner.config
+        self.page_size = cfg.page_size
+        # Multi-step decode block (DYNT_DECODE_BLOCK): >1 fuses K decode
+        # steps into one runner call; tokens then stream in blocks of K.
+        self.decode_block = max(1, int(env("DYNT_DECODE_BLOCK") or 1))
+        self.decode_pipeline = max(1, int(env("DYNT_DECODE_PIPELINE") or 1))
+        self.pool = PagePool(cfg.num_pages)
+        self.max_batch = cfg.max_batch
+        self._slots: list[Optional[_Seq]] = [None] * cfg.max_batch
+        self._waiting: list[_Seq] = []
+        self._incoming: thread_queue.Queue = thread_queue.Queue()
+        # Final-chunk prefill tokens whose host readback is deferred one
+        # iteration: (seq, device token). The copy then sits behind the
+        # next decode block, so prefill never blocks the serving loop.
+        self._pending_prefill: list = []
+        self._wake = threading.Event()
+        self._stop = False
+        self._thread: Optional[threading.Thread] = None
+        self.error: Optional[BaseException] = None
+        self.stats = SchedulerStats()
+        # decode input buffers (reused)
+        b, p = cfg.max_batch, cfg.max_pages_per_seq
+        self._tokens = np.zeros(b, np.int32)
+        self._positions = np.zeros(b, np.int32)
+        self._tables = np.zeros((b, p), np.int32)
+        self._kv_lens = np.zeros(b, np.int32)
+        self._active = np.zeros(b, bool)
+        self._temp = np.ones(b, np.float32)
+        self._top_p = np.ones(b, np.float32)
+        self._top_k = np.zeros(b, np.int32)
+        self._seeds = np.zeros(b, np.uint32)
+        self._steps = np.zeros(b, np.int32)
+
+    # -- public (thread-safe) ---------------------------------------------
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="engine-scheduler")
+            self._thread.start()
+
+    def stop(self) -> None:
+        self._stop = True
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30.0)
+
+    def submit(self, request: PreprocessedRequest,
+               emit: Callable[[EngineOutput], None]) -> "_SubmitHandle":
+        handle = _SubmitHandle()
+        self._incoming.put((request, emit, handle))
+        self._wake.set()
+        return handle
+
+    # -- scheduler thread --------------------------------------------------
+
+    def _loop(self) -> None:
+        log.info("scheduler loop up (max_batch=%d pages=%d)",
+                 self.max_batch, self.pool.num_pages)
+        try:
+            while not self._stop:
+                self._drain_incoming()
+                if not self._step():
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+        except BaseException as exc:
+            # A failed device step leaves the pool in an unknown state:
+            # stop serving and fail every live stream instead of hanging.
+            log.exception("scheduler loop failed")
+            self.error = exc
+            self._fail_all(f"engine failed: {exc!r}")
+            raise
+
+    def _fail_all(self, reason: str) -> None:
+        self._drain_incoming()
+        live = self._waiting + [s for s in self._slots if s is not None]
+        for seq in live:
+            if not seq.finished and not seq.cancelled:
+                seq.finished = True
+                seq.emit(EngineOutput(finish_reason="error", error=reason))
+
+    def _drain_incoming(self) -> None:
+        while True:
+            try:
+                request, emit, handle = self._incoming.get_nowait()
+            except thread_queue.Empty:
+                return
+            if self.error is not None:
+                emit(EngineOutput(finish_reason="error",
+                                  error=f"engine failed: {self.error!r}"))
+                continue
+            seq = self._prepare(request, emit)
+            if seq is not None:
+                handle.seq = seq
+                if handle._cancelled:  # cancelled before the seq existed
+                    seq.cancelled = True
+                self._waiting.append(seq)
+
+    def _page_span(self, prompt_len: int, max_tokens: int,
+                   with_slack: bool = True) -> int:
+        """Pages for a sequence. With slack: fused/pipelined decode writes
+        up to block*depth - 1 tokens past the stop position before the host
+        sees the stop, so those positions must land in pages this sequence
+        owns. Capacity CHECKS use the slack-free span."""
+        slack = (self.decode_block * max(1, self.decode_pipeline)
+                 if with_slack and self.decode_block > 1 else 0)
+        return -(-(prompt_len + max_tokens + slack) // self.page_size)
+
+    def _prepare(self, request: PreprocessedRequest, emit) -> Optional[_Seq]:
+        reason = _unsupported(request)
+        if reason is not None:
+            emit(EngineOutput(finish_reason="error", error=reason))
+            return None
+        prompt_len = len(request.token_ids)
+        total_pages = self._page_span(prompt_len,
+                                      request.sampling.max_tokens,
+                                      with_slack=False)
+        if (prompt_len == 0
+                or prompt_len >= self.runner.config.max_context
+                or total_pages > self.runner.config.max_pages_per_seq
+                or total_pages > self.pool.num_pages - 1):
+            emit(EngineOutput(
+                finish_reason="error",
+                error=(f"request needs {total_pages} pages / "
+                       f"{prompt_len} prompt tokens; exceeds engine capacity"),
+            ))
+            return None
+        block_hashes = compute_block_hashes(
+            request.token_ids, self.page_size, lora_id=request.kv_salt())
+        seed = request.sampling.seed
+        if seed is None:
+            seed = abs(hash(request.request_id)) & 0xFFFFFFFF
+        return _Seq(
+            request=request, emit=emit, block_hashes=block_hashes,
+            alloc=PageAllocation([], [], 0),
+            block_table=np.zeros(self.runner.config.max_pages_per_seq,
+                                 np.int32),
+            slot=-1, prompt_len=prompt_len, prefill_pos=0, seed=seed,
+        )
+
+    def _admit(self) -> int:
+        admitted = 0
+        while self._waiting:
+            seq = self._waiting[0]
+            if seq.cancelled:
+                self._waiting.pop(0)
+                continue
+            free_slots = [i for i, s in enumerate(self._slots) if s is None]
+            if not free_slots:
+                break
+            total_pages = self._page_span(seq.prompt_len,
+                                          seq.request.sampling.max_tokens)
+            seq.slack_ok = (
+                total_pages <= self.runner.config.max_pages_per_seq
+                and total_pages <= self.pool.num_pages - 1)
+            if not seq.slack_ok:
+                total_pages = self._page_span(
+                    seq.prompt_len, seq.request.sampling.max_tokens,
+                    with_slack=False)
+            alloc = self.pool.allocate(seq.block_hashes, total_pages)
+            if alloc is None:
+                break  # no pages; retry next iteration
+            # Never skip the whole prompt: recompute at least the last token
+            # so there are logits to sample from (cached pages stay correct:
+            # the recomputed KV is identical).
+            seq.alloc = alloc
+            pages = alloc.pages
+            seq.block_table[: len(pages)] = pages
+            seq.prefill_pos = min(alloc.cached_blocks * self.page_size,
+                                  seq.prompt_len - 1)
+            seq.slot = free_slots[0]
+            self._slots[seq.slot] = seq
+            self._waiting.pop(0)
+            admitted += 1
+        return admitted
+
+    def _step(self) -> bool:
+        admitted = self._admit()
+        # Deferred prefill tokens from the PREVIOUS iteration: their device
+        # work was queued before this iteration's dispatches.
+        ripe = self._pending_prefill
+        self._pending_prefill = []
+        # Dispatch decode FIRST (no readback): the block runs on the device
+        # while the host prepares and issues prefill and admits arrivals.
+        pending = self._dispatch_decode()
+        prefill_tokens = self._prefill_some()
+        self._drain_incoming()
+        admitted += self._admit()
+        finalized = 0
+        for seq, tok_dev in ripe:
+            finalized += self._finalize_prefill(seq, tok_dev)
+        decode_tokens = self._drain_decode(pending)
+        self._reap_finished()
+        if prefill_tokens or decode_tokens or admitted or finalized:
+            self.stats.steps += 1
+            self.stats.prefill_tokens += prefill_tokens
+            self.stats.decode_tokens += decode_tokens
+            return True
+        return False
+
+    def _prefill_some(self) -> int:
+        """Advance prefill by one chunk per prefilling sequence, filling one
+        SHARED token budget per iteration (decode ITL protection)."""
+        budget = self.runner.max_prefill_chunk
+        spent = 0
+        for seq in self._slots:
+            if seq is None or seq.cancelled or seq.decode_ready:
+                continue
+            if budget - spent < min(self.page_size, budget):
+                break  # leftover budget too small to be worth a dispatch
+            chunk = min(budget - spent, seq.prompt_len - seq.prefill_pos)
+            if chunk <= 0:
+                continue
+            spent += self._prefill_single(seq, chunk)
+        return spent
+
+    def _prefill_single(self, seq: _Seq, chunk: int) -> int:
+        tokens = np.asarray(
+            seq.request.token_ids[seq.prefill_pos : seq.prefill_pos + chunk],
+            np.int32)
+        is_final = seq.prefill_pos + chunk >= seq.prompt_len
+        sampling = seq.request.sampling
+        # Only a final chunk that needs logprob data reads back now; plain
+        # final chunks defer the copy one iteration (_pending_prefill).
+        sync = is_final and sampling.logprobs
+        token = self.runner.prefill_chunk(
+            tokens, seq.prefill_pos, seq.block_table,
+            kv_len_after=seq.prefill_pos + chunk,
+            sampling=(sampling.temperature, sampling.top_p,
+                      sampling.top_k, seq.seed),
+            return_device=not sync,
+        )
+        seq.prefill_pos += chunk
+        if is_final:
+            if sync:
+                self._append_token(seq, token, prompt_tokens=seq.prompt_len,
+                                   sample_info=self.runner.last_prefill_sample)
+            else:
+                self._pending_prefill.append((seq, token))
+        return chunk
+
+    def _finalize_prefill(self, seq: _Seq, tok_dev) -> int:
+        """Copy a deferred final-chunk token to the host and hand the
+        sequence to decode. Returns 1 if a token was delivered."""
+        if seq.cancelled or seq.finished:
+            return 0
+        token = int(tok_dev.cpu().reshape(-1)[0])
+        self._append_token(seq, token, prompt_tokens=seq.prompt_len)
+        return 1
+
+    def _dispatch_decode(self):
+        """Decode phase 1: fill the batch buffers and issue the fused
+        block(s) with no readback; `_drain_decode` copies them back after
+        prefill and admission have overlapped the device time. The
+        per-token path (block 1, or logprobs) reads back here and returns a
+        ("count", n) handle."""
+        ready = [s for s in self._slots
+                 if s is not None and s.decode_ready and not s.finished
+                 and not s.cancelled and len(s.generated) > 0]
+        # Sequences whose first token just came from prefill already have
+        # generated[0]; they join decode from the next step.
+        if not ready:
+            return None
+        self._active[:] = False
+        # Inactive slots: zero history (their writes go to scratch page 0)
+        # and neutral sampling parameters.
+        self._kv_lens[:] = 0
+        self._positions[:] = 0
+        self._temp[:] = 0.0
+        self._top_p[:] = 1.0
+        self._top_k[:] = 0
+        for seq in ready:
+            i = seq.slot
+            self._tokens[i] = seq.last_token
+            self._positions[i] = seq.kv_len - 1  # position of last_token
+            self._tables[i] = seq.block_table
+            self._kv_lens[i] = seq.kv_len
+            self._active[i] = True
+            s = seq.request.sampling
+            self._temp[i] = s.temperature
+            self._top_p[i] = s.top_p
+            self._top_k[i] = s.top_k
+            self._seeds[i] = seq.seed
+            self._steps[i] = len(seq.generated)
+        want_logprobs = any(s.request.sampling.logprobs for s in ready)
+        prefill_pending = any(
+            s is not None and not s.decode_ready and not s.cancelled
+            for s in self._slots)
+        block, depth = self._decode_block_for(ready, want_logprobs,
+                                              prefill_pending)
+        # Cut the block table to the live context (power-of-two widths), so
+        # no decode attention path reads past what the batch can reach.
+        max_kv = max(s.kv_len for s in ready) + block * depth
+        width = bucket_table_width(-(-max_kv // self.page_size),
+                                   self.runner.config.max_pages_per_seq)
+        tables = np.ascontiguousarray(self._tables[:, :width])
+        if block > 1:
+            # Pipelined dispatch: block d+1 feeds on block d's DEVICE
+            # tokens before block d is read back.
+            device_blocks = []
+            toks_dev = None
+            for d in range(depth):
+                toks_dev = self.runner.decode_multi(
+                    self._tokens if d == 0 else toks_dev[-1],
+                    self._positions + d * block, tables,
+                    self._kv_lens + d * block * self._active,
+                    self._active, self._temp, self._top_p, self._top_k,
+                    self._seeds, self._steps + d * block, k=block,
+                    return_device=True,
+                )
+                device_blocks.append(toks_dev)
+            return ("blocks", device_blocks, ready, block)
+        return ("count", self._decode_single(ready, tables, want_logprobs))
+
+    def _drain_decode(self, pending) -> int:
+        """Decode phase 2: copy the fused block(s) to the host and append
+        tokens. Sequences that stopped inside a block have their surplus
+        tokens discarded (their KV lives in the sequence's own slack
+        pages)."""
+        if pending is None:
+            return 0
+        if pending[0] == "count":
+            return pending[1]
+        _kind, device_blocks, ready, block = pending
+        # Copy EVERY block before emitting any token, so a finish frame
+        # never goes out before the page release that follows it.
+        blocks_np = [t.cpu().numpy() for t in device_blocks]
+        count = 0
+        for toks_k in blocks_np:
+            for step in range(block):
+                for seq in ready:
+                    if seq.finished or seq.cancelled:
+                        continue  # stopped inside the block: discard
+                    self._append_token(seq, int(toks_k[step][seq.slot]))
+                    count += 1
+        return count
+
+    def _decode_single(self, ready: list, tables: np.ndarray,
+                       want_logprobs: bool) -> int:
+        """Per-token decode with an immediate readback (block 1, or a batch
+        with a logprobs request)."""
+        next_tokens = self.runner.decode(
+            self._tokens, self._positions, tables, self._kv_lens,
+            self._active, self._temp, self._top_p, self._top_k, self._seeds,
+            self._steps, want_logprobs=want_logprobs)
+        lp_b, tid_b, tlp_b = self.runner.last_decode_sample
+        count = 0
+        for seq in ready:
+            i = seq.slot
+            info = ((lp_b[i], tid_b[i], tlp_b[i])
+                    if lp_b is not None else None)
+            self._append_token(seq, int(next_tokens[i]), sample_info=info)
+            count += 1
+        return count
+
+    def _decode_block_for(self, ready: list, want_host: bool,
+                          prefill_pending: bool) -> tuple[int, int]:
+        """(block, pipeline depth) for this iteration. Per-token (1, 1) when
+        a sequence wants logprobs (a readback per step). Prefill work or
+        waiting requests keep depth at 1; pure-decode phases chain
+        `decode_pipeline` blocks on device-resident tokens. A sequence
+        without slack pages fuses only while its token budget covers the
+        block."""
+        if self.decode_block <= 1 or want_host:
+            return 1, 1
+        depth = (1 if (prefill_pending or self._waiting)
+                 else max(1, self.decode_pipeline))
+        while depth >= 1:
+            need = self.decode_block * depth
+            if all(s.slack_ok
+                   or (s.request.sampling.max_tokens - len(s.generated)
+                       >= need)
+                   for s in ready):
+                return self.decode_block, depth
+            depth -= 1
+        return 1, 1
+
+    def _append_token(self, seq: _Seq, token: int,
+                      prompt_tokens: Optional[int] = None,
+                      sample_info: Optional[tuple] = None) -> None:
+        seq.generated.append(token)
+        seq.last_token = token
+        request = seq.request
+        finish = None
+        if not request.stop.ignore_eos and token in request.eos_token_ids:
+            finish = "stop"
+        elif token in request.stop.stop_token_ids:
+            finish = "stop"
+        elif len(seq.generated) >= request.sampling.max_tokens:
+            finish = "length"
+        logprobs = None
+        top_logprobs = None
+        if request.sampling.logprobs and sample_info is not None:
+            lp, top_ids, top_lps = sample_info
+            logprobs = [float(lp)]
+            n = min(int(request.sampling.top_logprobs or 0), len(top_ids))
+            if n > 0:
+                top_logprobs = [[[int(i), float(v)]
+                                 for i, v in zip(top_ids[:n], top_lps[:n])]]
+        seq.emit(EngineOutput(
+            token_ids=[token], finish_reason=finish,
+            prompt_tokens=prompt_tokens,
+            logprobs=logprobs, top_logprobs=top_logprobs,
+        ))
+        if finish is not None:
+            seq.finished = True
+
+    def _reap_finished(self) -> None:
+        for i, seq in enumerate(self._slots):
+            if seq is None or not (seq.finished or seq.cancelled):
+                continue
+            # Only blocks whose KV was actually computed may enter the
+            # prefix cache (a cancel mid-prefill leaves later blocks
+            # unwritten).
+            computed = seq.prefill_pos // self.page_size
+            self.pool.release(seq.alloc, seq.block_hashes,
+                              computed_blocks=computed)
+            self._slots[i] = None
+
+
+class _SubmitHandle:
+    """Cancellation handle bridging asyncio-side aborts into the thread."""
+
+    def __init__(self) -> None:
+        self.seq: Optional[_Seq] = None
+        self._cancelled = False
+
+    def cancel(self) -> None:
+        self._cancelled = True
+        if self.seq is not None:
+            self.seq.cancelled = True

@@ -1,0 +1,289 @@
+"""LLM serving protocols: the token-level request/response contract.
+
+Copy of `dynamo_tpu/llm/protocols.py` (framework-free); the only change is
+that `kv_salt` hashes with this package's pure-Python XXH64.
+
+The frontend preprocessor lowers OpenAI-shape requests into a
+PreprocessedRequest of token ids + sampling + stop conditions, which is what
+crosses the request plane to workers (ref: lib/llm/src/preprocessor.rs
+OpenAIPreprocessor -> PreprocessedRequest; protocols/common.rs). Workers
+stream back token deltas; the Backend operator detokenizes incrementally
+(ref: lib/llm/src/backend.rs:56).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import uuid
+from typing import Any, Optional
+
+
+@dataclasses.dataclass
+class SamplingOptions:
+    max_tokens: int = 256
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: int = 0  # 0 = disabled
+    seed: Optional[int] = None
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    logprobs: bool = False
+    top_logprobs: int = 0
+    # OpenAI logit_bias: {token_id: additive bias}; applied via the
+    # host logits-processor path (llm/logits_processing.py)
+    logit_bias: Optional[dict] = None
+    # HF-semantics multiplicative repetition penalty (1.0 = off) and
+    # vLLM-style min_p nucleus floor (0.0 = off); both enforced via the
+    # host logits-processor path (ref: protocols/common.rs:305,323)
+    repetition_penalty: float = 1.0
+    min_p: float = 0.0
+
+    def to_wire(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_wire(cls, data: dict) -> "SamplingOptions":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in (data or {}).items() if k in fields})
+
+
+@dataclasses.dataclass
+class StopConditions:
+    stop_token_ids: list[int] = dataclasses.field(default_factory=list)
+    stop_strings: list[str] = dataclasses.field(default_factory=list)
+    ignore_eos: bool = False
+    # suppress EOS until this many tokens are generated (ref:
+    # protocols/common.rs:246 — "to ignore_eos, set min_tokens")
+    min_tokens: int = 0
+
+    def to_wire(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_wire(cls, data: dict) -> "StopConditions":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in (data or {}).items() if k in fields})
+
+
+# Multi-tenant QoS (docs/multi-tenancy.md): the priority classes a
+# request may declare on the wire (`priority` body field or
+# x-dynt-priority header), strongest first. Class is STRICT at every
+# queue — interactive never parks behind batch — and batch is the
+# preemption donor under interactive pressure.
+PRIORITY_CLASSES = ("interactive", "standard", "batch")
+_CLASS_RANK = {"interactive": 2, "standard": 1, "batch": 0}
+
+
+def class_rank(priority: str) -> int:
+    """Numeric rank of a priority class (higher schedules first).
+    Unknown strings rank as `standard` — rank is an ordering helper,
+    validation happens at the preprocessor edge."""
+    return _CLASS_RANK.get(priority, _CLASS_RANK["standard"])
+
+
+def normalize_priority(raw) -> str:
+    """Validate + normalize a wire priority value. None/"" defaults to
+    `standard`; anything else must name a known class."""
+    if raw is None or raw == "":
+        return "standard"
+    val = str(raw).strip().lower()
+    if val not in PRIORITY_CLASSES:
+        raise ValueError(
+            f"unknown priority {raw!r} (expected one of "
+            f"{'|'.join(PRIORITY_CLASSES)})")
+    return val
+
+
+@dataclasses.dataclass
+class PreprocessedRequest:
+    """What the frontend sends to a worker (ModelInput.Tokens)."""
+
+    request_id: str
+    token_ids: list[int]
+    sampling: SamplingOptions
+    stop: StopConditions
+    eos_token_ids: list[int] = dataclasses.field(default_factory=list)
+    model: str = ""
+    # Router-injected: disaggregated prefill handoff (ref: section 3.4)
+    disaggregated_params: Optional[dict] = None
+    # Echo of prior output tokens on migration (ref: migration.rs retains
+    # generated tokens when replaying to a new worker)
+    prior_output_tokens: list[int] = dataclasses.field(default_factory=list)
+    annotations: dict = dataclasses.field(default_factory=dict)
+    # Multi-LoRA: adapter to apply (frontend resolves model=<adapter-name>
+    # against worker cards; ref: lib/llm/src/lora.rs routing)
+    lora_name: Optional[str] = None
+    # Multimodal: content identity of each image (salts KV hashes — same
+    # placeholder tokens with different images must never share KV) and
+    # the encoder's output rows spliced at placeholder positions
+    # (wire: {"shape": [n, H], "data": f32 bytes})
+    media_hashes: list[int] = dataclasses.field(default_factory=list)
+    media_embeddings: Optional[dict] = None
+    # Logits-processor specs (names or {"name","args"}) resolved against
+    # the worker's registry (llm/logits_processing.py)
+    logits_processors: list = dataclasses.field(default_factory=list)
+    # Session tier (dynamo_tpu/session): client-declared cacheable
+    # prefix boundaries as TOKEN counts into token_ids (ascending; each
+    # floors to full blocks before hashing), and the session-affinity
+    # id. The worker pins the anchored blocks into its KVBM tiers;
+    # routers key residency on session_id. Both empty = the request is
+    # wire-identical to the pre-session-tier protocol. cache_ttl is the
+    # client-requested lease TTL (seconds) of the longest anchor — the
+    # worker's KVBM pin honors it instead of defaulting to the system
+    # ceiling (still clamped to DYNT_PIN_TTL_SECS).
+    cache_anchors: list[int] = dataclasses.field(default_factory=list)
+    cache_ttl: Optional[float] = None
+    session_id: Optional[str] = None
+    # Multi-tenant QoS (docs/multi-tenancy.md): the normalized priority
+    # class (interactive | standard | batch; preprocessor-validated) and
+    # the tenant identity (x-dynt-tenant-id / `tenant` body field; ""
+    # = untagged). Both default-valued = wire-identical to the pre-QoS
+    # protocol. Priority is class-STRICT at every queue and on the chip
+    # (batch decode slots are the preemption donors); tenant keys the
+    # fair-share TenantLedger at the admission edges and labels the
+    # shed/goodput metrics.
+    priority: str = "standard"
+    tenant: str = ""
+    # End-to-end budget (runtime/resilience.py Deadline), stamped by the
+    # frontend at admission. NOT serialized by to_wire: it crosses the
+    # request plane as the x-dynt-deadline-ms header (re-encoded as
+    # remaining-ms per hop), and the worker side reads it from its
+    # RequestContext — this field only rides the in-process pipeline
+    # (router, migration, prefill legs).
+    deadline: Optional[Any] = None
+
+    def kv_salt(self) -> Optional[int]:
+        """Perturbs block-hash chaining for anything beyond token ids that
+        changes KV content (adapter weights, image embeddings). Media
+        hashes are CHAINED (order-sensitive): XOR would let swapped or
+        repeated images cancel out and share KV with the wrong content."""
+        from ..tokens import lora_id_of, xxh64
+
+        salt = lora_id_of(self.lora_name)
+        if self.media_hashes:
+            buf = b"".join(
+                (int(h) & 0xFFFFFFFFFFFFFFFF).to_bytes(8, "little")
+                for h in self.media_hashes)
+            salt = xxh64(buf, seed=(salt or 0) & 0xFFFFFFFFFFFFFFFF)
+        return salt
+
+    def to_wire(self) -> dict:
+        out = {
+            "request_id": self.request_id,
+            "token_ids": self.token_ids,
+            "sampling": self.sampling.to_wire(),
+            "stop": self.stop.to_wire(),
+            "eos_token_ids": self.eos_token_ids,
+            "model": self.model,
+            "annotations": self.annotations,
+        }
+        if self.disaggregated_params is not None:
+            out["disaggregated_params"] = self.disaggregated_params
+        if self.prior_output_tokens:
+            out["prior_output_tokens"] = self.prior_output_tokens
+        if self.lora_name:
+            out["lora_name"] = self.lora_name
+        if self.media_hashes:
+            out["media_hashes"] = self.media_hashes
+        if self.media_embeddings is not None:
+            out["media_embeddings"] = self.media_embeddings
+        if self.logits_processors:
+            out["logits_processors"] = self.logits_processors
+        if self.cache_anchors:
+            out["cache_anchors"] = self.cache_anchors
+        if self.cache_ttl:
+            out["cache_ttl"] = self.cache_ttl
+        if self.session_id:
+            out["session_id"] = self.session_id
+        if self.priority != "standard":
+            out["priority"] = self.priority
+        if self.tenant:
+            out["tenant"] = self.tenant
+        return out
+
+    @classmethod
+    def from_wire(cls, data: dict) -> "PreprocessedRequest":
+        return cls(
+            request_id=data.get("request_id") or uuid.uuid4().hex,
+            token_ids=list(data.get("token_ids") or []),
+            sampling=SamplingOptions.from_wire(data.get("sampling") or {}),
+            stop=StopConditions.from_wire(data.get("stop") or {}),
+            eos_token_ids=list(data.get("eos_token_ids") or []),
+            model=data.get("model", ""),
+            disaggregated_params=data.get("disaggregated_params"),
+            prior_output_tokens=list(data.get("prior_output_tokens") or []),
+            annotations=data.get("annotations") or {},
+            lora_name=data.get("lora_name"),
+            media_hashes=list(data.get("media_hashes") or []),
+            media_embeddings=data.get("media_embeddings"),
+            logits_processors=list(data.get("logits_processors") or []),
+            cache_anchors=list(data.get("cache_anchors") or []),
+            cache_ttl=data.get("cache_ttl"),
+            session_id=data.get("session_id"),
+            priority=data.get("priority") or "standard",
+            tenant=data.get("tenant") or "",
+        )
+
+
+@dataclasses.dataclass
+class EngineOutput:
+    """One streamed item from a worker: newly generated token ids (usually
+    one for decode, many for a final chunk) plus terminal state."""
+
+    token_ids: list[int] = dataclasses.field(default_factory=list)
+    finish_reason: Optional[str] = None  # stop | length | error | cancelled
+    # Cumulative count of prompt tokens actually processed (first chunk)
+    prompt_tokens: Optional[int] = None
+    logprobs: Optional[list[float]] = None
+    # Per emitted token: [[token_id, logprob], ...] alternatives (top-K
+    # from the raw model distribution)
+    top_logprobs: Optional[list[list[list[float]]]] = None
+    # Disagg: prefill worker returns KV handoff params instead of decoding
+    kv_transfer_params: Optional[dict] = None
+    # Embedding requests return a pooled vector instead of tokens
+    embedding: Optional[list[float]] = None
+    error: Optional[str] = None
+
+    def to_wire(self) -> dict:
+        out: dict = {"t": self.token_ids}
+        if self.finish_reason is not None:
+            out["f"] = self.finish_reason
+        if self.prompt_tokens is not None:
+            out["p"] = self.prompt_tokens
+        if self.logprobs is not None:
+            out["lp"] = self.logprobs
+        if self.top_logprobs is not None:
+            out["tlp"] = self.top_logprobs
+        if self.kv_transfer_params is not None:
+            out["kv"] = self.kv_transfer_params
+        if self.embedding is not None:
+            out["emb"] = self.embedding
+        if self.error is not None:
+            out["err"] = self.error
+        return out
+
+    @classmethod
+    def from_wire(cls, data: dict) -> "EngineOutput":
+        return cls(
+            token_ids=list(data.get("t") or []),
+            finish_reason=data.get("f"),
+            prompt_tokens=data.get("p"),
+            logprobs=data.get("lp"),
+            top_logprobs=data.get("tlp"),
+            kv_transfer_params=data.get("kv"),
+            embedding=data.get("emb"),
+            error=data.get("err"),
+        )
+
+
+def new_request_id() -> str:
+    return uuid.uuid4().hex
+
+
+def openai_chunk_id() -> str:
+    return f"chatcmpl-{uuid.uuid4().hex[:24]}"
+
+
+def now_unix() -> int:
+    return int(time.time())

@@ -1,0 +1,259 @@
+"""Model family configs.
+
+Verbatim copy of `dynamo_tpu/models/config.py` (framework-free), kept here
+so the PyTorch port never imports the JAX package.
+
+The reference orchestrates external engines and never owns model code; the
+TPU build owns the engine, so model families live here. Flagship families
+mirror BASELINE.json configs: Qwen3-class (RMSNorm + SwiGLU + GQA + QK-norm),
+Llama-3-class (same minus QK-norm), plus a tiny test model for CI on the
+8-device virtual CPU mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "tiny-test"
+    vocab_size: int = 512
+    hidden: int = 64
+    n_layers: int = 2
+    n_q_heads: int = 4
+    n_kv_heads: int = 2
+    head_dim: int = 16
+    mlp_hidden: int = 128
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-6
+    qk_norm: bool = False  # Qwen3-style per-head RMSNorm on q/k
+    tie_embeddings: bool = True
+    max_context: int = 8192
+    dtype: str = "bfloat16"
+    # MoE (0 experts = dense)
+    n_experts: int = 0
+    n_experts_active: int = 0
+    expert_mlp_hidden: int = 0
+    # Static per-expert buffer headroom for capacity dispatch (tokens per
+    # expert = ceil(cf * t * k / e)); overflow tokens drop that expert.
+    moe_capacity_factor: float = 1.25
+    # DeepSeek-style MoE shape: the first K layers use a dense MLP instead
+    # of experts, always-active shared experts add a dense SwiGLU of width
+    # n_shared_experts * expert_mlp_hidden, and routing weights are the
+    # raw softmax-over-all-experts scores (norm_topk=False) times a scale.
+    first_k_dense: int = 0
+    n_shared_experts: int = 0
+    moe_norm_topk: bool = True
+    moe_routed_scale: float = 1.0
+    # DeepSeek-V3/R1 routing: sigmoid scores + a learned per-expert
+    # selection bias (e_score_correction_bias; selection only — weights
+    # use the unbiased scores) and node-limited group routing.
+    moe_scoring: str = "softmax"  # softmax | sigmoid
+    moe_n_group: int = 1
+    moe_topk_group: int = 1
+    # Multimodal: placeholder token id for spliced image embeddings
+    # (-1 = text-only) and the rows one image expands to (must match the
+    # paired vision encoder's n_image_tokens)
+    image_token_id: int = -1
+    n_image_tokens: int = 0
+    # MLA (DeepSeek-class latent attention); 0 = standard GQA/MHA
+    mla_kv_lora_rank: int = 0
+    mla_q_lora_rank: int = 0
+    mla_rope_head_dim: int = 0
+    mla_nope_head_dim: int = 0
+    mla_v_head_dim: int = 0
+    # gpt-oss family (ref workload: recipes/ gpt-oss entries; parsers
+    # lib/parsers/src/tool_calling/harmony/). attn_sinks is the family
+    # marker: learned per-head sink logits join the softmax denominator;
+    # even-indexed layers use a sliding window (HF layer_types pattern);
+    # projections carry biases; experts use the clipped gated-swiglu
+    # (clamp + sigmoid(alpha*x)) with fused gate_up weights; rope is YaRN.
+    attn_sinks: bool = False
+    sliding_window: int = 0  # even layers sliding when attn_sinks
+    attn_bias: bool = False
+    swiglu_limit: float = 0.0  # 0 = plain silu*up
+    swiglu_alpha: float = 1.702
+    rope_yarn_factor: float = 0.0  # 0 = no yarn scaling
+    rope_yarn_beta_fast: float = 32.0
+    rope_yarn_beta_slow: float = 1.0
+    rope_yarn_orig_max: int = 4096
+
+    @property
+    def is_gptoss(self) -> bool:
+        return self.attn_sinks
+
+    def layer_sliding_window(self, layer_idx: int) -> int:
+        """Per-layer window (0 = full attention). gpt-oss alternates
+        sliding/full starting with sliding at layer 0 (HF layer_types)."""
+        if not self.attn_sinks or not self.sliding_window:
+            return 0
+        return self.sliding_window if layer_idx % 2 == 0 else 0
+
+    def layer_is_moe(self, layer_idx: int) -> bool:
+        """DeepSeek-style mixed stacks: layers below first_k_dense keep a
+        dense MLP; the rest route through experts."""
+        return self.n_experts > 0 and layer_idx >= self.first_k_dense
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_q_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    # -- MLA (latent attention) cache geometry ----------------------------
+
+    @property
+    def is_mla(self) -> bool:
+        return self.mla_kv_lora_rank > 0
+
+    @property
+    def mla_qk_head_dim(self) -> int:
+        return self.mla_nope_head_dim + self.mla_rope_head_dim
+
+    @property
+    def kv_cache_kv_dims(self) -> int:
+        """Size of the kv axis of the paged cache (2 = separate K and V
+        stacks; 1 for MLA's single latent stack)."""
+        return 1 if self.is_mla else 2
+
+    @property
+    def kv_cache_heads(self) -> int:
+        return 1 if self.is_mla else self.n_kv_heads
+
+    @property
+    def kv_cache_head_dim(self) -> int:
+        """Per-token per-'head' cache width: MLA caches the compressed
+        latent + shared rope key instead of per-head K/V — the memory win
+        that lets DeepSeek-class models hold long contexts."""
+        if self.is_mla:
+            return self.mla_kv_lora_rank + self.mla_rope_head_dim
+        return self.head_dim
+
+
+PRESETS: dict[str, ModelConfig] = {
+    "tiny-test": ModelConfig(),
+    "tiny-moe-test": ModelConfig(
+        name="tiny-moe-test", n_experts=4, n_experts_active=2,
+        expert_mlp_hidden=128,
+    ),
+    # Multimodal CI model: token 511 is the image placeholder; 16 rows per
+    # image (= tiny-vit-test n_patches)
+    "tiny-mm-test": ModelConfig(
+        name="tiny-mm-test", image_token_id=511, n_image_tokens=16,
+    ),
+    # Qwen3-0.6B (ref workload: BASELINE.json config 1)
+    "qwen3-0.6b": ModelConfig(
+        name="qwen3-0.6b", vocab_size=151936, hidden=1024, n_layers=28,
+        n_q_heads=16, n_kv_heads=8, head_dim=128, mlp_hidden=3072,
+        rope_theta=1e6, qk_norm=True, tie_embeddings=True, max_context=32768,
+    ),
+    "qwen3-4b": ModelConfig(
+        name="qwen3-4b", vocab_size=151936, hidden=2560, n_layers=36,
+        n_q_heads=32, n_kv_heads=8, head_dim=128, mlp_hidden=9728,
+        rope_theta=1e6, qk_norm=True, tie_embeddings=True, max_context=32768,
+    ),
+    # Llama-3-8B (ref workload: BASELINE.json config 2)
+    "llama3-8b": ModelConfig(
+        name="llama3-8b", vocab_size=128256, hidden=4096, n_layers=32,
+        n_q_heads=32, n_kv_heads=8, head_dim=128, mlp_hidden=14336,
+        rope_theta=5e5, tie_embeddings=False, max_context=8192,
+    ),
+    # Mistral-7B-v0.3 (ref serves it via the vLLM adapter; the 7-8B-class
+    # config that actually FITS a 16GB single chip in bf16 — llama3-8b's
+    # 128k vocab pushes it to 16.06GB, over the v5e HBM line)
+    "mistral-7b": ModelConfig(
+        name="mistral-7b", vocab_size=32768, hidden=4096, n_layers=32,
+        n_q_heads=32, n_kv_heads=8, head_dim=128, mlp_hidden=14336,
+        rope_theta=1e6, tie_embeddings=False, max_context=8192,
+    ),
+    # Llama-3-70B (ref workload: recipes/llama-3-70b, BASELINE config 3)
+    "llama3-70b": ModelConfig(
+        name="llama3-70b", vocab_size=128256, hidden=8192, n_layers=80,
+        n_q_heads=64, n_kv_heads=8, head_dim=128, mlp_hidden=28672,
+        rope_theta=5e5, tie_embeddings=False, max_context=8192,
+    ),
+    # MoE families (expert axis shards over ep; ref orchestrates these via
+    # SGLang WideEP recipes — recipes/deepseek-r1, SURVEY §2.5)
+    "mixtral-8x7b": ModelConfig(
+        name="mixtral-8x7b", vocab_size=32000, hidden=4096, n_layers=32,
+        n_q_heads=32, n_kv_heads=8, head_dim=128, mlp_hidden=14336,
+        rope_theta=1e6, tie_embeddings=False, max_context=32768,
+        n_experts=8, n_experts_active=2, expert_mlp_hidden=14336,
+    ),
+    "qwen3-30b-a3b": ModelConfig(
+        name="qwen3-30b-a3b", vocab_size=151936, hidden=2048, n_layers=48,
+        n_q_heads=32, n_kv_heads=4, head_dim=128, mlp_hidden=6144,
+        rope_theta=1e6, qk_norm=True, tie_embeddings=False,
+        max_context=32768, n_experts=128, n_experts_active=8,
+        expert_mlp_hidden=768,
+    ),
+    # GPT-OSS-120B class (ref workload: BASELINE config 4, KVBM offload)
+    "gpt-oss-120b": ModelConfig(
+        name="gpt-oss-120b", vocab_size=201088, hidden=2880, n_layers=36,
+        n_q_heads=64, n_kv_heads=8, head_dim=64, mlp_hidden=2880,
+        rope_theta=1.5e5, tie_embeddings=False, max_context=131072,
+        n_experts=128, n_experts_active=4, expert_mlp_hidden=2880,
+        attn_sinks=True, sliding_window=128, attn_bias=True,
+        swiglu_limit=7.0, rope_yarn_factor=32.0, rope_yarn_orig_max=4096,
+    ),
+    # gpt-oss-20b: same family, 24 layers / 32 experts
+    "gpt-oss-20b": ModelConfig(
+        name="gpt-oss-20b", vocab_size=201088, hidden=2880, n_layers=24,
+        n_q_heads=64, n_kv_heads=8, head_dim=64, mlp_hidden=2880,
+        rope_theta=1.5e5, tie_embeddings=False, max_context=131072,
+        n_experts=32, n_experts_active=4, expert_mlp_hidden=2880,
+        attn_sinks=True, sliding_window=128, attn_bias=True,
+        swiglu_limit=7.0, rope_yarn_factor=32.0, rope_yarn_orig_max=4096,
+    ),
+    # tiny gpt-oss for CI (sinks, sliding, biases, clipped swiglu, yarn)
+    "tiny-gptoss-test": ModelConfig(
+        name="tiny-gptoss-test", vocab_size=512, hidden=64, n_layers=4,
+        n_q_heads=4, n_kv_heads=2, head_dim=16, mlp_hidden=64,
+        tie_embeddings=False, max_context=256,
+        n_experts=4, n_experts_active=2, expert_mlp_hidden=64,
+        attn_sinks=True, sliding_window=16, attn_bias=True,
+        swiglu_limit=7.0, rope_yarn_factor=8.0, rope_yarn_orig_max=64,
+    ),
+    # DeepSeek-V2-Lite class: MLA latent attention + MoE (the reference's
+    # headline DeepSeek-R1 recipes use the full-size sibling)
+    "deepseek-v2-lite": ModelConfig(
+        name="deepseek-v2-lite", vocab_size=102400, hidden=2048, n_layers=27,
+        n_q_heads=16, n_kv_heads=16, head_dim=192, mlp_hidden=10944,
+        rope_theta=1e4, tie_embeddings=False, max_context=32768,
+        n_experts=64, n_experts_active=6, expert_mlp_hidden=1408,
+        first_k_dense=1, n_shared_experts=2, moe_norm_topk=False,
+        mla_kv_lora_rank=512, mla_rope_head_dim=64, mla_nope_head_dim=128,
+        mla_v_head_dim=128,
+    ),
+    # DeepSeek-V3/R1 (671B): the reference's headline recipes
+    # (recipes/deepseek-r1) — q-lora MLA, sigmoid+bias node-limited
+    # routing, 3 dense layers then 256-expert MoE with 1 shared expert.
+    "deepseek-v3": ModelConfig(
+        name="deepseek-v3", vocab_size=129280, hidden=7168, n_layers=61,
+        n_q_heads=128, n_kv_heads=128, head_dim=192, mlp_hidden=18432,
+        rope_theta=1e4, tie_embeddings=False, max_context=163840,
+        n_experts=256, n_experts_active=8, expert_mlp_hidden=2048,
+        first_k_dense=3, n_shared_experts=1, moe_norm_topk=True,
+        moe_routed_scale=2.5, moe_scoring="sigmoid", moe_n_group=8,
+        moe_topk_group=4,
+        mla_kv_lora_rank=512, mla_q_lora_rank=1536, mla_rope_head_dim=64,
+        mla_nope_head_dim=128, mla_v_head_dim=128,
+    ),
+    "tiny-mla-test": ModelConfig(
+        name="tiny-mla-test", vocab_size=512, hidden=64, n_layers=2,
+        n_q_heads=4, n_kv_heads=4, head_dim=24, mlp_hidden=128,
+        mla_kv_lora_rank=32, mla_rope_head_dim=8, mla_nope_head_dim=16,
+        mla_v_head_dim=16,
+    ),
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in PRESETS:
+        raise KeyError(f"unknown model preset '{name}' "
+                       f"(have: {sorted(PRESETS)})")
+    return PRESETS[name]

@@ -1,0 +1,161 @@
+"""Where a decode step of the PyTorch/CUDA port spends its time, on one card.
+
+    python3 scripts/torch_decode_profile.py [--model llama3-8b] [--out DIR]
+
+Builds a `ModelRunner` at full width (random weights, seed 0), fills the KV
+pool pages of a batch of 8 sequences with random history (no prefill is run
+for them), then measures, with the decode attention by the CUDA kernel and
+by its plain PyTorch version in turn:
+
+  * one fused decode block (`decode_multi`, k = 8): host time until the call
+    returns (dispatch), and wall time until the card is done, per step;
+  * a `torch.profiler` trace of one block: device time by kernel name, and
+    the device's busy share of the block's wall time;
+  * one prefill chunk of 512 and of 1,500 tokens (wall time, synchronized).
+
+Prints one JSON line per measurement; the trace tables go to --out.
+Needs a CUDA card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+HISTORY = [600, 700, 32, 1500, 200, 96, 900, 1200]
+BLOCK = 8
+
+
+def _emit(kind: str, **fields) -> None:
+    print(json.dumps({"measure": kind, **fields}), flush=True)
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _is_kernel(evt) -> bool:
+    """A device-side row (a kernel or a memcpy/memset), not the host op
+    that launched it: the ops' rows repeat their kernels' time."""
+    return evt.device_type == torch.autograd.DeviceType.CUDA
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="llama3-8b")
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_decode_profile: needs a CUDA card")
+
+    from dynamo_tpu_torch.engine import ModelRunner, RunnerConfig
+    from dynamo_tpu_torch.engine.model_runner import bucket_table_width
+    from dynamo_tpu_torch.models import get_config
+    from dynamo_tpu_torch.models.transformer import paged_attention_decode_xla
+    from dynamo_tpu_torch.ops import paged_attention_decode_pool
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg = get_config(args.model)
+    rc = RunnerConfig()
+    runner = ModelRunner(cfg, rc, device="cuda", seed=0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    _emit("device", nvidia_smi=smi, torch=torch.__version__)
+
+    # random history for the batch, written straight into the pool
+    b = rc.max_batch
+    ps = rc.page_size
+    tables = np.zeros((b, rc.max_pages_per_seq), np.int32)
+    kv_lens = np.zeros(b, np.int32)
+    active = np.zeros(b, bool)
+    next_page = 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for i, h in enumerate(HISTORY):
+        n = -(-(h + 2 * BLOCK) // ps)
+        tables[i, :n] = np.arange(next_page, next_page + n)
+        next_page += n
+        kv_lens[i], active[i] = h + 1, True
+    runner.kv_cache[:, :, 1:next_page].copy_(torch.randn(
+        runner.kv_cache[:, :, 1:next_page].shape, generator=gen,
+        device="cuda").to(runner.kv_cache.dtype))
+    width = bucket_table_width(-(-(max(HISTORY) + 2 * BLOCK) // ps),
+                               rc.max_pages_per_seq)
+    args_np = dict(
+        tokens=np.arange(b, dtype=np.int32), positions=kv_lens - 1,
+        block_tables=np.ascontiguousarray(tables[:, :width]),
+        kv_lens=kv_lens, active=active,
+        temperature=np.zeros(b, np.float32), top_p=np.ones(b, np.float32),
+        top_k=np.zeros(b, np.int32), seeds=np.zeros(b, np.uint32))
+
+    def block():
+        t0 = time.perf_counter()
+        toks = runner.decode_multi(**args_np, k=BLOCK, return_device=True)
+        t1 = time.perf_counter()
+        toks.cpu()
+        t2 = time.perf_counter()
+        return (t1 - t0) * 1e3, (t2 - t0) * 1e3
+
+    for name, fn in (("kernel", paged_attention_decode_pool),
+                     ("plain", paged_attention_decode_xla)):
+        runner.decode_attention_fn = fn
+        block()  # warm
+        torch.cuda.synchronize()
+        runs = [block() for _ in range(3)]
+        dispatch = min(r[0] for r in runs) / BLOCK
+        wall = min(r[1] for r in runs) / BLOCK
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.decode_multi(**args_np, k=BLOCK, return_device=True).cpu()
+            traced_wall_us = (time.perf_counter() - t0) * 1e6
+        events = [e for e in prof.key_averages() if _is_kernel(e)]
+        events.sort(key=_device_us, reverse=True)
+        busy_us = sum(_device_us(e) for e in events)
+        (out_dir / f"decode_{name}.txt").write_text(
+            prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=40))
+        _emit("decode_block", attention=name, batch=len(HISTORY),
+              history=HISTORY, block=BLOCK,
+              step_ms=wall, dispatch_ms_per_step=dispatch,
+              traced_step_ms=traced_wall_us / 1e3 / BLOCK,
+              device_busy_ms_per_step=busy_us / 1e3 / BLOCK,
+              device_busy_share=busy_us / traced_wall_us,
+              kernel_launches_per_step=sum(e.count for e in events) / BLOCK,
+              top=[{"name": e.key[:80],
+                    "ms_per_step": _device_us(e) / 1e3 / BLOCK,
+                    "calls_per_step": e.count / BLOCK} for e in events[:12]])
+    runner.decode_attention_fn = paged_attention_decode_pool
+
+    table = np.zeros(rc.max_pages_per_seq, np.int32)
+    table[:96] = np.arange(next_page, next_page + 96)
+    rng = np.random.default_rng(0)
+    for n in (512, 1500):
+        toks = rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+        runner.prefill_chunk(toks, 0, table, n, (0.0, 1.0, 0, 0))  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.prefill_chunk(toks, 0, table, n, (0.0, 1.0, 0, 0))
+        torch.cuda.synchronize()
+        _emit("prefill_chunk", tokens=n,
+              ms=(time.perf_counter() - t0) * 1e3)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,87 @@
+"""The port stands alone: dynamo_tpu_torch and chip_smoke.py import nothing
+of JAX, nothing of the JAX package, and none of the JAX package's runtime
+dependencies the card's machine lacks. Its entry points default to the
+card and raise where there is none."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "dynamo_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "aiohttp", "xxhash",
+             "zmq", "prometheus_client")
+
+
+def _sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported(path: Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module or "")
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            names.add(str(node.args[0].value))
+    return names
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_forbidden_imports(path):
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, dynamo_tpu_torch.engine, dynamo_tpu_torch.ops; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """No card here: every entry point asked for the default device raises
+    before it builds anything, and never falls back to the CPU."""
+    import torch
+
+    from dynamo_tpu_torch.engine import ModelRunner, RunnerConfig, TorchWorker
+    from dynamo_tpu_torch.models import get_config, init_params
+
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchWorker()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelRunner(get_config("tiny-test"), RunnerConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(get_config("tiny-test"))
+
+
+def test_kernels_build_for_sm90a(monkeypatch):
+    from dynamo_tpu_torch.ops import _build
+
+    assert _build.sources() == ["paged_decode_pool"]
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    out = _build.library_path("paged_decode_pool")
+    cmd = _build.nvcc_command("paged_decode_pool", out)
+    assert cmd[0] == "nvcc"
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
+    assert "-shared" in cmd and str(out) in cmd
+    # the build lands under the checkout's build/, which git ignores
+    assert out.parent == ROOT / "build" / "dynamo_tpu_torch"
