@@ -13,6 +13,11 @@ host entry points the scheduler drives:
 
 Decode attention goes through `ops.paged_attention_decode_pool`: on the card
 that is the CUDA flash-decode kernel, always; on the CPU its plain version.
+With `weight_dtype` "int8" or "int4" the projections are quantized at init
+(leaf by leaf, on the runner's device) and every projection of every
+forward goes through `models.transformer.quant_matmul`, the W8A16 / W4A16
+kernels on the card. With `kv_dtype` "int8" the pool is an int8
+(values, scales) pair and decode attention takes the int8 kernel.
 PyTorch runs eagerly, so there is nothing to compile or bucket; the block
 table is still cut to the live context width (`bucket_table_width`) so the
 plain paths gather no more pages than they need.
@@ -27,8 +32,27 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models import ModelConfig, Transformer, init_params, make_kv_cache
-from ..models.transformer import forward, forward_decode, paged_attention_xla
+from ..models import (
+    ModelConfig,
+    Transformer,
+    init_params,
+    make_kv_cache,
+    make_kv_cache_int8,
+)
+from ..models.quantize import (
+    check_quantizable,
+    quantize_params_int4,
+    quantize_params_int8,
+    quantized_kind,
+    repack_params_q4,
+)
+from ..models.transformer import (
+    KV_SCALE_LANES,
+    forward,
+    forward_decode,
+    paged_attention_xla,
+    quant_matmul,
+)
 from ..ops.paged_attention import paged_attention_decode_pool
 from .sampler import sample, sample_with_logprobs
 
@@ -53,6 +77,14 @@ class RunnerConfig:
     # The largest entry is the prefill chunk budget per scheduler step (the
     # JAX package also pads chunks up to these sizes for its compiler).
     prefill_buckets: tuple[int, ...] = DEFAULT_PREFILL_BUCKETS
+    # KV pool storage: "model" (the model dtype) | "int8" (int8 codes plus
+    # one bf16 scale per token shared by the kv heads): twice the tokens per
+    # byte of bf16, read by the int8 decode kernel.
+    kv_dtype: str = "model"
+    # Weight storage: "model" | "int8" (W8A16: int8 codes + per-output-
+    # channel scales) | "int4" (W4A16: packed codes + per-group scale and
+    # zero rows, layout by DYNT_Q4_VARIANT). Quantized at init on the device.
+    weight_dtype: str = "model"
 
     @property
     def max_context(self) -> int:
@@ -72,22 +104,61 @@ class ModelRunner:
         self.device = resolve_device(device)
         self.model_config = model_config
         self.config = runner_config
+        if runner_config.weight_dtype not in ("model", "int8", "int4"):
+            raise ValueError(
+                f"unknown weight_dtype {runner_config.weight_dtype!r} "
+                "(expected 'model', 'int8', or 'int4')")
+        weight_quantized = runner_config.weight_dtype != "model"
+        if weight_quantized:
+            check_quantizable(model_config, runner_config.weight_dtype)
+        if runner_config.kv_dtype not in ("model", "int8"):
+            raise ValueError(f"unknown kv_dtype {runner_config.kv_dtype!r} "
+                             "(expected 'model' or 'int8')")
+        kv_quantized = runner_config.kv_dtype == "int8"
+        if kv_quantized and model_config.head_dim != KV_SCALE_LANES:
+            # As the reference: its int8 kernel covers head_dim 128 only,
+            # and the port does not run a plain decode path in its place.
+            raise ValueError(
+                f"int8 KV requires head_dim == {KV_SCALE_LANES} (model has "
+                f"{model_config.head_dim})")
         if params is None:
             params = init_params(model_config, device=self.device, seed=seed)
         elif params.embed.device != self.device:
             raise ValueError(f"params live on {params.embed.device}, runner "
                              f"on {self.device}")
+        kind = quantized_kind(params)
+        if kind is not None and kind != runner_config.weight_dtype:
+            raise ValueError(
+                f"params are already quantized as {kind!r} but this runner "
+                f"wants weight_dtype={runner_config.weight_dtype!r}")
+        if weight_quantized and kind is None:
+            # leaf by leaf, each bf16 leaf freed as its quantized form lands
+            if runner_config.weight_dtype == "int4":
+                quantize_params_int4(params)
+            else:
+                quantize_params_int8(params)
+        elif kind == "int4":
+            repack_params_q4(params)  # transparent v1 <-> v2 migration
         self.model = params
-        self.kv_cache = make_kv_cache(model_config, runner_config.num_pages,
-                                      runner_config.page_size,
-                                      device=self.device)
-        # The decode attention: the CUDA kernel on the card, its plain
-        # version on the CPU. A caller may swap in another function with
-        # the same signature (chip_smoke.py's parity phase does).
+        if kv_quantized:
+            self.kv_cache = make_kv_cache_int8(
+                model_config, runner_config.num_pages,
+                runner_config.page_size, device=self.device)
+        else:
+            self.kv_cache = make_kv_cache(
+                model_config, runner_config.num_pages,
+                runner_config.page_size, device=self.device)
+        # The decode attention and the quantized matmul: the CUDA kernels on
+        # the card, their plain versions on the CPU. A caller may swap in
+        # other functions with the same signatures (chip_smoke.py's parity
+        # phase passes the plain versions).
         self.decode_attention_fn = paged_attention_decode_pool
-        # Decode forwards run (each launches the decode kernel once per
-        # layer on the card).
+        self.matmul_fn = quant_matmul
+        # Decode and prefill forwards run: each decode forward launches the
+        # decode kernel once per layer on the card, and every forward of a
+        # quantized model launches its matmul kernel once per projection.
         self.decode_steps = 0
+        self.prefill_steps = 0
         self.last_prefill_sample = None
         self.last_decode_sample = (None, None, None)
         self.last_decode_logits = None
@@ -133,10 +204,12 @@ class ModelRunner:
                         torch.int32)
         tok = self._t(np.asarray(tokens, np.int64)[None, :], torch.int64)
         pos = torch.arange(start_pos, start_pos + t, device=self.device)[None, :]
+        self.prefill_steps += 1
         logits = forward(self.model, tok, pos, self.kv_cache, table,
                          self._t(np.asarray([kv_len_after], np.int32),
                                  torch.int32),
-                         attention_fn=paged_attention_xla)
+                         attention_fn=paged_attention_xla,
+                         matmul_fn=self.matmul_fn)
         temp, top_p, top_k, seed = sampling
         token, lp, top_ids, top_lps = sample_with_logprobs(
             logits[:, -1, :], *self._sampling([temp], [top_p], [top_k],
@@ -181,7 +254,8 @@ class ModelRunner:
         logits = forward_decode(
             self.model, self._t(np.asarray(tokens, np.int64), torch.int64),
             pos, self.kv_cache, tables, lens, act,
-            decode_attention_fn=self.decode_attention_fn)[:, 0, :]
+            decode_attention_fn=self.decode_attention_fn,
+            matmul_fn=self.matmul_fn)[:, 0, :]
         samp = self._sampling(temperature, top_p, top_k, seeds)
         step_t = self._t(np.asarray(steps, np.int64), torch.int64)
         if want_logprobs:
@@ -231,7 +305,8 @@ class ModelRunner:
         for _ in range(k):
             logits = forward_decode(
                 self.model, toks, pos, self.kv_cache, tables, lens, act,
-                decode_attention_fn=self.decode_attention_fn)
+                decode_attention_fn=self.decode_attention_fn,
+                matmul_fn=self.matmul_fn)
             nxt = sample(logits[:, 0, :], *samp, sidx)
             out.append(nxt)
             toks = nxt.long()

@@ -1,10 +1,21 @@
 from .paged_attention import (
     paged_attention_decode_pool,
     paged_decode_attention_pool,
+    paged_decode_attention_pool_int8,
     paged_decode_attention_pool_ref,
 )
+from .q4_linear import (
+    Q4Weight,
+    q4_matmul,
+    q4_matmul_ref,
+    q4_matmul_v1,
+    q4_matmul_v2,
+)
+from .q8_linear import Q8Weight, q8_matmul, q8_matmul_ref
 
 __all__ = [
     "paged_attention_decode_pool", "paged_decode_attention_pool",
-    "paged_decode_attention_pool_ref",
+    "paged_decode_attention_pool_int8", "paged_decode_attention_pool_ref",
+    "Q4Weight", "q4_matmul", "q4_matmul_ref", "q4_matmul_v1", "q4_matmul_v2",
+    "Q8Weight", "q8_matmul", "q8_matmul_ref",
 ]

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into `build/dynamo_tpu_torch/<name>-<hash>.so` under the checkout root, then
-loaded with `ctypes`. The hash covers the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing is compiled when the
+loaded with `ctypes`. The hash covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source rebuilds and an unchanged
+one is reused. Nothing is compiled when the
 package is imported: the first launch builds, and `build_all` builds every
 source at once (one `nvcc` per source, all started together).
 """
@@ -45,8 +46,10 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

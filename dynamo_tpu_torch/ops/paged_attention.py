@@ -7,9 +7,17 @@ token, which is not yet in the pool, into the partials) and
 `paged_attention_decode_pool` (the two together, a drop-in
 `decode_attention_fn` for `forward_decode`).
 
+The KV pool is either one bf16 tensor [L, 2, P, ps, kh, hd] or an int8
+pair (values int8 [L, 2, P, ps, kh, hd], scales bf16 [L, 2, P, ps]) with
+one scale per token shared by the kv heads (`models.transformer.
+quantize_kv`). The reference keeps that scale broadcast over 128 lanes, a
+TPU tiling artifact; the port keeps one value.
+
 `paged_decode_attention_pool` launches the hand-written CUDA kernel
-`csrc/paged_decode_pool.cu` for CUDA tensors and raises on anything the
-kernel does not take; it runs the plain PyTorch version
+`csrc/paged_decode_pool.cu` for CUDA tensors (entry point
+`paged_decode_pool_bf16`, or `paged_decode_pool_int8` through
+`paged_decode_attention_pool_int8` when `kv_scales` is given) and raises on
+anything the kernel does not take; it runs the plain PyTorch version
 `paged_decode_attention_pool_ref` only for tensors that lie on the CPU.
 """
 
@@ -17,19 +25,30 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from . import _build
+from ._launch import check_launch, require, runs_plain, stream_of
 
 _KERNEL = "paged_decode_pool"
 _MAX_GROUP_DIM = 1024  # largest g * hd the kernel's accumulators cover
 
 
-def _kernel_fn():
+def _kernel_fn(quantized: bool = False):
     """The C entry point, built on first use; ctypes caches the function
     object on the library, so its signature is declared once."""
-    fn = _build.load(_KERNEL).paged_decode_pool_bf16
+    lib = _build.load(_KERNEL)
+    if quantized:
+        fn = lib.paged_decode_pool_int8
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                           + [ctypes.c_longlong] * 6
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        return fn
+    fn = lib.paged_decode_pool_bf16
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 4
@@ -44,8 +63,10 @@ def paged_decode_attention_pool_ref(
     layer: int,
     block_tables: torch.Tensor,  # [B, max_pages] int32
     kv_lens_hist: torch.Tensor,  # [B] int32 history length
+    kv_scales: Optional[torch.Tensor] = None,  # [L, 2, P, ps] bf16 (int8)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: gather the table's pages, masked
+    """Plain PyTorch version of the kernel: gather the table's pages
+    (dequantized by their per-token scales for an int8 pool), masked
     scores in f32, unnormalized partials. Zero-history rows give acc = 0,
     m = -inf, l = 0, as the kernel writes them."""
     b, qh, hd = q.shape
@@ -55,6 +76,9 @@ def paged_decode_attention_pool_ref(
     tables = block_tables.long()
     k = kv_pool[layer, 0][tables].reshape(b, ctx, kh, hd).float()
     v = kv_pool[layer, 1][tables].reshape(b, ctx, kh, hd).float()
+    if kv_scales is not None:
+        k = k * kv_scales[layer, 0][tables].reshape(b, ctx, 1, 1).float()
+        v = v * kv_scales[layer, 1][tables].reshape(b, ctx, 1, 1).float()
     qg = q.reshape(b, kh, group, hd).float()
     scores = torch.einsum("bkgh,bskh->bkgs", qg, k) / math.sqrt(hd)
     mask = (torch.arange(ctx, device=q.device)[None, :]
@@ -68,74 +92,126 @@ def paged_decode_attention_pool_ref(
     return acc, m, l
 
 
+def _check_pool_inputs(name, q, kv_pool, layer, block_tables, kv_lens_hist,
+                       pool_dtype):
+    """Shared validation of both entry points; returns (b, kh, group, hd,
+    ps)."""
+    require(q.dtype == torch.bfloat16 and kv_pool.dtype == pool_dtype, name,
+            f"the CUDA kernel takes bf16 q and a {pool_dtype} pool, got "
+            f"{q.dtype} and {kv_pool.dtype}", TypeError)
+    require(block_tables.dtype == torch.int32
+            and kv_lens_hist.dtype == torch.int32, name,
+            "block_tables and kv_lens_hist must be int32", TypeError)
+    require(q.dim() == 3 and kv_pool.dim() == 6 and block_tables.dim() == 2
+            and kv_lens_hist.dim() == 1, name,
+            "expected q [B, qh, hd], pool [L, 2, P, ps, kh, hd], tables "
+            "[B, max_pages], lens [B]")
+    b, qh, hd = q.shape
+    n_layers, two, _, ps, kh, pool_hd = kv_pool.shape
+    require(two == 2 and pool_hd == hd and qh % kh == 0, name,
+            f"pool {tuple(kv_pool.shape)} does not match q {tuple(q.shape)}")
+    require(block_tables.shape[0] == b and kv_lens_hist.shape[0] == b, name,
+            "block_tables / kv_lens_hist batch != q batch")
+    require(hd in (64, 128), name,
+            f"the CUDA kernel supports head_dim 64 or 128, got {hd}")
+    group = qh // kh
+    require(group * hd <= _MAX_GROUP_DIM, name,
+            f"GQA group {group} x head_dim {hd} exceeds the kernel's "
+            f"{_MAX_GROUP_DIM} accumulators")
+    require(0 <= layer < n_layers, name,
+            f"layer {layer} out of range for {n_layers} layers", IndexError)
+    require(q.is_contiguous() and kv_pool.is_contiguous()
+            and block_tables.is_contiguous() and kv_lens_hist.is_contiguous(),
+            name, "the CUDA kernel takes contiguous inputs")
+    return b, kh, group, hd, ps
+
+
+def _partials(q, kh, group, hd):
+    b = q.shape[0]
+    return (torch.empty((b, kh, group, hd), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((b, kh, group), dtype=torch.float32, device=q.device),
+            torch.empty((b, kh, group), dtype=torch.float32, device=q.device))
+
+
+def paged_decode_attention_pool_int8(
+    q: torch.Tensor,  # [B, qh, hd] bf16
+    kv_pool: torch.Tensor,  # [L, 2, P, ps, kh, hd] int8 codes
+    kv_scales: torch.Tensor,  # [L, 2, P, ps] bf16 per-token scales
+    layer: int,
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    kv_lens_hist: torch.Tensor,  # [B] int32 history length
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-decode partials over an int8 pool (the reference kernel's
+    `quantized=True` branch): CUDA tensors launch `paged_decode_pool_int8`,
+    CPU tensors run the plain version."""
+    name = "paged_decode_attention_pool_int8"
+    tensors = (q, kv_pool, kv_scales, block_tables, kv_lens_hist)
+    if runs_plain(name, tensors):
+        return paged_decode_attention_pool_ref(q, kv_pool, layer, block_tables,
+                                               kv_lens_hist, kv_scales)
+    b, kh, group, hd, ps = _check_pool_inputs(
+        name, q, kv_pool, layer, block_tables, kv_lens_hist, torch.int8)
+    require(kv_scales.dtype == torch.bfloat16
+            and tuple(kv_scales.shape) == tuple(kv_pool.shape[:4])
+            and kv_scales.is_contiguous(), name,
+            f"kv_scales must be contiguous bf16 {tuple(kv_pool.shape[:4])}, "
+            f"got {kv_scales.dtype} {tuple(kv_scales.shape)}")
+    acc, m, l = _partials(q, kh, group, hd)
+    if b == 0:
+        return acc, m, l
+    s, ss = kv_pool.stride(), kv_scales.stride()
+    check_launch(name, _kernel_fn(quantized=True)(
+        q.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
+        block_tables.data_ptr(), kv_lens_hist.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, kh, group, hd, ps,
+        block_tables.shape[1], layer * s[0], s[1], s[2], s[3],
+        layer * ss[0], ss[1], 1.0 / math.sqrt(hd), stream_of(q)))
+    paged_decode_attention_pool_int8.launches += 1
+    return acc, m, l
+
+
 def paged_decode_attention_pool(
     q: torch.Tensor,  # [B, qh, hd] bf16
-    kv_pool: torch.Tensor,  # [L, 2, P, ps, kh, hd] bf16, the whole cache
+    kv_pool: torch.Tensor,  # [L, 2, P, ps, kh, hd] bf16 (or int8), the cache
     layer: int,
     block_tables: torch.Tensor,  # [B, max_pages] int32
     kv_lens_hist: torch.Tensor,  # [B] int32 history length (current excluded)
+    kv_scales: Optional[torch.Tensor] = None,  # [L, 2, P, ps] for int8
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-decode partials over the paged history. Returns
     (acc [B, kh, g, hd], m [B, kh, g], l [B, kh, g]), all f32 and
-    unnormalized, for the deferred current-token combine.
+    unnormalized, for the deferred current-token combine. With `kv_scales`
+    the pool is int8 (`paged_decode_attention_pool_int8`).
 
     CUDA tensors launch the kernel on the current stream (bf16 only;
     anything else raises). CPU tensors run the plain version."""
+    if kv_scales is not None:
+        return paged_decode_attention_pool_int8(
+            q, kv_pool, kv_scales, layer, block_tables, kv_lens_hist)
+    name = "paged_decode_attention_pool"
     tensors = (q, kv_pool, block_tables, kv_lens_hist)
-    if all(t.device.type == "cpu" for t in tensors):
+    if runs_plain(name, tensors):
         return paged_decode_attention_pool_ref(q, kv_pool, layer,
                                                block_tables, kv_lens_hist)
-    if not all(t.device == q.device and t.is_cuda for t in tensors):
-        raise ValueError("paged_decode_attention_pool: all inputs must lie "
-                         f"on one CUDA device, got {[str(t.device) for t in tensors]}")
-    if q.dtype != torch.bfloat16 or kv_pool.dtype != torch.bfloat16:
-        raise TypeError("the CUDA kernel takes bf16 q and pool, got "
-                        f"{q.dtype} and {kv_pool.dtype}")
-    if block_tables.dtype != torch.int32 or kv_lens_hist.dtype != torch.int32:
-        raise TypeError("block_tables and kv_lens_hist must be int32")
-    if q.dim() != 3 or kv_pool.dim() != 6 or block_tables.dim() != 2 \
-            or kv_lens_hist.dim() != 1:
-        raise ValueError("expected q [B, qh, hd], pool [L, 2, P, ps, kh, hd], "
-                         "tables [B, max_pages], lens [B]")
-    b, qh, hd = q.shape
-    n_layers, two, _, ps, kh, pool_hd = kv_pool.shape
-    if two != 2 or pool_hd != hd or qh % kh:
-        raise ValueError(f"pool {tuple(kv_pool.shape)} does not match q "
-                         f"{tuple(q.shape)}")
-    if block_tables.shape[0] != b or kv_lens_hist.shape[0] != b:
-        raise ValueError("block_tables / kv_lens_hist batch != q batch")
-    if hd not in (64, 128):
-        raise ValueError(f"the CUDA kernel supports head_dim 64 or 128, got {hd}")
-    group = qh // kh
-    if group * hd > _MAX_GROUP_DIM:
-        raise ValueError(f"GQA group {group} x head_dim {hd} exceeds the "
-                         f"kernel's {_MAX_GROUP_DIM} accumulators")
-    if not 0 <= layer < n_layers:
-        raise IndexError(f"layer {layer} out of range for {n_layers} layers")
-    if not (q.is_contiguous() and kv_pool.is_contiguous()
-            and block_tables.is_contiguous() and kv_lens_hist.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous inputs")
-    acc = torch.empty((b, kh, group, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, kh, group), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, kh, group), dtype=torch.float32, device=q.device)
+    b, kh, group, hd, ps = _check_pool_inputs(
+        name, q, kv_pool, layer, block_tables, kv_lens_hist, torch.bfloat16)
+    acc, m, l = _partials(q, kh, group, hd)
     if b == 0:
         return acc, m, l
-    fn = _kernel_fn()
     s = kv_pool.stride()
-    err = fn(q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
-             kv_lens_hist.data_ptr(), acc.data_ptr(), m.data_ptr(),
-             l.data_ptr(), b, kh, group, hd, ps, block_tables.shape[1],
-             layer * s[0], s[1], s[2], s[3], 1.0 / math.sqrt(hd),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"paged_decode_pool kernel launch failed: "
-                           f"cudaError {err}")
+    check_launch(name, _kernel_fn()(
+        q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
+        kv_lens_hist.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        b, kh, group, hd, ps, block_tables.shape[1], layer * s[0], s[1],
+        s[2], s[3], 1.0 / math.sqrt(hd), stream_of(q)))
     paged_decode_attention_pool.launches += 1
     return acc, m, l
 
 
 # Kernel launches since the last reset (the plain CPU version never counts).
 paged_decode_attention_pool.launches = 0
+paged_decode_attention_pool_int8.launches = 0
 
 
 def _combine_current(q, acc, m, l, k_cur, v_cur):
@@ -158,7 +234,7 @@ def _combine_current(q, acc, m, l, k_cur, v_cur):
 
 def paged_attention_decode_pool(
     q: torch.Tensor,  # [B, 1, qh, hd]
-    kv_cache: torch.Tensor,  # [L, 2, P, ps, kh, hd]
+    kv_cache,  # [L, 2, P, ps, kh, hd] or the int8 (values, scales) pair
     layer: int,
     block_tables: torch.Tensor,  # [B, max_pages] int32
     kv_lens: torch.Tensor,  # [B] int32 INCLUDING the current token
@@ -167,7 +243,12 @@ def paged_attention_decode_pool(
 ) -> torch.Tensor:
     """Deferred-write decode attention through the whole-pool kernel: history
     partials from the pool, the current token combined in registers. Drop-in
-    for `models.transformer.paged_attention_decode_xla`."""
+    for `models.transformer.paged_attention_decode_xla`. An int8 pair takes
+    the int8 kernel; unlike the reference, no head_dim falls back to a plain
+    path (the runner refuses int8 KV unless head_dim is 128)."""
+    values, scales = kv_cache if isinstance(kv_cache, tuple) else (kv_cache,
+                                                                   None)
     acc, m, l = paged_decode_attention_pool(
-        q[:, 0], kv_cache, layer, block_tables, (kv_lens - 1).clamp_min(0))
+        q[:, 0], values, layer, block_tables, (kv_lens - 1).clamp_min(0),
+        kv_scales=scales)
     return _combine_current(q, acc, m, l, k_cur, v_cur)

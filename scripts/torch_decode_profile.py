@@ -1,11 +1,14 @@
 """Where a decode step of the PyTorch/CUDA port spends its time, on one card.
 
-    python3 scripts/torch_decode_profile.py [--model llama3-8b] [--out DIR]
+    python3 scripts/torch_decode_profile.py [--model llama3-8b]
+        [--weight-dtype model|int8|int4] [--kv-dtype model|int8] [--out DIR]
 
-Builds a `ModelRunner` at full width (random weights, seed 0), fills the KV
-pool pages of a batch of 8 sequences with random history (no prefill is run
-for them), then measures, with the decode attention by the CUDA kernel and
-by its plain PyTorch version in turn:
+Builds a `ModelRunner` at full width (random weights, seed 0, quantized on
+the card when --weight-dtype asks for it), fills the KV pool pages of a
+batch of 8 sequences with random history (no prefill is run for them; an
+int8 pool gets random K/V quantized by the port's `quantize_kv`), then
+measures, with the decode attention and the quantized matmul by the CUDA
+kernels and by their plain PyTorch versions in turn:
 
   * one fused decode block (`decode_multi`, k = 8): host time until the call
     returns (dispatch), and wall time until the card is done, per step;
@@ -56,6 +59,9 @@ def _is_kernel(evt) -> bool:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="llama3-8b")
+    ap.add_argument("--weight-dtype", default="model",
+                    choices=("model", "int8", "int4"))
+    ap.add_argument("--kv-dtype", default="model", choices=("model", "int8"))
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -64,18 +70,24 @@ def main() -> None:
     from dynamo_tpu_torch.engine import ModelRunner, RunnerConfig
     from dynamo_tpu_torch.engine.model_runner import bucket_table_width
     from dynamo_tpu_torch.models import get_config
-    from dynamo_tpu_torch.models.transformer import paged_attention_decode_xla
+    from dynamo_tpu_torch.models.transformer import (
+        paged_attention_decode_xla,
+        quant_matmul,
+        quant_matmul_ref,
+        quantize_kv,
+    )
     from dynamo_tpu_torch.ops import paged_attention_decode_pool
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     cfg = get_config(args.model)
-    rc = RunnerConfig()
+    rc = RunnerConfig(weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype)
     runner = ModelRunner(cfg, rc, device="cuda", seed=0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    _emit("device", nvidia_smi=smi, torch=torch.__version__)
+    _emit("device", nvidia_smi=smi, torch=torch.__version__, model=cfg.name,
+          weight_dtype=rc.weight_dtype, kv_dtype=rc.kv_dtype)
 
     # random history for the batch, written straight into the pool
     b = rc.max_batch
@@ -91,9 +103,18 @@ def main() -> None:
         tables[i, :n] = np.arange(next_page, next_page + n)
         next_page += n
         kv_lens[i], active[i] = h + 1, True
-    runner.kv_cache[:, :, 1:next_page].copy_(torch.randn(
-        runner.kv_cache[:, :, 1:next_page].shape, generator=gen,
-        device="cuda").to(runner.kv_cache.dtype))
+    if isinstance(runner.kv_cache, tuple):
+        values, scales = runner.kv_cache
+        for layer in range(cfg.n_layers):
+            q, s = quantize_kv(torch.randn(
+                values[layer, :, 1:next_page].shape, generator=gen,
+                device="cuda"))
+            values[layer, :, 1:next_page] = q
+            scales[layer, :, 1:next_page] = s
+    else:
+        runner.kv_cache[:, :, 1:next_page].copy_(torch.randn(
+            runner.kv_cache[:, :, 1:next_page].shape, generator=gen,
+            device="cuda").to(runner.kv_cache.dtype))
     width = bucket_table_width(-(-(max(HISTORY) + 2 * BLOCK) // ps),
                                rc.max_pages_per_seq)
     args_np = dict(
@@ -111,9 +132,10 @@ def main() -> None:
         t2 = time.perf_counter()
         return (t1 - t0) * 1e3, (t2 - t0) * 1e3
 
-    for name, fn in (("kernel", paged_attention_decode_pool),
-                     ("plain", paged_attention_decode_xla)):
-        runner.decode_attention_fn = fn
+    for name, attn_fn, mm_fn in (
+            ("kernel", paged_attention_decode_pool, quant_matmul),
+            ("plain", paged_attention_decode_xla, quant_matmul_ref)):
+        runner.decode_attention_fn, runner.matmul_fn = attn_fn, mm_fn
         block()  # warm
         torch.cuda.synchronize()
         runs = [block() for _ in range(3)]
@@ -128,10 +150,11 @@ def main() -> None:
         events = [e for e in prof.key_averages() if _is_kernel(e)]
         events.sort(key=_device_us, reverse=True)
         busy_us = sum(_device_us(e) for e in events)
-        (out_dir / f"decode_{name}.txt").write_text(
+        tag = f"{cfg.name}_{rc.weight_dtype}_{rc.kv_dtype}_{name}"
+        (out_dir / f"decode_{tag}.txt").write_text(
             prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40))
-        _emit("decode_block", attention=name, batch=len(HISTORY),
+        _emit("decode_block", kernels=name, batch=len(HISTORY),
               history=HISTORY, block=BLOCK,
               step_ms=wall, dispatch_ms_per_step=dispatch,
               traced_step_ms=traced_wall_us / 1e3 / BLOCK,
@@ -142,6 +165,7 @@ def main() -> None:
                     "ms_per_step": _device_us(e) / 1e3 / BLOCK,
                     "calls_per_step": e.count / BLOCK} for e in events[:12]])
     runner.decode_attention_fn = paged_attention_decode_pool
+    runner.matmul_fn = quant_matmul
 
     table = np.zeros(rc.max_pages_per_seq, np.int32)
     table[:96] = np.arange(next_page, next_page + 96)

@@ -17,10 +17,26 @@ FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "aiohttp", "xxhash",
              "zmq", "prometheus_client")
 
 
+# Modules of the quantized-serving slice, which must be among the checked
+# sources and import cleanly on their own.
+QUANTIZED_MODULES = ("dynamo_tpu_torch.ops.q8_linear",
+                     "dynamo_tpu_torch.ops.q4_linear",
+                     "dynamo_tpu_torch.models.quantize",
+                     "dynamo_tpu_torch.models.convert")
+
+
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "scripts" /
+                                          "torch_decode_profile.py"]
     assert len(files) > 10
     return files
+
+
+def test_sources_cover_the_quantized_modules():
+    files = set(_sources())
+    for module in QUANTIZED_MODULES:
+        assert ROOT / (module.replace(".", "/") + ".py") in files
 
 
 def _imported(path: Path) -> set[str]:
@@ -46,7 +62,8 @@ def test_no_forbidden_imports(path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, dynamo_tpu_torch.engine, dynamo_tpu_torch.ops; "
+    code = ("import sys, dynamo_tpu_torch.engine, dynamo_tpu_torch.ops, "
+            + ", ".join(QUANTIZED_MODULES) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -75,13 +92,27 @@ def test_entry_points_default_to_the_card():
 def test_kernels_build_for_sm90a(monkeypatch):
     from dynamo_tpu_torch.ops import _build
 
-    assert _build.sources() == ["paged_decode_pool"]
+    assert _build.sources() == ["paged_decode_pool", "q4_matmul", "q8_matmul"]
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
-    out = _build.library_path("paged_decode_pool")
-    cmd = _build.nvcc_command("paged_decode_pool", out)
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
-    assert "-shared" in cmd and str(out) in cmd
-    # the build lands under the checkout's build/, which git ignores
-    assert out.parent == ROOT / "build" / "dynamo_tpu_torch"
+    for name in _build.sources():
+        out = _build.library_path(name)
+        cmd = _build.nvcc_command(name, out)
+        assert cmd[0] == "nvcc"
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
+        assert "-shared" in cmd and str(out) in cmd
+        # the build lands under the checkout's build/, which git ignores
+        assert out.parent == ROOT / "build" / "dynamo_tpu_torch"
+
+
+def test_build_key_covers_the_shared_header(monkeypatch, tmp_path):
+    """Editing csrc/dequant_gemm.cuh must rebuild the GEMM libraries."""
+    from dynamo_tpu_torch.ops import _build
+
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("q4_matmul")
+    header = tmp_path / "dequant_gemm.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path("q4_matmul") != before
