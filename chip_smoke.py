@@ -6,10 +6,12 @@ Phases, each printing one JSON line:
   device    - the card (nvidia-smi name and power limit), torch and CUDA
   build     - nvcc builds every kernel under dynamo_tpu_torch/ops/csrc/ for
               sm_90a, all sources at once
-  kernels   - the paged decode kernel, bf16 pool and int8 pool, held against
-              its plain PyTorch version at llama3-8b decode shapes, then
-              timed beside its plain version, one PyTorch library call for
-              the same function, and its bound
+  kernels   - the attention kernels at llama3-8b decode shapes, each held
+              against its plain PyTorch version, then timed beside it, one
+              PyTorch library call for the same function, and its bound:
+              the whole-pool kernel on a bf16 and an int8 pool (rows 1-2),
+              the same at a speculative chunk's folded width (g' = 20), and
+              the one-layer normalized (row 3) and partials (row 4) kernels
   gemm      - the W8A16 and W4A16 (v2, v1) kernels the same way, at every
               mistral-7b projection geometry, for M = 8 and M = 512; then
               ragged M and N (off the kernels' tiles), correctness only
@@ -20,6 +22,20 @@ Phases, each printing one JSON line:
               forwards run, and no other kernel may launch
   parity    - one greedy prompt through that runner with the kernels and
               with the plain versions: first-step logits and greedy tokens
+  unified   - the same traffic through TorchWorker(attention_fn=
+              paged_attention), the reference's unified path: row 3 = 32 x
+              decode forwards, row 1 = 0; then greedy parity against the
+              default path on the same runner (parity_unified)
+  dropins   - that runner with decode_attention_fn = paged_attention_
+              decode_fused and spec_attention_fn = paged_attention_spec (row
+              4) against the whole-pool path: one verification chunk and 16
+              greedy steps; row 4 = 32 x their forwards
+  engine_spec - llama3-8b with DYNT_SPEC_ENABLE=1, DYNT_SPEC_MAX_K=4, and
+              again with speculation off: the 8 requests plus 4 repetitive
+              prompts, then the first of those again; speculation must
+              verify drafts,
+              every greedy request's first 16 tokens must agree on and off,
+              and the folded pool kernel = 32 x spec forwards
   engine_q  - the quantized path: the same traffic through a TorchWorker
               serving mistral-7b with W4A16 weights (quantized on the card)
               and an int8 KV pool; launches: int8 decode kernel = 32 x
@@ -27,6 +43,9 @@ Phases, each printing one JSON line:
               none of the others
   parity_q  - the parity prompt on the quantized runner, kernels (decode
               attention and matmul) against plain versions
+  spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
+              KV: 8 sequences, 5 positions each (the int8 pool kernel
+              folded, the q4 v2 kernel at M = 40), against plain versions
   secondary - mistral-7b widths at 4 layers through the runner: W8A16 with
               int8 KV, and W4A16 under DYNT_Q4_VARIANT=v1; a few greedy
               steps each against the plain versions, launches checked
@@ -75,8 +94,15 @@ GEMM_MS = (8, 512)  # a decode batch and a prefill chunk
 # attention and projection outputs to bf16 at different points and 32
 # layers compound it.
 PARITY_LOGITS_REL_TOL = 0.05
+# The speculative chunk: DYNT_SPEC_MAX_K = 4 drafts + the committed token.
+SPEC_K = 4
+SPEC_T = SPEC_K + 1
+# Leading greedy tokens that must be identical with speculation on and off.
+SPEC_PARITY_TOKENS = 16
 
 # Where each kernel of the port comes from: name -> (source, TPU kernel).
+# The folded entries are rows 1 and 2 at a speculative chunk's width,
+# launched through their own wrappers so their launches count apart.
 KERNELS = {
     "paged_decode_attention_pool": (
         "dynamo_tpu_torch/ops/csrc/paged_decode_pool.cu",
@@ -84,6 +110,18 @@ KERNELS = {
     "paged_decode_attention_pool_int8": (
         "dynamo_tpu_torch/ops/csrc/paged_decode_pool.cu",
         "dynamo_tpu/ops/paged_attention.py:445"),
+    "paged_decode_attention_pool_folded": (
+        "dynamo_tpu_torch/ops/csrc/paged_decode_pool.cu",
+        "dynamo_tpu/ops/paged_attention.py:297"),
+    "paged_decode_attention_pool_int8_folded": (
+        "dynamo_tpu_torch/ops/csrc/paged_decode_pool.cu",
+        "dynamo_tpu/ops/paged_attention.py:445"),
+    "paged_decode_attention": (
+        "dynamo_tpu_torch/ops/csrc/paged_decode_pool.cu",
+        "dynamo_tpu/ops/paged_attention.py:33"),
+    "paged_decode_attention_partial": (
+        "dynamo_tpu_torch/ops/csrc/paged_decode_pool.cu",
+        "dynamo_tpu/ops/paged_attention.py:162"),
     "q8_matmul": (
         "dynamo_tpu_torch/ops/csrc/q8_matmul.cu",
         "dynamo_tpu/ops/q8_linear.py:55"),
@@ -154,6 +192,13 @@ def counters() -> dict:
     return {"paged_decode_attention_pool": pa.paged_decode_attention_pool,
             "paged_decode_attention_pool_int8":
                 pa.paged_decode_attention_pool_int8,
+            "paged_decode_attention_pool_folded":
+                pa.paged_decode_attention_pool_folded,
+            "paged_decode_attention_pool_int8_folded":
+                pa.paged_decode_attention_pool_int8_folded,
+            "paged_decode_attention": pa.paged_decode_attention,
+            "paged_decode_attention_partial":
+                pa.paged_decode_attention_partial,
             "q8_matmul": q8l.q8_matmul,
             "q4_matmul_v2": q4l.q4_matmul_v2,
             "q4_matmul_v1": q4l.q4_matmul_v1}
@@ -186,17 +231,45 @@ def matmul_kernels_per_forward(runner) -> dict:
     return per
 
 
-def expected_counts(runner, decode_forwards: int, prefill_forwards: int,
-                    dev: torch.device) -> dict:
+def attention_kernels(runner) -> tuple:
+    """(decode kernel, spec kernel) one forward of `runner` launches per
+    layer, by the attention functions it runs."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    int8 = "_int8" if isinstance(runner.kv_cache, tuple) else ""
+    if runner.attention_fn is not None:  # the unified forward
+        return (None if int8 else "paged_decode_attention"), None
+    decode = {pa.paged_attention_decode_pool:
+              f"paged_decode_attention_pool{int8}",
+              pa.paged_attention_decode_fused:
+              "paged_decode_attention_partial"}.get(runner.decode_attention_fn)
+    spec = {pa.paged_attention_spec_pool:
+            f"paged_decode_attention_pool{int8}_folded",
+            pa.paged_attention_spec: "paged_decode_attention_partial"}.get(
+                runner.spec_attention_fn)
+    return decode, spec
+
+
+def expected_counts(runner, dev: torch.device, decode: int = 0,
+                    prefill: int = 0, spec: int = 0,
+                    prefill_t1: int = 0) -> dict:
+    """Launches per kernel for the forwards run: each layer of a decode
+    (spec) forward launches the decode (spec) attention kernel once, and
+    of a unified forward the row-3 kernel once per T = 1 forward (decode,
+    and prefill chunks of one token, `prefill_t1`); each quantized
+    projection launches its matmul kernel once per forward."""
     want = {name: 0 for name in counters()}
     if dev.type != "cuda":
         return want
-    attn = ("paged_decode_attention_pool_int8"
-            if isinstance(runner.kv_cache, tuple)
-            else "paged_decode_attention_pool")
-    want[attn] = runner.model_config.n_layers * decode_forwards
+    n_layers = runner.model_config.n_layers
+    decode_kernel, spec_kernel = attention_kernels(runner)
+    if decode_kernel is not None:
+        t1 = prefill_t1 if runner.attention_fn is not None else 0
+        want[decode_kernel] += n_layers * (decode + t1)
+    if spec_kernel is not None:
+        want[spec_kernel] += n_layers * spec
     for name, n in matmul_kernels_per_forward(runner).items():
-        want[name] = n * (decode_forwards + prefill_forwards)
+        want[name] = n * (decode + prefill + spec)
     return want
 
 
@@ -237,10 +310,15 @@ def phase_build() -> None:
 
 
 def phase_kernels(dev: torch.device) -> list:
-    """paged_decode_attention_pool at llama3-8b decode shapes: B = 8,
-    qh = 32, kh = 8, hd = 128, ps = 16, 128-page tables, mixed history;
-    with a bf16 pool (row 1) and the same pool quantized to int8 by the
-    port's quantize_kv (row 2)."""
+    """The attention kernels at llama3-8b decode shapes: B = 8, qh = 32,
+    kh = 8, hd = 128, ps = 16, 128-page tables, mixed lengths. Rows 1 and 2
+    (bf16 pool, and the same pool quantized to int8 by the port's
+    quantize_kv), the same two at a speculative chunk's folded width
+    (g' = (DYNT_SPEC_MAX_K + 1) * g = 20 query rows per kv head), row 3
+    (normalized, one layer's slices, lengths including the current token)
+    and row 4 (partials, one layer's slices). Each is held against its
+    plain version, then timed beside it, one PyTorch library call for the
+    same function, and its bound."""
     from dynamo_tpu_torch.models import get_config
     from dynamo_tpu_torch.models.transformer import quantize_kv
     from dynamo_tpu_torch.ops import paged_attention as pa
@@ -256,6 +334,8 @@ def phase_kernels(dev: torch.device) -> list:
     pool = torch.randn((n_layers, 2, n_pages, ps, kh, hd), generator=gen,
                        device=dev).to(torch.bfloat16)
     q = torch.randn((b, qh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    q_fold = torch.randn((b, qh * SPEC_T, hd), generator=gen,
+                         device=dev).to(torch.bfloat16)
     # each row owns distinct random pages; unused slots point at scratch
     # page 0, as the scheduler's tables do
     perm = np.random.default_rng(SEED).permutation(np.arange(1, n_pages))
@@ -273,45 +353,80 @@ def phase_kernels(dev: torch.device) -> list:
     ctx = max_pages * ps
     mask = (torch.arange(ctx, device=dev)[None, :] < lens[:, None])
     mask = mask[:, None, None, :]  # [B, 1, 1, ctx]
-    q4d = q[:, :, None, :]  # [B, qh, 1, hd]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    empty = lens == 0
+    live = ~empty
+
+    def pool_call(fn, kv, kv_scales):
+        return lambda qq, layer: fn(qq, kv, layer, tables, lens,
+                                    kv_scales=kv_scales)
+
+    def pool_ref(kv, kv_scales):
+        return lambda qq, layer: pa.paged_decode_attention_pool_ref(
+            qq, kv, layer, tables, lens, kv_scales)
+
+    def slice_call(fn):
+        return lambda qq, layer: fn(qq, pool[layer, 0], pool[layer, 1],
+                                    tables, lens)
+
+    # name, query, kernel call, plain call, pool (values, scales), bytes per
+    # K/V element, normalized output
+    cases = (
+        ("paged_decode_attention_pool", q,
+         pool_call(pa.paged_decode_attention_pool, pool, None),
+         pool_ref(pool, None), (pool, None), 2, False),
+        ("paged_decode_attention_pool_int8", q,
+         pool_call(pa.paged_decode_attention_pool, values, scales),
+         pool_ref(values, scales), (values, scales), 1, False),
+        ("paged_decode_attention_pool_folded", q_fold,
+         pool_call(pa.paged_decode_attention_pool_folded, pool, None),
+         pool_ref(pool, None), (pool, None), 2, False),
+        ("paged_decode_attention_pool_int8_folded", q_fold,
+         pool_call(pa.paged_decode_attention_pool_folded, values, scales),
+         pool_ref(values, scales), (values, scales), 1, False),
+        ("paged_decode_attention", q,
+         slice_call(pa.paged_decode_attention),
+         slice_call(pa.paged_decode_attention_ref), (pool, None), 2, True),
+        ("paged_decode_attention_partial", q,
+         slice_call(pa.paged_decode_attention_partial),
+         slice_call(pa.paged_decode_attention_partial_ref), (pool, None), 2,
+         False),
+    )
     results = []
-    for name, kv, kv_scales, elt in (
-            ("paged_decode_attention_pool", pool, None, 2),
-            ("paged_decode_attention_pool_int8", values, scales, 1)):
+    for name, qq, kernel_call, plain_call, (kv, kv_scales), elt, norm in cases:
+        rows = qq.shape[1]
         # 1. correctness against the plain version, reading layer 1
-        acc, m, l = pa.paged_decode_attention_pool(q, kv, 1, tables, lens,
-                                                   kv_scales=kv_scales)
+        out = kernel_call(qq, 1)
         torch.cuda.synchronize()
-        r_acc, r_m, r_l = pa.paged_decode_attention_pool_ref(
-            q, kv, 1, tables, lens, kv_scales)
-        empty = lens == 0
-        check(bool(torch.all(torch.isneginf(m[empty]))
-                   and torch.all(l[empty] == 0) and torch.all(acc[empty] == 0)),
-              f"{name}: zero-history rows must be m=-inf, l=0, acc=0")
-        live = ~empty
-        norm = acc[live] / l[live][..., None]
-        r_norm = r_acc[live] / r_l[live][..., None]
-        err = {
-            "normalized": float((norm - r_norm).abs().max()),
-            "m": float((m[live] - r_m[live]).abs().max()),
-            "l_rel": float(((l[live] - r_l[live]).abs() / r_l[live]).max()),
-        }
-        for key, tol in KERNEL_TOL.items():
-            check(err[key] <= tol, f"{name} {key} error {err[key]} > {tol}")
+        ref = plain_call(qq, 1)
+        if norm:
+            check(bool(torch.all(out[empty] == 0)),
+                  f"{name}: zero-length rows must be 0")
+            err = {"normalized": float((out[live].float()
+                                        - ref[live].float()).abs().max())}
+        else:
+            acc, m, l = out
+            r_acc, r_m, r_l = ref
+            check(bool(torch.all(torch.isneginf(m[empty]))
+                       and torch.all(l[empty] == 0)
+                       and torch.all(acc[empty] == 0)),
+                  f"{name}: zero-length rows must be m=-inf, l=0, acc=0")
+            err = {
+                "normalized": float((acc[live] / l[live][..., None]
+                                     - r_acc[live] / r_l[live][..., None])
+                                    .abs().max()),
+                "m": float((m[live] - r_m[live]).abs().max()),
+                "l_rel": float(((l[live] - r_l[live]).abs()
+                                / r_l[live]).max()),
+            }
+        for key, val in err.items():
+            check(val <= KERNEL_TOL[key],
+                  f"{name} {key} error {val} > {KERNEL_TOL[key]}")
 
         # 2. timing: each call reads another layer, so 8 layers of history
         #    cycle through the 50 MB L2 cold, as in a decode step
-        def kernel(i, kv=kv, kv_scales=kv_scales):
-            pa.paged_decode_attention_pool(q, kv, i % n_layers, tables, lens,
-                                           kv_scales=kv_scales)
-
-        def plain(i, kv=kv, kv_scales=kv_scales):
-            pa.paged_decode_attention_pool_ref(q, kv, i % n_layers, tables,
-                                               lens, kv_scales)
-
-        ms = gpu_time_ms(kernel, 200)
-        plain_ms = gpu_time_ms(plain, 20)
+        ms = gpu_time_ms(lambda i: kernel_call(qq, i % n_layers), 200)
+        plain_ms = gpu_time_ms(lambda i: plain_call(qq, i % n_layers), 20)
 
         # one library call for the same attention: SDPA over the gathered,
         # contiguous (dequantized) K/V (the port never calls it)
@@ -325,8 +440,9 @@ def phase_kernels(dev: torch.device) -> list:
                          .reshape(b, ctx, 1, 1).float()).to(torch.bfloat16)
                 kvs.append(x.transpose(1, 2).contiguous())
             gathered.append(kvs)
+        q4d = qq[:, :, None, :]  # [B, rows, 1, hd]
 
-        def library(i):
+        def library(i, q4d=q4d, gathered=gathered):
             k, v = gathered[i % n_layers]
             sdpa(q4d, k, v, attn_mask=mask, enable_gqa=True)
 
@@ -334,17 +450,19 @@ def phase_kernels(dev: torch.device) -> list:
         del gathered
 
         # bound: history K+V rows (and their scales) read once, q / tables /
-        # lens read once, partials written once; flops of q.k and p.v
+        # lengths read once, outputs (bf16, or f32 partials with m and l)
+        # written once; flops of q.k and p.v
+        out_bytes = b * rows * hd * 2 if norm else (b * rows * hd * 4
+                                                    + 2 * b * rows * 4)
         n_bytes = (n_hist * kh * hd * 2 * elt
                    + (n_hist * 2 * 2 if kv_scales is not None else 0)
-                   + b * qh * hd * 2 + n_table * 4 + b * 4 + b * qh * hd * 4
-                   + 2 * b * qh * 4)
-        flops = 4 * qh * hd * n_hist
+                   + b * rows * hd * 2 + n_table * 4 + b * 4 + out_bytes)
+        flops = 4 * rows * hd * n_hist
         entry = kernel_entry(name, err["normalized"], ms, plain_ms, library_ms,
                              n_bytes, flops)
-        emit("kernels", shapes={"B": b, "qh": qh, "kh": kh, "hd": hd,
+        emit("kernels", shapes={"B": b, "q_rows": rows, "kh": kh, "hd": hd,
                                 "ps": ps, "max_pages": max_pages,
-                                "history": hist, "layers": n_layers,
+                                "lengths": hist, "layers": n_layers,
                                 "read_layer": 1},
              errors=err, tolerances=KERNEL_TOL, bytes=n_bytes, flops=flops,
              kernel_ms=ms, achieved_GBps=n_bytes / (ms * 1e-3) / 1e9, **entry)
@@ -473,6 +591,18 @@ async def _stream(worker, body: dict) -> dict:
     return {"tokens": tokens, "finish": finish, "t0": t0, "stamps": stamps}
 
 
+async def _serve_wave(worker, bodies: list, hold: bool = False) -> list:
+    """Stream `bodies` concurrently through `generate`. With `hold` the
+    scheduler thread starts only once every request has been submitted, so
+    the whole wave is admitted in one iteration and two runs of it chunk
+    their prefills identically."""
+    tasks = [asyncio.ensure_future(_stream(worker, b)) for b in bodies]
+    if hold:
+        await asyncio.sleep(0)  # each generate() has submitted its request
+        worker.scheduler.start()
+    return await asyncio.gather(*tasks)
+
+
 def _body(rid: str, token_ids, temperature: float, top_p: float) -> dict:
     from dynamo_tpu_torch.llm.protocols import (
         PreprocessedRequest,
@@ -487,26 +617,21 @@ def _body(rid: str, token_ids, temperature: float, top_p: float) -> dict:
         stop=StopConditions(ignore_eos=True)).to_wire()
 
 
-def phase_engine(dev: torch.device, model: str = MODEL, runner_config=None,
-                 label: str = "engine"):
-    """A main path: TorchWorker.generate at full width. Returns the worker
-    (scheduler still running) and the kernel launches counted in the run,
-    after checking them against the forwards the runner ran."""
-    from dynamo_tpu_torch.engine import TorchWorker
+def _bodies(prompts, prefix: str) -> list:
+    """Half greedy (even i), half temperature 0.8 / top_p 0.9; the seed is
+    i, so two waves of one prefix-free index draw alike."""
+    return [_body(f"{prefix}-{i}", p, 0.0 if i % 2 == 0 else 0.8,
+                  1.0 if i % 2 == 0 else 0.9) for i, p in enumerate(prompts)]
 
-    t0 = time.perf_counter()
-    before_gb = None
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-        before_gb = torch.cuda.memory_allocated() / 1e9
-    worker = TorchWorker(model, runner_config, device=dev, seed=SEED)
-    worker.start()
-    init_s = time.perf_counter() - t0
-    cfg = worker.model_config
-    runner = worker.runner
-    sched = worker.scheduler
+
+def _greedy(rid: str) -> bool:
+    return int(rid.split("-")[-1]) % 2 == 0
+
+
+def standard_traffic(vocab: int):
+    """(warm-up prompt, 8 prompts of 32-1500 tokens; the first two share the
+    warm-up's 512-token prefix)."""
     rng = np.random.default_rng(SEED + 1)
-    vocab = cfg.vocab_size
     prefix = rng.integers(1, vocab, 512)
     lengths = [600, 700, 32, 1500, 200, 96, 900, 1200]
     prompts = []
@@ -517,6 +642,61 @@ def phase_engine(dev: torch.device, model: str = MODEL, runner_config=None,
         else:
             prompts.append(rng.integers(1, vocab, n))
     warm = np.concatenate([prefix, rng.integers(1, vocab, 40)])
+    return warm, prompts
+
+
+def repetitive_traffic(vocab: int, n: int = 4):
+    """n prompts of 240 tokens, each one 6-token pattern repeated."""
+    rng = np.random.default_rng(SEED + 5)
+    return [np.tile(rng.integers(1, vocab, 6), 40) for _ in range(n)]
+
+
+def _count_t1_prefills(runner) -> list:
+    """Count the runner's one-token prefill chunks (a unified runner sends
+    them through its attention_fn's T = 1 kernel) in a list cell."""
+    count = [0]
+    prefill = runner.prefill_chunk
+
+    def counting(tokens, *args, **kwargs):
+        count[0] += len(tokens) == 1
+        return prefill(tokens, *args, **kwargs)
+
+    runner.prefill_chunk = counting
+    return count
+
+
+def _latency(results) -> dict:
+    ttft = [(r["stamps"][0] - r["t0"]) * 1e3 for r in results]
+    itl = [(r["stamps"][-1] - r["stamps"][0]) * 1e3 / (len(r["tokens"]) - 1)
+           for r in results]
+    return {"ttft_ms_mean": float(np.mean(ttft)),
+            "ttft_ms_max": float(np.max(ttft)),
+            "itl_ms_mean": float(np.mean(itl))}
+
+
+def phase_engine(dev: torch.device, model=None, runner_config=None,
+                 label: str = "engine", attention_fn=None):
+    """A main path: TorchWorker.generate at full width. Returns the worker
+    (scheduler still running), the kernel launches counted in the run,
+    after checking them against the forwards the runner ran, and the
+    served token streams by request id."""
+    from dynamo_tpu_torch.engine import TorchWorker
+
+    t0 = time.perf_counter()
+    before_gb = None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+    worker = TorchWorker(model or MODEL, runner_config, device=dev, seed=SEED,
+                         attention_fn=attention_fn)
+    worker.start()
+    init_s = time.perf_counter() - t0
+    cfg = worker.model_config
+    runner = worker.runner
+    sched = worker.scheduler
+    vocab = cfg.vocab_size
+    warm, prompts = standard_traffic(vocab)
+    t1 = _count_t1_prefills(runner)
 
     # counts to zero just before the main path
     reset_counts()
@@ -527,10 +707,7 @@ def phase_engine(dev: torch.device, model: str = MODEL, runner_config=None,
         first = await _stream(worker, _body("warm-0", warm, 0.0, 1.0))
         prefilled0 = sched.stats.prefill_tokens
         start = time.perf_counter()
-        results = await asyncio.gather(*[
-            _stream(worker, _body(f"req-{i}", p, 0.0 if i % 2 == 0 else 0.8,
-                                  1.0 if i % 2 == 0 else 0.9))
-            for i, p in enumerate(prompts)])
+        results = await _serve_wave(worker, _bodies(prompts, "req"))
         wall = time.perf_counter() - start
         return first, results, wall, sched.stats.prefill_tokens - prefilled0
 
@@ -540,6 +717,7 @@ def phase_engine(dev: torch.device, model: str = MODEL, runner_config=None,
     launches = read_counts()
     decode_forwards = runner.decode_steps
     prefill_forwards = runner.prefill_steps
+    del runner.prefill_chunk  # the instance's counting wrapper
 
     for res in [warm_res] + results:
         check(res["finish"] == ["length"], f"finish reasons {res['finish']}")
@@ -548,39 +726,155 @@ def phase_engine(dev: torch.device, model: str = MODEL, runner_config=None,
               "token id outside the vocabulary")
     check(sched.error is None, f"scheduler error {sched.error!r}")
     cached = sum(len(p) for p in prompts) - prefilled
-    check(cached == 2 * len(prefix),
-          f"prefix cache reused {cached} tokens, expected {2 * len(prefix)}")
-    want = expected_counts(runner, decode_forwards, prefill_forwards, dev)
+    check(cached == 2 * 512,
+          f"prefix cache reused {cached} tokens, expected {2 * 512}")
+    want = expected_counts(runner, dev, decode=decode_forwards,
+                           prefill=prefill_forwards, prefill_t1=t1[0])
     check(decode_forwards > 0 and prefill_forwards > 0 and launches == want,
           f"{label}: kernel launches {launches} != expected {want} for "
           f"{decode_forwards} decode and {prefill_forwards} prefill forwards")
-    ttft = [(r["stamps"][0] - r["t0"]) * 1e3 for r in results]
-    itl = [(r["stamps"][-1] - r["stamps"][0]) * 1e3 / (len(r["tokens"]) - 1)
-           for r in results]
     rc = runner.config
     emit(label, model=cfg.name, layers=cfg.n_layers, hidden=cfg.hidden,
          vocab=vocab, weight_dtype=rc.weight_dtype, kv_dtype=rc.kv_dtype,
+         attention_fn=getattr(attention_fn, "__name__", None),
          init_and_warmup_s=init_s, requests=len(results),
          prompt_lengths=[len(p) for p in prompts],
          prefix_cached_tokens=cached, decode_forwards=decode_forwards,
-         prefill_forwards=prefill_forwards, kernel_launches=launches,
+         prefill_forwards=prefill_forwards, one_token_prefills=t1[0],
+         kernel_launches=launches,
          decode_block=sched.decode_block, decode_pipeline=sched.decode_pipeline,
-         ttft_ms_mean=float(np.mean(ttft)), ttft_ms_max=float(np.max(ttft)),
-         itl_ms_mean=float(np.mean(itl)),
+         **_latency(results),
          output_tokens_per_s=sum(len(r["tokens"]) for r in results) / wall,
          wall_s=wall,
          max_memory_allocated_GB=(torch.cuda.max_memory_allocated() / 1e9
                                   if dev.type == "cuda" else None),
          memory_allocated_before_GB=before_gb)
-    return worker, launches
+    served = {f"req-{i}": r["tokens"] for i, r in enumerate(results)}
+    return worker, launches, served
+
+
+def _first_divergence(a: list, b: list) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _spec_run(dev: torch.device, spec: bool) -> dict:
+    """One llama3-8b worker with DYNT_SPEC_ENABLE on or off, DYNT_SPEC_MAX_K
+    = 4: wave 1 is the standard 8 requests plus 4 repetitive prompts,
+    admitted together; wave 2 repeats the first repetitive request (same
+    prompt and seed), which the cross-request lookahead then drafts from
+    wave 1. Both waves are admitted whole (wave 2 is one request), so the
+    run is the same every time: which steps speculate, and so where the
+    verification forward's rounding meets the decode forward's, does not
+    depend on host timing."""
+    from dynamo_tpu_torch.engine import TorchWorker
+
+    saved = {k: os.environ.get(k) for k in ("DYNT_SPEC_ENABLE",
+                                            "DYNT_SPEC_MAX_K")}
+    os.environ["DYNT_SPEC_ENABLE"] = "1" if spec else "0"
+    os.environ["DYNT_SPEC_MAX_K"] = str(SPEC_K)
+    try:
+        worker = TorchWorker(MODEL, device=dev, seed=SEED)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    runner, sched = worker.runner, worker.scheduler
+    check(sched.spec_enabled == spec and sched.spec_k == SPEC_K,
+          f"spec knobs not applied: enabled={sched.spec_enabled}")
+    vocab = worker.model_config.vocab_size
+    _, prompts = standard_traffic(vocab)
+    rep = repetitive_traffic(vocab)
+    wave1 = _bodies(prompts, "req") + _bodies(rep, "rep")
+    wave2 = _bodies(rep[:1], "rep2")
+    runner.warmup()  # the scheduler starts with wave 1 (_serve_wave hold)
+
+    # counts to zero just before the main path
+    reset_counts()
+    runner.decode_steps = runner.spec_steps = runner.prefill_steps = 0
+
+    async def serve():
+        start = time.perf_counter()
+        first = await _serve_wave(worker, wave1, hold=True)
+        second = await _serve_wave(worker, wave2)
+        return first, second, time.perf_counter() - start
+
+    try:
+        first, second, wall = asyncio.run(serve())
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        worker.close()
+    check(sched.error is None, f"scheduler error {sched.error!r}")
+    streams = {}
+    for body, res in zip(wave1 + wave2, first + second):
+        check(res["finish"] == ["length"] and len(res["tokens"]) == 64,
+              f"{body['request_id']}: finish {res['finish']}, "
+              f"{len(res['tokens'])} tokens")
+        streams[body["request_id"]] = res["tokens"]
+    forwards = {"decode": runner.decode_steps, "spec": runner.spec_steps,
+                "prefill": runner.prefill_steps}
+    want = expected_counts(runner, dev, **forwards)
+    check(launches == want,
+          f"engine_spec (spec {'on' if spec else 'off'}): kernel launches "
+          f"{launches} != expected {want} for forwards {forwards}")
+    out = {"streams": streams, "stats": dataclasses.asdict(sched.stats),
+           "launches": launches, "forwards": forwards, "wall_s": wall,
+           **_latency(first)}
+    del worker, runner, sched
+    free_memory()
+    return out
+
+
+def phase_engine_spec(dev: torch.device) -> dict:
+    """Speculative decoding on llama3-8b at full width and depth, on and
+    off. Checks: the spec run verified proposals; every greedy request's
+    first 16 tokens are identical on and off (later tokens may part at a
+    near-tie: the T = 5 verification forward and the T = 1 decode forward
+    round differently); the folded pool kernel launched once per layer of
+    every spec forward, the unfolded one once per layer of every decode
+    forward. Returns the spec run's launches."""
+    on = _spec_run(dev, True)
+    off = _spec_run(dev, False)
+    stats = on["stats"]
+    check(stats["spec_steps"] > 0 and stats["spec_proposed"] > 0,
+          f"engine_spec: no speculation happened: {stats}")
+    check(off["stats"]["spec_steps"] == 0 and off["forwards"]["spec"] == 0,
+          "engine_spec: the spec-off run speculated")
+    divergence = {rid: _first_divergence(toks, off["streams"][rid])
+                  for rid, toks in on["streams"].items() if _greedy(rid)}
+    for rid, at in divergence.items():
+        check(at >= SPEC_PARITY_TOKENS,
+              f"engine_spec: greedy {rid} differs with speculation on at "
+              f"token {at} (< {SPEC_PARITY_TOKENS})")
+    emit("engine_spec", model=MODEL, spec_max_k=SPEC_K,
+         requests_wave1=12, requests_wave2=1, spec_stats=stats,
+         acceptance_rate=(stats["spec_accepted"] / stats["spec_proposed"]),
+         forwards_on=on["forwards"], forwards_off=off["forwards"],
+         kernel_launches_on=on["launches"],
+         kernel_launches_off=off["launches"],
+         greedy_first_divergence=divergence,
+         greedy_tokens_checked=SPEC_PARITY_TOKENS,
+         itl_ms_mean_on=on["itl_ms_mean"], itl_ms_mean_off=off["itl_ms_mean"],
+         ttft_ms_mean_on=on["ttft_ms_mean"],
+         ttft_ms_mean_off=off["ttft_ms_mean"],
+         wall_s_on=on["wall_s"], wall_s_off=off["wall_s"])
+    return on["launches"]
 
 
 def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
-                  label: str, **extra) -> None:
-    """One greedy prompt through `runner` twice: decode attention and
-    quantized matmul by the kernels, then by the plain versions passed in
-    explicitly. History positions are never rewritten, so the two runs see
-    the same pool."""
+                  label: str, kernel_fns=None, plain_fns=None,
+                  spec_drafts=None, **extra) -> None:
+    """One greedy prompt through `runner` twice: with the runner attributes
+    in `kernel_fns` (default: the decode kernel and the quantized matmul
+    kernels), then with those in `plain_fns` (default: their plain
+    versions). With `spec_drafts`, each run first scores one verification
+    chunk [first token] + drafts at the prompt's end (`decode_spec`). The
+    attributes are restored afterwards. History positions are never
+    rewritten, and each run rewrites its own chunk and decode positions
+    before reading them, so the two runs see the same pool."""
     from dynamo_tpu_torch.engine.model_runner import bucket_table_width
     from dynamo_tpu_torch.models.transformer import (
         paged_attention_decode_xla,
@@ -589,62 +883,242 @@ def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
     )
     from dynamo_tpu_torch.ops import paged_attention_decode_pool
 
+    kernel_fns = kernel_fns or {"decode_attention_fn": paged_attention_decode_pool,
+                                "matmul_fn": quant_matmul}
+    plain_fns = plain_fns or {"decode_attention_fn": paged_attention_decode_xla,
+                              "matmul_fn": quant_matmul_ref}
+    saved = {k: getattr(runner, k) for k in {**kernel_fns, **plain_fns}}
     n = len(prompt)
     first = runner.prefill_chunk(prompt, 0, table, n, (0.0, 1.0, 0, 0))
-    width = bucket_table_width(-(-(n + steps) // runner.config.page_size),
-                               runner.config.max_pages_per_seq)
+    chunk = len(spec_drafts) + 1 if spec_drafts is not None else 0
+    width = bucket_table_width(
+        -(-(n + max(steps, chunk)) // runner.config.page_size),
+        runner.config.max_pages_per_seq)
     one = np.ones(1, np.float32)
+    greedy = (np.zeros(1, np.float32), one, np.zeros(1, np.int32),
+              np.zeros(1, np.uint32))
 
-    def run(attn_fn, mm_fn):
-        runner.decode_attention_fn, runner.matmul_fn = attn_fn, mm_fn
+    def run(fns):
+        for k, v in fns.items():
+            setattr(runner, k, v)
+        spec_logits = None
+        if spec_drafts is not None:
+            runner.decode_spec(
+                np.asarray([first], np.int32),
+                np.asarray([spec_drafts], np.int32),
+                np.asarray([n], np.int32), table[None, :width],
+                np.asarray([n + 1], np.int32), np.ones(1, bool), *greedy,
+                np.zeros(1, np.int32), want_logits=True)
+            spec_logits = runner.last_spec_logits[0]
         tok, out, logits = first, [], None
         for s in range(steps):
             nxt = runner.decode(
                 np.asarray([tok], np.int32), np.asarray([n + s], np.int32),
                 table[None, :width], np.asarray([n + s + 1], np.int32),
-                np.ones(1, bool), np.zeros(1, np.float32), one,
-                np.zeros(1, np.int32), np.zeros(1, np.uint32),
-                np.asarray([s], np.int32), want_logits=s == 0)
+                np.ones(1, bool), *greedy, np.asarray([s], np.int32),
+                want_logits=s == 0)
             if s == 0:
                 logits = runner.last_decode_logits[0]
             tok = int(nxt[0])
             out.append(tok)
-        return logits, out
+        return logits, out, spec_logits
 
-    k_logits, k_tokens = run(paged_attention_decode_pool, quant_matmul)
-    p_logits, p_tokens = run(paged_attention_decode_xla, quant_matmul_ref)
-    runner.decode_attention_fn = paged_attention_decode_pool
-    runner.matmul_fn = quant_matmul
+    try:
+        k_logits, k_tokens, k_spec = run(kernel_fns)
+        p_logits, p_tokens, p_spec = run(plain_fns)
+    finally:
+        for k, v in saved.items():
+            setattr(runner, k, v)
     diff = float(np.abs(k_logits - p_logits).max())
     scale = float(np.abs(p_logits).max())
-    agree = next((i for i, (a, b) in enumerate(zip(k_tokens, p_tokens))
-                  if a != b), steps)
+    agree = _first_divergence(k_tokens, p_tokens)
     top2 = np.sort(p_logits)[-2:]
     check(np.all(np.isfinite(k_logits)), f"{label}: non-finite kernel logits")
     check(diff <= PARITY_LOGITS_REL_TOL * scale,
           f"{label}: logits max|d| {diff} > {PARITY_LOGITS_REL_TOL} x {scale}")
     check(agree >= 1 or float(top2[1] - top2[0]) <= 2 * diff,
           f"{label}: first greedy token differs beyond a near-tie")
+    if spec_drafts is not None:
+        spec_diff = float(np.abs(k_spec - p_spec).max())
+        spec_scale = float(np.abs(p_spec).max())
+        check(np.all(np.isfinite(k_spec)), f"{label}: non-finite spec logits")
+        check(spec_diff <= PARITY_LOGITS_REL_TOL * spec_scale,
+              f"{label}: spec logits max|d| {spec_diff} > "
+              f"{PARITY_LOGITS_REL_TOL} x {spec_scale}")
+        extra.update(spec_logits_max_abs_diff=spec_diff,
+                     spec_logits_max_abs=spec_scale,
+                     spec_positions=chunk)
     emit(label, prompt_len=n, logits_max_abs_diff=diff, logits_max_abs=scale,
          tolerance_rel=PARITY_LOGITS_REL_TOL,
          greedy_tokens_agree_leading=agree, greedy_steps=steps, **extra)
 
 
-def phase_parity(worker, label: str = "parity") -> None:
-    """greedy_parity on a serving runner, its pages taken from the pool."""
-    worker.close()  # the scheduler thread must not step this runner now
+def _pool_table(worker, n: int, steps: int) -> np.ndarray:
+    """A block table for an n-token prompt plus `steps` tokens, its pages
+    taken from the worker's pool (its scheduler must be stopped)."""
     runner = worker.runner
-    n, steps = 300, 16
-    prompt = np.random.default_rng(SEED + 2).integers(
-        1, worker.model_config.vocab_size, n)
     pages = -(-(n + steps) // runner.config.page_size)
     alloc = worker.scheduler.pool.allocate([], pages)
     check(alloc is not None, "no free pages for the parity prompt")
     table = np.zeros(runner.config.max_pages_per_seq, np.int32)
     table[:pages] = alloc.pages
-    greedy_parity(runner, table, prompt, steps, label,
-                  weight_dtype=runner.config.weight_dtype,
-                  kv_dtype=runner.config.kv_dtype)
+    return table
+
+
+def phase_parity(worker, label: str = "parity", **fns) -> None:
+    """greedy_parity on a serving runner, its pages taken from the pool."""
+    worker.close()  # the scheduler thread must not step this runner now
+    n, steps = 300, 16
+    prompt = np.random.default_rng(SEED + 2).integers(
+        1, worker.model_config.vocab_size, n)
+    greedy_parity(worker.runner, _pool_table(worker, n, steps), prompt, steps,
+                  label, weight_dtype=worker.runner.config.weight_dtype,
+                  kv_dtype=worker.runner.config.kv_dtype, **fns)
+
+
+def phase_unified(dev: torch.device, default_streams: dict) -> dict:
+    """The unified path: TorchWorker(attention_fn=paged_attention) serving
+    llama3-8b at full width and depth; each decode forward writes every
+    layer's K/V, then row 3 attends over the pool. Then the drop-ins on the
+    same runner. Returns the launches of both paths."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    worker, launches, served = phase_engine(
+        dev, label="unified", attention_fn=pa.paged_attention)
+    divergence = {rid: _first_divergence(toks, default_streams[rid])
+                  for rid, toks in served.items() if _greedy(rid)}
+    emit("unified_streams", greedy_first_divergence_from_default=divergence,
+         note="host-clock admission differs between the two runs, so "
+              "prefill chunking (and bf16 rounding) may differ")
+    try:
+        # greedy parity against the default path on the same runner
+        phase_parity(worker, "parity_unified",
+                     kernel_fns={"attention_fn": pa.paged_attention},
+                     plain_fns={"attention_fn": None})
+        dropins = phase_dropins(dev, worker)
+    finally:
+        worker.close()
+    del worker
+    free_memory()
+    return {"paged_decode_attention": launches["paged_decode_attention"],
+            "paged_decode_attention_partial": dropins}
+
+
+def phase_dropins(dev: torch.device, worker) -> int:
+    """The reference's one-layer drop-ins on a llama3-8b runner:
+    decode_attention_fn = paged_attention_decode_fused and spec_attention_fn
+    = paged_attention_spec (row 4, at g and at the folded g'), held against
+    the whole-pool path (rows 1 and 1-folded) on one prompt: a verification
+    chunk of 5 positions, then 16 greedy decode steps. Returns row 4's
+    launches in the drop-in run."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    runner = worker.runner
+    n, steps = 300, 16
+    prompt = np.random.default_rng(SEED + 6).integers(
+        1, worker.model_config.vocab_size, n)
+    table = _pool_table(worker, n, steps)
+    drafts = [int(t) for t in prompt[:SPEC_K]]
+    runner.attention_fn = None
+    reset_counts()
+    greedy_parity(
+        runner, table, prompt, steps, "dropins",
+        kernel_fns={"decode_attention_fn": pa.paged_attention_decode_fused,
+                    "spec_attention_fn": pa.paged_attention_spec},
+        plain_fns={"decode_attention_fn": pa.paged_attention_decode_pool,
+                   "spec_attention_fn": pa.paged_attention_spec_pool},
+        spec_drafts=drafts)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n_layers = runner.model_config.n_layers
+    want = {name: 0 for name in counters()}
+    if dev.type == "cuda":
+        # drop-in run: row 4 per layer of 1 spec + `steps` decode forwards;
+        # whole-pool run (the comparison): rows 1 and 1-folded likewise
+        want["paged_decode_attention_partial"] = n_layers * (1 + steps)
+        want["paged_decode_attention_pool"] = n_layers * steps
+        want["paged_decode_attention_pool_folded"] = n_layers
+    check(launches == want,
+          f"dropins: kernel launches {launches} != expected {want}")
+    emit("dropins_launches", kernel_launches=launches)
+    return launches["paged_decode_attention_partial"]
+
+
+def phase_spec_q(dev: torch.device) -> dict:
+    """The spec step on the quantized path: mistral-7b widths at 4 layers,
+    W4A16 + int8 KV, 8 sequences prefilled then one verification step of 5
+    positions each, so every projection runs the q4 v2 kernel at M = 40
+    and attention the int8 pool kernel folded (g' = 20); held against the
+    plain versions. Returns the launches of the kernel run."""
+    from dynamo_tpu_torch.engine import ModelRunner, RunnerConfig
+    from dynamo_tpu_torch.models import get_config
+    from dynamo_tpu_torch.models.transformer import (
+        paged_attention_spec_xla,
+        quant_matmul,
+        quant_matmul_ref,
+    )
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    cfg = dataclasses.replace(get_config(QMODEL), n_layers=4)
+    runner = ModelRunner(cfg, RunnerConfig(
+        num_pages=256, max_batch=8, weight_dtype="int4", kv_dtype="int8"),
+        device=dev, seed=SEED)
+    runner.check_spec_chunk(SPEC_T)
+    rng = np.random.default_rng(SEED + 7)
+    lengths = [40, 100, 200, 17, 300, 64, 150, 90]
+    b, ps = len(lengths), runner.config.page_size
+    width = 32
+    tables = np.zeros((b, width), np.int32)
+    next_page = 1
+    for i, n in enumerate(lengths):
+        pages = -(-(n + SPEC_T) // ps)
+        tables[i, :pages] = np.arange(next_page, next_page + pages)
+        next_page += pages
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in lengths]
+    drafts = rng.integers(1, cfg.vocab_size, (b, SPEC_K)).astype(np.int32)
+    lens = np.asarray(lengths, np.int32)
+    zeros_f, ones_f = np.zeros(b, np.float32), np.ones(b, np.float32)
+
+    def spec_step():
+        targets, n_acc = runner.decode_spec(
+            np.asarray(firsts, np.int32), drafts, lens, tables, lens + 1,
+            np.ones(b, bool), zeros_f, ones_f, np.zeros(b, np.int32),
+            np.zeros(b, np.uint32), np.zeros(b, np.int32), want_logits=True)
+        return targets, runner.last_spec_logits
+
+    # the kernel run: 8 prefill forwards and one spec forward at M = 40
+    reset_counts()
+    firsts = [runner.prefill_chunk(p, 0, tables[i], len(p), (0.0, 1.0, 0, 0))
+              for i, p in enumerate(prompts)]
+    k_targets, k_logits = spec_step()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = expected_counts(runner, dev, prefill=b, spec=1)
+    check(launches == want,
+          f"spec_q: kernel launches {launches} != expected {want}")
+    # the plain run over the same history
+    runner.spec_attention_fn = paged_attention_spec_xla
+    runner.matmul_fn = quant_matmul_ref
+    try:
+        p_targets, p_logits = spec_step()
+    finally:
+        runner.spec_attention_fn = pa.paged_attention_spec_pool
+        runner.matmul_fn = quant_matmul
+    diff = float(np.abs(k_logits - p_logits).max())
+    scale = float(np.abs(p_logits).max())
+    check(np.all(np.isfinite(k_logits)) and k_logits.shape == (
+        b, SPEC_T, cfg.vocab_size), "spec_q: bad kernel logits")
+    check(diff <= PARITY_LOGITS_REL_TOL * scale,
+          f"spec_q: logits max|d| {diff} > {PARITY_LOGITS_REL_TOL} x {scale}")
+    emit("spec_q", model=QMODEL, layers=cfg.n_layers, weight_dtype="int4",
+         kv_dtype="int8", batch=b, positions=SPEC_T, gemm_m=b * SPEC_T,
+         logits_max_abs_diff=diff, logits_max_abs=scale,
+         tolerance_rel=PARITY_LOGITS_REL_TOL,
+         targets_equal=int((k_targets == p_targets).sum()),
+         targets=int(k_targets.size), kernel_launches=launches)
+    del runner
+    free_memory()
+    return launches
 
 
 def phase_secondary(dev: torch.device, weight_dtype: str,
@@ -685,7 +1159,7 @@ def phase_secondary(dev: torch.device, weight_dtype: str,
     launches = read_counts()
     # the kernel run: 1 prefill + `steps` decode forwards; the plain run
     # launches nothing
-    want = expected_counts(runner, steps, 1, dev)
+    want = expected_counts(runner, dev, decode=steps, prefill=1)
     check(launches == want,
           f"{label}: kernel launches {launches} != expected {want}")
     emit(label + "_launches", kernel_launches=launches)
@@ -705,6 +1179,7 @@ def main() -> None:
     from dynamo_tpu_torch.device import resolve_device
     from dynamo_tpu_torch.engine import RunnerConfig
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     smi = nvidia_smi()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
@@ -715,7 +1190,7 @@ def main() -> None:
     launches = {}
 
     # the bf16 path (llama3-8b)
-    worker, counts = phase_engine(dev)
+    worker, counts, default_streams = phase_engine(dev)
     launches["paged_decode_attention_pool"] = counts[
         "paged_decode_attention_pool"]
     try:
@@ -725,8 +1200,15 @@ def main() -> None:
     del worker
     free_memory()
 
+    # the unified T = 1 path (row 3) and the one-layer drop-ins (row 4)
+    launches.update(phase_unified(dev, default_streams))
+
+    # speculative decoding (rows 1 folded)
+    launches["paged_decode_attention_pool_folded"] = phase_engine_spec(dev)[
+        "paged_decode_attention_pool_folded"]
+
     # the quantized path (mistral-7b, W4A16 + int8 KV)
-    worker, counts = phase_engine(
+    worker, counts, _ = phase_engine(
         dev, QMODEL, RunnerConfig(weight_dtype="int4", kv_dtype="int8"),
         label="engine_q")
     n_layers = worker.model_config.n_layers
@@ -742,15 +1224,21 @@ def main() -> None:
     del worker
     free_memory()
 
+    # the spec step on the quantized path (row 2 folded, row 6 at M = 40)
+    launches["paged_decode_attention_pool_int8_folded"] = phase_spec_q(dev)[
+        "paged_decode_attention_pool_int8_folded"]
+
     # the secondary quantized paths
     launches["q8_matmul"] = phase_secondary(dev, "int8")["q8_matmul"]
     launches["q4_matmul_v1"] = phase_secondary(dev, "int4", "v1")[
         "q4_matmul_v1"]
 
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on its path")
+    for name in KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"{name} was not launched on its path")
     kernels = [{**entries[name], "launches": launches[name]}
                for name in KERNELS]
+    emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 A subset of `dynamo_tpu/runtime/config.py`: the same names, defaults and
 parsing, read straight from `os.environ` (no YAML overlay, no new knobs).
-Each knob carries its own parser, so the registry holds ints and strings.
+Each knob carries its own parser, so the registry holds bools, ints, floats
+and strings.
 
 `DYNT_Q8_MATMUL` and `DYNT_Q4_MATMUL` are not carried over: in the
 reference they choose XLA over the Pallas kernel, and on the card the port
@@ -14,6 +15,14 @@ from __future__ import annotations
 
 import os
 from typing import Any, Callable
+
+_TRUTHY = {"1", "true", "yes", "on"}
+
+
+def is_truthy(val: str) -> bool:
+    """Lenient bool parsing, as the reference's `is_truthy`."""
+    return val.strip().lower() in _TRUTHY
+
 
 _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
     "DYNT_DECODE_PIPELINE": (
@@ -38,6 +47,30 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
         "divides 2*group, else v1) | v1 (half-block per group, uint8) | v2 "
         "(global half-split with signed codes, int8). The matmul dispatches "
         "on the packed dtype; already-quantized trees repack at load"),
+    "DYNT_SPEC_ENABLE": (
+        False, is_truthy,
+        "Draftless speculative decoding (prompt-lookup n-gram proposals "
+        "+ batched verification): up to DYNT_SPEC_MAX_K proposed tokens "
+        "per slot are scored in ONE forward pass and the sampler-exact "
+        "prefix commits. Output streams are the ones non-speculative "
+        "decode samples; off keeps the decode path untouched"),
+    "DYNT_SPEC_MAX_K": (
+        4, int,
+        "Max draft tokens proposed per slot per speculative step (the "
+        "verification chunk is k+1 positions, folded into the GQA group "
+        "of the decode kernel, which refuses a fold wider than it takes)"),
+    "DYNT_SPEC_MIN_EMA": (
+        0.1, float,
+        "Per-slot acceptance-rate EMA floor: a slot whose EMA falls "
+        "below this stops proposing (it still probes occasionally; "
+        "acceptance is a property of the text, which changes). 0 never "
+        "disables a slot"),
+    "DYNT_SPEC_BATCH_CUTOFF": (
+        0, int,
+        "Auto-disable speculation when more than this many slots are "
+        "decode-ready: speculation trades FLOPs for latency, and at high "
+        "batch the verification FLOPs stop being free. 0 disables the "
+        "cutoff (speculate at any batch)"),
 }
 
 

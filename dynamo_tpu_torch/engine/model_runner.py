@@ -10,9 +10,20 @@ host entry points the scheduler drives:
   * decode_multi(...)  — K chained decode steps with no host sync: each
                          step's sampled tokens feed the next step on the
                          device (the JAX package's `lax.scan` block)
+  * decode_spec(...)   — one speculative verification step: the last
+                         committed token plus k drafts scored in one
+                         forward, the targets drawn with sequential
+                         decode's (seed, step) keys (`sampler.spec_verify`)
 
-Decode attention goes through `ops.paged_attention_decode_pool`: on the card
-that is the CUDA flash-decode kernel, always; on the CPU its plain version.
+Decode attention goes through `ops.paged_attention_decode_pool` and the
+spec step's through `ops.paged_attention_spec_pool` (the same whole-pool
+kernel with the chunk folded into the GQA group): on the card the CUDA
+flash-decode kernel, always; on the CPU its plain version. Both are
+swappable (`decode_attention_fn`, `spec_attention_fn`). A caller that
+passes `attention_fn` gets the reference's unified path instead: decode
+runs the write-then-attend `forward` with it (the T = 1 kernel for
+`ops.paged_attention.paged_attention`), it serves prefill too, and
+speculation is off (`supports_spec`).
 With `weight_dtype` "int8" or "int4" the projections are quantized at init
 (leaf by leaf, on the runner's device) and every projection of every
 forward goes through `models.transformer.quant_matmul`, the W8A16 / W4A16
@@ -48,13 +59,19 @@ from ..models.quantize import (
 )
 from ..models.transformer import (
     KV_SCALE_LANES,
+    AttentionFn,
     forward,
     forward_decode,
+    forward_spec,
     paged_attention_xla,
     quant_matmul,
 )
-from ..ops.paged_attention import paged_attention_decode_pool
-from .sampler import sample, sample_with_logprobs
+from ..ops.paged_attention import (
+    MAX_GROUP_DIM,
+    paged_attention_decode_pool,
+    paged_attention_spec_pool,
+)
+from .sampler import sample, sample_with_logprobs, spec_verify
 
 DEFAULT_PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
@@ -100,7 +117,12 @@ class ModelRunner:
         device: DeviceLike = "cuda",
         params: Optional[Transformer] = None,
         seed: int = 0,
+        attention_fn: Optional[AttentionFn] = None,
     ) -> None:
+        """`attention_fn` (q, kv, layer, tables, positions, lens), as in the
+        reference: supplied, decode runs the unified `forward` with it
+        instead of the deferred-write fast path, prefill uses it too, and
+        speculation is unsupported."""
         self.device = resolve_device(device)
         self.model_config = model_config
         self.config = runner_config
@@ -148,26 +170,54 @@ class ModelRunner:
             self.kv_cache = make_kv_cache(
                 model_config, runner_config.num_pages,
                 runner_config.page_size, device=self.device)
-        # The decode attention and the quantized matmul: the CUDA kernels on
-        # the card, their plain versions on the CPU. A caller may swap in
-        # other functions with the same signatures (chip_smoke.py's parity
-        # phase passes the plain versions).
+        # The caller's unified attention (None: the deferred-write decode).
+        self.attention_fn = attention_fn
+        # The decode and spec attentions and the quantized matmul: the CUDA
+        # kernels on the card, their plain versions on the CPU. A caller may
+        # swap in other functions with the same signatures (chip_smoke.py's
+        # parity phases pass the plain versions and the drop-ins).
         self.decode_attention_fn = paged_attention_decode_pool
+        self.spec_attention_fn = paged_attention_spec_pool
         self.matmul_fn = quant_matmul
-        # Decode and prefill forwards run: each decode forward launches the
-        # decode kernel once per layer on the card, and every forward of a
-        # quantized model launches its matmul kernel once per projection.
+        # Decode, spec and prefill forwards run: on the card each decode or
+        # spec forward launches its attention kernel once per layer, and
+        # every forward of a quantized model launches its matmul kernel
+        # once per projection.
         self.decode_steps = 0
+        self.spec_steps = 0
         self.prefill_steps = 0
         self.last_prefill_sample = None
         self.last_decode_sample = (None, None, None)
         self.last_decode_logits = None
+        self.last_spec_logits = None
 
     # -- helpers -----------------------------------------------------------
 
     @property
     def max_prefill_chunk(self) -> int:
         return self.config.prefill_buckets[-1]
+
+    @property
+    def supports_spec(self) -> bool:
+        """Whether this runner runs speculative verification. A caller's
+        `attention_fn` turns it off, as in the reference: sequential decode
+        then runs the injected attention, and targets drawn from another
+        attention would diverge from the non-speculative stream."""
+        return self.attention_fn is None
+
+    def check_spec_chunk(self, t: int) -> None:
+        """Raise unless a verification chunk of `t` positions, folded into
+        the GQA group, fits the decode kernel (g' = t * g query rows per kv
+        head). Checked on every device, so a configuration fails the same
+        way on the CPU as on the card."""
+        cfg = self.model_config
+        row_dim = (cfg.n_q_heads // cfg.n_kv_heads) * cfg.head_dim
+        if t * row_dim > MAX_GROUP_DIM:
+            raise ValueError(
+                f"a speculative chunk of {t} positions folds to a group of "
+                f"{t * row_dim} > {MAX_GROUP_DIM} (g x head_dim), wider "
+                "than the decode kernel takes; DYNT_SPEC_MAX_K must be at "
+                f"most {MAX_GROUP_DIM // row_dim - 1} for {cfg.name}")
 
     def _t(self, x, dtype: torch.dtype) -> torch.Tensor:
         """Host array (or device tensor) -> tensor on the runner's device."""
@@ -208,7 +258,7 @@ class ModelRunner:
         logits = forward(self.model, tok, pos, self.kv_cache, table,
                          self._t(np.asarray([kv_len_after], np.int32),
                                  torch.int32),
-                         attention_fn=paged_attention_xla,
+                         attention_fn=self.attention_fn or paged_attention_xla,
                          matmul_fn=self.matmul_fn)
         temp, top_p, top_k, seed = sampling
         token, lp, top_ids, top_lps = sample_with_logprobs(
@@ -220,6 +270,20 @@ class ModelRunner:
         self.last_prefill_sample = (float(lp.cpu()[0]), top_ids.cpu().numpy()[0],
                                     top_lps.cpu().numpy()[0])
         return int(token.cpu()[0])
+
+    def _decode_forward(self, toks, pos, tables, lens, act) -> torch.Tensor:
+        """One decode forward, logits [B, 1, V]: the deferred-write fast
+        path, or the unified write-then-attend `forward` when the caller
+        supplied `attention_fn` (inactive slots write to scratch page 0)."""
+        if self.attention_fn is not None:
+            return forward(self.model, toks[:, None], pos[:, None],
+                           self.kv_cache, tables, lens, valid=act[:, None],
+                           attention_fn=self.attention_fn,
+                           matmul_fn=self.matmul_fn)
+        return forward_decode(self.model, toks, pos, self.kv_cache, tables,
+                              lens, act,
+                              decode_attention_fn=self.decode_attention_fn,
+                              matmul_fn=self.matmul_fn)
 
     def _decode_inputs(self, positions, block_tables, kv_lens, active):
         return (self._t(np.asarray(positions, np.int64), torch.int64),
@@ -251,11 +315,9 @@ class ModelRunner:
             steps = np.zeros(len(tokens), np.int32)
         pos, tables, lens, act = self._decode_inputs(positions, block_tables,
                                                      kv_lens, active)
-        logits = forward_decode(
-            self.model, self._t(np.asarray(tokens, np.int64), torch.int64),
-            pos, self.kv_cache, tables, lens, act,
-            decode_attention_fn=self.decode_attention_fn,
-            matmul_fn=self.matmul_fn)[:, 0, :]
+        logits = self._decode_forward(
+            self._t(np.asarray(tokens, np.int64), torch.int64), pos, tables,
+            lens, act)[:, 0, :]
         samp = self._sampling(temperature, top_p, top_k, seeds)
         step_t = self._t(np.asarray(steps, np.int64), torch.int64)
         if want_logprobs:
@@ -303,10 +365,7 @@ class ModelRunner:
         grow = act.to(lens.dtype)  # inactive slots keep zero history
         out = []
         for _ in range(k):
-            logits = forward_decode(
-                self.model, toks, pos, self.kv_cache, tables, lens, act,
-                decode_attention_fn=self.decode_attention_fn,
-                matmul_fn=self.matmul_fn)
+            logits = self._decode_forward(toks, pos, tables, lens, act)
             nxt = sample(logits[:, 0, :], *samp, sidx)
             out.append(nxt)
             toks = nxt.long()
@@ -316,6 +375,53 @@ class ModelRunner:
         if return_device:
             return toks_k
         return toks_k.cpu().numpy()
+
+    @torch.inference_mode()
+    def decode_spec(
+        self,
+        tokens: np.ndarray,  # [B] last committed token per slot
+        drafts: np.ndarray,  # [B, K] proposed continuations (0-padded)
+        positions: np.ndarray,  # [B] position of the committed token
+        block_tables: np.ndarray,
+        kv_lens: np.ndarray,  # [B] committed length INCLUDING the token
+        active: np.ndarray,
+        temperature: np.ndarray,
+        top_p: np.ndarray,
+        top_k: np.ndarray,
+        seeds: np.ndarray,
+        steps: Optional[np.ndarray] = None,
+        want_logits: bool = False,
+        return_device: bool = False,
+    ):
+        """One speculative verification step. Returns (targets [B, K+1],
+        n_accept [B]); callers commit targets[b, : n_accept[b] + 1], the
+        tokens K+1 sequential decode steps would sample for the accepted
+        prefix. `want_logits` fills `last_spec_logits` with the raw
+        [B, K+1, V] rows; `return_device=True` skips the readback (the
+        scheduler drains after overlapping prefill and admission)."""
+        b, k = np.shape(drafts)
+        t = k + 1
+        self.spec_steps += 1
+        if steps is None:
+            steps = np.zeros(b, np.int32)
+        pos, tables, lens, act = self._decode_inputs(positions, block_tables,
+                                                     kv_lens, active)
+        chunk = self._t(np.concatenate(
+            [np.asarray(tokens, np.int64)[:, None],
+             np.asarray(drafts, np.int64)], axis=1), torch.int64)
+        pos2 = pos[:, None] + torch.arange(t, device=self.device)[None, :]
+        logits = forward_spec(self.model, chunk, pos2, self.kv_cache, tables,
+                              lens, act,
+                              spec_attention_fn=self.spec_attention_fn,
+                              matmul_fn=self.matmul_fn)
+        targets, n_accept = spec_verify(
+            logits, chunk[:, 1:], *self._sampling(temperature, top_p, top_k,
+                                                  seeds),
+            self._t(np.asarray(steps, np.int64), torch.int64))
+        self.last_spec_logits = logits.cpu().numpy() if want_logits else None
+        if return_device:
+            return targets, n_accept
+        return targets.cpu().numpy(), n_accept.cpu().numpy()
 
     def warmup(self) -> None:
         """One decode step and one tiny prefill (on the card this builds the

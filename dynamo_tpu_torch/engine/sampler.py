@@ -1,9 +1,9 @@
 """Batched sampling on the device.
 
-Port of `dynamo_tpu/engine/sampler.py` (`sample`, `sample_with_logprobs`).
-Only the sampled ids [B] need to cross to the host. Every slot carries
-temperature / top-k / top-p; greedy is temperature == 0 and is bit-exact
-`argmax`. The truncation masks are the JAX package's, expression for
+Port of `dynamo_tpu/engine/sampler.py` (`sample`, `sample_with_logprobs`,
+`spec_verify`). Only the sampled ids [B] need to cross to the host. Every
+slot carries temperature / top-k / top-p; greedy is temperature == 0 and is
+bit-exact `argmax`. The truncation masks are the JAX package's, expression for
 expression.
 
 Randomness: the contract is (seed, step) -> token, independent of whatever
@@ -119,3 +119,37 @@ def sample_with_logprobs(
     k = min(TOP_LOGPROBS_K, logits.shape[-1])
     top_lps, top_ids = torch.topk(logp, k, dim=-1)
     return tokens, token_lp, top_ids.to(torch.int32), top_lps
+
+
+def spec_verify(
+    logits: torch.Tensor,  # [B, T, V] f32: rows for T chunk positions
+    drafts: torch.Tensor,  # [B, T-1] int: proposed continuation tokens
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    top_k: torch.Tensor,
+    seeds: torch.Tensor,
+    step,  # [B] int tensor or int: generated-token index of row 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Verify draftless speculative proposals against the target
+    distribution (Leviathan et al., 2023, for a point-mass draft).
+
+    Position i draws the token the non-speculative sampler would emit there:
+    `sample()` with the same (seed, step + i) key, so the draw is the one
+    sequential decode makes. A draft is accepted iff it equals that target;
+    the first mismatch emits the target itself (for a point-mass draft that
+    is exactly the residual distribution), and a fully accepted draft emits
+    the bonus target of row T-1. The committed tokens are therefore the
+    stream the per-token path samples for a fixed seed, greedy and
+    temperature alike.
+
+    Returns (targets [B, T] int32, n_accept [B]); callers commit
+    targets[:, : n_accept + 1]."""
+    b, t, _ = logits.shape
+    steps = torch.as_tensor(step, device=logits.device).long().expand(b)
+    targets = torch.stack(
+        [sample(logits[:, i, :], temperature, top_p, top_k, seeds, steps + i)
+         for i in range(t)], dim=1)  # [B, T]
+    match = (targets[:, :-1] == drafts).to(torch.int32)
+    # leading-match count: cumprod zeroes everything after the first mismatch
+    n_accept = torch.cumprod(match, dim=1).sum(dim=1)
+    return targets, n_accept

@@ -2,27 +2,33 @@
 
 Port of `dynamo_tpu/engine/scheduler.py`, trimmed to the engine core: slot
 based continuous batching, chunked prefill, the prefix cache through
-`PagePool`, fused decode blocks with pipelined dispatch/drain, per-token
-streaming, cancellation, and the stop conditions (max_tokens, eos,
-stop_token_ids, ignore_eos). It runs in its own thread; results cross into
-asyncio through the `emit` callbacks.
+`PagePool`, fused decode blocks with pipelined dispatch/drain, speculative
+decoding (DYNT_SPEC_*: n-gram drafts verified in one batched forward,
+`_maybe_dispatch_spec`), per-token streaming, cancellation, and the stop
+conditions (max_tokens, eos, stop_token_ids, ignore_eos). It runs in its
+own thread; results cross into asyncio through the `emit` callbacks.
 
 Scheduling per iteration, as in the JAX package:
   1. admit waiting requests into free slots while pages allocate
-  2. DISPATCH a fused decode block (decode_multi, optionally depth-pipelined
-     on device-resident tokens) for all decode-ready slots, no readback yet
+  2. DISPATCH a speculative verification step (decode_spec) when drafts are
+     worth it, else a fused decode block (decode_multi, optionally
+     depth-pipelined on device-resident tokens) for all decode-ready slots,
+     no readback yet
   3. advance at most one prefill-chunk budget of prompt tokens
   4. admit again (arrivals that landed during dispatch)
   5. drain the decode block: the loop's one blocking device-to-host copy
 
-Each sequence's page allocation carries block * depth tokens of slack, so a
-sequence that stops inside a block writes its surplus KV into its own pages;
+Each sequence's page allocation carries block * depth tokens of slack (at
+least spec_k + 1 with speculation on), so a sequence that stops inside a
+block, or past rejected drafts, writes its surplus KV into its own pages;
 the surplus tokens are discarded at drain.
 
-Not ported yet (each is a later slice): speculative decoding, KVBM tiers,
-preemption/park, logits processors and penalties, drain/handoff,
-prefill-only/disaggregated serving, LoRA, multimodal, steptrace and the
-flight recorder. Requests that need one of them finish with an error.
+Not ported yet (each is a later slice): KVBM tiers, preemption/park, logits
+processors and penalties (and with them speculation's host verification
+leg for processor slots, the reference's `_commit_spec_host`),
+drain/handoff, prefill-only/disaggregated serving, LoRA, multimodal,
+steptrace and the flight recorder. Requests that need one of them finish
+with an error.
 """
 
 from __future__ import annotations
@@ -37,9 +43,10 @@ import numpy as np
 
 from ..config import env
 from ..llm.protocols import EngineOutput, PreprocessedRequest
-from ..tokens import compute_block_hashes
+from ..tokens import TokenBlockSequence, compute_block_hashes
 from .model_runner import ModelRunner, bucket_table_width
 from .pages import PageAllocation, PagePool
+from .spec import BlockLookahead, NGramProposer, SlotSpec, propose_for
 
 log = logging.getLogger("dynamo_tpu_torch.scheduler")
 
@@ -59,9 +66,13 @@ class _Seq:
     cancelled: bool = False
     finished: bool = False
     seed: int = 0
-    # Whether the allocation includes the slack pages fused decode overruns
-    # into (False only when the slacked span would exceed capacity).
+    # Whether the allocation includes the slack pages fused decode and
+    # speculation overrun into (False only when the slacked span would
+    # exceed capacity).
     slack_ok: bool = True
+    # Speculation state (engine/spec.py): the proposer's index over this
+    # sequence's history and its acceptance EMA; None with speculation off.
+    spec: Optional[SlotSpec] = None
 
     @property
     def decode_ready(self) -> bool:
@@ -77,6 +88,15 @@ class SchedulerStats:
     steps: int = 0
     prefill_tokens: int = 0  # prompt tokens computed (prefix-cache hits excluded)
     decode_tokens: int = 0
+    # Speculative decoding: verification steps run, draft tokens proposed
+    # and accepted (bonus tokens excluded); spec_last_k is the longest draft
+    # mined in the latest step, spec_ema the mean acceptance EMA over the
+    # slots that proposed in it.
+    spec_steps: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_last_k: int = 0
+    spec_ema: float = 0.0
 
 
 def _unsupported(request: PreprocessedRequest) -> Optional[str]:
@@ -106,6 +126,21 @@ class InferenceScheduler:
         # steps into one runner call; tokens then stream in blocks of K.
         self.decode_block = max(1, int(env("DYNT_DECODE_BLOCK") or 1))
         self.decode_pipeline = max(1, int(env("DYNT_DECODE_PIPELINE") or 1))
+        # Speculative decoding (DYNT_SPEC_*): draftless n-gram proposals
+        # verified in one batched forward; off for runners that cannot
+        # verify (a caller's unified attention_fn). A chunk wider than the
+        # decode kernel takes is refused here, before any traffic.
+        self.spec_enabled = (bool(env("DYNT_SPEC_ENABLE"))
+                             and runner.supports_spec)
+        self.spec_k = max(1, int(env("DYNT_SPEC_MAX_K")))
+        self.spec_min_ema = float(env("DYNT_SPEC_MIN_EMA"))
+        self.spec_cutoff = max(0, int(env("DYNT_SPEC_BATCH_CUTOFF")))
+        if self.spec_enabled:
+            runner.check_spec_chunk(self.spec_k + 1)
+        # Cross-request continuations keyed by the chained block hashes the
+        # prefix cache registers.
+        self.spec_lookahead = (BlockLookahead(cfg.page_size)
+                               if self.spec_enabled else None)
         self.pool = PagePool(cfg.num_pages)
         self.max_batch = cfg.max_batch
         self._slots: list[Optional[_Seq]] = [None] * cfg.max_batch
@@ -202,10 +237,13 @@ class InferenceScheduler:
                    with_slack: bool = True) -> int:
         """Pages for a sequence. With slack: fused/pipelined decode writes
         up to block*depth - 1 tokens past the stop position before the host
-        sees the stop, so those positions must land in pages this sequence
+        sees the stop, and a verification step writes up to spec_k rejected
+        drafts past it, so those positions must land in pages this sequence
         owns. Capacity CHECKS use the slack-free span."""
         slack = (self.decode_block * max(1, self.decode_pipeline)
                  if with_slack and self.decode_block > 1 else 0)
+        if with_slack and self.spec_enabled:
+            slack = max(slack, self.spec_k + 1)
         return -(-(prompt_len + max_tokens + slack) // self.page_size)
 
     def _prepare(self, request: PreprocessedRequest, emit) -> Optional[_Seq]:
@@ -232,13 +270,23 @@ class InferenceScheduler:
         seed = request.sampling.seed
         if seed is None:
             seed = abs(hash(request.request_id)) & 0xFFFFFFFF
-        return _Seq(
+        seq = _Seq(
             request=request, emit=emit, block_hashes=block_hashes,
             alloc=PageAllocation([], [], 0),
             block_table=np.zeros(self.runner.config.max_pages_per_seq,
                                  np.int32),
             slot=-1, prompt_len=prompt_len, prefill_pos=0, seed=seed,
         )
+        if self.spec_enabled:
+            stop_ids = set(request.stop.stop_token_ids)
+            if not request.stop.ignore_eos:
+                stop_ids |= set(request.eos_token_ids)
+            hasher = TokenBlockSequence(self.page_size,
+                                        lora_id=request.kv_salt())
+            hasher.extend(request.token_ids)
+            seq.spec = SlotSpec(proposer=NGramProposer(request.token_ids),
+                                stop_ids=frozenset(stop_ids), hasher=hasher)
+        return seq
 
     def _admit(self) -> int:
         admitted = 0
@@ -385,6 +433,9 @@ class InferenceScheduler:
             self._seeds[i] = seq.seed
             self._steps[i] = len(seq.generated)
         want_logprobs = any(s.request.sampling.logprobs for s in ready)
+        spec = self._maybe_dispatch_spec(ready, want_logprobs)
+        if spec is not None:
+            return spec
         prefill_pending = any(
             s is not None and not s.decode_ready and not s.cancelled
             for s in self._slots)
@@ -423,6 +474,8 @@ class InferenceScheduler:
             return 0
         if pending[0] == "count":
             return pending[1]
+        if pending[0] == "spec":
+            return self._drain_spec(pending)
         _kind, device_blocks, ready, block = pending
         # Copy EVERY block before emitting any token, so a finish frame
         # never goes out before the page release that follows it.
@@ -436,6 +489,115 @@ class InferenceScheduler:
                     self._append_token(seq, int(toks_k[step][seq.slot]))
                     count += 1
         return count
+
+    # -- speculative decoding (engine/spec.py) ------------------------------
+
+    def _maybe_dispatch_spec(self, ready: list, want_logprobs: bool):
+        """Try a speculative verification step instead of the fused /
+        per-token decode. Returns a ("spec", ...) handle (drained by
+        `_drain_decode`) or None to fall through.
+
+        Policy: speculation trades FLOPs for latency; it wins at small batch
+        on predictable text. Gated off batch-wide for logprobs requests
+        (their data needs a readback per step), per iteration above the
+        batch-pressure cutoff, and per slot by the acceptance EMA with
+        periodic probing."""
+        if not self.spec_enabled:
+            return None
+        # Every fall-through means "no speculation this iteration": zero the
+        # per-step k up front; the drain of a dispatched step writes it.
+        self.stats.spec_last_k = 0
+        if want_logprobs:
+            return None
+        if self.spec_cutoff and len(ready) > self.spec_cutoff:
+            return None
+        need = self.spec_k + 1
+        if not all(s.slack_ok
+                   or (s.request.sampling.max_tokens - len(s.generated)
+                       >= need)
+                   for s in ready):
+            return None
+        drafts = np.zeros((self.max_batch, self.spec_k), np.int32)
+        mined = 0
+        expected = 0.0  # sum of ema * draft length: expected accepted tokens
+        for seq in ready:
+            sp = seq.spec
+            if sp is None:
+                continue
+            sp.pending = 0
+            remaining = seq.request.sampling.max_tokens - len(seq.generated)
+            if (self.spec_min_ema > 0 and sp.ema < self.spec_min_ema
+                    and not sp.wants_probe()):
+                continue
+            prop = propose_for(sp, self.spec_lookahead, self.spec_k,
+                               remaining)
+            if prop:
+                sp.pending = len(prop)
+                drafts[seq.slot, :len(prop)] = prop
+                mined += len(prop)
+                expected += sp.ema * len(prop)
+        # A spec step is ONE dispatch emitting 1 + accepted tokens per slot;
+        # the fused block it displaces emits `block` tokens per slot. The
+        # expected accepted total must cover half a token per ready slot
+        # (against per-token decode any expected acceptance wins).
+        threshold = 0.0 if self.decode_block <= 1 else 0.5 * len(ready)
+        if mined == 0 or expected < threshold:
+            return None
+        max_kv = max(s.kv_len for s in ready) + need
+        width = bucket_table_width(-(-max_kv // self.page_size),
+                                   self.runner.config.max_pages_per_seq)
+        targets, n_acc = self.runner.decode_spec(
+            self._tokens, drafts, self._positions,
+            np.ascontiguousarray(self._tables[:, :width]), self._kv_lens,
+            self._active, self._temp, self._top_p, self._top_k, self._seeds,
+            self._steps, return_device=True)
+        return ("spec", targets, n_acc, ready)
+
+    def _drain_spec(self, pending) -> int:
+        """Copy a verification step back and commit each slot's verified
+        prefix. The committed tokens are the per-position TARGET samples
+        (sequential decode's draws), so stop conditions, streaming and page
+        release flow through `_append_token` unchanged; rejected-draft KV
+        sits in the sequence's own slack pages and is rewritten by the next
+        step."""
+        _kind, targets_dev, n_acc_dev, ready = pending
+        targets = targets_dev.cpu().numpy()
+        n_acc = n_acc_dev.cpu().numpy()
+        self.stats.spec_steps += 1
+        self.stats.spec_last_k = max(
+            (s.spec.pending for s in ready if s.spec is not None), default=0)
+        count = 0
+        emas = []
+        for seq in ready:
+            if seq.finished or seq.cancelled:
+                continue
+            i = seq.slot
+            count += self._commit_spec(
+                seq, [int(t) for t in targets[i, : int(n_acc[i]) + 1]])
+            if seq.spec is not None and seq.spec.pending:
+                emas.append(seq.spec.ema)
+        if emas:
+            self.stats.spec_ema = float(np.mean(emas))
+        return count
+
+    def _commit_spec(self, seq: _Seq, tokens: list) -> int:
+        """Commit verified tokens through the normal append path and update
+        the slot's acceptance against its MINED draft length (accidental
+        matches on the draft row's zero padding are committed, being correct
+        target samples, but never counted as acceptance)."""
+        sp = seq.spec
+        emitted = 0
+        for tok in tokens:
+            if seq.finished or seq.cancelled:
+                break
+            self._append_token(seq, tok)
+            emitted += 1
+        if sp is not None and sp.pending:
+            accepted = min(max(emitted - 1, 0), sp.pending)
+            sp.observe(sp.pending, accepted)
+            self.stats.spec_proposed += sp.pending
+            self.stats.spec_accepted += accepted
+        return emitted
 
     def _decode_single(self, ready: list, tables: np.ndarray,
                        want_logprobs: bool) -> int:
@@ -482,6 +644,10 @@ class InferenceScheduler:
                       sample_info: Optional[tuple] = None) -> None:
         seq.generated.append(token)
         seq.last_token = token
+        if seq.spec is not None:
+            # Keep the n-gram index and the hash chain current on every
+            # commit path (speculative, fused, per-token, prefill's first).
+            seq.spec.extend([token])
         request = seq.request
         finish = None
         if not request.stop.ignore_eos and token in request.eos_token_ids:
@@ -517,6 +683,12 @@ class InferenceScheduler:
             computed = seq.prefill_pos // self.page_size
             self.pool.release(seq.alloc, seq.block_hashes,
                               computed_blocks=computed)
+            if (seq.spec is not None and not seq.cancelled
+                    and self.spec_lookahead is not None):
+                # Teach the cross-request lookahead this sequence's
+                # block-hash -> continuation chain.
+                self.spec_lookahead.record(seq.spec.hasher.block_hashes,
+                                           seq.spec.proposer.tokens)
             self._slots[i] = None
 
 

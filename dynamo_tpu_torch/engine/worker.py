@@ -15,6 +15,7 @@ from ..config import env
 from ..device import DeviceLike, resolve_device
 from ..llm.protocols import EngineOutput, PreprocessedRequest
 from ..models import ModelConfig, Transformer, get_config
+from ..models.transformer import AttentionFn
 from .model_runner import ModelRunner, RunnerConfig
 from .scheduler import InferenceScheduler
 
@@ -28,9 +29,14 @@ class TorchWorker:
         device: DeviceLike = "cuda",
         seed: int = 0,
         params: Optional[Transformer] = None,
+        attention_fn: Optional[AttentionFn] = None,
     ) -> None:
         """`model` is a preset name or a ModelConfig. Without `params` the
-        weights are random, drawn from `seed` on `device`."""
+        weights are random, drawn from `seed` on `device`. `attention_fn`
+        goes to the runner, as `TpuWorker(attention_fn=...)` does: the
+        unified forward then serves decode and prefill with it (for example
+        `ops.paged_attention.paged_attention`, the T = 1 kernel), and
+        speculation is off."""
         self.device = resolve_device(device)
         self.model_config = (get_config(model) if isinstance(model, str)
                              else model)
@@ -38,7 +44,7 @@ class TorchWorker:
             page_size=env("DYNT_KV_BLOCK_SIZE"))
         self.runner = ModelRunner(self.model_config, self.runner_config,
                                   device=self.device, params=params,
-                                  seed=seed)
+                                  seed=seed, attention_fn=attention_fn)
         self.scheduler = InferenceScheduler(self.runner)
 
     def start(self) -> None:

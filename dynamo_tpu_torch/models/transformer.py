@@ -10,8 +10,8 @@ carry over leaf for leaf (`models/convert.py`).
 The paged KV pool is one tensor [layers, 2, pages, page_size, kv_heads, hd];
 page 0 is a scratch page that block tables point unused slots at. Unlike the
 JAX package, whose functions return a new cache, every function here that
-writes KV (`write_kv_pages`, `write_kv_stack`, `forward`, `forward_decode`)
-updates the pool IN PLACE.
+writes KV (`write_kv_pages`, `write_kv_stack`, `forward`, `forward_decode`,
+`forward_spec`) updates the pool IN PLACE.
 
 Weight-only quantized projections (the JAX package's `models/quantize.py`
 leaves) are `ops.Q8Weight` ({"q8", "qs"}, W8A16) and `ops.Q4Weight`
@@ -432,6 +432,41 @@ def paged_attention_xla(
     return out.reshape(b, t, qh, hd).to(q.dtype)
 
 
+def paged_attention_spec_xla(
+    q: torch.Tensor,  # [B, T, qh, hd] T chunk queries per sequence
+    kv_cache: KVCache,
+    layer: int,
+    block_tables: torch.Tensor,  # [B, max_pages]
+    kv_lens: torch.Tensor,  # [B] committed length INCLUDING chunk token 0
+    k_cur: torch.Tensor,  # [B, T, kh, hd] chunk K (not yet cached)
+    v_cur: torch.Tensor,
+) -> torch.Tensor:
+    """Plain speculative-verification attention: every chunk query attends
+    the cached history (positions < kv_len - 1) plus the in-register chunk
+    tokens causally (token j <= query i). T == 1 is single-token decode
+    (`paged_attention_decode_xla`)."""
+    b, t, qh, hd = q.shape
+    kh = _kv_parts(kv_cache)[0].shape[4]
+    k = _gather_pages(kv_cache, layer, block_tables, 0)
+    v = _gather_pages(kv_cache, layer, block_tables, 1)
+    ctx = k.shape[1]
+    qg = q.reshape(b, t, kh, qh // kh, hd).float()
+    hist = torch.einsum("btkgh,bskh->btkgs", qg, k) / math.sqrt(hd)
+    # History: positions 0 .. kv_len-2 (the chunk starts at kv_len-1).
+    hist_mask = (torch.arange(ctx, device=q.device)[None, :]
+                 < (kv_lens.long()[:, None] - 1))
+    hist = hist.masked_fill(~hist_mask[:, None, None, None, :], -1e30)
+    cur = torch.einsum("btkgh,bskh->btkgs", qg, k_cur.float()) / math.sqrt(hd)
+    pos = torch.arange(t, device=q.device)
+    causal = pos[None, :] <= pos[:, None]  # [Tq, Tk]
+    cur = cur.masked_fill(~causal[None, :, None, None, :], -1e30)
+    probs = torch.softmax(torch.cat([hist, cur], dim=-1), dim=-1)
+    out = (torch.einsum("btkgs,bskh->btkgh", probs[..., :ctx], v)
+           + torch.einsum("btkgs,bskh->btkgh", probs[..., ctx:],
+                          v_cur.float()))
+    return out.reshape(b, t, qh, hd).to(q.dtype)
+
+
 def paged_attention_decode_xla(
     q: torch.Tensor,  # [B, 1, qh, hd]
     kv_cache: KVCache,
@@ -442,23 +477,10 @@ def paged_attention_decode_xla(
     v_cur: torch.Tensor,
 ) -> torch.Tensor:
     """Plain decode attention over the cached history plus the in-register
-    current token (the pool is written once per step, after all layers)."""
-    b, _, qh, hd = q.shape
-    kh = _kv_parts(kv_cache)[0].shape[4]
-    k = _gather_pages(kv_cache, layer, block_tables, 0)
-    v = _gather_pages(kv_cache, layer, block_tables, 1)
-    ctx = k.shape[1]
-    qg = q.reshape(b, kh, qh // kh, hd).float()
-    scores = torch.einsum("bkgh,bskh->bkgs", qg, k) / math.sqrt(hd)
-    # History: positions 0 .. kv_len-2 (the current token is separate).
-    mask = (torch.arange(ctx, device=q.device)[None, :]
-            < (kv_lens.long()[:, None] - 1))
-    scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
-    cur = torch.einsum("bkgh,bkh->bkg", qg, k_cur[:, 0].float()) / math.sqrt(hd)
-    probs = torch.softmax(torch.cat([scores, cur[..., None]], dim=-1), dim=-1)
-    out = (torch.einsum("bkgs,bskh->bkgh", probs[..., :-1], v)
-           + probs[..., -1][..., None] * v_cur[:, 0].float()[:, :, None, :])
-    return out.reshape(b, 1, qh, hd).to(q.dtype)
+    current token (the pool is written once per step, after all layers):
+    the T == 1 case of `paged_attention_spec_xla`."""
+    return paged_attention_spec_xla(q, kv_cache, layer, block_tables, kv_lens,
+                                    k_cur, v_cur)
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +492,30 @@ def _logits(model: Transformer, x: torch.Tensor,
             mm: Optional[MatmulFn] = None) -> torch.Tensor:
     x = rms_norm(x, model.final_norm, model.config.rms_eps)
     return _mm(x, model.head, matmul_fn=mm).float()
+
+
+def _forward_deferred(model, tokens, positions, kv_cache, block_tables,
+                      kv_lens, active, attn_fn, matmul_fn):
+    """Chunk forward with DEFERRED cache writes (tokens / positions [B, T]):
+    every layer attends over (pool history + the chunk's K/V held in
+    registers) through `attn_fn`; the pool is written once at the end for
+    all layers, in place. Returns logits [B, T, V] f32."""
+    config = model.config
+    cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
+    x = model.embed[tokens]  # [B, T, H]
+    ks, vs = [], []
+    for layer_idx, lp in enumerate(model.layers):
+        h = rms_norm(x, lp["attn_norm"], config.rms_eps)
+        q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn)
+        attn = attn_fn(q, kv_cache, layer_idx, block_tables, kv_lens, k, v)
+        ks.append(k)
+        vs.append(v)
+        x = x + _mm(attn, lp["wo"], k=2, matmul_fn=matmul_fn)
+        x = x + _swiglu(rms_norm(x, lp["mlp_norm"], config.rms_eps), lp,
+                        matmul_fn)
+    write_kv_stack(kv_cache, torch.stack(ks), torch.stack(vs), block_tables,
+                   positions, active[:, None].expand(positions.shape))
+    return _logits(model, x, matmul_fn)
 
 
 def forward_decode(
@@ -489,24 +535,33 @@ def forward_decode(
     [B, 1, V] f32. `decode_attention_fn` (q, kv, layer, tables, lens, k, v)
     overrides the plain history attention (the CUDA flash-decode kernel);
     `matmul_fn` overrides `quant_matmul` for quantized leaves."""
-    config = model.config
-    attn_fn = decode_attention_fn or paged_attention_decode_xla
-    pos2 = positions[:, None]
-    cos, sin = rope_tables(pos2, config.head_dim, config.rope_theta)
-    x = model.embed[tokens][:, None, :]  # [B, 1, H]
-    ks, vs = [], []
-    for layer_idx, lp in enumerate(model.layers):
-        h = rms_norm(x, lp["attn_norm"], config.rms_eps)
-        q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn)
-        attn = attn_fn(q, kv_cache, layer_idx, block_tables, kv_lens, k, v)
-        ks.append(k)
-        vs.append(v)
-        x = x + _mm(attn, lp["wo"], k=2, matmul_fn=matmul_fn)
-        x = x + _swiglu(rms_norm(x, lp["mlp_norm"], config.rms_eps), lp,
-                        matmul_fn)
-    write_kv_stack(kv_cache, torch.stack(ks), torch.stack(vs),
-                   block_tables, pos2, active[:, None])
-    return _logits(model, x, matmul_fn)
+    return _forward_deferred(
+        model, tokens[:, None], positions[:, None], kv_cache, block_tables,
+        kv_lens, active, decode_attention_fn or paged_attention_decode_xla,
+        matmul_fn)
+
+
+def forward_spec(
+    model: Transformer,
+    tokens: torch.Tensor,  # [B, T] chunk token 0 = last committed token
+    positions: torch.Tensor,  # [B, T] absolute positions
+    kv_cache: KVCache,  # updated IN PLACE
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    kv_lens: torch.Tensor,  # [B] committed length INCLUDING chunk token 0
+    active: torch.Tensor,  # [B] bool
+    spec_attention_fn: Optional[AttentionFn] = None,
+    matmul_fn: Optional[MatmulFn] = None,
+) -> torch.Tensor:
+    """Speculative batched verification: `forward_decode` generalized to T
+    tokens per slot, so one weight-streaming pass scores all T candidate
+    positions. Deferred cache writes exactly like decode: rejected positions
+    leave stale KV past the committed length that the next step's chunk
+    rewrites before it can be attended. Returns logits [B, T, V] f32.
+    `spec_attention_fn` (q, kv, layer, tables, lens, k, v) overrides the
+    plain `paged_attention_spec_xla` (the folded whole-pool kernel)."""
+    return _forward_deferred(
+        model, tokens, positions, kv_cache, block_tables, kv_lens, active,
+        spec_attention_fn or paged_attention_spec_xla, matmul_fn)
 
 
 def forward(

@@ -1,17 +1,36 @@
-// Paged flash-decode partials over the whole KV pool, for Hopper: a bf16
-// pool and an int8 pool with one bf16 scale per token.
+// Paged flash decode for Hopper: one templated body behind four entry
+// points, over a bf16 pool or an int8 pool with one bf16 scale per token.
 //
-// Replaces dynamo_tpu/ops/paged_attention.py::_pool_decode_kernel (behind
-// paged_decode_attention_pool): paged_decode_pool_bf16 its bf16 branch,
-// paged_decode_pool_int8 its `quantized=True` branch. For every (sequence
-// b, kv head h) it runs an online softmax over the GQA group of
-// g = qh / kh query heads against that sequence's HISTORY (positions
-// < kv_lens_hist[b]; the current token is folded in afterwards by
-// _combine_current), reading only the pages the block table owns, and
-// writes UNNORMALIZED partials:
+// Replaces, in dynamo_tpu/ops/paged_attention.py:
+//   paged_decode_pool_bf16     _pool_decode_kernel (paged_decode_attention_pool),
+//                              bf16 branch: partials over the whole pool at
+//                              `layer`
+//   paged_decode_pool_int8     the same kernel's `quantized=True` branch
+//   paged_decode_bf16          _decode_kernel (paged_decode_attention):
+//                              NORMALIZED output over one layer's K and V
+//                              slices, lengths including the current token
+//   paged_decode_partial_bf16  _decode_kernel_partial
+//                              (paged_decode_attention_partial): partials
+//                              over one layer's slices, history lengths
+// For every (sequence b, kv head h) the body runs an online softmax over
+// the GQA group of g = qh / kh query rows against positions < lens[b],
+// reading only the pages the block table owns. The partial entry points
+// write UNNORMALIZED partials
 //   acc[b, h, gi, :] = sum_t exp(s_t - m) * v_t   (f32)
 //   m[b, h, gi], l[b, h, gi] = running max and sum of exp(s_t - m)
-// Zero-history rows are written as acc = 0, m = -inf, l = 0.
+// with zero-length rows written as acc = 0, m = -inf, l = 0; the
+// normalized one writes acc / l in bf16, 0 for a zero-length row.
+//
+// The whole-pool and one-layer entry points differ only in where K and V
+// start: the kernel takes a K base and a V base plus the page and token
+// strides, so a layer slice kv_cache[layer, 0] is read in place (a strided
+// view, never a .contiguous() copy of the layer).
+//
+// A speculative verification step folds its chunk of T positions into the
+// GQA group (g' = T * g rows that share one history), so g * hd reaches
+// (DYNT_SPEC_MAX_K + 1) * 4 * 128 = 2560 at llama3-8b's defaults. Wider
+// groups take a second instantiation with more accumulator rows; a group
+// beyond kMaxGroupDim is refused (the wrapper raises before it launches).
 //
 // The int8 pool stores K/V as int8 codes [L, 2, P, ps, kh, hd] and one bf16
 // scale per token shared by all kv heads, [L, 2, P, ps]. It dequantizes in
@@ -21,8 +40,8 @@
 //
 // Bound on this card: HBM bytes. Each history token's K and V rows (2 * hd
 // values per kv head, 2 bytes each in bf16, 1 in int8) are read once and
-// reused by all g query heads; the arithmetic is 4 * g * hd flops per
-// token, far below the bytes' time.
+// reused by all g query rows; the arithmetic is 4 * g * hd flops per
+// token, far below the bytes' time even at the folded width.
 //
 // Design (simple and right first): grid (B, kh), one block of 128 threads
 // per (sequence, kv head). The block walks the history 128 tokens (8 pages
@@ -30,8 +49,9 @@
 //   1. scores: one token per thread; the thread resolves its page through
 //      the block table and reads the token's whole K row in 8-value loads,
 //      dotting it with the g query rows held in shared memory;
-//   2. online softmax: one warp per query head updates the running max and
-//      sum over the chunk and turns the scores into probabilities;
+//   2. online softmax: one warp per query row (warp w takes rows w, w + 4,
+//      ...) updates the running max and sum over the chunk and turns the
+//      scores into probabilities;
 //   3. P.V: warp w takes tokens 32w..32w+31 of the chunk, each lane a slice
 //      of the head dim, so every V element is read once; the warps' partial
 //      sums are added in shared memory at the end.
@@ -54,7 +74,12 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = kThreads;  // history tokens per iteration
-constexpr int kMaxGroupDim = 1024;  // largest g * hd
+constexpr int kGroupDim = 1024;  // g * hd of an unfolded GQA group
+constexpr int kMaxGroupDim = 3072;  // largest g * hd (a folded spec chunk)
+constexpr size_t kDefaultSmem = 48 * 1024;  // beyond it: opt in per kernel
+
+template <bool Q8>
+using Val = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -129,29 +154,30 @@ size_t smem_bytes(int g, int hd, bool quantized) {
                             + (quantized ? (size_t)kChunk : 0));
 }
 
-template <int HD, bool Q8>
+// kMaxG: the query rows the accumulators cover (g <= kMaxG); kNorm: write
+// acc / l in bf16 to `out` instead of the partials.
+template <int HD, bool Q8, int kMaxG, bool kNorm>
 __global__ void __launch_bounds__(kThreads)
-pool_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, kh * g, HD]
-                   const typename std::conditional<Q8, int8_t, __nv_bfloat16>::type*
-                       __restrict__ pool,                 // [L, 2, P, ps, kh, HD]
-                   const __nv_bfloat16* __restrict__ scales,  // [L, 2, P, ps] (Q8)
-                   const int32_t* __restrict__ tables,    // [B, max_pages]
-                   const int32_t* __restrict__ lens,      // [B] history lengths
-                   float* __restrict__ acc_out,           // [B, kh, g, HD]
-                   float* __restrict__ m_out,             // [B, kh, g]
-                   float* __restrict__ l_out,             // [B, kh, g]
-                   int kh, int g, int ps, int max_pages,
-                   int64_t layer_off, int64_t s_kv, int64_t s_page,
-                   int64_t s_tok, int64_t sc_layer_off, int64_t sc_kv,
-                   float scale) {
+decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, kh * g, HD]
+              const Val<Q8>* __restrict__ k_rows,   // K of one layer [P, ps, kh, HD]
+              const Val<Q8>* __restrict__ v_rows,   // V, same strides
+              const __nv_bfloat16* __restrict__ k_scales,  // [P, ps] (Q8)
+              const __nv_bfloat16* __restrict__ v_scales,  // [P, ps] (Q8)
+              const int32_t* __restrict__ tables,   // [B, max_pages]
+              const int32_t* __restrict__ lens,     // [B] tokens to attend
+              float* __restrict__ acc_out,          // [B, kh, g, HD] (partials)
+              float* __restrict__ m_out,            // [B, kh, g]
+              float* __restrict__ l_out,            // [B, kh, g]
+              __nv_bfloat16* __restrict__ out,      // [B, kh * g, HD] (kNorm)
+              int kh, int g, int ps, int max_pages,
+              int64_t s_page, int64_t s_tok, float scale) {
   static_assert(HD == 64 || HD == 128, "HD must be 64 or 128");
-  using T = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
+  using T = Val<Q8>;
   constexpr int kLoads = HD / 8;               // 8-value loads per K row
   constexpr int kE = HD / 32;                  // head dims per lane in P.V
-  constexpr int kMaxG = kMaxGroupDim / HD;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  int64_t* off_s = reinterpret_cast<int64_t*>(smem);  // [kChunk] K row offsets
+  int64_t* off_s = reinterpret_cast<int64_t*>(smem);  // [kChunk] row offsets
   float* q_s = reinterpret_cast<float*>(off_s + kChunk);  // [g, HD]
   float* p_s = q_s + g * HD;                   // [g, kChunk] scores -> probs
   float* red_s = p_s + g * kChunk;             // [kWarps, g, HD] P.V partials
@@ -186,7 +212,8 @@ pool_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, kh * g, HD]
     }
     __syncthreads();
 
-    const T* k_layer = pool + layer_off + (int64_t)h * HD;
+    const T* k_head = k_rows + (int64_t)h * HD;
+    const T* v_head = v_rows + (int64_t)h * HD;
     const int32_t* table = tables + (int64_t)b * max_pages;
     for (int c0 = 0; c0 < len; c0 += kChunk) {
       const int n = min(kChunk, len - c0);
@@ -198,7 +225,7 @@ pool_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, kh * g, HD]
         const int off_tok = pos % ps;
         const int64_t off = (int64_t)page * s_page + (int64_t)off_tok * s_tok;
         off_s[tid] = off;
-        const T* kr = k_layer + off;
+        const T* kr = k_head + off;
         float s[kMaxG];
 #pragma unroll
         for (int gi = 0; gi < kMaxG; ++gi) s[gi] = 0.f;
@@ -218,9 +245,9 @@ pool_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, kh * g, HD]
         }
         float k_scale = scale;
         if constexpr (Q8) {
-          const int64_t soff = sc_layer_off + (int64_t)page * ps + off_tok;
-          k_scale *= __bfloat162float(scales[soff]);
-          vsc_s[tid] = __bfloat162float(scales[soff + sc_kv]);
+          const int64_t soff = (int64_t)page * ps + off_tok;
+          k_scale *= __bfloat162float(k_scales[soff]);
+          vsc_s[tid] = __bfloat162float(v_scales[soff]);
         }
 #pragma unroll
         for (int gi = 0; gi < kMaxG; ++gi)
@@ -230,7 +257,7 @@ pool_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, kh * g, HD]
       }
       __syncthreads();
 
-      // 2. Online softmax: warp w updates query heads w, w + kWarps, ...
+      // 2. Online softmax: warp w updates query rows w, w + kWarps, ...
       for (int gi = warp; gi < g; gi += kWarps) {
         float* sr = p_s + gi * kChunk;
         float mx = -INFINITY;
@@ -267,7 +294,7 @@ pool_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, kh * g, HD]
 #pragma unroll 4
       for (int t = warp * 32; t < t_end; ++t) {
         float vf[kE];
-        load_lane<kE>(k_layer + off_s[t] + s_kv + lane * kE, vf);
+        load_lane<kE>(v_head + off_s[t] + lane * kE, vf);
         float v_scale = 1.f;
         if constexpr (Q8) v_scale = vsc_s[t];
 #pragma unroll
@@ -283,7 +310,7 @@ pool_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, kh * g, HD]
     }
   }
 
-  // Every output is written, zero-history rows included: the caller
+  // Every output is written, zero-length rows included: the caller
   // allocates with torch.empty and _combine_current needs m = -inf there.
 #pragma unroll
   for (int gi = 0; gi < kMaxG; ++gi) {
@@ -297,65 +324,98 @@ pool_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, kh * g, HD]
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) sum += red_s[w * g * HD + i];
-    acc_out[row0 * HD + i] = sum;
+    if constexpr (kNorm) {
+      // l >= 1 wherever len > 0 (the running max contributes exp(0))
+      out[row0 * HD + i] = __float2bfloat16(len > 0 ? sum / l_s[i / HD] : 0.f);
+    } else {
+      acc_out[row0 * HD + i] = sum;
+    }
   }
-  for (int gi = tid; gi < g; gi += kThreads) {
-    m_out[row0 + gi] = len > 0 ? m_s[gi] : -INFINITY;
-    l_out[row0 + gi] = len > 0 ? l_s[gi] : 0.f;
+  if constexpr (!kNorm) {
+    for (int gi = tid; gi < g; gi += kThreads) {
+      m_out[row0 + gi] = len > 0 ? m_s[gi] : -INFINITY;
+      l_out[row0 + gi] = len > 0 ? l_s[gi] : 0.f;
+    }
   }
 }
 
-template <bool Q8>
-int launch(const void* q, const void* pool, const void* scales,
-           const void* tables, const void* lens, void* acc, void* m, void* l,
-           int batch, int kh, int g, int hd, int ps, int max_pages,
-           long long layer_off, long long s_kv, long long s_page,
-           long long s_tok, long long sc_layer_off, long long sc_kv,
-           float scale, void* stream) {
-  if (batch <= 0 || kh <= 0 || g <= 0 || ps <= 0 || g * hd > kMaxGroupDim) {
-    return (int)cudaErrorInvalidValue;
+// Everything one launch needs; K/V bases already point at the layer (and
+// at K or V), strides are in elements.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* k_scales;
+  const void* v_scales;
+  const void* tables;
+  const void* lens;
+  void* acc;
+  void* m;
+  void* l;
+  void* out;
+  int batch, kh, g, hd, ps, max_pages;
+  long long s_page, s_tok;
+  float scale;
+};
+
+template <int HD, bool Q8, int kMaxG, bool kNorm>
+int launch_one(const Args& a, cudaStream_t st) {
+  const size_t smem = smem_bytes(a.g, HD, Q8);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_kernel<HD, Q8, kMaxG, kNorm>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
-  using T = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
-  const dim3 grid(batch, kh);
-  const size_t smem = smem_bytes(g, hd, Q8);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* pp = static_cast<const T*>(pool);
-  const auto* sp = static_cast<const __nv_bfloat16*>(scales);
-  const auto* tp = static_cast<const int32_t*>(tables);
-  const auto* lp = static_cast<const int32_t*>(lens);
-  auto* ap = static_cast<float*>(acc);
-  auto* mp = static_cast<float*>(m);
-  auto* lo = static_cast<float*>(l);
-  if (hd == 128) {
-    pool_decode_kernel<128, Q8><<<grid, kThreads, smem, st>>>(
-        qp, pp, sp, tp, lp, ap, mp, lo, kh, g, ps, max_pages,
-        layer_off, s_kv, s_page, s_tok, sc_layer_off, sc_kv, scale);
-  } else if (hd == 64) {
-    pool_decode_kernel<64, Q8><<<grid, kThreads, smem, st>>>(
-        qp, pp, sp, tp, lp, ap, mp, lo, kh, g, ps, max_pages,
-        layer_off, s_kv, s_page, s_tok, sc_layer_off, sc_kv, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  decode_kernel<HD, Q8, kMaxG, kNorm><<<dim3(a.batch, a.kh), kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const Val<Q8>*>(a.k),
+      static_cast<const Val<Q8>*>(a.v), static_cast<const __nv_bfloat16*>(a.k_scales),
+      static_cast<const __nv_bfloat16*>(a.v_scales), static_cast<const int32_t*>(a.tables),
+      static_cast<const int32_t*>(a.lens), static_cast<float*>(a.acc),
+      static_cast<float*>(a.m), static_cast<float*>(a.l),
+      static_cast<__nv_bfloat16*>(a.out), a.kh, a.g, a.ps, a.max_pages,
+      a.s_page, a.s_tok, a.scale);
   return (int)cudaGetLastError();
+}
+
+// The smallest instantiation whose accumulators cover g rows.
+template <int HD, bool Q8, bool kNorm>
+int launch_hd(const Args& a, cudaStream_t st) {
+  if (a.g * HD <= kGroupDim) return launch_one<HD, Q8, kGroupDim / HD, kNorm>(a, st);
+  return launch_one<HD, Q8, kMaxGroupDim / HD, kNorm>(a, st);
+}
+
+template <bool Q8, bool kNorm>
+int launch(const Args& a, void* stream) {
+  if (a.batch <= 0 || a.kh <= 0 || a.g <= 0 || a.ps <= 0
+      || (long long)a.g * a.hd > kMaxGroupDim) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (a.hd == 128) return launch_hd<128, Q8, kNorm>(a, st);
+  if (a.hd == 64) return launch_hd<64, Q8, kNorm>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Both launch on `stream` and return cudaGetLastError() (0 = launched).
-// Strides are in elements of the contiguous pool; `layer_off` already
-// includes layer * stride(0). For the int8 pool, `sc_layer_off` and `sc_kv`
-// index the contiguous [L, 2, P, ps] scales the same way.
+// All launch on `stream` and return cudaGetLastError() (0 = launched).
+// Strides are in elements. For the pool entry points `layer_off` already
+// includes layer * stride(0) and `s_kv` is stride(1); for the int8 pool
+// `sc_layer_off` and `sc_kv` index the contiguous [L, 2, P, ps] scales the
+// same way. The one-layer entry points take K and V slices [P, ps, kh, hd]
+// with equal page and token strides and contiguous (kh, hd) rows.
 extern "C" int paged_decode_pool_bf16(
     const void* q, const void* pool, const void* tables, const void* lens,
     void* acc, void* m, void* l,
     int batch, int kh, int g, int hd, int ps, int max_pages,
     long long layer_off, long long s_kv, long long s_page, long long s_tok,
     float scale, void* stream) {
-  return launch<false>(q, pool, nullptr, tables, lens, acc, m, l, batch, kh,
-                       g, hd, ps, max_pages, layer_off, s_kv, s_page, s_tok,
-                       0, 0, scale, stream);
+  const auto* k = static_cast<const __nv_bfloat16*>(pool) + layer_off;
+  return launch<false, false>(
+      Args{q, k, k + s_kv, nullptr, nullptr, tables, lens, acc, m, l, nullptr,
+           batch, kh, g, hd, ps, max_pages, s_page, s_tok, scale},
+      stream);
 }
 
 extern "C" int paged_decode_pool_int8(
@@ -364,7 +424,33 @@ extern "C" int paged_decode_pool_int8(
     int batch, int kh, int g, int hd, int ps, int max_pages,
     long long layer_off, long long s_kv, long long s_page, long long s_tok,
     long long sc_layer_off, long long sc_kv, float scale, void* stream) {
-  return launch<true>(q, pool, scales, tables, lens, acc, m, l, batch, kh, g,
-                      hd, ps, max_pages, layer_off, s_kv, s_page, s_tok,
-                      sc_layer_off, sc_kv, scale, stream);
+  const auto* k = static_cast<const int8_t*>(pool) + layer_off;
+  const auto* ks = static_cast<const __nv_bfloat16*>(scales) + sc_layer_off;
+  return launch<true, false>(
+      Args{q, k, k + s_kv, ks, ks + sc_kv, tables, lens, acc, m, l, nullptr,
+           batch, kh, g, hd, ps, max_pages, s_page, s_tok, scale},
+      stream);
+}
+
+extern "C" int paged_decode_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* lens, void* out,
+    int batch, int kh, int g, int hd, int ps, int max_pages,
+    long long s_page, long long s_tok, float scale, void* stream) {
+  return launch<false, true>(
+      Args{q, k_pages, v_pages, nullptr, nullptr, tables, lens, nullptr,
+           nullptr, nullptr, out, batch, kh, g, hd, ps, max_pages, s_page,
+           s_tok, scale},
+      stream);
+}
+
+extern "C" int paged_decode_partial_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* lens, void* acc, void* m, void* l,
+    int batch, int kh, int g, int hd, int ps, int max_pages,
+    long long s_page, long long s_tok, float scale, void* stream) {
+  return launch<false, false>(
+      Args{q, k_pages, v_pages, nullptr, nullptr, tables, lens, acc, m, l,
+           nullptr, batch, kh, g, hd, ps, max_pages, s_page, s_tok, scale},
+      stream);
 }
