@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
               PyTorch library call for the same function, and its bound:
               the whole-pool kernel on a bf16 and an int8 pool (rows 1-2),
               the same at a speculative chunk's folded width (g' = 20), and
-              the one-layer normalized (row 3) and partials (row 4) kernels
+              the one-layer normalized (row 3) and partials (row 4)
+              kernels; then the folded pool kernels at g' = 40 (two row
+              tiles) and rows 1-2 at a full batch of 16 x 2,047 tokens
+              (also timed with the split plan held to one split)
   gemm      - the W8A16 and W4A16 (v2, v1) kernels the same way, at every
               mistral-7b projection geometry, for M = 8 and M = 512; then
               ragged M and N (off the kernels' tiles), correctness only
@@ -99,6 +102,12 @@ SPEC_K = 4
 SPEC_T = SPEC_K + 1
 # Leading greedy tokens that must be identical with speculation on and off.
 SPEC_PARITY_TOKENS = 16
+# Attention cases beside the six at decode shapes: a fold of 40 rows per
+# kv head (llama3-70b's g = 8 at DYNT_SPEC_MAX_K = 4, two row tiles) and
+# the runner's full batch of 16 sequences, every history 2,047 tokens.
+WIDE_FOLD_ROWS = 40
+FULL_BATCH = 16
+FULL_HISTORY = 2047
 
 # Where each kernel of the port comes from: name -> (source, TPU kernel).
 # The folded entries are rows 1 and 2 at a speculative chunk's width,
@@ -274,10 +283,13 @@ def expected_counts(runner, dev: torch.device, decode: int = 0,
 
 
 def kernel_entry(name: str, max_abs_err: float, ms: float, plain_ms: float,
-                 library_ms, n_bytes: float, flops: float) -> dict:
+                 library_ms, n_bytes: float, flops: float,
+                 label: str = None) -> dict:
+    """One entry of the kernels line for wrapper `name`; `label` names an
+    extra case of the same kernel (its shape in brackets)."""
     source, replaces = KERNELS[name]
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return {"name": name, "route": "cuda", "source": source,
+    return {"name": label or name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -298,15 +310,183 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    ptxas = []
+    ptxas = []  # per kernel: its (mangled) name, registers and spills
     for path in libs.values():
         log = path.with_suffix(".log")
         if log.exists():
-            ptxas += [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
+            ptxas += [ln.split("info    :")[-1].strip()
+                      for ln in log.read_text().splitlines()
+                      if "Compiling entry function" in ln
+                      or "registers" in ln or "spill" in ln]
     emit("build", seconds=round(secs, 3),
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
          ptxas=ptxas)
+
+
+def _attention_setup(dev: torch.device, hist: list, n_layers: int,
+                     n_pages: int) -> dict:
+    """llama3-8b attention inputs: a random bf16 pool of `n_layers` layers
+    and the same pool quantized to int8 by the port's quantize_kv, one
+    block table row per history length (distinct random pages; unused
+    slots point at scratch page 0, as the scheduler's tables do)."""
+    from dynamo_tpu_torch.models import get_config
+    from dynamo_tpu_torch.models.transformer import quantize_kv
+
+    cfg = get_config(MODEL)
+    kh, hd, ps, max_pages = cfg.n_kv_heads, cfg.head_dim, 16, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    pool = torch.randn((n_layers, 2, n_pages, ps, kh, hd), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    perm = np.random.default_rng(SEED).permutation(np.arange(1, n_pages))
+    table_np = np.zeros((len(hist), max_pages), np.int32)
+    used = 0
+    for i, h in enumerate(hist):
+        n = -(-h // ps)
+        table_np[i, :n] = perm[used:used + n]
+        used += n
+    values, scales = quantize_kv(pool)
+    return {"cfg": cfg, "gen": gen, "hist": hist, "n_layers": n_layers,
+            "kh": kh, "hd": hd, "ps": ps, "max_pages": max_pages,
+            "pool": pool, "values": values, "scales": scales,
+            "tables": torch.from_numpy(table_np).to(dev),
+            "lens": torch.tensor(hist, dtype=torch.int32, device=dev)}
+
+
+def _attention_case(dev: torch.device, st: dict, name: str, label: str,
+                    qq: torch.Tensor, kind: str, quantized: bool,
+                    one_split: bool = False) -> dict:
+    """One attention case: the kernel of wrapper `name` held against its
+    plain version (reading layer 1), then timed beside it, SDPA over the
+    gathered K/V, and its bound. kind: "pool" (rows 1-2 and folded), "norm"
+    (row 3) or "partial" (row 4). With `one_split` the kernel is also timed
+    with the split plan held to one split per sequence (the (B, kh) grid
+    alone), so the plan's cost shows. Returns the kernels-line entry."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    hist, n_layers, tables, lens = (st["hist"], st["n_layers"],
+                                    st["tables"], st["lens"])
+    kh, hd, ps, max_pages = st["kh"], st["hd"], st["ps"], st["max_pages"]
+    pool = st["pool"]
+    kv, kv_scales = ((st["values"], st["scales"]) if quantized
+                     else (pool, None))
+    if kind == "pool":  # the int8 wrappers count launches, the bf16 ones
+        # dispatch on kv_scales
+        wrapper = (pa.paged_decode_attention_pool_folded if "folded" in name
+                   else pa.paged_decode_attention_pool)
+
+        def kernel_call(layer):
+            return wrapper(qq, kv, layer, tables, lens, kv_scales=kv_scales)
+
+        def plain_call(layer):
+            return pa.paged_decode_attention_pool_ref(qq, kv, layer, tables,
+                                                      lens, kv_scales)
+    else:
+        wrapper = getattr(pa, name)
+        plain = (pa.paged_decode_attention_ref if kind == "norm"
+                 else pa.paged_decode_attention_partial_ref)
+
+        def kernel_call(layer):
+            return wrapper(qq, pool[layer, 0], pool[layer, 1], tables, lens)
+
+        def plain_call(layer):
+            return plain(qq, pool[layer, 0], pool[layer, 1], tables, lens)
+    b, rows = qq.shape[0], qq.shape[1]
+    norm = kind == "norm"
+    empty = lens == 0
+    live = ~empty
+    # 1. correctness against the plain version, reading layer 1
+    out = kernel_call(1)
+    torch.cuda.synchronize()
+    ref = plain_call(1)
+    if norm:
+        check(bool(torch.all(out[empty] == 0)),
+              f"{label}: zero-length rows must be 0")
+        err = {"normalized": float((out[live].float()
+                                    - ref[live].float()).abs().max())}
+    else:
+        acc, m, l = out
+        r_acc, r_m, r_l = ref
+        check(bool(torch.all(torch.isneginf(m[empty]))
+                   and torch.all(l[empty] == 0)
+                   and torch.all(acc[empty] == 0)),
+              f"{label}: zero-length rows must be m=-inf, l=0, acc=0")
+        err = {
+            "normalized": float((acc[live] / l[live][..., None]
+                                 - r_acc[live] / r_l[live][..., None])
+                                .abs().max()),
+            "m": float((m[live] - r_m[live]).abs().max()),
+            "l_rel": float(((l[live] - r_l[live]).abs()
+                            / r_l[live]).max()),
+        }
+    for key, val in err.items():
+        check(val <= KERNEL_TOL[key],
+              f"{label} {key} error {val} > {KERNEL_TOL[key]}")
+    del out, ref
+
+    # 2. timing: each call reads another layer, so the layers' history
+    #    cycles through the 50 MB L2 cold, as in a decode step
+    ms = gpu_time_ms(lambda i: kernel_call(i % n_layers), 200)
+    plain_ms = gpu_time_ms(lambda i: plain_call(i % n_layers), 20)
+    extra = {}
+    if one_split:
+        target = pa.TARGET_BLOCKS
+        pa.TARGET_BLOCKS = 1  # one span covers the whole table
+        try:
+            extra["ms_one_split"] = gpu_time_ms(
+                lambda i: kernel_call(i % n_layers), 200)
+        finally:
+            pa.TARGET_BLOCKS = target
+
+    # one library call for the same attention: SDPA over the gathered,
+    # contiguous (dequantized) K/V (the port never calls it)
+    ctx = max_pages * ps
+    mask = (torch.arange(ctx, device=dev)[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]  # [B, 1, 1, ctx]
+    gathered = []
+    for layer in range(n_layers):
+        kvs = []
+        for j in (0, 1):
+            x = kv[layer, j][tables.long()].reshape(b, ctx, kh, hd)
+            if kv_scales is not None:
+                x = (x.float() * kv_scales[layer, j][tables.long()]
+                     .reshape(b, ctx, 1, 1).float()).to(torch.bfloat16)
+            kvs.append(x.transpose(1, 2).contiguous())
+        gathered.append(kvs)
+    q4d = qq[:, :, None, :]  # [B, rows, 1, hd]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(i):
+        k, v = gathered[i % n_layers]
+        sdpa(q4d, k, v, attn_mask=mask, enable_gqa=True)
+
+    library_ms = gpu_time_ms(library, 50)
+    del gathered
+
+    # bound: history K+V rows (and their scales) read once, q / tables /
+    # lengths read once, outputs (bf16, or f32 partials with m and l)
+    # written once; flops of q.k and p.v
+    n_hist = sum(hist)
+    n_table = sum(-(-h // ps) for h in hist)
+    elt = 1 if quantized else 2
+    out_bytes = b * rows * hd * 2 if norm else (b * rows * hd * 4
+                                                + 2 * b * rows * 4)
+    n_bytes = (n_hist * kh * hd * 2 * elt
+               + (n_hist * 2 * 2 if quantized else 0)
+               + b * rows * hd * 2 + n_table * 4 + b * 4 + out_bytes)
+    flops = 4 * rows * hd * n_hist
+    entry = kernel_entry(name, err["normalized"], ms, plain_ms, library_ms,
+                         n_bytes, flops, label=label)
+    plan = pa.split_plan(b, kh, rows // kh, max_pages, ps)
+    emit("kernels", shapes={"B": b, "q_rows": rows, "kh": kh, "hd": hd,
+                            "ps": ps, "max_pages": max_pages,
+                            "lengths": hist if len(set(hist)) > 1 else
+                            f"{len(hist)} x {hist[0]}",
+                            "layers": n_layers, "read_layer": 1},
+         split_plan=plan._asdict(), errors=err, tolerances=KERNEL_TOL,
+         bytes=n_bytes, flops=flops, kernel_ms=ms,
+         achieved_GBps=n_bytes / (ms * 1e-3) / 1e9, **extra, **entry)
+    return entry
 
 
 def phase_kernels(dev: torch.device) -> list:
@@ -316,158 +496,50 @@ def phase_kernels(dev: torch.device) -> list:
     quantize_kv), the same two at a speculative chunk's folded width
     (g' = (DYNT_SPEC_MAX_K + 1) * g = 20 query rows per kv head), row 3
     (normalized, one layer's slices, lengths including the current token)
-    and row 4 (partials, one layer's slices). Each is held against its
-    plain version, then timed beside it, one PyTorch library call for the
-    same function, and its bound."""
-    from dynamo_tpu_torch.models import get_config
-    from dynamo_tpu_torch.models.transformer import quantize_kv
-    from dynamo_tpu_torch.ops import paged_attention as pa
-
-    cfg = get_config(MODEL)
-    qh, kh, hd, ps, max_pages = (cfg.n_q_heads, cfg.n_kv_heads,
-                                 cfg.head_dim, 16, 128)
-    hist = [0, 1, 15, 16, 17, 1000, 2047, 1500]
-    b = len(hist)
-    n_layers, n_pages = 8, 320
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    pool = torch.randn((n_layers, 2, n_pages, ps, kh, hd), generator=gen,
-                       device=dev).to(torch.bfloat16)
+    and row 4 (partials, one layer's slices). Then the
+    folded pool kernels at g' = 40 (llama3-70b's g = 8 at K = 4: two row
+    tiles), and rows 1 and 2 at the runner's full batch of 16 sequences of
+    2,047 tokens each. Each is held against its plain version, then timed
+    beside it, one PyTorch library call for the same function, and its
+    bound."""
+    st = _attention_setup(dev, [0, 1, 15, 16, 17, 1000, 2047, 1500],
+                          n_layers=8, n_pages=320)
+    qh, hd, b, gen = st["cfg"].n_q_heads, st["hd"], len(st["hist"]), st["gen"]
     q = torch.randn((b, qh, hd), generator=gen, device=dev).to(torch.bfloat16)
     q_fold = torch.randn((b, qh * SPEC_T, hd), generator=gen,
                          device=dev).to(torch.bfloat16)
-    # each row owns distinct random pages; unused slots point at scratch
-    # page 0, as the scheduler's tables do
-    perm = np.random.default_rng(SEED).permutation(np.arange(1, n_pages))
-    table_np = np.zeros((b, max_pages), np.int32)
-    used = 0
-    for i, h in enumerate(hist):
-        n = -(-h // ps)
-        table_np[i, :n] = perm[used:used + n]
-        used += n
-    tables = torch.from_numpy(table_np).to(dev)
-    lens = torch.tensor(hist, dtype=torch.int32, device=dev)
-    values, scales = quantize_kv(pool)
-    n_hist = sum(hist)
-    n_table = sum(-(-h // ps) for h in hist)
-    ctx = max_pages * ps
-    mask = (torch.arange(ctx, device=dev)[None, :] < lens[:, None])
-    mask = mask[:, None, None, :]  # [B, 1, 1, ctx]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    empty = lens == 0
-    live = ~empty
-
-    def pool_call(fn, kv, kv_scales):
-        return lambda qq, layer: fn(qq, kv, layer, tables, lens,
-                                    kv_scales=kv_scales)
-
-    def pool_ref(kv, kv_scales):
-        return lambda qq, layer: pa.paged_decode_attention_pool_ref(
-            qq, kv, layer, tables, lens, kv_scales)
-
-    def slice_call(fn):
-        return lambda qq, layer: fn(qq, pool[layer, 0], pool[layer, 1],
-                                    tables, lens)
-
-    # name, query, kernel call, plain call, pool (values, scales), bytes per
-    # K/V element, normalized output
+    q_wide = torch.randn((b, st["kh"] * WIDE_FOLD_ROWS, hd), generator=gen,
+                         device=dev).to(torch.bfloat16)
     cases = (
-        ("paged_decode_attention_pool", q,
-         pool_call(pa.paged_decode_attention_pool, pool, None),
-         pool_ref(pool, None), (pool, None), 2, False),
-        ("paged_decode_attention_pool_int8", q,
-         pool_call(pa.paged_decode_attention_pool, values, scales),
-         pool_ref(values, scales), (values, scales), 1, False),
-        ("paged_decode_attention_pool_folded", q_fold,
-         pool_call(pa.paged_decode_attention_pool_folded, pool, None),
-         pool_ref(pool, None), (pool, None), 2, False),
-        ("paged_decode_attention_pool_int8_folded", q_fold,
-         pool_call(pa.paged_decode_attention_pool_folded, values, scales),
-         pool_ref(values, scales), (values, scales), 1, False),
-        ("paged_decode_attention", q,
-         slice_call(pa.paged_decode_attention),
-         slice_call(pa.paged_decode_attention_ref), (pool, None), 2, True),
-        ("paged_decode_attention_partial", q,
-         slice_call(pa.paged_decode_attention_partial),
-         slice_call(pa.paged_decode_attention_partial_ref), (pool, None), 2,
-         False),
+        ("paged_decode_attention_pool", None, q, "pool", False),
+        ("paged_decode_attention_pool_int8", None, q, "pool", True),
+        ("paged_decode_attention_pool_folded", None, q_fold, "pool", False),
+        ("paged_decode_attention_pool_int8_folded", None, q_fold, "pool",
+         True),
+        ("paged_decode_attention", None, q, "norm", False),
+        ("paged_decode_attention_partial", None, q, "partial", False),
+        ("paged_decode_attention_pool_folded", f"g'={WIDE_FOLD_ROWS}",
+         q_wide, "pool", False),
+        ("paged_decode_attention_pool_int8_folded", f"g'={WIDE_FOLD_ROWS}",
+         q_wide, "pool", True),
     )
-    results = []
-    for name, qq, kernel_call, plain_call, (kv, kv_scales), elt, norm in cases:
-        rows = qq.shape[1]
-        # 1. correctness against the plain version, reading layer 1
-        out = kernel_call(qq, 1)
-        torch.cuda.synchronize()
-        ref = plain_call(qq, 1)
-        if norm:
-            check(bool(torch.all(out[empty] == 0)),
-                  f"{name}: zero-length rows must be 0")
-            err = {"normalized": float((out[live].float()
-                                        - ref[live].float()).abs().max())}
-        else:
-            acc, m, l = out
-            r_acc, r_m, r_l = ref
-            check(bool(torch.all(torch.isneginf(m[empty]))
-                       and torch.all(l[empty] == 0)
-                       and torch.all(acc[empty] == 0)),
-                  f"{name}: zero-length rows must be m=-inf, l=0, acc=0")
-            err = {
-                "normalized": float((acc[live] / l[live][..., None]
-                                     - r_acc[live] / r_l[live][..., None])
-                                    .abs().max()),
-                "m": float((m[live] - r_m[live]).abs().max()),
-                "l_rel": float(((l[live] - r_l[live]).abs()
-                                / r_l[live]).max()),
-            }
-        for key, val in err.items():
-            check(val <= KERNEL_TOL[key],
-                  f"{name} {key} error {val} > {KERNEL_TOL[key]}")
+    results = [_attention_case(dev, st, name,
+                               f"{name}[{tag}]" if tag else name, qq, kind,
+                               quantized)
+               for name, tag, qq, kind, quantized in cases]
+    del st, q, q_fold, q_wide
+    free_memory()
 
-        # 2. timing: each call reads another layer, so 8 layers of history
-        #    cycle through the 50 MB L2 cold, as in a decode step
-        ms = gpu_time_ms(lambda i: kernel_call(qq, i % n_layers), 200)
-        plain_ms = gpu_time_ms(lambda i: plain_call(qq, i % n_layers), 20)
-
-        # one library call for the same attention: SDPA over the gathered,
-        # contiguous (dequantized) K/V (the port never calls it)
-        gathered = []
-        for layer in range(n_layers):
-            kvs = []
-            for j in (0, 1):
-                x = kv[layer, j][tables.long()].reshape(b, ctx, kh, hd)
-                if kv_scales is not None:
-                    x = (x.float() * kv_scales[layer, j][tables.long()]
-                         .reshape(b, ctx, 1, 1).float()).to(torch.bfloat16)
-                kvs.append(x.transpose(1, 2).contiguous())
-            gathered.append(kvs)
-        q4d = qq[:, :, None, :]  # [B, rows, 1, hd]
-
-        def library(i, q4d=q4d, gathered=gathered):
-            k, v = gathered[i % n_layers]
-            sdpa(q4d, k, v, attn_mask=mask, enable_gqa=True)
-
-        library_ms = gpu_time_ms(library, 50)
-        del gathered
-
-        # bound: history K+V rows (and their scales) read once, q / tables /
-        # lengths read once, outputs (bf16, or f32 partials with m and l)
-        # written once; flops of q.k and p.v
-        out_bytes = b * rows * hd * 2 if norm else (b * rows * hd * 4
-                                                    + 2 * b * rows * 4)
-        n_bytes = (n_hist * kh * hd * 2 * elt
-                   + (n_hist * 2 * 2 if kv_scales is not None else 0)
-                   + b * rows * hd * 2 + n_table * 4 + b * 4 + out_bytes)
-        flops = 4 * rows * hd * n_hist
-        entry = kernel_entry(name, err["normalized"], ms, plain_ms, library_ms,
-                             n_bytes, flops)
-        emit("kernels", shapes={"B": b, "q_rows": rows, "kh": kh, "hd": hd,
-                                "ps": ps, "max_pages": max_pages,
-                                "lengths": hist, "layers": n_layers,
-                                "read_layer": 1},
-             errors=err, tolerances=KERNEL_TOL, bytes=n_bytes, flops=flops,
-             kernel_ms=ms, achieved_GBps=n_bytes / (ms * 1e-3) / 1e9, **entry)
-        results.append(entry)
-    del pool, values, scales
+    full = _attention_setup(dev, [FULL_HISTORY] * FULL_BATCH, n_layers=4,
+                            n_pages=FULL_BATCH * 128 + 1)
+    q_full = torch.randn((FULL_BATCH, qh, hd), generator=full["gen"],
+                         device=dev).to(torch.bfloat16)
+    for name, quantized in (("paged_decode_attention_pool", False),
+                            ("paged_decode_attention_pool_int8", True)):
+        results.append(_attention_case(
+            dev, full, name, f"{name}[B={FULL_BATCH}]", q_full, "pool",
+            quantized, one_split=True))
+    del full, q_full
     free_memory()
     return results
 
@@ -1063,7 +1135,6 @@ def phase_spec_q(dev: torch.device) -> dict:
     runner = ModelRunner(cfg, RunnerConfig(
         num_pages=256, max_batch=8, weight_dtype="int4", kv_dtype="int8"),
         device=dev, seed=SEED)
-    runner.check_spec_chunk(SPEC_T)
     rng = np.random.default_rng(SEED + 7)
     lengths = [40, 100, 200, 17, 300, 64, 150, 90]
     b, ps = len(lengths), runner.config.page_size
@@ -1186,7 +1257,7 @@ def main() -> None:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
     phase_build()
-    entries = {e["name"]: e for e in phase_kernels(dev) + phase_gemms(dev)}
+    entries = phase_kernels(dev) + phase_gemms(dev)
     launches = {}
 
     # the bf16 path (llama3-8b)
@@ -1236,8 +1307,10 @@ def main() -> None:
     for name in KERNELS:
         check(launches.get(name, 0) > 0,
               f"{name} was not launched on its path")
-    kernels = [{**entries[name], "launches": launches[name]}
-               for name in KERNELS]
+    # an extra case of a kernel ("name[shape]") carries that kernel's
+    # launches on its path
+    kernels = [{**e, "launches": launches[e["name"].split("[")[0]]}
+               for e in entries]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -67,7 +67,6 @@ from ..models.transformer import (
     quant_matmul,
 )
 from ..ops.paged_attention import (
-    MAX_GROUP_DIM,
     paged_attention_decode_pool,
     paged_attention_spec_pool,
 )
@@ -204,20 +203,6 @@ class ModelRunner:
         then runs the injected attention, and targets drawn from another
         attention would diverge from the non-speculative stream."""
         return self.attention_fn is None
-
-    def check_spec_chunk(self, t: int) -> None:
-        """Raise unless a verification chunk of `t` positions, folded into
-        the GQA group, fits the decode kernel (g' = t * g query rows per kv
-        head). Checked on every device, so a configuration fails the same
-        way on the CPU as on the card."""
-        cfg = self.model_config
-        row_dim = (cfg.n_q_heads // cfg.n_kv_heads) * cfg.head_dim
-        if t * row_dim > MAX_GROUP_DIM:
-            raise ValueError(
-                f"a speculative chunk of {t} positions folds to a group of "
-                f"{t * row_dim} > {MAX_GROUP_DIM} (g x head_dim), wider "
-                "than the decode kernel takes; DYNT_SPEC_MAX_K must be at "
-                f"most {MAX_GROUP_DIM // row_dim - 1} for {cfg.name}")
 
     def _t(self, x, dtype: torch.dtype) -> torch.Tensor:
         """Host array (or device tensor) -> tensor on the runner's device."""

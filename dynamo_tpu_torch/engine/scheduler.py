@@ -128,15 +128,12 @@ class InferenceScheduler:
         self.decode_pipeline = max(1, int(env("DYNT_DECODE_PIPELINE") or 1))
         # Speculative decoding (DYNT_SPEC_*): draftless n-gram proposals
         # verified in one batched forward; off for runners that cannot
-        # verify (a caller's unified attention_fn). A chunk wider than the
-        # decode kernel takes is refused here, before any traffic.
+        # verify (a caller's unified attention_fn).
         self.spec_enabled = (bool(env("DYNT_SPEC_ENABLE"))
                              and runner.supports_spec)
         self.spec_k = max(1, int(env("DYNT_SPEC_MAX_K")))
         self.spec_min_ema = float(env("DYNT_SPEC_MIN_EMA"))
         self.spec_cutoff = max(0, int(env("DYNT_SPEC_BATCH_CUTOFF")))
-        if self.spec_enabled:
-            runner.check_spec_chunk(self.spec_k + 1)
         # Cross-request continuations keyed by the chained block hashes the
         # prefix cache registers.
         self.spec_lookahead = (BlockLookahead(cfg.page_size)

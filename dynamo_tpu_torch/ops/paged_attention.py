@@ -22,6 +22,12 @@ its kernel for CUDA tensors and raises on anything the kernel does not
 take; it runs its plain PyTorch version (`*_ref`) only for tensors that lie
 on the CPU.
 
+The kernel splits the history over the grid (flash-decoding): `split_plan`
+chooses, from host shapes only, the span of history tokens each block
+takes and the row tiles of the group; with more than one split a second
+kernel merges the splits' partials. `_merge_split_partials` is the plain
+mirror of that split-and-merge, for the tests.
+
 Around them, as in the reference: `_combine_current` / `_combine_chunk`
 fold the current token / the speculative chunk (not yet in the pool) into
 the partials; `paged_attention_decode_pool` and
@@ -43,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -51,16 +57,19 @@ from . import _build
 from ._launch import check_launch, require, runs_plain, stream_of
 
 _KERNEL = "paged_decode_pool"
-# Largest g * hd the kernel's accumulators cover: a folded speculative
-# chunk of up to 24 query rows per kv head at head_dim 128.
-MAX_GROUP_DIM = 3072
+# The kernel's tiling (csrc/paged_decode_pool.cu): history tokens per ring
+# stage (kTile), the most tokens one split takes (kMaxSpan), and the
+# blocks a launch aims for: 4 per SM of an H100's 132.
+TILE = 64
+MAX_SPAN = 2048
+TARGET_BLOCKS = 4 * 132
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "paged_decode_pool_bf16": [_PTR] * 7 + [_INT] * 6 + [_LL] * 4,
-    "paged_decode_pool_int8": [_PTR] * 8 + [_INT] * 6 + [_LL] * 6,
-    "paged_decode_bf16": [_PTR] * 6 + [_INT] * 6 + [_LL] * 2,
-    "paged_decode_partial_bf16": [_PTR] * 8 + [_INT] * 6 + [_LL] * 2,
+    "paged_decode_pool_bf16": [_PTR] * 10 + [_INT] * 8 + [_LL] * 4,
+    "paged_decode_pool_int8": [_PTR] * 11 + [_INT] * 8 + [_LL] * 6,
+    "paged_decode_bf16": [_PTR] * 9 + [_INT] * 8 + [_LL] * 2,
+    "paged_decode_partial_bf16": [_PTR] * 11 + [_INT] * 8 + [_LL] * 2,
 }
 
 
@@ -72,6 +81,57 @@ def _kernel_fn(entry: str):
         fn.argtypes = _SIGNATURES[entry] + [ctypes.c_float, _PTR]
         fn.restype = ctypes.c_int
     return fn
+
+
+class SplitPlan(NamedTuple):
+    """How one launch covers (sequences x kv heads x group rows x history):
+    blocks of `row_tile` query rows (`row_tiles` per kv head) over spans of
+    `span` history tokens (`n_split` per sequence); `grid` is the CUDA grid
+    (n_split, kh * row_tiles, batch)."""
+    row_tile: int
+    row_tiles: int
+    span: int
+    n_split: int
+    grid: tuple
+
+
+def split_plan(batch: int, kh: int, rows: int, max_pages: int,
+               ps: int) -> SplitPlan:
+    """The kernel's split plan, from host-known shapes only (never the
+    lengths, so planning never waits for the card). A span is a whole
+    number of 64-token tiles and of pages, at most MAX_SPAN tokens: the
+    shortest that cuts the table's max_pages * ps tokens into no more
+    splits than it takes for the grid to reach TARGET_BLOCKS blocks."""
+    row_tile = 16 if rows <= 16 else 32
+    row_tiles = -(-rows // row_tile)
+    unit = TILE * ps // math.gcd(TILE, ps)
+    if unit > MAX_SPAN:
+        raise ValueError(f"page size {ps} does not tile into spans of at "
+                         f"most {MAX_SPAN} tokens")
+    units = -(-(max_pages * ps) // unit)
+    want = -(-TARGET_BLOCKS // (batch * kh * row_tiles))
+    per = max(1, min(-(-units // want), MAX_SPAN // unit))
+    n_split = -(-units // per)
+    return SplitPlan(row_tile, row_tiles, per * unit, n_split,
+                     (n_split, kh * row_tiles, batch))
+
+
+def split_spans(plan: SplitPlan, length: int, ps: int,
+                max_pages: int) -> list:
+    """The (start, end) history positions each live split of one sequence
+    reads, in split order, as the kernel computes them: the length is cut
+    to the table's ceil(length / ps) owned pages, and a split starting at
+    or past it reads nothing (and is not merged). Split s reads table
+    entries [start // ps, ceil(end / ps))."""
+    n_pages = min(-(-length // ps), max_pages) if length > 0 else 0
+    length = min(length, n_pages * ps)
+    spans = []
+    for s in range(plan.n_split):
+        start = s * plan.span
+        end = min(start + plan.span, length)
+        if start < end:
+            spans.append((start, end))
+    return spans
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +209,34 @@ def paged_decode_attention_ref(
     return out.reshape(q.shape).to(q.dtype)
 
 
+def _merge_split_partials(q, k_pages, v_pages, block_tables, lens,
+                          plan: SplitPlan, k_scales=None, v_scales=None):
+    """Plain mirror of the kernel's split-and-merge: `_partials_ref` over
+    each split's span of the table, then the splits rescaled to a common
+    max as the merge kernel does (f32). A row with no live split is
+    acc = 0, m = -inf, l = 0. For the tests; nothing on the main path calls
+    it."""
+    ps, max_pages = k_pages.shape[1], block_tables.shape[1]
+    per_page = plan.span // ps
+    n_pages = torch.minimum(-(-lens.long() // ps), torch.tensor(max_pages))
+    hist = torch.minimum(lens.long(), n_pages * ps).clamp_min(0)
+    parts = []
+    for s in range(plan.n_split):
+        cols = block_tables[:, s * per_page:(s + 1) * per_page]
+        span_lens = (hist - s * plan.span).clamp(0, plan.span).to(lens.dtype)
+        parts.append(_partials_ref(q, k_pages, v_pages, cols, span_lens,
+                                   k_scales, v_scales))
+    m = torch.stack([p[1] for p in parts]).amax(dim=0)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for p_acc, p_m, p_l in parts:
+        w = torch.exp(p_m - m_safe)  # 0 for an empty split
+        acc = acc + w[..., None] * p_acc
+        l = l + w * p_l
+    return acc, m, l
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -160,9 +248,6 @@ def _check_group(name, q, kh, hd) -> int:
     group = q.shape[1] // kh
     require(hd in (64, 128), name,
             f"the CUDA kernel supports head_dim 64 or 128, got {hd}")
-    require(group * hd <= MAX_GROUP_DIM, name,
-            f"group {group} x head_dim {hd} exceeds the kernel's "
-            f"{MAX_GROUP_DIM} accumulators")
     return group
 
 
@@ -221,23 +306,41 @@ def _check_slice_inputs(name, q, k_pages, v_pages, block_tables, lens):
     require(s == v_pages.stride() and s[3] == 1 and s[2] == hd, name,
             f"K and V need equal strides and contiguous (kh, hd) rows, got "
             f"{s} and {v_pages.stride()}")
-    require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
-            name, "K and V must start on a 16-byte boundary")
+    require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
+            and s[0] % 8 == 0 and s[1] % 8 == 0, name,
+            "K and V rows must start on 16-byte boundaries")
     return b, kh, group, hd, ps, s[0], s[1]
 
 
-def _partials(q, kh, group, hd):
+def _partials(q, kh, group, hd, n_split=1):
+    """Empty f32 (acc, m, l) for `n_split` splits ([B, kh, n_split, g, hd]
+    and [B, kh, n_split, g]; the outputs' shapes without the split dim)."""
     b = q.shape[0]
-    return (torch.empty((b, kh, group, hd), dtype=torch.float32,
+    lead = (b, kh, n_split) if n_split > 1 else (b, kh)
+    return (torch.empty(lead + (group, hd), dtype=torch.float32,
                         device=q.device),
-            torch.empty((b, kh, group), dtype=torch.float32, device=q.device),
-            torch.empty((b, kh, group), dtype=torch.float32, device=q.device))
+            torch.empty(lead + (group,), dtype=torch.float32, device=q.device),
+            torch.empty(lead + (group,), dtype=torch.float32, device=q.device))
+
+
+def _plan_args(q, kh, group, hd, ps, block_tables):
+    """The split plan's launch arguments: the three scratch pointers (None
+    with one split, where the kernel writes the outputs itself), then
+    n_split and span. The scratch tensors are returned too, to live until
+    the call has been queued."""
+    plan = split_plan(q.shape[0], kh, group, block_tables.shape[1], ps)
+    scratch = (_partials(q, kh, group, hd, plan.n_split)
+               if plan.n_split > 1 else ())
+    ptrs = tuple(t.data_ptr() for t in scratch) or (None, None, None)
+    return scratch, ptrs, (plan.n_split, plan.span)
 
 
 def _launch_pool(wrapper, q, kv_pool, layer, block_tables, kv_lens_hist,
                  kv_scales=None):
-    """Launch the whole-pool kernel for `wrapper` (whose launch count it
-    raises) on CUDA tensors; bf16 pool, or int8 with `kv_scales`."""
+    """Launch the whole-pool kernel for `wrapper` on CUDA tensors; bf16
+    pool, or int8 with `kv_scales`. The wrapper's launch count rises by one
+    per call, whether the split plan makes it one CUDA launch or two (the
+    split kernel and its merge)."""
     name = wrapper.__name__
     quantized = kv_scales is not None
     b, kh, group, hd, ps = _check_pool_inputs(
@@ -246,18 +349,25 @@ def _launch_pool(wrapper, q, kv_pool, layer, block_tables, kv_lens_hist,
     acc, m, l = _partials(q, kh, group, hd)
     if b == 0:
         return acc, m, l
-    s = kv_pool.stride()
-    head = (q.data_ptr(), kv_pool.data_ptr())
-    tail = (block_tables.data_ptr(), kv_lens_hist.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b, kh, group, hd, ps,
-            block_tables.shape[1], layer * s[0], s[1], s[2], s[3])
     if quantized:
         require(kv_scales.dtype == torch.bfloat16
                 and tuple(kv_scales.shape) == tuple(kv_pool.shape[:4])
-                and kv_scales.is_contiguous(), name,
+                and kv_scales.is_contiguous()
+                and kv_scales.data_ptr() % 4 == 0, name,
                 f"kv_scales must be contiguous bf16 "
                 f"{tuple(kv_pool.shape[:4])}, got {kv_scales.dtype} "
                 f"{tuple(kv_scales.shape)}")
+        require(ps % 2 == 0, name,
+                f"the int8 kernel reads scales in token pairs: page size "
+                f"{ps} must be even")
+    _scratch, parts, plan = _plan_args(q, kh, group, hd, ps,
+                                       block_tables)
+    s = kv_pool.stride()
+    head = (q.data_ptr(), kv_pool.data_ptr())
+    tail = (block_tables.data_ptr(), kv_lens_hist.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), *parts, b, kh, group, hd, ps,
+            block_tables.shape[1], *plan, layer * s[0], s[1], s[2], s[3])
+    if quantized:
         ss = kv_scales.stride()
         err = _kernel_fn("paged_decode_pool_int8")(
             *head, kv_scales.data_ptr(), *tail, layer * ss[0], ss[1],
@@ -303,7 +413,10 @@ def paged_decode_attention_pool(
     the pool is int8 (`paged_decode_attention_pool_int8`).
 
     CUDA tensors launch the kernel on the current stream (bf16 only;
-    anything else raises). CPU tensors run the plain version."""
+    anything else raises). CPU tensors run the plain version. `.launches`
+    (here and on every wrapper below) counts one per call that launches,
+    though with more than one split the call is two CUDA launches: the
+    split kernel and its merge."""
     if kv_scales is not None:
         return paged_decode_attention_pool_int8(
             q, kv_pool, kv_scales, layer, block_tables, kv_lens_hist)
@@ -375,10 +488,12 @@ def paged_decode_attention(
     out = torch.empty_like(q)
     if b == 0:
         return out
+    _scratch, parts, plan = _plan_args(q, kh, group, hd, ps,
+                                       block_tables)
     check_launch(name, _kernel_fn("paged_decode_bf16")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        b, kh, group, hd, ps, block_tables.shape[1], s_page, s_tok,
+        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), *parts,
+        b, kh, group, hd, ps, block_tables.shape[1], *plan, s_page, s_tok,
         1.0 / math.sqrt(hd), stream_of(q)))
     paged_decode_attention.launches += 1
     return out
@@ -404,17 +519,21 @@ def paged_decode_attention_partial(
     acc, m, l = _partials(q, kh, group, hd)
     if b == 0:
         return acc, m, l
+    _scratch, parts, plan = _plan_args(q, kh, group, hd, ps,
+                                       block_tables)
     check_launch(name, _kernel_fn("paged_decode_partial_bf16")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), kv_lens_hist.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, kh, group, hd, ps,
-        block_tables.shape[1], s_page, s_tok, 1.0 / math.sqrt(hd),
+        m.data_ptr(), l.data_ptr(), *parts, b, kh, group, hd, ps,
+        block_tables.shape[1], *plan, s_page, s_tok, 1.0 / math.sqrt(hd),
         stream_of(q)))
     paged_decode_attention_partial.launches += 1
     return acc, m, l
 
 
-# Kernel launches since the last reset (the plain CPU versions never count).
+# Kernel launches since the last reset (the plain CPU versions never count):
+# one per wrapper call that launches, whether the split plan makes it one
+# CUDA launch or two (the split kernel and its merge).
 paged_decode_attention_pool.launches = 0
 paged_decode_attention_pool_int8.launches = 0
 paged_decode_attention_pool_folded.launches = 0

@@ -12,8 +12,12 @@ kernels and by their plain PyTorch versions in turn:
 
   * one fused decode block (`decode_multi`, k = 8): host time until the call
     returns (dispatch), and wall time until the card is done, per step;
-  * a `torch.profiler` trace of one block: device time by kernel name, and
-    the device's busy share of the block's wall time;
+  * a `torch.profiler` trace of one block: device time by kernel name, the
+    attention kernels' share (the split decode body and its merge), and the
+    device's busy share of the block's wall time;
+  * the same for one speculative verification step (`decode_spec`) of
+    K = 4 drafts per sequence (5 positions each: the folded attention, the
+    projections at M = 40, the verification sampler);
   * one prefill chunk of 512 and of 1,500 tokens (wall time, synchronized).
 
 Prints one JSON line per measurement; the trace tables go to --out.
@@ -37,6 +41,9 @@ sys.path.insert(0, str(ROOT))
 
 HISTORY = [600, 700, 32, 1500, 200, 96, 900, 1200]
 BLOCK = 8
+SPEC_K = 4
+# device-side names of the attention kernels (csrc/paged_decode_pool.cu)
+ATTENTION_KERNELS = ("decode_kernel", "merge_kernel")
 
 
 def _emit(kind: str, **fields) -> None:
@@ -72,11 +79,15 @@ def main() -> None:
     from dynamo_tpu_torch.models import get_config
     from dynamo_tpu_torch.models.transformer import (
         paged_attention_decode_xla,
+        paged_attention_spec_xla,
         quant_matmul,
         quant_matmul_ref,
         quantize_kv,
     )
-    from dynamo_tpu_torch.ops import paged_attention_decode_pool
+    from dynamo_tpu_torch.ops import (
+        paged_attention_decode_pool,
+        paged_attention_spec_pool,
+    )
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -124,47 +135,72 @@ def main() -> None:
         temperature=np.zeros(b, np.float32), top_p=np.ones(b, np.float32),
         top_k=np.zeros(b, np.int32), seeds=np.zeros(b, np.uint32))
 
-    def block():
-        t0 = time.perf_counter()
-        toks = runner.decode_multi(**args_np, k=BLOCK, return_device=True)
-        t1 = time.perf_counter()
-        toks.cpu()
-        t2 = time.perf_counter()
-        return (t1 - t0) * 1e3, (t2 - t0) * 1e3
+    spec_args = dict(
+        tokens=np.arange(b, dtype=np.int32),
+        drafts=np.random.default_rng(1).integers(
+            1, cfg.vocab_size, (b, SPEC_K)).astype(np.int32),
+        positions=kv_lens - 1, block_tables=args_np["block_tables"],
+        kv_lens=kv_lens, active=active,
+        temperature=args_np["temperature"], top_p=args_np["top_p"],
+        top_k=args_np["top_k"], seeds=args_np["seeds"])
 
-    for name, attn_fn, mm_fn in (
-            ("kernel", paged_attention_decode_pool, quant_matmul),
-            ("plain", paged_attention_decode_xla, quant_matmul_ref)):
-        runner.decode_attention_fn, runner.matmul_fn = attn_fn, mm_fn
-        block()  # warm
+    def measure(kind, run, steps, kernels, **fields):
+        """Time `run` (which dispatches `steps` forwards) three times and
+        trace it once; one JSON line per step."""
+        run()  # warm
         torch.cuda.synchronize()
-        runs = [block() for _ in range(3)]
-        dispatch = min(r[0] for r in runs) / BLOCK
-        wall = min(r[1] for r in runs) / BLOCK
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            runs.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            runner.decode_multi(**args_np, k=BLOCK, return_device=True).cpu()
+            run()
+            torch.cuda.synchronize()
             traced_wall_us = (time.perf_counter() - t0) * 1e6
         events = [e for e in prof.key_averages() if _is_kernel(e)]
         events.sort(key=_device_us, reverse=True)
         busy_us = sum(_device_us(e) for e in events)
-        tag = f"{cfg.name}_{rc.weight_dtype}_{rc.kv_dtype}_{name}"
-        (out_dir / f"decode_{tag}.txt").write_text(
+        attn_us = sum(_device_us(e) for e in events
+                      if any(k in e.key for k in ATTENTION_KERNELS))
+        tag = f"{kind}_{cfg.name}_{rc.weight_dtype}_{rc.kv_dtype}_{kernels}"
+        (out_dir / f"{tag}.txt").write_text(
             prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40))
-        _emit("decode_block", kernels=name, batch=len(HISTORY),
-              history=HISTORY, block=BLOCK,
-              step_ms=wall, dispatch_ms_per_step=dispatch,
-              traced_step_ms=traced_wall_us / 1e3 / BLOCK,
-              device_busy_ms_per_step=busy_us / 1e3 / BLOCK,
+        _emit(kind, kernels=kernels, batch=len(HISTORY), history=HISTORY,
+              **fields,
+              step_ms=min(r[1] for r in runs) / steps,
+              dispatch_ms_per_step=min(r[0] for r in runs) / steps,
+              traced_step_ms=traced_wall_us / 1e3 / steps,
+              device_busy_ms_per_step=busy_us / 1e3 / steps,
               device_busy_share=busy_us / traced_wall_us,
-              kernel_launches_per_step=sum(e.count for e in events) / BLOCK,
+              attention_ms_per_step=attn_us / 1e3 / steps,
+              kernel_launches_per_step=sum(e.count for e in events) / steps,
               top=[{"name": e.key[:80],
-                    "ms_per_step": _device_us(e) / 1e3 / BLOCK,
-                    "calls_per_step": e.count / BLOCK} for e in events[:12]])
+                    "ms_per_step": _device_us(e) / 1e3 / steps,
+                    "calls_per_step": e.count / steps} for e in events[:12]])
+
+    for name, attn_fn, spec_fn, mm_fn in (
+            ("kernel", paged_attention_decode_pool, paged_attention_spec_pool,
+             quant_matmul),
+            ("plain", paged_attention_decode_xla, paged_attention_spec_xla,
+             quant_matmul_ref)):
+        runner.decode_attention_fn, runner.matmul_fn = attn_fn, mm_fn
+        runner.spec_attention_fn = spec_fn
+        measure("decode_block",
+                lambda: runner.decode_multi(**args_np, k=BLOCK,
+                                            return_device=True),
+                BLOCK, name, block=BLOCK)
+        measure("spec_step",
+                lambda: runner.decode_spec(**spec_args, return_device=True),
+                1, name, spec_k=SPEC_K, positions=SPEC_K + 1)
     runner.decode_attention_fn = paged_attention_decode_pool
+    runner.spec_attention_fn = paged_attention_spec_pool
     runner.matmul_fn = quant_matmul
 
     table = np.zeros(rc.max_pages_per_seq, np.int32)

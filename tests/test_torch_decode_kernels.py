@@ -268,8 +268,10 @@ def test_non_cpu_tensors_never_take_the_plain_path():
 
 def test_slice_checks_refuse_what_the_kernel_does_not_take():
     """The one-layer kernels read K and V in place: a layer slice of the
-    pool passes (strided, not copied); mismatched strides, a wrong dtype or
-    a group wider than the accumulators raise before any launch."""
+    pool passes (strided, not copied), and so does a group of any width (the
+    kernel tiles the rows; its accumulators no longer cap g * hd at 3072);
+    mismatched strides, a wrong dtype or rows off 16-byte boundaries raise
+    before any launch."""
     q, kv, tables, lens, _, _ = _torch(_case(hd=128), "bfloat16")
     name = "paged_decode_attention"
     k, v = kv[1, 0], kv[1, 1]
@@ -282,10 +284,17 @@ def test_slice_checks_refuse_what_the_kernel_does_not_take():
         tpa._check_slice_inputs(name, q[:, 0], k.float(), v.float(), tables,
                                 lens)
     b, kh = q.shape[0], k.shape[2]
-    wide = torch.zeros((b, kh * (tpa.MAX_GROUP_DIM // 128 + 1), 128),
-                       dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="accumulators"):
-        tpa._check_slice_inputs(name, wide, k, v, tables, lens)
-    with pytest.raises(ValueError, match="accumulators"):
-        tpa._check_pool_inputs(name, wide, kv, 0, tables, lens,
-                               torch.bfloat16)
+    wide = torch.zeros((b, kh * (3072 // 128 + 1), 128), dtype=torch.bfloat16)
+    assert tpa._check_slice_inputs(name, wide, k, v, tables, lens)[2] == 25
+    assert tpa._check_pool_inputs(name, wide, kv, 0, tables, lens,
+                                  torch.bfloat16)[2] == 25
+    flat = torch.zeros(k.numel() + 8, dtype=torch.bfloat16)
+    shifted = flat[4:4 + k.numel()].view(k.shape)  # starts 8 bytes in
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        tpa._check_slice_inputs(name, q[:, 0], shifted, shifted, tables, lens)
+    p, ps = k.shape[0], k.shape[1]
+    odd = torch.as_strided(torch.zeros(p * (k[0].numel() + 4),
+                                       dtype=torch.bfloat16),
+                           k.shape, (k[0].numel() + 4, kh * 128, 128, 1))
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        tpa._check_slice_inputs(name, q[:, 0], odd, odd, tables, lens)

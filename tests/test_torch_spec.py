@@ -292,12 +292,12 @@ def _jax_request(rid, prompt, temp, seed, max_tokens):
 
 
 def _run(runner, spec, monkeypatch, reqs, max_tokens, jax_engine=False,
-         waves=1):
+         waves=1, spec_k=3):
     """Serve `reqs` `waves` times through one scheduler (later waves repeat
     the prompts and seeds under new ids, so with speculation on the
     cross-request lookahead proposes what the earlier wave generated)."""
     monkeypatch.setenv("DYNT_SPEC_ENABLE", "1" if spec else "0")
-    monkeypatch.setenv("DYNT_SPEC_MAX_K", "3")
+    monkeypatch.setenv("DYNT_SPEC_MAX_K", str(spec_k))
     sched = (JScheduler if jax_engine else InferenceScheduler)(runner)
     assert sched.spec_enabled == spec
     sched.start()
@@ -348,24 +348,51 @@ def test_greedy_spec_stream_matches_jax_engine(params, runner, monkeypatch):
     assert stats.spec_accepted > 0 and j_stats.spec_accepted > 0
 
 
-def test_spec_chunk_wider_than_the_kernel_raises(monkeypatch):
-    """g' = (k + 1) * g query rows per kv head must fit the decode kernel
-    (g' * head_dim <= MAX_GROUP_DIM); the scheduler refuses a wider k at
-    init, on every device, rather than running a plain path."""
-    from dynamo_tpu_torch.ops.paged_attention import MAX_GROUP_DIM
+# g * head_dim = 1024, the geometry of llama3-70b and qwen3-30b-a3b: with
+# the decode kernel's old 3072-wide accumulators a chunk of k + 1 positions
+# fit only up to k = 2.
+WIDE = dataclasses.replace(CFG, n_q_heads=16, n_kv_heads=2, head_dim=128)
 
-    cfg = dataclasses.replace(CFG, n_layers=1, n_q_heads=16, n_kv_heads=2,
-                              head_dim=128)  # g * hd = 1024
-    r = ModelRunner(cfg, RunnerConfig(**RUNNER), device="cpu")
+
+@pytest.mark.parametrize("k", [3, 4, 8])
+def test_spec_chunk_beyond_the_old_cap_builds_its_scheduler(k, monkeypatch):
+    """Any DYNT_SPEC_MAX_K the reference accepts serves: the folded group
+    g' = (k + 1) * g is tiled into the kernel's row tiles, so the scheduler
+    builds at g * hd = 1024 with speculation on."""
+    r = ModelRunner(dataclasses.replace(WIDE, n_layers=1),
+                    RunnerConfig(**RUNNER), device="cpu")
     monkeypatch.setenv("DYNT_SPEC_ENABLE", "1")
-    fits = MAX_GROUP_DIM // 1024 - 1
-    monkeypatch.setenv("DYNT_SPEC_MAX_K", str(fits))
-    assert InferenceScheduler(r).spec_k == fits
-    monkeypatch.setenv("DYNT_SPEC_MAX_K", str(fits + 1))
-    with pytest.raises(ValueError, match="DYNT_SPEC_MAX_K must be at most"):
-        InferenceScheduler(r)
-    monkeypatch.setenv("DYNT_SPEC_ENABLE", "0")
-    assert not InferenceScheduler(r).spec_enabled  # off: no check
+    monkeypatch.setenv("DYNT_SPEC_MAX_K", str(k))
+    sched = InferenceScheduler(r)
+    assert sched.spec_enabled and sched.spec_k == k
+    rows = (k + 1) * WIDE.n_q_heads // WIDE.n_kv_heads
+    plan = tpa.split_plan(RUNNER["max_batch"], WIDE.n_kv_heads, rows,
+                          RUNNER["max_pages_per_seq"], RUNNER["page_size"])
+    assert plan.row_tile * plan.row_tiles >= rows
+
+
+def test_greedy_spec_stream_beyond_the_old_cap_matches_jax_engine(
+        monkeypatch):
+    """At g * hd = 1024 and DYNT_SPEC_MAX_K = 4 (g' * hd = 5120, past the old
+    cap) the greedy stream with speculation on equals the stream with it
+    off and the JAX engine's, as test_greedy_spec_stream_matches_jax_engine
+    checks at tiny-test's geometry."""
+    monkeypatch.setenv("DYNT_DECODE_BLOCK", "4")
+    monkeypatch.setenv("DYNT_DECODE_PIPELINE", "2")
+    params = jax.device_get(j_init(jax.random.PRNGKey(1), WIDE))
+    runner = ModelRunner(WIDE, RunnerConfig(**RUNNER), device="cpu",
+                         params=params_from_numpy(params, WIDE, device="cpu"))
+    reqs, max_tokens = _requests(0.0)
+    reqs = [r for r in reqs if r[2] == 0.0]
+    j_runner = JRunner(WIDE, JRunnerConfig(**RUNNER),
+                       make_mesh(MeshConfig()), params=params)
+    j_streams, j_stats = _run(j_runner, True, monkeypatch, reqs, max_tokens,
+                              jax_engine=True, spec_k=4)
+    on, stats = _run(runner, True, monkeypatch, reqs, max_tokens, spec_k=4)
+    off, _ = _run(runner, False, monkeypatch, reqs, max_tokens, spec_k=4)
+    assert on == off == j_streams
+    assert stats.spec_steps > 0 and j_stats.spec_steps > 0
+    assert stats.spec_accepted > 0
 
 
 def test_spec_slack_pages(runner, monkeypatch):
