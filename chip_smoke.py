@@ -16,8 +16,9 @@ Phases, each printing one JSON line:
               tiles) and rows 1-2 at a full batch of 16 x 2,047 tokens
               (also timed with the split plan held to one split)
   gemm      - the W8A16 and W4A16 (v2, v1) kernels the same way, at every
-              mistral-7b projection geometry, for M = 8 and M = 512; then
-              ragged M and N (off the kernels' tiles), correctness only
+              mistral-7b projection geometry, for M = 8, 16, 40, 80 and 512;
+              then ragged M and N (off the kernels' tiles) and a split of
+              w_down's K, correctness only
   engine    - the bf16 path: a TorchWorker serving llama3-8b at full width
               (random weights from a fixed seed) answers a prefix-warming
               request, then 8 concurrent requests through `generate`; the
@@ -47,8 +48,9 @@ Phases, each printing one JSON line:
   parity_q  - the parity prompt on the quantized runner, kernels (decode
               attention and matmul) against plain versions
   spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
-              KV: 8 sequences, 5 positions each (the int8 pool kernel
-              folded, the q4 v2 kernel at M = 40), against plain versions
+              KV: a runner of 8 slots, all live, 5 positions each (the int8
+              pool kernel folded, the q4 v2 kernel at M = 8 x 5 = 40),
+              against plain versions
   secondary - mistral-7b widths at 4 layers through the runner: W8A16 with
               int8 KV, and W4A16 under DYNT_Q4_VARIANT=v1; a few greedy
               steps each against the plain versions, launches checked
@@ -85,14 +87,22 @@ L2_BYTES = 50e6
 # Kernel vs plain version, unit-normal bf16 inputs, f32 math in both:
 KERNEL_TOL = {"normalized": 2e-3, "m": 1e-3, "l_rel": 1e-3}
 # GEMM kernel vs plain version, |out - ref| <= tol x max|ref|: both round
-# one f32 sum to bf16 (one bf16 ulp is 2^-8 of the value); q4 kernels also
-# round each dequantized weight to bf16 exactly as the plain version does.
+# one f32 sum to bf16 (one bf16 ulp is 2^-8 of the value), summed in other
+# orders (split-K adds per-split f32 partials). The plain q4 version rounds
+# each dequantized weight (u - z) * s to bf16; the q4 kernels do not at
+# M <= 80 (they multiply the raw codes and fold the zero point and scale in
+# f32 per group) and do at M > 80, so q4 also differs by that rounding.
 GEMM_REL_TOL = {"q8_matmul": 1e-2, "q4_matmul_v2": 2e-2, "q4_matmul_v1": 2e-2}
 # mistral-7b's projection geometries (K, N): wq/wo, wk/wv, gate/up, down,
 # lm_head.
 GEMM_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                (4096, 32768))
-GEMM_MS = (8, 512)  # a decode batch and a prefill chunk
+# A half-full and a full decode batch (the runner's 16 slots), the
+# verification chunk of 8 and of 16 slots at K = 4 drafts, a prefill chunk.
+GEMM_MS = (8, 16, 40, 80, 512)
+# The kernels-line entries of the GEMMs sum the five geometries at M = 8;
+# the q4 rows also get an extra case at the full verification chunk.
+GEMM_EXTRA_M = 80
 # First-decode-step logits, kernel path vs plain path: the two round the
 # attention and projection outputs to bf16 at different points and 32
 # layers compound it.
@@ -546,11 +556,13 @@ def phase_kernels(dev: torch.device) -> list:
 
 def phase_gemms(dev: torch.device) -> list:
     """q8_matmul, q4_matmul_v2 and q4_matmul_v1 at mistral-7b's projection
-    geometries for M = 8 and M = 512, against their plain versions. Each
+    geometries for every M of GEMM_MS, against their plain versions. Each
     timed call reads another copy of the packed weight (enough copies to
     exceed the L2 twice over), so weights come from HBM as in a decode
     step. The kernels-line numbers are the sums over the five geometries
-    at M = 8 (one of each projection, decode shapes)."""
+    at M = 8 (one of each projection, decode shapes), and for the q4 rows
+    also at M = GEMM_EXTRA_M ("name[M=80]"); one "gemm_sums" line gives
+    every kernel's sums at every M beside torch.matmul's and the bound."""
     from dynamo_tpu_torch.ops import q4_linear as q4l
     from dynamo_tpu_torch.ops import q8_linear as q8l
 
@@ -559,9 +571,9 @@ def phase_gemms(dev: torch.device) -> list:
     kernels = {"q8_matmul": (q8l.q8_matmul, q8l.q8_matmul_ref),
                "q4_matmul_v2": (q4l.q4_matmul_v2, q4l.q4_matmul_ref),
                "q4_matmul_v1": (q4l.q4_matmul_v1, q4l.q4_matmul_ref)}
-    totals = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                     "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-              for name in kernels}
+    totals = {(name, m): {"err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                          "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+              for name in kernels for m in GEMM_MS}
     for k, n in GEMM_SHAPES:
         w = (torch.randn((k, n), generator=gen, device=dev)
              / math.sqrt(k)).to(torch.bfloat16)
@@ -603,50 +615,77 @@ def phase_gemms(dev: torch.device) -> list:
                 flops = 2 * m * k * n
                 bound_ms = max(n_bytes / HBM_BYTES_PER_S,
                                flops / BF16_FLOPS) * 1e3
+                plan = (q4l.q4_split_plan(m, n, k, k // args[1].shape[0],
+                                          q4l.pack_version(args[0]))._asdict()
+                        if name != "q8_matmul" else None)
                 emit("gemm", name=name, K=k, N=n, M=m, max_abs_err=err,
                      max_abs_ref=scale, tolerance_rel=GEMM_REL_TOL[name],
                      ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=bound_ms, bytes=n_bytes, flops=flops,
-                     weight_copies=len(copies),
+                     weight_copies=len(copies), plan=plan,
                      achieved_GBps=n_bytes / (ms * 1e-3) / 1e9,
                      achieved_TFLOPs=flops / (ms * 1e-3) / 1e12)
-                tot = totals[name]
+                tot = totals[(name, m)]
                 tot["err"] = max(tot["err"], err)
-                if m == GEMM_MS[0]:
-                    tot["ms"] += ms
-                    tot["plain_ms"] += plain_ms
-                    tot["library_ms"] += library_ms
-                    tot["bytes"] += n_bytes
-                    tot["flops"] += flops
+                tot["ms"] += ms
+                tot["plain_ms"] += plain_ms
+                tot["library_ms"] += library_ms
+                tot["bytes"] += n_bytes
+                tot["flops"] += flops
             del copies, lib, deq
         del leaves
         free_memory()
-    # ragged shapes, correctness only: M off the 16- and 64-row tiles, N a
-    # multiple of 16 but not of the 64- or 128-column tile
-    k, n = 4096, 1040
-    w = (torch.randn((k, n), generator=gen, device=dev)
-         / math.sqrt(k)).to(torch.bfloat16)
-    tails = {}
-    for name, leaf in (("q8_matmul", q8l.quantize_weight(w, 1)),
-                       ("q4_matmul_v2", q4l.quantize_weight_q4(w, 1, 2)),
-                       ("q4_matmul_v1", q4l.quantize_weight_q4(w, 1, 1))):
-        kernel_fn, plain_fn = kernels[name]
-        for m in (3, 77):
-            x = torch.randn((m, k), generator=gen,
-                            device=dev).to(torch.bfloat16)
-            out = kernel_fn(x, *leaf.values())
-            torch.cuda.synchronize()
-            ref = plain_fn(x, *leaf.values())
-            err = float((out.float() - ref.float()).abs().max())
-            scale = float(ref.float().abs().max())
-            check(err <= GEMM_REL_TOL[name] * scale,
-                  f"{name} K={k} N={n} M={m}: max|d| {err} > "
-                  f"{GEMM_REL_TOL[name]} x {scale}")
-            tails[f"{name} M={m}"] = err / scale
-    emit("gemm_tails", K=k, N=n, rel_errors=tails)
-    return [kernel_entry(name, t["err"], t["ms"], t["plain_ms"],
-                         t["library_ms"], t["bytes"], t["flops"])
-            for name, t in totals.items()]
+    # ragged shapes, correctness only: M off the 16-, 48-, 64- and 80-row
+    # tiles, N a multiple of 16 but not of the 64- or 128-column tile; then
+    # w_down's K (56 groups of 256, 28 per v2 half) split unevenly
+    for k, n, ms_tail in ((4096, 1040, (1, 3, 17, 77, 80)),
+                          (14336, 1040, (8, 80))):
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        tails, plans = {}, {}
+        for name, leaf in (("q8_matmul", q8l.quantize_weight(w, 1)),
+                           ("q4_matmul_v2", q4l.quantize_weight_q4(w, 1, 2)),
+                           ("q4_matmul_v1", q4l.quantize_weight_q4(w, 1, 1))):
+            kernel_fn, plain_fn = kernels[name]
+            for m in ms_tail:
+                x = torch.randn((m, k), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                out = kernel_fn(x, *leaf.values())
+                torch.cuda.synchronize()
+                ref = plain_fn(x, *leaf.values())
+                err = float((out.float() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                check(bool(torch.isfinite(out).all())
+                      and err <= GEMM_REL_TOL[name] * scale,
+                      f"{name} K={k} N={n} M={m}: max|d| {err} > "
+                      f"{GEMM_REL_TOL[name]} x {scale}")
+                tails[f"{name} M={m}"] = err / scale
+                if name != "q8_matmul":
+                    plans[f"{name} M={m}"] = q4l.q4_split_plan(
+                        m, n, k, k // leaf["qs4"].shape[0],
+                        q4l.pack_version(leaf["q4"]))._asdict()
+        emit("gemm_tails", K=k, N=n, rel_errors=tails, plans=plans)
+        del w
+    sums = {}
+    for (name, m), t in totals.items():
+        bound = max(t["bytes"] / HBM_BYTES_PER_S,
+                    t["flops"] / BF16_FLOPS) * 1e3
+        sums[f"{name} M={m}"] = {
+            "ms": t["ms"], "library_ms": t["library_ms"], "bound_ms": bound,
+            "x_library": t["ms"] / t["library_ms"], "x_bound": t["ms"] / bound}
+    emit("gemm_sums", geometries=len(GEMM_SHAPES), sums=sums)
+    worst = {}  # each kernel's largest error over every M
+    for (name, _), t in totals.items():
+        worst[name] = max(worst.get(name, 0.0), t["err"])
+    entries = [kernel_entry(name, worst[name], t["ms"], t["plain_ms"],
+                            t["library_ms"], t["bytes"], t["flops"])
+               for (name, m), t in totals.items() if m == GEMM_MS[0]]
+    entries += [kernel_entry(name, t["err"], t["ms"], t["plain_ms"],
+                             t["library_ms"], t["bytes"], t["flops"],
+                             label=f"{name}[M={m}]")
+                for (name, m), t in totals.items()
+                if m == GEMM_EXTRA_M and name.startswith("q4_")]
+    return entries
 
 
 async def _stream(worker, body: dict) -> dict:
@@ -1118,8 +1157,9 @@ def phase_dropins(dev: torch.device, worker) -> int:
 
 def phase_spec_q(dev: torch.device) -> dict:
     """The spec step on the quantized path: mistral-7b widths at 4 layers,
-    W4A16 + int8 KV, 8 sequences prefilled then one verification step of 5
-    positions each, so every projection runs the q4 v2 kernel at M = 40
+    W4A16 + int8 KV, 8 sequences (the runner's 8 slots) prefilled then one
+    verification step of 5 positions each, so every projection runs the q4
+    v2 kernel at M = 8 x 5 = 40
     and attention the int8 pool kernel folded (g' = 20); held against the
     plain versions. Returns the launches of the kernel run."""
     from dynamo_tpu_torch.engine import ModelRunner, RunnerConfig
@@ -1157,7 +1197,7 @@ def phase_spec_q(dev: torch.device) -> dict:
             np.zeros(b, np.uint32), np.zeros(b, np.int32), want_logits=True)
         return targets, runner.last_spec_logits
 
-    # the kernel run: 8 prefill forwards and one spec forward at M = 40
+    # the kernel run: 8 prefill forwards and one spec forward at M = 8 x 5
     reset_counts()
     firsts = [runner.prefill_chunk(p, 0, tables[i], len(p), (0.0, 1.0, 0, 0))
               for i, p in enumerate(prompts)]
@@ -1295,7 +1335,8 @@ def main() -> None:
     del worker
     free_memory()
 
-    # the spec step on the quantized path (row 2 folded, row 6 at M = 40)
+    # the spec step on the quantized path (row 2 folded, row 6 at M = 8 x 5
+    # = 40: spec_q's runner has 8 slots)
     launches["paged_decode_attention_pool_int8_folded"] = phase_spec_q(dev)[
         "paged_decode_attention_pool_int8_folded"]
 

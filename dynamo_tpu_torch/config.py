@@ -58,7 +58,7 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
         4, int,
         "Max draft tokens proposed per slot per speculative step (the "
         "verification chunk is k+1 positions, folded into the GQA group "
-        "of the decode kernel, which refuses a fold wider than it takes)"),
+        "of the decode kernel)"),
     "DYNT_SPEC_MIN_EMA": (
         0.1, float,
         "Per-slot acceptance-rate EMA floor: a slot whose EMA falls "

@@ -22,15 +22,19 @@
 // rows each, [c_lo, c_lo + KT/2) and [c_lo + h, c_lo + h + KT/2), each
 // inside one quantization group; the x tile gathers the same two runs.
 //
-// Bound on this card: at decode (M <= 16) the packed weight stream (HBM
-// bytes); at prefill (M in the hundreds or thousands) the tensor cores.
+// Who runs this body: q8 at every M, q4 only at M > 80 (prefill chunks;
+// q4 at M <= 80 runs dequant_gemm_small_m.cuh, which has split-K, a
+// cp.async ring and one block over all rows).
+// Bound on this card: at decode (M <= 16) the weight stream (HBM bytes);
+// at prefill (M in the hundreds or thousands) the tensor cores.
 // Design (simple and right first): one 128-thread block per BM x BN output
 // tile, BM = 16 for M <= 16 (decode) and 64 otherwise; the next tile's
 // global loads are issued into registers before the current tile's MMAs,
-// so loads overlap compute. What it leaves for later work: wgmma and TMA,
-// a multi-stage shared-memory ring, split-K for the decode shapes (at
-// N = 4096 the grid holds 64 blocks for 132 SMs), and folding the zero
-// point into a rank-1 term.
+// so loads overlap compute. What holds it back: one tile of ~4 KB in
+// flight per block and no split-K (at N = 4096 the decode grid holds 64
+// blocks for 132 SMs), so the q8 decode shapes are latency-bound; each
+// 64-row tile dequantizes the whole weight tile again through shared
+// memory. Left for later work: q8 on the small-M body, wgmma and TMA.
 
 #pragma once
 

@@ -8,30 +8,88 @@
 //   q4_matmul_v1_bf16 replaces _q4_matmul_kernel (uint8 bytes, half-block:
 //     inside each group, byte row r holds code rows r and r + group/2).
 //
-// Packed bytes stream from HBM; each block unpacks the nibbles and
-// dequantizes (u - z) * s in f32 to a bf16 tile in shared memory, where the
-// MMAs read it, so neither a bf16 nor an int8 copy of the weight exists in
-// HBM. Bound: the packed weight stream at decode sizes, tensor-core
-// operations at prefill sizes. Tiling and what it leaves for later:
-// dequant_gemm.cuh.
+// Packed bytes stream from HBM and are dequantized on the SM, so neither a
+// bf16 nor an int8 copy of the weight exists in HBM. Two bodies:
+//
+//   M <= 80 (decode batches and verification chunks): dequant_gemm_small_m.cuh.
+//     Bound: the packed weight stream. Split-K over the host's plan
+//     (q4_split_plan: group-aligned spans, enough blocks for 132 SMs), a
+//     cp.async ring of packed tiles, one block over all M rows, raw codes
+//     into mma.sync fragments in registers with the zero point and scale
+//     folded in once per group; several splits add their f32 partials in a
+//     second, deterministic launch.
+//   M > 80 (prefill chunks): dequant_gemm.cuh's 64 x 128 wmma tile. Bound:
+//     the tensor cores; each 64-row tile dequantizes the whole weight again,
+//     which is what holds it at ~60 TFLOP/s.
 
 #include "dequant_gemm.cuh"
+#include "dequant_gemm_small_m.cuh"
 
-// Both return cudaGetLastError() (0 = launched) after launching on `stream`.
+namespace {
+
+// Checks the host's plan against the geometry and launches; returns
+// cudaGetLastError() (0 = launched) or cudaErrorInvalidValue.
+template <int MODE>
+int launch_q4(const void* x, const void* w, const float* s, const float* z,
+              void* out, float* part, int M, int N, int K, int group,
+              int half, int block_n, int n_split, int span, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0 || N % 16 || K % 64 || group <= 0
+      || K % group || half <= 0 || half % dqs::kStageRows
+      || group % dqs::kStageRows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (M > dqs::kMaxRows) {  // prefill: the unchanged 64 x 128 tile
+    if (block_n != 128 || n_split != 1) return (int)cudaErrorInvalidValue;
+    dq::launch_tile<MODE, 64, 128, 64>(x, w, s, z, out, M, N, K, group, half,
+                                       st);
+    return (int)cudaGetLastError();
+  }
+  // A split is whole groups of both nibble runs: v1 group / 2 packed rows,
+  // v2 group packed rows.
+  const int unit = MODE == dq::kQ4V1 ? group / 2 : group;
+  if (unit % dqs::kStageRows || (K / 2) % unit || span <= 0 || span % unit
+      || n_split != (K / 2 + span - 1) / span || (n_split > 1 && !part)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (M <= 16) {
+    if (block_n != 64) return (int)cudaErrorInvalidValue;
+    return dqs::launch_small<MODE, 1, 2>(x, w, s, z, out, part, M, N,
+                                                K, group, half, n_split, span,
+                                                st);
+  }
+  if (block_n != 128) return (int)cudaErrorInvalidValue;
+  if (M <= 48) {
+    return dqs::launch_small<MODE, 3, 4>(x, w, s, z, out, part, M, N, K,
+                                         group, half, n_split, span, st);
+  }
+  return dqs::launch_small<MODE, 5, 4>(x, w, s, z, out, part, M, N, K,
+                                       group, half, n_split, span, st);
+}
+
+}  // namespace
+
+// Both launch on `stream` and return cudaGetLastError() (0 = launched).
+// (block_n, n_split, span) is q4_split_plan's; `part` is an f32 workspace
+// [n_split, M, N] when n_split > 1 (else unused, may be null).
 extern "C" int q4_matmul_v1_bf16(const void* x, const void* q4,
                                  const void* scale, const void* zero, void* out,
-                                 int m, int n, int k, int group, void* stream) {
-  return dq::launch<dq::kQ4V1>(x, q4, static_cast<const float*>(scale),
-                               static_cast<const float*>(zero), out, m, n, k,
-                               group, group / 2,
-                               reinterpret_cast<cudaStream_t>(stream));
+                                 void* part, int m, int n, int k, int group,
+                                 int block_n, int n_split, int span,
+                                 void* stream) {
+  return launch_q4<dq::kQ4V1>(x, q4, static_cast<const float*>(scale),
+                              static_cast<const float*>(zero), out,
+                              static_cast<float*>(part), m, n, k, group,
+                              group / 2, block_n, n_split, span, stream);
 }
 
 extern "C" int q4_matmul_v2_bf16(const void* x, const void* q4,
                                  const void* scale, const void* zero, void* out,
-                                 int m, int n, int k, int group, void* stream) {
-  return dq::launch<dq::kQ4V2>(x, q4, static_cast<const float*>(scale),
-                               static_cast<const float*>(zero), out, m, n, k,
-                               group, k / 2,
-                               reinterpret_cast<cudaStream_t>(stream));
+                                 void* part, int m, int n, int k, int group,
+                                 int block_n, int n_split, int span,
+                                 void* stream) {
+  return launch_q4<dq::kQ4V2>(x, q4, static_cast<const float*>(scale),
+                              static_cast<const float*>(zero), out,
+                              static_cast<float*>(part), m, n, k, group, k / 2,
+                              block_n, n_split, span, stream);
 }

@@ -18,17 +18,19 @@ int8 = v2), so the version travels with the leaf:
 
 `q4_matmul` dispatches on the dtype to `q4_matmul_v1` / `q4_matmul_v2`,
 which launch the two entry points of the hand-written CUDA kernel
-`csrc/q4_matmul.cu` for CUDA tensors (nibbles unpack and dequantize in
-shared memory; no bf16 or int8 copy of the weight exists in HBM), raise on
-anything it does not take, and run the plain PyTorch version
-`q4_matmul_ref` only for CPU tensors.
+`csrc/q4_matmul.cu` for CUDA tensors (nibbles unpack and dequantize on the
+SM; no bf16 or int8 copy of the weight exists in HBM), raise on anything
+it does not take, and run the plain PyTorch version `q4_matmul_ref` only
+for CPU tensors. At M <= 80 the kernel splits K across blocks by
+`q4_split_plan` (shapes only); the wrapper allocates the f32 workspace of
+the splits' partials.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -282,11 +284,72 @@ def q4_matmul_ref(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     return (x.float() @ w.float()).to(x.dtype)
 
 
+# The kernel's tiling (csrc/dequant_gemm_small_m.cuh, q4_matmul.cu): the
+# most x rows the small-M body holds, packed rows per ring stage, the
+# prefill tile's rows and columns, and the SMs of an H100.
+SMALL_M = 80
+STAGE_ROWS = 32
+PREFILL_TILE = (64, 128)
+SMS = 132
+
+
+class Q4SplitPlan(NamedTuple):
+    """How one launch covers [M, N] x K/2 packed rows: blocks of `block_m`
+    rows (every row at M <= 80) by `block_n` columns, each contracting
+    `span` packed rows (the last split may be shorter); `grid` is the CUDA
+    grid (column tiles, n_split) of the small-M body, or (column tiles, row
+    tiles) of the prefill tile."""
+    block_m: int
+    block_n: int
+    n_split: int
+    span: int
+    grid: tuple
+
+
+def q4_split_plan(m: int, n: int, k: int, group: int,
+                  version: int) -> Q4SplitPlan:
+    """The W4A16 kernel's plan, from shapes only (it never reads the card,
+    so a CUDA graph can capture it). M > 80 takes the 64 x 128 prefill tile
+    and one split. M <= 80 takes one block over all rows (16, 48 or 80)
+    by 64 columns (M <= 16) or 128, and splits K into spans of whole
+    quantization groups of both nibble runs -- v1: group / 2 packed rows
+    (code rows c and c + group / 2 share a byte), v2: group packed rows
+    (c and c + K / 2 share a byte) -- so no split straddles a scale/zero
+    row. Splits: as many as bring the grid to 4 blocks per SM at M <= 16
+    (4-warp blocks, up to 5 resident) or 2 above (8-warp blocks, 2
+    resident), but no more than keep the f32 partials (n_split x M x N x 4
+    bytes, written once and read once) at or under twice the packed
+    weight's K x N / 2 bytes. Raises ValueError on a geometry the kernel
+    does not take."""
+    half = group // 2 if version == PACK_V1 else k // 2
+    unit = group // 2 if version == PACK_V1 else group
+    if (m <= 0 or n <= 0 or n % 16 or k % 64 or group <= 0 or k % group
+            or version not in (PACK_V1, PACK_V2) or half % STAGE_ROWS
+            or unit % STAGE_ROWS or (k // 2) % unit):
+        raise ValueError(
+            f"the W4A16 kernel takes N % 16 == 0, K % 64 == 0 and groups of "
+            f"at least 64 rows whose runs tile K (M={m}, K={k}, N={n}, "
+            f"group={group}, v{version})")
+    if m > SMALL_M:
+        bm, bn = PREFILL_TILE
+        return Q4SplitPlan(bm, bn, 1, k // 2, (-(-n // bn), -(-m // bm)))
+    block_m = 16 if m <= 16 else (48 if m <= 48 else SMALL_M)
+    block_n = 64 if m <= 16 else 128
+    tiles = -(-n // block_n)
+    units = (k // 2) // unit
+    want = max(1, (4 if m <= 16 else 2) * SMS // tiles)
+    cap = max(1, k // (4 * m))
+    per = -(-units // min(units, want, cap))
+    n_split = -(-units // per)
+    return Q4SplitPlan(block_m, block_n, n_split, per * unit,
+                       (tiles, n_split))
+
+
 def _kernel_fn(version: int):
     lib = _build.load(_KERNEL)
     fn = lib.q4_matmul_v2_bf16 if version == PACK_V2 else lib.q4_matmul_v1_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -309,24 +372,28 @@ def _q4_kernel(version: int, x, q4, scale, zero) -> torch.Tensor:
             f"x {tuple(x.shape)}, q4 {tuple(q4.shape)}, scale "
             f"{tuple(scale.shape)}, zero {tuple(zero.shape)} do not match")
     group = k // scale.shape[0]
-    run = 64 if m <= 16 and k % 128 == 0 else 32  # code rows per run
     half = group // 2 if version == PACK_V1 else k // 2
-    if half % run or group % run:
-        run = 32
-    require(n % 16 == 0 and k % 64 == 0 and half % run == 0
-            and group % run == 0, name,
+    require(n % 16 == 0 and k % 64 == 0 and half % 32 == 0
+            and group % 32 == 0, name,
             f"the kernel needs N % 16 == 0, K % 64 == 0 and groups of at "
             f"least 64 rows (K={k}, N={n}, group={group})")
     require(all(t.is_contiguous() for t in (x, q4, scale, zero)), name,
             "the kernel takes contiguous inputs")
-    require(x.data_ptr() % 16 == 0 and q4.data_ptr() % 16 == 0, name,
-            "the kernel takes 16-byte aligned x and q4")
+    require(all(t.data_ptr() % 16 == 0 for t in (x, q4, scale, zero)), name,
+            "the kernel takes 16-byte aligned x, q4, scale and zero")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return out
+    try:
+        plan = q4_split_plan(m, n, k, group, version)
+    except ValueError as exc:
+        raise ValueError(f"{name}: {exc}") from None
+    part = (torch.empty((plan.n_split, m, n), dtype=torch.float32,
+                        device=x.device) if plan.n_split > 1 else None)
     check_launch(name, _kernel_fn(version)(
         x.data_ptr(), q4.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-        out.data_ptr(), m, n, k, group, stream_of(x)))
+        out.data_ptr(), part.data_ptr() if part is not None else None,
+        m, n, k, group, plan.block_n, plan.n_split, plan.span, stream_of(x)))
     return out
 
 

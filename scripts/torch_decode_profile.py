@@ -16,8 +16,9 @@ kernels and by their plain PyTorch versions in turn:
     attention kernels' share (the split decode body and its merge), and the
     device's busy share of the block's wall time;
   * the same for one speculative verification step (`decode_spec`) of
-    K = 4 drafts per sequence (5 positions each: the folded attention, the
-    projections at M = 40, the verification sampler);
+    K = 4 drafts per slot (5 positions each: the folded attention, the
+    projections at M = 16 slots x 5 = 80, since the runner's 16 slots all
+    run, 8 of them live; the verification sampler);
   * one prefill chunk of 512 and of 1,500 tokens (wall time, synchronized).
 
 Prints one JSON line per measurement; the trace tables go to --out.
