@@ -16,9 +16,10 @@ Phases, each printing one JSON line:
               tiles) and rows 1-2 at a full batch of 16 x 2,047 tokens
               (also timed with the split plan held to one split)
   gemm      - the W8A16 and W4A16 (v2, v1) kernels the same way, at every
-              mistral-7b projection geometry, for M = 8, 16, 40, 80 and 512;
-              then ragged M and N (off the kernels' tiles) and a split of
-              w_down's K, correctness only
+              mistral-7b projection geometry, for M = 8, 16, 40, 80 and 512
+              (the small-M bodies up to 80 rows, the prefill body above),
+              with each kernel's split plan; then ragged M and N (off both
+              bodies' tiles) and a split of w_down's K, correctness only
   engine    - the bf16 path: a TorchWorker serving llama3-8b at full width
               (random weights from a fixed seed) answers a prefix-warming
               request, then 8 concurrent requests through `generate`; the
@@ -64,6 +65,7 @@ without the rest of the repository beside it, the script exits non-zero.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
 import json
@@ -91,7 +93,8 @@ KERNEL_TOL = {"normalized": 2e-3, "m": 1e-3, "l_rel": 1e-3}
 # orders (split-K adds per-split f32 partials). The plain q4 version rounds
 # each dequantized weight (u - z) * s to bf16; the q4 kernels do not at
 # M <= 80 (they multiply the raw codes and fold the zero point and scale in
-# f32 per group) and do at M > 80, so q4 also differs by that rounding.
+# f32 per group) and at M > 80 round (u - z) * bf16(s) to bf16 (s rounded
+# to bf16 first), so q4 also differs by those roundings.
 GEMM_REL_TOL = {"q8_matmul": 1e-2, "q4_matmul_v2": 2e-2, "q4_matmul_v1": 2e-2}
 # mistral-7b's projection geometries (K, N): wq/wo, wk/wv, gate/up, down,
 # lm_head.
@@ -101,8 +104,18 @@ GEMM_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
 # verification chunk of 8 and of 16 slots at K = 4 drafts, a prefill chunk.
 GEMM_MS = (8, 16, 40, 80, 512)
 # The kernels-line entries of the GEMMs sum the five geometries at M = 8;
-# the q4 rows also get an extra case at the full verification chunk.
-GEMM_EXTRA_M = 80
+# every GEMM row also gets extra cases at the full verification chunk (the
+# small-M body's widest) and at a prefill chunk (the prefill body).
+GEMM_EXTRA_MS = (80, 512)
+# Ragged shapes, correctness only: (K, N, q4 group, Ms). M off the 16-, 48-,
+# 80- and 128-row tiles (both bodies), N a multiple of 16 but not of the
+# 64- or 128-column tiles; then w_down's K (56 groups of 256, 28 per v2
+# half) split unevenly at M <= 80 and through the prefill body at M = 512;
+# then the q4 kernels alone at DYNT_Q4_GROUP = 128, where both bodies load
+# new scale and zero rows more often (v1's prefill body every other stage).
+GEMM_TAILS = ((4096, 1040, 256, (1, 3, 17, 77, 80, 81, 129, 1500)),
+              (14336, 1040, 256, (8, 80, 512)),
+              (4096, 1040, 128, (80, 129)))
 # First-decode-step logits, kernel path vs plain path: the two round the
 # attention and projection outputs to bf16 at different points and 32
 # layers compound it.
@@ -160,6 +173,21 @@ def emit(phase: str, **fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+@contextlib.contextmanager
+def knobs(**values: str):
+    """Set DYNT_* knobs for the body, then restore what was there."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def nvidia_smi() -> str:
@@ -560,11 +588,19 @@ def phase_gemms(dev: torch.device) -> list:
     timed call reads another copy of the packed weight (enough copies to
     exceed the L2 twice over), so weights come from HBM as in a decode
     step. The kernels-line numbers are the sums over the five geometries
-    at M = 8 (one of each projection, decode shapes), and for the q4 rows
-    also at M = GEMM_EXTRA_M ("name[M=80]"); one "gemm_sums" line gives
-    every kernel's sums at every M beside torch.matmul's and the bound."""
+    at M = 8 (one of each projection, decode shapes), and also at each M
+    of GEMM_EXTRA_MS ("name[M=80]", "name[M=512]"); one "gemm_sums" line
+    gives every kernel's sums at every M beside torch.matmul's and the
+    bound."""
     from dynamo_tpu_torch.ops import q4_linear as q4l
     from dynamo_tpu_torch.ops import q8_linear as q8l
+
+    def plan_of(name, m, k, n, leaf):
+        if name == "q8_matmul":
+            return q8l.q8_split_plan(m, n, k)._asdict()
+        q4, qs4 = leaf[0], leaf[1]
+        return q4l.q4_split_plan(m, n, k, k // qs4.shape[0],
+                                 q4l.pack_version(q4))._asdict()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
@@ -615,9 +651,7 @@ def phase_gemms(dev: torch.device) -> list:
                 flops = 2 * m * k * n
                 bound_ms = max(n_bytes / HBM_BYTES_PER_S,
                                flops / BF16_FLOPS) * 1e3
-                plan = (q4l.q4_split_plan(m, n, k, k // args[1].shape[0],
-                                          q4l.pack_version(args[0]))._asdict()
-                        if name != "q8_matmul" else None)
+                plan = plan_of(name, m, k, n, args)
                 emit("gemm", name=name, K=k, N=n, M=m, max_abs_err=err,
                      max_abs_ref=scale, tolerance_rel=GEMM_REL_TOL[name],
                      ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -635,17 +669,18 @@ def phase_gemms(dev: torch.device) -> list:
             del copies, lib, deq
         del leaves
         free_memory()
-    # ragged shapes, correctness only: M off the 16-, 48-, 64- and 80-row
-    # tiles, N a multiple of 16 but not of the 64- or 128-column tile; then
-    # w_down's K (56 groups of 256, 28 per v2 half) split unevenly
-    for k, n, ms_tail in ((4096, 1040, (1, 3, 17, 77, 80)),
-                          (14336, 1040, (8, 80))):
+    for k, n, group, ms_tail in GEMM_TAILS:
         w = (torch.randn((k, n), generator=gen, device=dev)
              / math.sqrt(k)).to(torch.bfloat16)
         tails, plans = {}, {}
-        for name, leaf in (("q8_matmul", q8l.quantize_weight(w, 1)),
-                           ("q4_matmul_v2", q4l.quantize_weight_q4(w, 1, 2)),
-                           ("q4_matmul_v1", q4l.quantize_weight_q4(w, 1, 1))):
+        with knobs(DYNT_Q4_GROUP=str(group)):
+            leaves = [("q4_matmul_v2", q4l.quantize_weight_q4(w, 1, 2)),
+                      ("q4_matmul_v1", q4l.quantize_weight_q4(w, 1, 1))]
+        check(all(k // leaf["qs4"].shape[0] == group for _, leaf in leaves),
+              f"q4 tails at K={k}: not quantized in groups of {group}")
+        if group == q4l.PACK_BLOCK:
+            leaves.insert(0, ("q8_matmul", q8l.quantize_weight(w, 1)))
+        for name, leaf in leaves:
             kernel_fn, plain_fn = kernels[name]
             for m in ms_tail:
                 x = torch.randn((m, k), generator=gen,
@@ -660,11 +695,10 @@ def phase_gemms(dev: torch.device) -> list:
                       f"{name} K={k} N={n} M={m}: max|d| {err} > "
                       f"{GEMM_REL_TOL[name]} x {scale}")
                 tails[f"{name} M={m}"] = err / scale
-                if name != "q8_matmul":
-                    plans[f"{name} M={m}"] = q4l.q4_split_plan(
-                        m, n, k, k // leaf["qs4"].shape[0],
-                        q4l.pack_version(leaf["q4"]))._asdict()
-        emit("gemm_tails", K=k, N=n, rel_errors=tails, plans=plans)
+                plans[f"{name} M={m}"] = plan_of(name, m, k, n,
+                                                 tuple(leaf.values()))
+        emit("gemm_tails", K=k, N=n, group=group, rel_errors=tails,
+             plans=plans)
         del w
     sums = {}
     for (name, m), t in totals.items():
@@ -683,8 +717,7 @@ def phase_gemms(dev: torch.device) -> list:
     entries += [kernel_entry(name, t["err"], t["ms"], t["plain_ms"],
                              t["library_ms"], t["bytes"], t["flops"],
                              label=f"{name}[M={m}]")
-                for (name, m), t in totals.items()
-                if m == GEMM_EXTRA_M and name.startswith("q4_")]
+                for (name, m), t in totals.items() if m in GEMM_EXTRA_MS]
     return entries
 
 
@@ -880,18 +913,9 @@ def _spec_run(dev: torch.device, spec: bool) -> dict:
     depend on host timing."""
     from dynamo_tpu_torch.engine import TorchWorker
 
-    saved = {k: os.environ.get(k) for k in ("DYNT_SPEC_ENABLE",
-                                            "DYNT_SPEC_MAX_K")}
-    os.environ["DYNT_SPEC_ENABLE"] = "1" if spec else "0"
-    os.environ["DYNT_SPEC_MAX_K"] = str(SPEC_K)
-    try:
+    with knobs(DYNT_SPEC_ENABLE="1" if spec else "0",
+               DYNT_SPEC_MAX_K=str(SPEC_K)):
         worker = TorchWorker(MODEL, device=dev, seed=SEED)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     runner, sched = worker.runner, worker.scheduler
     check(sched.spec_enabled == spec and sched.spec_k == SPEC_K,
           f"spec knobs not applied: enabled={sched.spec_enabled}")
@@ -1243,18 +1267,10 @@ def phase_secondary(dev: torch.device, weight_dtype: str,
 
     label = f"secondary_{weight_dtype}" + (f"_{variant}" if variant else "")
     cfg = dataclasses.replace(get_config(QMODEL), n_layers=4)
-    saved = os.environ.get("DYNT_Q4_VARIANT")
-    if variant:
-        os.environ["DYNT_Q4_VARIANT"] = variant
-    try:
+    with knobs(**({"DYNT_Q4_VARIANT": variant} if variant else {})):
         runner = ModelRunner(cfg, RunnerConfig(
             num_pages=64, max_batch=1, weight_dtype=weight_dtype,
             kv_dtype="int8"), device=dev, seed=SEED)
-    finally:
-        if saved is None:
-            os.environ.pop("DYNT_Q4_VARIANT", None)
-        else:
-            os.environ["DYNT_Q4_VARIANT"] = saved
     n, steps = 200, 8
     table = np.zeros(runner.config.max_pages_per_seq, np.int32)
     pages = -(-(n + steps) // runner.config.page_size)

@@ -18,11 +18,14 @@
 //     into mma.sync fragments in registers with the zero point and scale
 //     folded in once per group; several splits add their f32 partials in a
 //     second, deterministic launch.
-//   M > 80 (prefill chunks): dequant_gemm.cuh's 64 x 128 wmma tile. Bound:
-//     the tensor cores; each 64-row tile dequantizes the whole weight again,
-//     which is what holds it at ~60 TFLOP/s.
+//   M > 80 (prefill chunks): dequant_gemm.cuh's 128 x 128 prefill body,
+//     shared with q8_matmul.cu. Bound: the tensor cores. TMA copies of the
+//     two x runs and of the packed bytes into a 4-stage ring; two
+//     warpgroups dequantize each weight once per 128 rows of x in bf16x2
+//     ((128 + u - (128 + z)) * s) straight into wgmma's register operand.
+//     (The 64 x 128 wmma tile it replaced dequantized the weight again for
+//     every 64 rows and ran at ~60 TFLOP/s.)
 
-#include "dequant_gemm.cuh"
 #include "dequant_gemm_small_m.cuh"
 
 namespace {
@@ -39,24 +42,28 @@ int launch_q4(const void* x, const void* w, const float* s, const float* z,
       || group % dqs::kStageRows) {
     return (int)cudaErrorInvalidValue;
   }
-  if (M > dqs::kMaxRows) {  // prefill: the unchanged 64 x 128 tile
-    if (block_n != 128 || n_split != 1) return (int)cudaErrorInvalidValue;
-    dq::launch_tile<MODE, 64, 128, 64>(x, w, s, z, out, M, N, K, group, half,
-                                       st);
-    return (int)cudaGetLastError();
-  }
   // A split is whole groups of both nibble runs: v1 group / 2 packed rows,
-  // v2 group packed rows.
+  // v2 group packed rows. The prefill body relies on this too: it reloads
+  // a run's scale and zero rows only where a group starts.
   const int unit = MODE == dq::kQ4V1 ? group / 2 : group;
-  if (unit % dqs::kStageRows || (K / 2) % unit || span <= 0 || span % unit
-      || n_split != (K / 2 + span - 1) / span || (n_split > 1 && !part)) {
+  if (unit % dqs::kStageRows || (K / 2) % unit) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (M > dqs::kMaxRows) {  // prefill: the 128 x 128 body, one split
+    if (block_n != dq::kPreBN || n_split != 1 || span != K / 2) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return dq::launch_prefill<MODE>(x, w, s, z, out, M, N, K, group, half,
+                                    st);
+  }
+  if (span <= 0 || span % unit || n_split != (K / 2 + span - 1) / span
+      || (n_split > 1 && !part)) {
     return (int)cudaErrorInvalidValue;
   }
   if (M <= 16) {
     if (block_n != 64) return (int)cudaErrorInvalidValue;
-    return dqs::launch_small<MODE, 1, 2>(x, w, s, z, out, part, M, N,
-                                                K, group, half, n_split, span,
-                                                st);
+    return dqs::launch_small<MODE, 1, 2>(x, w, s, z, out, part, M, N, K,
+                                         group, half, n_split, span, st);
   }
   if (block_n != 128) return (int)cudaErrorInvalidValue;
   if (M <= 48) {

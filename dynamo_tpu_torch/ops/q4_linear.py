@@ -23,14 +23,15 @@ SM; no bf16 or int8 copy of the weight exists in HBM), raise on anything
 it does not take, and run the plain PyTorch version `q4_matmul_ref` only
 for CPU tensors. At M <= 80 the kernel splits K across blocks by
 `q4_split_plan` (shapes only); the wrapper allocates the f32 workspace of
-the splits' partials.
+the splits' partials. Above 80 rows it runs the prefill body that the W8A16
+kernel shares (`prefill_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from torch import nn
 
 from ..config import env
 from . import _build
+from ._gemm_plan import SMALL_M, SMS, STAGE_ROWS, SplitPlan, prefill_plan
 from ._launch import check_launch, require, runs_plain, stream_of
 
 # Preferred contracted rows per quantization group; DYNT_Q4_GROUP=128 gives
@@ -284,33 +286,11 @@ def q4_matmul_ref(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     return (x.float() @ w.float()).to(x.dtype)
 
 
-# The kernel's tiling (csrc/dequant_gemm_small_m.cuh, q4_matmul.cu): the
-# most x rows the small-M body holds, packed rows per ring stage, the
-# prefill tile's rows and columns, and the SMs of an H100.
-SMALL_M = 80
-STAGE_ROWS = 32
-PREFILL_TILE = (64, 128)
-SMS = 132
-
-
-class Q4SplitPlan(NamedTuple):
-    """How one launch covers [M, N] x K/2 packed rows: blocks of `block_m`
-    rows (every row at M <= 80) by `block_n` columns, each contracting
-    `span` packed rows (the last split may be shorter); `grid` is the CUDA
-    grid (column tiles, n_split) of the small-M body, or (column tiles, row
-    tiles) of the prefill tile."""
-    block_m: int
-    block_n: int
-    n_split: int
-    span: int
-    grid: tuple
-
-
 def q4_split_plan(m: int, n: int, k: int, group: int,
-                  version: int) -> Q4SplitPlan:
+                  version: int) -> SplitPlan:
     """The W4A16 kernel's plan, from shapes only (it never reads the card,
-    so a CUDA graph can capture it). M > 80 takes the 64 x 128 prefill tile
-    and one split. M <= 80 takes one block over all rows (16, 48 or 80)
+    so a CUDA graph can capture it). M > 80 takes the prefill body
+    (`prefill_plan`). M <= 80 takes one block over all rows (16, 48 or 80)
     by 64 columns (M <= 16) or 128, and splits K into spans of whole
     quantization groups of both nibble runs -- v1: group / 2 packed rows
     (code rows c and c + group / 2 share a byte), v2: group packed rows
@@ -331,8 +311,7 @@ def q4_split_plan(m: int, n: int, k: int, group: int,
             f"at least 64 rows whose runs tile K (M={m}, K={k}, N={n}, "
             f"group={group}, v{version})")
     if m > SMALL_M:
-        bm, bn = PREFILL_TILE
-        return Q4SplitPlan(bm, bn, 1, k // 2, (-(-n // bn), -(-m // bm)))
+        return prefill_plan(m, n, k // 2)
     block_m = 16 if m <= 16 else (48 if m <= 48 else SMALL_M)
     block_n = 64 if m <= 16 else 128
     tiles = -(-n // block_n)
@@ -341,8 +320,8 @@ def q4_split_plan(m: int, n: int, k: int, group: int,
     cap = max(1, k // (4 * m))
     per = -(-units // min(units, want, cap))
     n_split = -(-units // per)
-    return Q4SplitPlan(block_m, block_n, n_split, per * unit,
-                       (tiles, n_split))
+    return SplitPlan(block_m, block_n, n_split, per * unit,
+                     (tiles, n_split))
 
 
 def _kernel_fn(version: int):

@@ -8,9 +8,14 @@ scale has no contracted axis, so it factors out of the contraction:
     x @ dequant(q8, s) == (x @ q8) * s
 
 `q8_matmul` launches the hand-written CUDA kernel `csrc/q8_matmul.cu` for
-CUDA tensors: int8 tiles are converted to bf16 in shared memory and never
-exist in bf16 in HBM. It raises on anything the kernel does not take, and
-runs the plain PyTorch version `q8_matmul_ref` only for CPU tensors.
+CUDA tensors; the int8 codes turn into bf16 on the SM and never exist in
+bf16 in HBM. At M <= 80 (decode and verification) the small-M body splits K
+across blocks by `q8_split_plan` (shapes only) and builds the tensor-core
+operands from the codes in registers; the wrapper allocates the f32
+workspace of the splits' partials. Above 80 rows (prefill) it runs the
+128 x 128 prefill body that the W4A16 kernel shares. It raises on anything
+the kernel does not take, and runs the plain PyTorch version
+`q8_matmul_ref` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from torch import nn
 
 from . import _build
+from ._gemm_plan import SMALL_M, SMS, STAGE_ROWS, SplitPlan, prefill_plan
 from ._launch import check_launch, require, runs_plain, stream_of
 
 # Leaf name -> number of LEADING contracted axes (the rest are output axes,
@@ -88,10 +94,38 @@ def q8_matmul_ref(x: torch.Tensor, wq: torch.Tensor,
     return (acc * scale.float()).to(x.dtype)
 
 
+def q8_split_plan(m: int, n: int, k: int) -> SplitPlan:
+    """The W8A16 kernel's plan, from shapes only (it never reads the card,
+    so a CUDA graph can capture it). M > 80 takes the prefill body
+    (`prefill_plan`). M <= 80 takes one block over all rows (16, 48 or 80)
+    by 128 columns (4 warps of 32) at M <= 16 or 256 (8 warps) above, the
+    faster of the two there (PERF.md section 6), and splits K into spans
+    of at least two whole 32-row ring stages: as many as bring the grid to
+    4 blocks per SM at M <= 16 or 2 above, but no more than keep the f32
+    partials (n_split x M x N x 4 bytes, written once and read once) at or
+    under twice the weight's K x N bytes. Raises ValueError on a geometry
+    the kernel does not take."""
+    if m <= 0 or n <= 0 or k <= 0 or n % 16 or k % 64:
+        raise ValueError(f"the W8A16 kernel takes N % 16 == 0 and "
+                         f"K % 64 == 0 (M={m}, K={k}, N={n})")
+    if m > SMALL_M:
+        return prefill_plan(m, n, k)
+    block_m = 16 if m <= 16 else (48 if m <= 48 else SMALL_M)
+    block_n = 128 if m <= 16 else 256
+    tiles = -(-n // block_n)
+    stages = k // STAGE_ROWS
+    want = max(1, (4 if m <= 16 else 2) * SMS // tiles)
+    cap = max(1, k // (2 * m))
+    per = max(2, -(-stages // min(stages, want, cap)))
+    n_split = -(-stages // per)
+    return SplitPlan(block_m, block_n, n_split, per * STAGE_ROWS,
+                     (tiles, n_split))
+
+
 def _kernel_fn():
     fn = _build.load(_KERNEL).q8_matmul_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -121,14 +155,21 @@ def q8_matmul(x: torch.Tensor, wq: torch.Tensor,
             f"the kernel needs N % 16 == 0 and K % 64 == 0 (K={k}, N={n})")
     require(x.is_contiguous() and wq.is_contiguous() and scale.is_contiguous(),
             name, "the kernel takes contiguous inputs")
-    require(x.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0, name,
-            "the kernel takes 16-byte aligned x and wq")
+    require(all(t.data_ptr() % 16 == 0 for t in (x, wq, scale)), name,
+            "the kernel takes 16-byte aligned x, wq and scale")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return out
+    try:
+        plan = q8_split_plan(m, n, k)
+    except ValueError as exc:
+        raise ValueError(f"{name}: {exc}") from None
+    part = (torch.empty((plan.n_split, m, n), dtype=torch.float32,
+                        device=x.device) if plan.n_split > 1 else None)
     check_launch(name, _kernel_fn()(
         x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        m, n, k, stream_of(x)))
+        part.data_ptr() if part is not None else None,
+        m, n, k, plan.block_n, plan.n_split, plan.span, stream_of(x)))
     q8_matmul.launches += 1
     return out
 

@@ -27,6 +27,7 @@ import sys, torch
 sys.path.insert(0, {tree!r})
 import chip_smoke as c
 c.GEMM_MS = {ms!r}
+c.GEMM_TAILS = ()  # correctness-only cases; trees that predate it ignore it
 c.emit("device", nvidia_smi=c.nvidia_smi())
 c.phase_build()
 c.phase_gemms(torch.device("cuda"))

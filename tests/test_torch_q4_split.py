@@ -19,6 +19,7 @@ import torch
 
 from dynamo_tpu.ops import q4_linear as jq4
 from dynamo_tpu_torch.models import get_config
+from dynamo_tpu_torch.ops import _gemm_plan as gp
 from dynamo_tpu_torch.ops import q4_linear as tq4
 from jax_capabilities import requires_pallas_compiler_params
 
@@ -115,9 +116,10 @@ def test_split_boundaries_hold_whole_groups(k, n, group, version, m):
 def test_prefill_tile_above_80_rows(k, n, group, version):
     for m in (81, 512):
         plan = tq4.q4_split_plan(m, n, k, group, version)
-        assert (plan.block_m, plan.block_n) == tq4.PREFILL_TILE
+        assert (plan.block_m, plan.block_n) == gp.PREFILL_TILE
         assert plan.n_split == 1 and plan.span == k // 2
-        assert plan.grid == (-(-n // 128), -(-m // 64))
+        bm, bn = gp.PREFILL_TILE
+        assert plan.grid == (-(-n // bn), -(-m // bm))
 
 
 @pytest.mark.parametrize("version", VERSIONS)
