@@ -24,9 +24,16 @@ Phases, each printing one JSON line:
               (random weights from a fixed seed) answers a prefix-warming
               request, then 8 concurrent requests through `generate`; the
               bf16 decode kernel's launch count must equal 32 x the decode
-              forwards run, and no other kernel may launch
+              forwards run (replays and each capture's eager warm-up
+              forward), and no other kernel may launch
   parity    - one greedy prompt through that runner with the kernels and
               with the plain versions: first-step logits and greedy tokens
+  graphs_bf16 - that runner prewarmed, then the 8 requests served three
+              times with CUDA graphs on and three times off, in turns: the
+              same streams every run, ITL and memory of each; per-step
+              host dispatch and device wall (CUDA events) of the fused
+              block and the spec step on and off; a spec step replayed
+              and eager on the same inputs draws the same targets
   unified   - the same traffic through TorchWorker(attention_fn=
               paged_attention), the reference's unified path: row 3 = 32 x
               decode forwards, row 1 = 0; then greedy parity against the
@@ -48,6 +55,8 @@ Phases, each printing one JSON line:
               none of the others
   parity_q  - the parity prompt on the quantized runner, kernels (decode
               attention and matmul) against plain versions
+  graphs_q  - graphs_bf16 on that runner, plus a spec step at K = 5 (M =
+              16 x 6 = 96: the GEMMs' TMA prefill body inside the graph)
   spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
               KV: a runner of 8 slots, all live, 5 positions each (the int8
               pool kernel folded, the q4 v2 kernel at M = 8 x 5 = 40),
@@ -55,6 +64,16 @@ Phases, each printing one JSON line:
   secondary - mistral-7b widths at 4 layers through the runner: W8A16 with
               int8 KV, and W4A16 under DYNT_Q4_VARIANT=v1; a few greedy
               steps each against the plain versions, launches checked
+
+Every decode, fused block and spec step runs as a CUDA-graph replay
+(`RunnerConfig.cuda_graphs`, on by default) except where a phase says
+otherwise; the engine and unified runners capture each key at its first use
+on the scheduler thread, engine_spec and engine_q prewarm first. Each of
+engine, unified, dropins, engine_spec, engine_q, spec_q and secondary checks
+that it replayed graphs and ran no decode or spec forward of a graphable
+call eagerly, and prints its captures, replays, capture seconds and peak
+memory. The parity phases swap the plain versions in on a live runner: the
+graph key holds the step functions, so those runs capture their own graphs.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -232,23 +251,9 @@ def gpu_time_ms(fn, n: int) -> float:
 
 def counters() -> dict:
     """Each kernel wrapper of the port, by kernel name."""
-    from dynamo_tpu_torch.ops import paged_attention as pa
-    from dynamo_tpu_torch.ops import q4_linear as q4l
-    from dynamo_tpu_torch.ops import q8_linear as q8l
+    from dynamo_tpu_torch.ops import kernel_wrappers
 
-    return {"paged_decode_attention_pool": pa.paged_decode_attention_pool,
-            "paged_decode_attention_pool_int8":
-                pa.paged_decode_attention_pool_int8,
-            "paged_decode_attention_pool_folded":
-                pa.paged_decode_attention_pool_folded,
-            "paged_decode_attention_pool_int8_folded":
-                pa.paged_decode_attention_pool_int8_folded,
-            "paged_decode_attention": pa.paged_decode_attention,
-            "paged_decode_attention_partial":
-                pa.paged_decode_attention_partial,
-            "q8_matmul": q8l.q8_matmul,
-            "q4_matmul_v2": q4l.q4_matmul_v2,
-            "q4_matmul_v1": q4l.q4_matmul_v1}
+    return kernel_wrappers()
 
 
 def reset_counts() -> None:
@@ -258,6 +263,52 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def reset_runner_counts(runner) -> None:
+    """The runner's forward and graph counters to 0, beside reset_counts."""
+    runner.decode_steps = runner.spec_steps = runner.prefill_steps = 0
+    runner.graph_captures = runner.graph_replays = 0
+    runner.graph_capture_s = 0.0
+    runner.graph_warm_forwards = {"decode": 0, "spec": 0}
+    runner.eager_forwards = {"decode": 0, "spec": 0}
+
+
+def launched_forwards(runner) -> dict:
+    """Decode and spec forwards that launched kernels since the counters
+    were reset: serving forwards, eager or replayed, plus the eager forward
+    each graph capture runs first."""
+    warm = runner.graph_warm_forwards
+    return {"decode": runner.decode_steps + warm["decode"],
+            "spec": runner.spec_steps + warm["spec"]}
+
+
+def graph_report(runner) -> dict:
+    """The runner's graph counters and the card's peak memory since the last
+    reset_peak_memory_stats, for a phase line."""
+    cuda = runner.device.type == "cuda"
+    return {"cuda_graphs": runner.config.cuda_graphs,
+            "graph_captures": runner.graph_captures,
+            "graph_replays": runner.graph_replays,
+            "graph_capture_s": runner.graph_capture_s,
+            "graph_warm_forwards": dict(runner.graph_warm_forwards),
+            "eager_forwards": dict(runner.eager_forwards),
+            "graph_keys": len(runner.step_graphs),
+            "graph_pool_GB": runner.graph_memory_bytes() / 1e9,
+            "max_memory_allocated_GB": (torch.cuda.max_memory_allocated() / 1e9
+                                        if cuda else None),
+            "memory_reserved_GB": (torch.cuda.memory_reserved() / 1e9
+                                   if cuda else None)}
+
+
+def check_graphed(runner, label: str) -> None:
+    """A graphed phase replayed graphs and ran no decode or spec forward of
+    a graphable call eagerly."""
+    check(runner.config.cuda_graphs and runner.graph_replays > 0,
+          f"{label}: no graph replay (cuda_graphs="
+          f"{runner.config.cuda_graphs})")
+    check(runner.eager_forwards == {"decode": 0, "spec": 0},
+          f"{label}: eager forwards on graphable keys {runner.eager_forwards}")
 
 
 def matmul_kernels_per_forward(runner) -> dict:
@@ -299,15 +350,21 @@ def attention_kernels(runner) -> tuple:
 
 def expected_counts(runner, dev: torch.device, decode: int = 0,
                     prefill: int = 0, spec: int = 0,
-                    prefill_t1: int = 0) -> dict:
+                    prefill_t1: int = 0, warm=None) -> dict:
     """Launches per kernel for the forwards run: each layer of a decode
     (spec) forward launches the decode (spec) attention kernel once, and
     of a unified forward the row-3 kernel once per T = 1 forward (decode,
     and prefill chunks of one token, `prefill_t1`); each quantized
-    projection launches its matmul kernel once per forward."""
+    projection launches its matmul kernel once per forward. `warm` adds
+    the graph captures' eager forwards ({"decode": n, "spec": n}, the
+    runner's `graph_warm_forwards`), which launch as any forward does; a
+    replay counts as the forward it replays."""
     want = {name: 0 for name in counters()}
     if dev.type != "cuda":
         return want
+    if warm is not None:
+        decode += warm["decode"]
+        spec += warm["spec"]
     n_layers = runner.model_config.n_layers
     decode_kernel, spec_kernel = attention_kernels(runner)
     if decode_kernel is not None:
@@ -819,11 +876,15 @@ def _latency(results) -> dict:
 
 
 def phase_engine(dev: torch.device, model=None, runner_config=None,
-                 label: str = "engine", attention_fn=None):
-    """A main path: TorchWorker.generate at full width. Returns the worker
-    (scheduler still running), the kernel launches counted in the run,
-    after checking them against the forwards the runner ran, and the
-    served token streams by request id."""
+                 label: str = "engine", attention_fn=None,
+                 prewarm: bool = False):
+    """A main path: TorchWorker.generate at full width, every decode step a
+    graph replay. With `prewarm` the runner captures its whole key space
+    before serving; without, the scheduler thread captures each key at its
+    first use, inside the run. Returns the worker (scheduler still
+    running), the kernel launches counted in the run, after checking them
+    against the forwards the runner ran, and the served token streams by
+    request id."""
     from dynamo_tpu_torch.engine import TorchWorker
 
     t0 = time.perf_counter()
@@ -833,7 +894,13 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
         before_gb = torch.cuda.memory_allocated() / 1e9
     worker = TorchWorker(model or MODEL, runner_config, device=dev, seed=SEED,
                          attention_fn=attention_fn)
-    worker.start()
+    if prewarm:
+        worker.runner.prewarm()
+        prewarm_captures = worker.runner.graph_captures
+        worker.scheduler.start()
+    else:
+        worker.start()
+        prewarm_captures = None
     init_s = time.perf_counter() - t0
     cfg = worker.model_config
     runner = worker.runner
@@ -844,8 +911,7 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
 
     # counts to zero just before the main path
     reset_counts()
-    runner.decode_steps = 0
-    runner.prefill_steps = 0
+    reset_runner_counts(runner)
 
     async def serve():
         first = await _stream(worker, _body("warm-0", warm, 0.0, 1.0))
@@ -873,10 +939,16 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
     check(cached == 2 * 512,
           f"prefix cache reused {cached} tokens, expected {2 * 512}")
     want = expected_counts(runner, dev, decode=decode_forwards,
-                           prefill=prefill_forwards, prefill_t1=t1[0])
+                           prefill=prefill_forwards, prefill_t1=t1[0],
+                           warm=runner.graph_warm_forwards)
     check(decode_forwards > 0 and prefill_forwards > 0 and launches == want,
           f"{label}: kernel launches {launches} != expected {want} for "
-          f"{decode_forwards} decode and {prefill_forwards} prefill forwards")
+          f"{decode_forwards} decode and {prefill_forwards} prefill forwards "
+          f"and graph warm-up forwards {runner.graph_warm_forwards}")
+    check_graphed(runner, label)
+    if prewarm:
+        check(runner.graph_captures == 0,
+              f"{label}: {runner.graph_captures} captures after prewarm")
     rc = runner.config
     emit(label, model=cfg.name, layers=cfg.n_layers, hidden=cfg.hidden,
          vocab=vocab, weight_dtype=rc.weight_dtype, kv_dtype=rc.kv_dtype,
@@ -889,10 +961,8 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
          decode_block=sched.decode_block, decode_pipeline=sched.decode_pipeline,
          **_latency(results),
          output_tokens_per_s=sum(len(r["tokens"]) for r in results) / wall,
-         wall_s=wall,
-         max_memory_allocated_GB=(torch.cuda.max_memory_allocated() / 1e9
-                                  if dev.type == "cuda" else None),
-         memory_allocated_before_GB=before_gb)
+         wall_s=wall, prewarm=prewarm, prewarm_captures=prewarm_captures,
+         **graph_report(runner), memory_allocated_before_GB=before_gb)
     served = {f"req-{i}": r["tokens"] for i, r in enumerate(results)}
     return worker, launches, served
 
@@ -913,22 +983,28 @@ def _spec_run(dev: torch.device, spec: bool) -> dict:
     depend on host timing."""
     from dynamo_tpu_torch.engine import TorchWorker
 
+    torch.cuda.reset_peak_memory_stats()
     with knobs(DYNT_SPEC_ENABLE="1" if spec else "0",
                DYNT_SPEC_MAX_K=str(SPEC_K)):
         worker = TorchWorker(MODEL, device=dev, seed=SEED)
+        # the scheduler starts with wave 1 (_serve_wave hold)
+        worker.runner.prewarm()
     runner, sched = worker.runner, worker.scheduler
+    prewarm_captures = runner.graph_captures
     check(sched.spec_enabled == spec and sched.spec_k == SPEC_K,
           f"spec knobs not applied: enabled={sched.spec_enabled}")
+    check(spec == any(key[0] == "decode_spec" for key in runner.step_graphs),
+          f"prewarm with speculation {'on' if spec else 'off'} captured "
+          f"{sorted(key[:4] for key in runner.step_graphs)}")
     vocab = worker.model_config.vocab_size
     _, prompts = standard_traffic(vocab)
     rep = repetitive_traffic(vocab)
     wave1 = _bodies(prompts, "req") + _bodies(rep, "rep")
     wave2 = _bodies(rep[:1], "rep2")
-    runner.warmup()  # the scheduler starts with wave 1 (_serve_wave hold)
 
     # counts to zero just before the main path
     reset_counts()
-    runner.decode_steps = runner.spec_steps = runner.prefill_steps = 0
+    reset_runner_counts(runner)
 
     async def serve():
         start = time.perf_counter()
@@ -951,12 +1027,19 @@ def _spec_run(dev: torch.device, spec: bool) -> dict:
         streams[body["request_id"]] = res["tokens"]
     forwards = {"decode": runner.decode_steps, "spec": runner.spec_steps,
                 "prefill": runner.prefill_steps}
-    want = expected_counts(runner, dev, **forwards)
+    label = f"engine_spec (spec {'on' if spec else 'off'})"
+    want = expected_counts(runner, dev, **forwards,
+                           warm=runner.graph_warm_forwards)
     check(launches == want,
-          f"engine_spec (spec {'on' if spec else 'off'}): kernel launches "
-          f"{launches} != expected {want} for forwards {forwards}")
+          f"{label}: kernel launches {launches} != expected {want} for "
+          f"forwards {forwards}, warm-up {runner.graph_warm_forwards}")
+    check_graphed(runner, label)
+    check(runner.graph_captures == 0,
+          f"{label}: {runner.graph_captures} captures after prewarm")
     out = {"streams": streams, "stats": dataclasses.asdict(sched.stats),
            "launches": launches, "forwards": forwards, "wall_s": wall,
+           "graphs": {**graph_report(runner),
+                      "prewarm_captures": prewarm_captures},
            **_latency(first)}
     del worker, runner, sched
     free_memory()
@@ -995,13 +1078,14 @@ def phase_engine_spec(dev: torch.device) -> dict:
          itl_ms_mean_on=on["itl_ms_mean"], itl_ms_mean_off=off["itl_ms_mean"],
          ttft_ms_mean_on=on["ttft_ms_mean"],
          ttft_ms_mean_off=off["ttft_ms_mean"],
-         wall_s_on=on["wall_s"], wall_s_off=off["wall_s"])
+         wall_s_on=on["wall_s"], wall_s_off=off["wall_s"],
+         graphs_spec_on=on["graphs"], graphs_spec_off=off["graphs"])
     return on["launches"]
 
 
 def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
                   label: str, kernel_fns=None, plain_fns=None,
-                  spec_drafts=None, **extra) -> None:
+                  spec_drafts=None, **extra) -> dict:
     """One greedy prompt through `runner` twice: with the runner attributes
     in `kernel_fns` (default: the decode kernel and the quantized matmul
     kernels), then with those in `plain_fns` (default: their plain
@@ -1009,7 +1093,13 @@ def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
     chunk [first token] + drafts at the prompt's end (`decode_spec`). The
     attributes are restored afterwards. History positions are never
     rewritten, and each run rewrites its own chunk and decode positions
-    before reading them, so the two runs see the same pool."""
+    before reading them, so the two runs see the same pool.
+
+    The first decode step and the verification chunk want logits, so they
+    run eagerly; the other steps replay graphs. The plain run is graphed
+    too: the graph key holds the step functions, so it captures its own
+    graphs and never replays the kernel run's. Returns each run's
+    `launched_forwards`."""
     from dynamo_tpu_torch.engine.model_runner import bucket_table_width
     from dynamo_tpu_torch.models.transformer import (
         paged_attention_decode_xla,
@@ -1058,9 +1148,17 @@ def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
             out.append(tok)
         return logits, out, spec_logits
 
+    def delta(before):
+        after = launched_forwards(runner)
+        return {kind: after[kind] - before[kind] for kind in after}
+
     try:
+        before = launched_forwards(runner)
         k_logits, k_tokens, k_spec = run(kernel_fns)
+        forwards = {"kernel": delta(before)}
+        before = launched_forwards(runner)
         p_logits, p_tokens, p_spec = run(plain_fns)
+        forwards["plain"] = delta(before)
     finally:
         for k, v in saved.items():
             setattr(runner, k, v)
@@ -1085,7 +1183,10 @@ def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
                      spec_positions=chunk)
     emit(label, prompt_len=n, logits_max_abs_diff=diff, logits_max_abs=scale,
          tolerance_rel=PARITY_LOGITS_REL_TOL,
-         greedy_tokens_agree_leading=agree, greedy_steps=steps, **extra)
+         greedy_tokens_agree_leading=agree, greedy_steps=steps,
+         plain_run="graphed, its own keys by function identity",
+         launched_forwards=forwards, **extra)
+    return forwards
 
 
 def _pool_table(worker, n: int, steps: int) -> np.ndarray:
@@ -1155,8 +1256,11 @@ def phase_dropins(dev: torch.device, worker) -> int:
     table = _pool_table(worker, n, steps)
     drafts = [int(t) for t in prompt[:SPEC_K]]
     runner.attention_fn = None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    greedy_parity(
+    reset_runner_counts(runner)
+    forwards = greedy_parity(
         runner, table, prompt, steps, "dropins",
         kernel_fns={"decode_attention_fn": pa.paged_attention_decode_fused,
                     "spec_attention_fn": pa.paged_attention_spec},
@@ -1167,16 +1271,234 @@ def phase_dropins(dev: torch.device, worker) -> int:
     launches = read_counts()
     n_layers = runner.model_config.n_layers
     want = {name: 0 for name in counters()}
+    kernel, plain = forwards["kernel"], forwards["plain"]
     if dev.type == "cuda":
-        # drop-in run: row 4 per layer of 1 spec + `steps` decode forwards;
-        # whole-pool run (the comparison): rows 1 and 1-folded likewise
-        want["paged_decode_attention_partial"] = n_layers * (1 + steps)
-        want["paged_decode_attention_pool"] = n_layers * steps
-        want["paged_decode_attention_pool_folded"] = n_layers
+        # drop-in run: row 4 per layer of 1 spec + `steps` decode forwards
+        # (and each new key's warm-up forward); whole-pool run (the
+        # comparison): rows 1 and 1-folded likewise
+        want["paged_decode_attention_partial"] = n_layers * (
+            kernel["decode"] + kernel["spec"])
+        want["paged_decode_attention_pool"] = n_layers * plain["decode"]
+        want["paged_decode_attention_pool_folded"] = n_layers * plain["spec"]
+    check(kernel["decode"] >= steps and kernel["spec"] == 1
+          and plain["decode"] >= steps and plain["spec"] == 1,
+          f"dropins: forwards {forwards}")
     check(launches == want,
           f"dropins: kernel launches {launches} != expected {want}")
-    emit("dropins_launches", kernel_launches=launches)
+    check_graphed(runner, "dropins")
+    emit("dropins_launches", kernel_launches=launches,
+         launched_forwards=forwards, **graph_report(runner))
     return launches["paged_decode_attention_partial"]
+
+
+# Histories of the 8 live slots of the graphs phase's step timings (the
+# runner's 16 slots, the rest idle), as scripts/torch_decode_profile.py.
+STEP_HISTORY = [600, 700, 32, 1500, 200, 96, 900, 1200]
+BLOCK = 8  # DYNT_DECODE_BLOCK's default: the fused block
+
+
+def _itl_runs(dev: torch.device, worker, runs: int) -> dict:
+    """The standard 8 requests served `runs` times with graphs on and
+    `runs` times off, in turns (on, off, on, ...), each time through a new
+    scheduler (an empty prefix cache) on `worker`'s runner, its scheduler
+    thread started once the whole wave is in, so every run admits the wave
+    in one iteration and drives the runner through the same calls. Checks
+    each run's launch counts and graph counters, and that every stream is
+    the same in every run. Returns the runs' latencies and memory."""
+    from dynamo_tpu_torch.engine import InferenceScheduler
+
+    runner = worker.runner
+    _, prompts = standard_traffic(worker.model_config.vocab_size)
+    out = {"on": [], "off": []}
+    first = None
+    for i in range(2 * runs):
+        graphs = i % 2 == 0
+        runner.config.cuda_graphs = graphs
+        worker.scheduler = InferenceScheduler(runner)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        reset_runner_counts(runner)
+        start = time.perf_counter()
+        try:
+            results = asyncio.run(_serve_wave(
+                worker, _bodies(prompts, "req"), hold=True))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = read_counts()
+        finally:
+            worker.scheduler.stop()
+        mode = "on" if graphs else "off"
+        check(worker.scheduler.error is None,
+              f"graphs {mode}: scheduler error {worker.scheduler.error!r}")
+        streams = {f"req-{j}": r["tokens"] for j, r in enumerate(results)}
+        first = first or streams
+        divergence = {rid: _first_divergence(toks, first[rid])
+                      for rid, toks in streams.items()}
+        check(all(at == 64 for rid, at in divergence.items() if _greedy(rid)),
+              f"graphs {mode} run {i // 2}: greedy streams differ from the "
+              f"first run at {divergence}")
+        want = expected_counts(runner, dev, decode=runner.decode_steps,
+                               prefill=runner.prefill_steps,
+                               warm=runner.graph_warm_forwards)
+        check(launches == want, f"graphs {mode}: kernel launches {launches} "
+              f"!= expected {want}")
+        if graphs:
+            check_graphed(runner, f"graphs {mode}")
+            check(runner.graph_captures == 0,
+                  f"graphs {mode}: {runner.graph_captures} captures after "
+                  "prewarm")
+        else:
+            check(runner.graph_replays == 0
+                  and runner.eager_forwards["decode"] == runner.decode_steps,
+                  f"graphs {mode}: replays {runner.graph_replays}, eager "
+                  f"{runner.eager_forwards}")
+        out[mode].append({
+            **_latency(results), "wall_s": wall,
+            "output_tokens_per_s": sum(len(r["tokens"]) for r in results)
+            / wall, "decode_forwards": runner.decode_steps,
+            "all_streams_equal_first_run": all(
+                at == 64 for at in divergence.values()),
+            **graph_report(runner)})
+    runner.config.cuda_graphs = True
+    return out
+
+
+def _time_step(fn, steps: int, repeats: int = 3) -> dict:
+    """fn() dispatches `steps` forwards. After a warm call (which captures a
+    new key), per step and best of `repeats`: host dispatch (the host clock
+    until fn returns), device wall (CUDA events recorded before the call and
+    after it returns: the card's time from the step's first operation to
+    its last, idle gaps included) and the host clock until synchronized."""
+    fn()
+    torch.cuda.synchronize()
+    host, wall, synced = [], [], []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        t1 = time.perf_counter()
+        end.record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) * 1e3 / steps)
+        wall.append(start.elapsed_time(end) / steps)
+        synced.append((t2 - t0) * 1e3 / steps)
+    return {"host_ms": min(host), "wall_ms": min(wall),
+            "synced_ms": min(synced), "host_ms_runs": host,
+            "wall_ms_runs": wall}
+
+
+def _step_inputs(runner, spec_k: int = 0) -> dict:
+    """Decode (or, with spec_k, verification) inputs for the runner's slots:
+    8 live with STEP_HISTORY tokens of history in pages 1 and up (their
+    contents are whatever the pool holds), the rest idle; greedy."""
+    from dynamo_tpu_torch.engine.model_runner import bucket_table_width
+
+    rc = runner.config
+    b, ps = rc.max_batch, rc.page_size
+    tables = np.zeros((b, rc.max_pages_per_seq), np.int32)
+    kv_lens = np.zeros(b, np.int32)
+    active = np.zeros(b, bool)
+    next_page = 1
+    for i, h in enumerate(STEP_HISTORY):
+        n = -(-(h + 2 * BLOCK) // ps)
+        tables[i, :n] = np.arange(next_page, next_page + n)
+        next_page += n
+        kv_lens[i], active[i] = h + 1, True
+    width = bucket_table_width(-(-(max(STEP_HISTORY) + 2 * BLOCK) // ps),
+                               rc.max_pages_per_seq)
+    args = dict(tokens=np.arange(b, dtype=np.int32), positions=kv_lens - 1,
+                block_tables=np.ascontiguousarray(tables[:, :width]),
+                kv_lens=kv_lens, active=active,
+                temperature=np.zeros(b, np.float32),
+                top_p=np.ones(b, np.float32), top_k=np.zeros(b, np.int32),
+                seeds=np.zeros(b, np.uint32))
+    if spec_k:
+        args["drafts"] = np.random.default_rng(SEED + 8).integers(
+            1, runner.model_config.vocab_size, (b, spec_k)).astype(np.int32)
+    return args
+
+
+def _step_timings(runner, spec_ks) -> dict:
+    """The fused block (k = 8) and a verification step at each K of spec_ks
+    on the runner's 16 slots (8 live), graphs on and off in turns (on, off,
+    on, off); per mode the better of the two turns."""
+    block_args = _step_inputs(runner)
+    cases = {"decode_block": (lambda: runner.decode_multi(
+        **block_args, k=BLOCK, return_device=True), BLOCK)}
+    for k in spec_ks:
+        spec_args = _step_inputs(runner, k)
+        cases[f"spec_step_k{k}"] = (
+            lambda a=spec_args: runner.decode_spec(**a, return_device=True),
+            1)
+    out = {}
+    for graphs in (True, False, True, False):
+        runner.config.cuda_graphs = graphs
+        mode = "on" if graphs else "off"
+        for name, (fn, steps) in cases.items():
+            got = _time_step(fn, steps)
+            best = out.setdefault(name, {}).get(mode)
+            if best is None or got["wall_ms"] < best["wall_ms"]:
+                out[name][mode] = got
+    runner.config.cuda_graphs = True
+    return out
+
+
+def phase_graphs(dev: torch.device, worker, label: str, spec_ks=(SPEC_K,),
+                 runs: int = 3) -> None:
+    """Graphs on and off on a served runner (its scheduler stopped): prewarm
+    (what the engine phase left uncaptured), then `_itl_runs` (the same
+    greedy streams every run, the ITL of each), `_step_timings`, and for
+    each K of spec_ks one verification step replayed and run eagerly on
+    the same inputs, whose targets must agree (at K = 5 on the 16 slots
+    every projection is M = 96, above the small-M body's 80 rows: the TMA
+    prefill body inside the graph)."""
+    from dynamo_tpu_torch.ops._gemm_plan import SMALL_M
+
+    runner = worker.runner
+    captures = runner.graph_captures
+    t0 = time.perf_counter()
+    runner.prewarm()
+    prewarm_s = time.perf_counter() - t0
+    prewarm_captures = runner.graph_captures - captures
+    pool_gb = runner.graph_memory_bytes() / 1e9
+    itl = _itl_runs(dev, worker, runs)
+    spec_check = {}
+    for k in spec_ks:
+        targets = {}
+        for graphs in (True, False):
+            runner.config.cuda_graphs = graphs
+            replays = runner.graph_replays
+            got, n_acc = runner.decode_spec(**_step_inputs(runner, k))
+            targets[graphs] = got
+            check(graphs == (runner.graph_replays == replays + 1),
+                  f"{label}: spec K={k} graphs={graphs} replays")
+        runner.config.cuda_graphs = True
+        check(np.array_equal(targets[True], targets[False]),
+              f"{label}: spec K={k}: replayed targets differ from eager")
+        m = runner.config.max_batch * (k + 1)
+        spec_check[f"k{k}"] = {"gemm_m": m, "prefill_body": m > SMALL_M,
+                               "targets_equal": True}
+    timings = _step_timings(runner, spec_ks)
+
+    def mean(mode, key):
+        return float(np.mean([r[key] for r in itl[mode]]))
+
+    emit(label, model=worker.model_config.name,
+         weight_dtype=runner.config.weight_dtype,
+         kv_dtype=runner.config.kv_dtype, prewarm_s=prewarm_s,
+         prewarm_captures=prewarm_captures,
+         graph_pool_GB_after_prewarm=pool_gb,
+         graph_keys=len(runner.step_graphs),
+         itl_ms_mean_on=mean("on", "itl_ms_mean"),
+         itl_ms_mean_off=mean("off", "itl_ms_mean"),
+         ttft_ms_mean_on=mean("on", "ttft_ms_mean"),
+         ttft_ms_mean_off=mean("off", "ttft_ms_mean"),
+         greedy_streams_equal_on_off=True, itl_runs=itl,
+         spec_replay_vs_eager=spec_check, step_timings=timings)
 
 
 def phase_spec_q(dev: torch.device) -> dict:
@@ -1221,16 +1543,31 @@ def phase_spec_q(dev: torch.device) -> dict:
             np.zeros(b, np.uint32), np.zeros(b, np.int32), want_logits=True)
         return targets, runner.last_spec_logits
 
-    # the kernel run: 8 prefill forwards and one spec forward at M = 8 x 5
+    # the kernel run: 8 prefill forwards, then the spec forward at M = 8 x 5
+    # as a graph replay (its key captured first) and again eagerly for its
+    # logits; the two draw the same targets
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    reset_runner_counts(runner)
     firsts = [runner.prefill_chunk(p, 0, tables[i], len(p), (0.0, 1.0, 0, 0))
               for i, p in enumerate(prompts)]
+    g_targets, _ = runner.decode_spec(
+        np.asarray(firsts, np.int32), drafts, lens, tables, lens + 1,
+        np.ones(b, bool), zeros_f, ones_f, np.zeros(b, np.int32),
+        np.zeros(b, np.uint32), np.zeros(b, np.int32))
     k_targets, k_logits = spec_step()
     torch.cuda.synchronize()
     launches = read_counts()
-    want = expected_counts(runner, dev, prefill=b, spec=1)
-    check(launches == want,
+    want = expected_counts(runner, dev, prefill=b, spec=runner.spec_steps,
+                           warm=runner.graph_warm_forwards)
+    check(runner.spec_steps == 2 and launches == want,
           f"spec_q: kernel launches {launches} != expected {want}")
+    check_graphed(runner, "spec_q")
+    check(np.array_equal(g_targets, k_targets),
+          "spec_q: the replayed spec step drew other targets than the "
+          "eager one")
+    graphs = graph_report(runner)
     # the plain run over the same history
     runner.spec_attention_fn = paged_attention_spec_xla
     runner.matmul_fn = quant_matmul_ref
@@ -1250,7 +1587,8 @@ def phase_spec_q(dev: torch.device) -> dict:
          logits_max_abs_diff=diff, logits_max_abs=scale,
          tolerance_rel=PARITY_LOGITS_REL_TOL,
          targets_equal=int((k_targets == p_targets).sum()),
-         targets=int(k_targets.size), kernel_launches=launches)
+         targets=int(k_targets.size), kernel_launches=launches,
+         replayed_targets_equal_eager=True, **graphs)
     del runner
     free_memory()
     return launches
@@ -1276,20 +1614,27 @@ def phase_secondary(dev: torch.device, weight_dtype: str,
     pages = -(-(n + steps) // runner.config.page_size)
     table[:pages] = np.arange(1, pages + 1)
     prompt = np.random.default_rng(SEED + 4).integers(1, cfg.vocab_size, n)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    greedy_parity(runner, table, prompt, steps, label, layers=cfg.n_layers,
-                  weight_dtype=weight_dtype, kv_dtype="int8",
-                  q4_variant=variant, kernels_per_forward=(
-                      matmul_kernels_per_forward(runner)))
+    reset_runner_counts(runner)
+    forwards = greedy_parity(
+        runner, table, prompt, steps, label, layers=cfg.n_layers,
+        weight_dtype=weight_dtype, kv_dtype="int8", q4_variant=variant,
+        kernels_per_forward=matmul_kernels_per_forward(runner))
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = read_counts()
-    # the kernel run: 1 prefill + `steps` decode forwards; the plain run
-    # launches nothing
-    want = expected_counts(runner, dev, decode=steps, prefill=1)
-    check(launches == want,
-          f"{label}: kernel launches {launches} != expected {want}")
-    emit(label + "_launches", kernel_launches=launches)
+    # the kernel run: 1 prefill + `steps` decode forwards and the warm-up
+    # forward of its graph key; the plain run launches nothing
+    want = expected_counts(runner, dev, decode=forwards["kernel"]["decode"],
+                           prefill=1)
+    check(forwards["kernel"]["decode"] == steps + 1 and launches == want,
+          f"{label}: kernel launches {launches} != expected {want} for "
+          f"forwards {forwards}")
+    check_graphed(runner, label)
+    emit(label + "_launches", kernel_launches=launches,
+         launched_forwards=forwards, **graph_report(runner))
     del runner
     free_memory()
     return launches
@@ -1322,6 +1667,7 @@ def main() -> None:
         "paged_decode_attention_pool"]
     try:
         phase_parity(worker)
+        phase_graphs(dev, worker, "graphs_bf16")
     finally:
         worker.close()
     del worker
@@ -1337,7 +1683,7 @@ def main() -> None:
     # the quantized path (mistral-7b, W4A16 + int8 KV)
     worker, counts, _ = phase_engine(
         dev, QMODEL, RunnerConfig(weight_dtype="int4", kv_dtype="int8"),
-        label="engine_q")
+        label="engine_q", prewarm=True)
     n_layers = worker.model_config.n_layers
     check(matmul_kernels_per_forward(worker.runner)
           == {"q4_matmul_v2": 7 * n_layers + 1},
@@ -1346,6 +1692,7 @@ def main() -> None:
         launches[name] = counts[name]
     try:
         phase_parity(worker, "parity_q")
+        phase_graphs(dev, worker, "graphs_q", spec_ks=(SPEC_K, SPEC_K + 1))
     finally:
         worker.close()
     del worker

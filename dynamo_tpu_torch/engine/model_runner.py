@@ -29,19 +29,26 @@ With `weight_dtype` "int8" or "int4" the projections are quantized at init
 forward goes through `models.transformer.quant_matmul`, the W8A16 / W4A16
 kernels on the card. With `kv_dtype` "int8" the pool is an int8
 (values, scales) pair and decode attention takes the int8 kernel.
-PyTorch runs eagerly, so there is nothing to compile or bucket; the block
-table is still cut to the live context width (`bucket_table_width`) so the
-plain paths gather no more pages than they need.
+
+With `RunnerConfig.cuda_graphs` (the default) each `decode`, `decode_multi`
+and `decode_spec` call is one CUDA-graph replay (`engine/step_graphs.py`),
+keyed as the reference keys its jit calls plus what a graph bakes in: the
+batch, the block table's width (`bucket_table_width`), `want_logprobs` /
+k / t, and the functions the step calls. A key is captured at its first
+use; `prewarm` captures the whole steady-state key space up front. The
+`want_logits` variants and prefill chunks run eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..config import env
 from ..device import DeviceLike, resolve_device
 from ..models import (
     ModelConfig,
@@ -71,6 +78,7 @@ from ..ops.paged_attention import (
     paged_attention_spec_pool,
 )
 from .sampler import sample, sample_with_logprobs, spec_verify
+from .step_graphs import NUMPY_DTYPES, Step, StepGraph
 
 DEFAULT_PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
@@ -82,6 +90,21 @@ def bucket_table_width(pages_needed: int, max_pages: int) -> int:
     while width < pages_needed:
         width *= 2
     return min(width, max_pages)
+
+
+def table_widths(max_pages: int) -> list[int]:
+    """Every width `bucket_table_width` gives for a table of `max_pages`."""
+    return sorted({bucket_table_width(n, max_pages)
+                   for n in range(1, max_pages + 1)})
+
+
+# The dtype of each input of a decode-kind step, as the step sees it.
+STEP_INPUTS = {
+    "tokens": torch.int64, "positions": torch.int64, "tables": torch.int32,
+    "lens": torch.int32, "active": torch.bool, "temperature": torch.float32,
+    "top_p": torch.float32, "top_k": torch.int64, "seeds": torch.int64,
+    "steps": torch.int64, "drafts": torch.int64,
+}
 
 
 @dataclasses.dataclass
@@ -101,6 +124,9 @@ class RunnerConfig:
     # channel scales) | "int4" (W4A16: packed codes + per-group scale and
     # zero rows, layout by DYNT_Q4_VARIANT). Quantized at init on the device.
     weight_dtype: str = "model"
+    # Decode, decode_multi and decode_spec as one CUDA-graph replay each
+    # (captured per key at first use); False runs them op by op.
+    cuda_graphs: bool = True
 
     @property
     def max_context(self) -> int:
@@ -185,6 +211,19 @@ class ModelRunner:
         self.decode_steps = 0
         self.spec_steps = 0
         self.prefill_steps = 0
+        # The step graphs by key (`_run_step`), sharing one memory pool and
+        # one capture stream. Captures, replays and the seconds captures
+        # took; the eager forwards a capture ran before capturing (they
+        # launch kernels; not in decode_steps / spec_steps); forwards of
+        # graphable calls that ran eagerly (cuda_graphs off).
+        self.step_graphs: dict[tuple, StepGraph] = {}
+        self._graph_pool = None
+        self._capture_stream = None
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.graph_capture_s = 0.0
+        self.graph_warm_forwards = {"decode": 0, "spec": 0}
+        self.eager_forwards = {"decode": 0, "spec": 0}
         self.last_prefill_sample = None
         self.last_decode_sample = (None, None, None)
         self.last_decode_logits = None
@@ -256,25 +295,94 @@ class ModelRunner:
                                     top_lps.cpu().numpy()[0])
         return int(token.cpu()[0])
 
-    def _decode_forward(self, toks, pos, tables, lens, act) -> torch.Tensor:
-        """One decode forward, logits [B, 1, V]: the deferred-write fast
-        path, or the unified write-then-attend `forward` when the caller
-        supplied `attention_fn` (inactive slots write to scratch page 0)."""
-        if self.attention_fn is not None:
-            return forward(self.model, toks[:, None], pos[:, None],
-                           self.kv_cache, tables, lens, valid=act[:, None],
-                           attention_fn=self.attention_fn,
-                           matmul_fn=self.matmul_fn)
-        return forward_decode(self.model, toks, pos, self.kv_cache, tables,
-                              lens, act,
-                              decode_attention_fn=self.decode_attention_fn,
-                              matmul_fn=self.matmul_fn)
+    # -- decode-kind steps ---------------------------------------------------
 
-    def _decode_inputs(self, positions, block_tables, kv_lens, active):
-        return (self._t(np.asarray(positions, np.int64), torch.int64),
-                self._t(np.asarray(block_tables, np.int32), torch.int32),
-                self._t(np.asarray(kv_lens, np.int32), torch.int32),
-                self._t(np.asarray(active, bool), torch.bool))
+    def _functions(self) -> tuple:
+        """The functions a decode-kind step calls: part of every graph key,
+        since a graph keeps the functions it was captured with."""
+        return (self.attention_fn, self.decode_attention_fn,
+                self.spec_attention_fn, self.matmul_fn)
+
+    def _decode_forward_fn(self):
+        """One decode forward, logits [B, 1, V], over the runner's current
+        functions: the deferred-write fast path, or the unified
+        write-then-attend `forward` when the caller supplied `attention_fn`
+        (inactive slots write to scratch page 0)."""
+        attention_fn, decode_fn, _, matmul_fn = self._functions()
+        model, kv = self.model, self.kv_cache
+
+        def fwd(toks, pos, tables, lens, act):
+            if attention_fn is not None:
+                return forward(model, toks[:, None], pos[:, None], kv, tables,
+                               lens, valid=act[:, None],
+                               attention_fn=attention_fn, matmul_fn=matmul_fn)
+            return forward_decode(model, toks, pos, kv, tables, lens, act,
+                                  decode_attention_fn=decode_fn,
+                                  matmul_fn=matmul_fn)
+        return fwd
+
+    def _step_values(self, tokens, positions, block_tables, kv_lens, active,
+                     temperature, top_p, top_k, seeds, steps) -> dict:
+        if steps is None:
+            steps = np.zeros(len(positions), np.int32)
+        return {"tokens": tokens, "positions": positions,
+                "tables": block_tables, "lens": kv_lens, "active": active,
+                "temperature": temperature, "top_p": top_p, "top_k": top_k,
+                "seeds": seeds, "steps": steps}
+
+    def _run_step(self, method: str, variant, forwards: int, step: Step,
+                  values: dict, graphable: bool = True) -> tuple:
+        """Run `step` over `values` (host arrays or device tensors, by
+        `STEP_INPUTS` name): replay the graph of key (method, batch, table
+        width, variant, functions), capturing it first if it is new, or run
+        eagerly when the call is not graphable or `cuda_graphs` is off.
+        `forwards` is the number of model forwards the step runs."""
+        kind = "spec" if method == "decode_spec" else "decode"
+        if not (graphable and self.config.cuda_graphs):
+            if graphable:
+                self.eager_forwards[kind] += forwards
+            return step({name: self._t(
+                value if isinstance(value, torch.Tensor)
+                else np.asarray(value, NUMPY_DTYPES[STEP_INPUTS[name]]),
+                STEP_INPUTS[name]) for name, value in values.items()})
+        b, width = _shape(values["tables"])
+        key = (method, b, width, variant, self._functions())
+        graph = self.step_graphs.get(key)
+        if graph is None:
+            graph = self._capture(step, values)
+            self.step_graphs[key] = graph
+            self.graph_warm_forwards[kind] += forwards
+        self.graph_replays += 1
+        return graph.run(values)
+
+    def _capture(self, step: Step, values: dict) -> StepGraph:
+        """A new key's graph over neutral static inputs (every slot
+        inactive, lengths and tables 0; top_p 1)."""
+        inputs = {name: (torch.ones if name == "top_p" else torch.zeros)(
+            _shape(value), dtype=STEP_INPUTS[name], device=self.device)
+            for name, value in values.items()}
+        graph = StepGraph(step, inputs)
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+            graph.capture(self._graph_pool, self._capture_stream)
+        else:
+            graph.capture()
+        self.graph_capture_s += time.perf_counter() - t0
+        self.graph_captures += 1
+        return graph
+
+    def graph_memory_bytes(self) -> int:
+        """Device memory the step graphs' shared pool holds (its
+        segments, free blocks included; 0 before the first capture and on
+        the CPU)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
 
     @torch.inference_mode()
     def decode(
@@ -294,28 +402,29 @@ class ModelRunner:
     ) -> np.ndarray:
         """One decode step for all slots; returns sampled tokens [B] on the
         host. `want_logprobs` fills `last_decode_sample`; `want_logits`
-        fills `last_decode_logits` with the raw [B, V] rows."""
+        fills `last_decode_logits` with the raw [B, V] rows (and runs
+        eagerly)."""
         self.decode_steps += 1
-        if steps is None:
-            steps = np.zeros(len(tokens), np.int32)
-        pos, tables, lens, act = self._decode_inputs(positions, block_tables,
-                                                     kv_lens, active)
-        logits = self._decode_forward(
-            self._t(np.asarray(tokens, np.int64), torch.int64), pos, tables,
-            lens, act)[:, 0, :]
-        samp = self._sampling(temperature, top_p, top_k, seeds)
-        step_t = self._t(np.asarray(steps, np.int64), torch.int64)
-        if want_logprobs:
-            next_tokens, lp, top_ids, top_lps = sample_with_logprobs(
-                logits, *samp, step_t)
-            self.last_decode_sample = (lp.cpu().numpy(),
-                                       top_ids.cpu().numpy(),
-                                       top_lps.cpu().numpy())
-        else:
-            next_tokens = sample(logits, *samp, step_t)
-            self.last_decode_sample = (None, None, None)
-        self.last_decode_logits = logits.cpu().numpy() if want_logits else None
-        return next_tokens.cpu().numpy()
+        fwd = self._decode_forward_fn()
+
+        def step(x):
+            logits = fwd(x["tokens"], x["positions"], x["tables"], x["lens"],
+                         x["active"])[:, 0, :]
+            samp = (x["temperature"], x["top_p"], x["top_k"], x["seeds"],
+                    x["steps"])
+            out = (sample_with_logprobs(logits, *samp) if want_logprobs
+                   else (sample(logits, *samp),))
+            return out + ((logits,) if want_logits else ())
+
+        out = self._run_step(
+            "decode", want_logprobs, 1, step,
+            self._step_values(tokens, positions, block_tables, kv_lens,
+                              active, temperature, top_p, top_k, seeds, steps),
+            graphable=not want_logits)
+        self.last_decode_sample = (tuple(t.cpu().numpy() for t in out[1:4])
+                                   if want_logprobs else (None, None, None))
+        self.last_decode_logits = out[-1].cpu().numpy() if want_logits else None
+        return out[0].cpu().numpy()
 
     @torch.inference_mode()
     def decode_multi(
@@ -339,23 +448,27 @@ class ModelRunner:
         scheduler can feed `toks[-1]` into the next block before reading
         this one back; otherwise the block is copied to the host once."""
         self.decode_steps += k
-        if steps is None:
-            steps = np.zeros(len(positions), np.int32)
-        pos, tables, lens, act = self._decode_inputs(positions, block_tables,
-                                                     kv_lens, active)
-        samp = self._sampling(temperature, top_p, top_k, seeds)
-        toks = self._t(tokens if isinstance(tokens, torch.Tensor)
-                       else np.asarray(tokens, np.int64), torch.int64)
-        sidx = self._t(np.asarray(steps, np.int64), torch.int64)
-        grow = act.to(lens.dtype)  # inactive slots keep zero history
-        out = []
-        for _ in range(k):
-            logits = self._decode_forward(toks, pos, tables, lens, act)
-            nxt = sample(logits[:, 0, :], *samp, sidx)
-            out.append(nxt)
-            toks = nxt.long()
-            pos, lens, sidx = pos + 1, lens + grow, sidx + 1
-        toks_k = torch.stack(out)  # [K, B] int32
+        fwd = self._decode_forward_fn()
+
+        def step(x):
+            toks, pos, lens, sidx = (x["tokens"], x["positions"], x["lens"],
+                                     x["steps"])
+            tables, act = x["tables"], x["active"]
+            samp = (x["temperature"], x["top_p"], x["top_k"], x["seeds"])
+            grow = act.to(lens.dtype)  # inactive slots keep zero history
+            out = []
+            for _ in range(k):
+                nxt = sample(fwd(toks, pos, tables, lens, act)[:, 0, :],
+                             *samp, sidx)
+                out.append(nxt)
+                toks = nxt.long()
+                pos, lens, sidx = pos + 1, lens + grow, sidx + 1
+            return (torch.stack(out),)  # [K, B] int32
+
+        (toks_k,) = self._run_step(
+            "decode_multi", k, k, step,
+            self._step_values(tokens, positions, block_tables, kv_lens,
+                              active, temperature, top_p, top_k, seeds, steps))
         self.last_decode_sample = (None, None, None)
         if return_device:
             return toks_k
@@ -382,35 +495,43 @@ class ModelRunner:
         n_accept [B]); callers commit targets[b, : n_accept[b] + 1], the
         tokens K+1 sequential decode steps would sample for the accepted
         prefix. `want_logits` fills `last_spec_logits` with the raw
-        [B, K+1, V] rows; `return_device=True` skips the readback (the
-        scheduler drains after overlapping prefill and admission)."""
-        b, k = np.shape(drafts)
-        t = k + 1
+        [B, K+1, V] rows (and runs eagerly); `return_device=True` skips the
+        readback (the scheduler drains after overlapping prefill and
+        admission)."""
+        t = _shape(drafts)[1] + 1
         self.spec_steps += 1
-        if steps is None:
-            steps = np.zeros(b, np.int32)
-        pos, tables, lens, act = self._decode_inputs(positions, block_tables,
-                                                     kv_lens, active)
-        chunk = self._t(np.concatenate(
-            [np.asarray(tokens, np.int64)[:, None],
-             np.asarray(drafts, np.int64)], axis=1), torch.int64)
-        pos2 = pos[:, None] + torch.arange(t, device=self.device)[None, :]
-        logits = forward_spec(self.model, chunk, pos2, self.kv_cache, tables,
-                              lens, act,
-                              spec_attention_fn=self.spec_attention_fn,
-                              matmul_fn=self.matmul_fn)
-        targets, n_accept = spec_verify(
-            logits, chunk[:, 1:], *self._sampling(temperature, top_p, top_k,
-                                                  seeds),
-            self._t(np.asarray(steps, np.int64), torch.int64))
-        self.last_spec_logits = logits.cpu().numpy() if want_logits else None
+        model, kv = self.model, self.kv_cache
+        _, _, spec_fn, matmul_fn = self._functions()
+
+        def step(x):
+            chunk = torch.cat([x["tokens"][:, None], x["drafts"]], dim=1)
+            pos = (x["positions"][:, None]
+                   + torch.arange(t, device=chunk.device)[None, :])
+            logits = forward_spec(model, chunk, pos, kv, x["tables"],
+                                  x["lens"], x["active"],
+                                  spec_attention_fn=spec_fn,
+                                  matmul_fn=matmul_fn)
+            targets, n_accept = spec_verify(
+                logits, chunk[:, 1:], x["temperature"], x["top_p"],
+                x["top_k"], x["seeds"], x["steps"])
+            return (targets, n_accept) + ((logits,) if want_logits else ())
+
+        values = self._step_values(tokens, positions, block_tables, kv_lens,
+                                   active, temperature, top_p, top_k, seeds,
+                                   steps)
+        values["drafts"] = drafts
+        out = self._run_step("decode_spec", t, 1, step, values,
+                             graphable=not want_logits)
+        targets, n_accept = out[:2]
+        self.last_spec_logits = out[2].cpu().numpy() if want_logits else None
         if return_device:
             return targets, n_accept
         return targets.cpu().numpy(), n_accept.cpu().numpy()
 
     def warmup(self) -> None:
         """One decode step and one tiny prefill (on the card this builds the
-        decode kernel and initializes the math libraries before traffic)."""
+        kernels, initializes the math libraries and captures the decode
+        step at the widest table before traffic)."""
         b = self.config.max_batch
         p = self.config.max_pages_per_seq
         self.decode(
@@ -424,3 +545,46 @@ class ModelRunner:
             np.zeros(1, np.int32), 0, np.zeros(p, np.int32), 1,
             (0.0, 1.0, 0, 0),
         )
+
+    def prewarm(self, spec_widths: Optional[Sequence[int]] = None) -> None:
+        """Build the whole steady-state key space before serving, as the
+        reference's `prewarm` compiles its jit keys: `warmup`, one eager
+        run of every prefill bucket, then for every table-width bucket the
+        fused block (k = DYNT_DECODE_BLOCK, when above 1), `decode` with
+        and without logprobs, and the verification step for each draft
+        count in `spec_widths` (default: [DYNT_SPEC_MAX_K] when
+        DYNT_SPEC_ENABLE is set and the runner supports speculation). The
+        scheduler's batch is `max_batch`. The `want_logits` variants stay
+        lazy, as in the reference."""
+        self.warmup()
+        b = self.config.max_batch
+        p = self.config.max_pages_per_seq
+        for bucket in self.config.prefill_buckets:
+            self.prefill_chunk(
+                np.zeros(bucket, np.int32), 0, np.zeros(p, np.int32),
+                min(bucket, self.config.max_context), (0.0, 1.0, 0, 0),
+            )
+        if spec_widths is None:
+            spec_widths = ([max(1, int(env("DYNT_SPEC_MAX_K")))]
+                           if env("DYNT_SPEC_ENABLE") and self.supports_spec
+                           else [])
+        block = max(1, int(env("DYNT_DECODE_BLOCK") or 1))
+        zeros_i, zeros_b = np.zeros(b, np.int32), np.zeros(b, bool)
+        ones_f = np.ones(b, np.float32)
+        idle = (zeros_i, zeros_b, ones_f, ones_f, zeros_i,
+                np.zeros(b, np.uint32))
+        for width in table_widths(p):
+            tables = np.zeros((b, width), np.int32)
+            if block > 1:
+                self.decode_multi(zeros_i, zeros_i, tables, *idle, k=block,
+                                  return_device=True)
+            for want_logprobs in (False, True):
+                self.decode(zeros_i, zeros_i, tables, *idle,
+                            want_logprobs=want_logprobs)
+            for k in spec_widths:
+                self.decode_spec(zeros_i, np.zeros((b, k), np.int32), zeros_i,
+                                 tables, *idle, return_device=True)
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else np.shape(x)

@@ -439,7 +439,8 @@ class InferenceScheduler:
         block, depth = self._decode_block_for(ready, want_logprobs,
                                               prefill_pending)
         # Cut the block table to the live context (power-of-two widths), so
-        # no decode attention path reads past what the batch can reach.
+        # no decode attention path reads past what the batch can reach and
+        # the runner's step graphs stay one per width bucket.
         max_kv = max(s.kv_len for s in ready) + block * depth
         width = bucket_table_width(-(-max_kv // self.page_size),
                                    self.runner.config.max_pages_per_seq)

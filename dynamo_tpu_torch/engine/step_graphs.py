@@ -1,0 +1,143 @@
+"""Decode-kind steps as CUDA graphs, one graph per key.
+
+The JAX package never runs a decode step op by op from Python: `decode`,
+`decode_multi` (K steps inside one `lax.scan`) and `decode_spec` are each one
+compiled call, cached per key (`dynamo_tpu/engine/model_runner.py`
+`_decode_fn` / `_decode_fn_lp`, `_decode_multi_fns`, `_decode_spec_fns`), and
+the block table's width is part of every compiled shape. The port's
+counterpart is one `StepGraph` per key (`ModelRunner._run_step` builds the
+key): the step's closure over static input tensors, captured once as a
+`torch.cuda.CUDAGraph`, then replayed after each call's inputs are copied
+into the static tensors.
+
+Capture, at a key's first use (as `jax.jit` compiles at first call):
+  1. the static inputs hold neutral values: every slot inactive, lengths and
+     tables 0, so the step's deferred KV write goes to scratch page 0;
+  2. the closure runs once eagerly, on the capturing thread and the capture
+     stream: that builds the kernels, creates the thread's cuBLAS handle and
+     workspace, and runs the kernels' one-time static initializers
+     (`cudaFuncSetAttribute`, `cudaGetDriverEntryPoint`) outside the capture;
+  3. the same closure is captured into the runner's shared memory pool. A
+     capture that fails raises; nothing falls back to eager.
+
+The kernel wrappers count their launches in Python (`.launches`, see
+`ops.kernel_wrappers`), so a replay cannot move the counts: the capture's
+increments are recorded and undone (the capture ran nothing), and every
+replay adds them back. The eager run of step 2 did launch its kernels and
+keeps its counts.
+
+On the CPU (the tests, which ask for `device="cpu"`) there is no graph: a
+replay runs the closure on the static inputs directly and copies its results
+into the static outputs, under the same counter bookkeeping, so key
+selection, the copies in, the clones out and the counts are exercised
+without a card.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..ops import kernel_wrappers
+
+# A step: static inputs by name -> output tensors.
+Step = Callable[[dict], tuple]
+
+NUMPY_DTYPES = {torch.int64: np.int64, torch.int32: np.int32,
+                torch.float32: np.float32, torch.bool: np.bool_}
+
+
+def _launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def _set_counts(counts: dict[str, int]) -> None:
+    for name, fn in kernel_wrappers().items():
+        fn.launches = counts[name]
+
+
+def _add_counts(delta: dict[str, int]) -> None:
+    for name, n in delta.items():
+        kernel_wrappers()[name].launches += n
+
+
+def _delta(after: dict[str, int], before: dict[str, int]) -> dict[str, int]:
+    return {name: after[name] - before[name] for name in after
+            if after[name] != before[name]}
+
+
+def _copy_in(dst: torch.Tensor, value) -> None:
+    """Copy a host array or a tensor into static input `dst`. A device
+    tensor (the previous block's tokens) is copied on the device. A host
+    array goes through a pinned block of PyTorch's caching host allocator,
+    which hands the block out again only after this copy has run, so the
+    caller may reuse its array at once; a pageable copy would synchronize
+    the stream and stall the host on the replay in flight."""
+    if isinstance(value, torch.Tensor):
+        src = value
+    else:
+        src = torch.from_numpy(np.ascontiguousarray(
+            value, dtype=NUMPY_DTYPES[dst.dtype]))
+        if dst.is_cuda:
+            src = src.pin_memory()
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"input of shape {tuple(src.shape)} for a static "
+                         f"buffer of shape {tuple(dst.shape)}")
+    dst.copy_(src, non_blocking=True)
+
+
+class StepGraph:
+    """One key's step: its static inputs, its graph (None on the CPU), its
+    static outputs and the kernel launches one replay stands for."""
+
+    def __init__(self, step: Step, inputs: dict[str, torch.Tensor]) -> None:
+        self.step = step
+        self.inputs = inputs
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: tuple = ()
+        self.launches: dict[str, int] = {}
+
+    def capture(self, pool=None, stream: Optional[torch.cuda.Stream] = None
+                ) -> None:
+        """Steps 2 and 3 of the module docstring; the inputs arrive
+        neutral. On the CPU only the eager run happens."""
+        before = _launch_counts()
+        if stream is None:  # the eager run's outputs become the static ones
+            self.outputs = self.step(self.inputs)
+            self.launches = _delta(_launch_counts(), before)
+            return
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self.step(self.inputs)
+        warm = _delta(_launch_counts(), before)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                outputs = self.step(self.inputs)
+            captured = _delta(_launch_counts(), before)
+        finally:
+            _set_counts(before)
+        if captured != warm:
+            raise RuntimeError(f"the captured step launched {captured}, its "
+                               f"eager run {warm}")
+        self.graph, self.outputs, self.launches = graph, outputs, captured
+
+    def run(self, values: dict) -> tuple:
+        """Copy `values` into the static inputs, replay, and return clones
+        of the outputs (a later replay overwrites the static ones)."""
+        for name, value in values.items():
+            _copy_in(self.inputs[name], value)
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            before = _launch_counts()
+            for static, out in zip(self.outputs, self.step(self.inputs)):
+                static.copy_(out)
+            _set_counts(before)
+        _add_counts(self.launches)
+        return tuple(out.clone() for out in self.outputs)

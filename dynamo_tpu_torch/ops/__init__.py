@@ -15,6 +15,7 @@ from .paged_attention import (
     paged_decode_attention_pool,
     paged_decode_attention_pool_folded,
     paged_decode_attention_pool_int8,
+    paged_decode_attention_pool_int8_folded,
     paged_decode_attention_pool_ref,
 )
 from .q4_linear import (
@@ -32,7 +33,27 @@ __all__ = [
     "paged_attention_spec_pool", "paged_decode_attention",
     "paged_decode_attention_partial", "paged_decode_attention_pool",
     "paged_decode_attention_pool_folded", "paged_decode_attention_pool_int8",
+    "paged_decode_attention_pool_int8_folded",
     "paged_decode_attention_pool_ref",
     "Q4Weight", "q4_matmul", "q4_matmul_ref", "q4_matmul_v1", "q4_matmul_v2",
-    "Q8Weight", "q8_matmul", "q8_matmul_ref",
+    "Q8Weight", "q8_matmul", "q8_matmul_ref", "kernel_wrappers",
 ]
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by kernel name. Each counts, in
+    `.launches`, the calls that launched its kernel (never its plain
+    version)."""
+    return {
+        "paged_decode_attention_pool": paged_decode_attention_pool,
+        "paged_decode_attention_pool_int8": paged_decode_attention_pool_int8,
+        "paged_decode_attention_pool_folded":
+            paged_decode_attention_pool_folded,
+        "paged_decode_attention_pool_int8_folded":
+            paged_decode_attention_pool_int8_folded,
+        "paged_decode_attention": paged_decode_attention,
+        "paged_decode_attention_partial": paged_decode_attention_partial,
+        "q8_matmul": q8_matmul,
+        "q4_matmul_v2": q4_matmul_v2,
+        "q4_matmul_v1": q4_matmul_v1,
+    }

@@ -1,17 +1,22 @@
 """Where a decode step of the PyTorch/CUDA port spends its time, on one card.
 
     python3 scripts/torch_decode_profile.py [--model llama3-8b]
-        [--weight-dtype model|int8|int4] [--kv-dtype model|int8] [--out DIR]
+        [--weight-dtype model|int8|int4] [--kv-dtype model|int8]
+        [--graphs on|off|both] [--out DIR]
 
 Builds a `ModelRunner` at full width (random weights, seed 0, quantized on
 the card when --weight-dtype asks for it), fills the KV pool pages of a
 batch of 8 sequences with random history (no prefill is run for them; an
 int8 pool gets random K/V quantized by the port's `quantize_kv`), then
 measures, with the decode attention and the quantized matmul by the CUDA
-kernels and by their plain PyTorch versions in turn:
+kernels (with `RunnerConfig.cuda_graphs` on, off, or both: each step one
+CUDA-graph replay, or op by op) and by their plain PyTorch versions (op by
+op) in turn:
 
   * one fused decode block (`decode_multi`, k = 8): host time until the call
-    returns (dispatch), and wall time until the card is done, per step;
+    returns (dispatch), wall time until the card is done, and the card's
+    time from the block's first operation to its last (CUDA events, idle
+    gaps included), per step;
   * a `torch.profiler` trace of one block: device time by kernel name, the
     attention kernels' share (the split decode body and its merge), and the
     device's busy share of the block's wall time;
@@ -71,6 +76,9 @@ def main() -> None:
     ap.add_argument("--weight-dtype", default="model",
                     choices=("model", "int8", "int4"))
     ap.add_argument("--kv-dtype", default="model", choices=("model", "int8"))
+    ap.add_argument("--graphs", default="both", choices=("on", "off", "both"),
+                    help="the kernel path's decode-kind steps as CUDA-graph "
+                         "replays, op by op, or both in turn")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -148,16 +156,22 @@ def main() -> None:
 
     def measure(kind, run, steps, kernels, **fields):
         """Time `run` (which dispatches `steps` forwards) three times and
-        trace it once; one JSON line per step."""
+        trace it once; one JSON line per step. The warm call captures a
+        new graph key."""
         run()  # warm
         torch.cuda.synchronize()
         runs = []
         for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
+            start.record()
             run()
             t1 = time.perf_counter()
+            end.record()
             torch.cuda.synchronize()
-            runs.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+            runs.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3,
+                         start.elapsed_time(end)))
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -170,14 +184,17 @@ def main() -> None:
         busy_us = sum(_device_us(e) for e in events)
         attn_us = sum(_device_us(e) for e in events
                       if any(k in e.key for k in ATTENTION_KERNELS))
-        tag = f"{kind}_{cfg.name}_{rc.weight_dtype}_{rc.kv_dtype}_{kernels}"
+        graphs = "graphs" if rc.cuda_graphs else "eager"
+        tag = (f"{kind}_{cfg.name}_{rc.weight_dtype}_{rc.kv_dtype}_{kernels}"
+               f"_{graphs}")
         (out_dir / f"{tag}.txt").write_text(
             prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40))
-        _emit(kind, kernels=kernels, batch=len(HISTORY), history=HISTORY,
-              **fields,
+        _emit(kind, kernels=kernels, cuda_graphs=rc.cuda_graphs,
+              batch=len(HISTORY), history=HISTORY, **fields,
               step_ms=min(r[1] for r in runs) / steps,
               dispatch_ms_per_step=min(r[0] for r in runs) / steps,
+              device_span_ms_per_step=min(r[2] for r in runs) / steps,
               traced_step_ms=traced_wall_us / 1e3 / steps,
               device_busy_ms_per_step=busy_us / 1e3 / steps,
               device_busy_share=busy_us / traced_wall_us,
@@ -187,13 +204,16 @@ def main() -> None:
                     "ms_per_step": _device_us(e) / 1e3 / steps,
                     "calls_per_step": e.count / steps} for e in events[:12]])
 
-    for name, attn_fn, spec_fn, mm_fn in (
-            ("kernel", paged_attention_decode_pool, paged_attention_spec_pool,
-             quant_matmul),
+    modes = {"on": (True,), "off": (False,), "both": (True, False)}
+    for name, attn_fn, spec_fn, mm_fn, graphs in (
+            *[("kernel", paged_attention_decode_pool,
+               paged_attention_spec_pool, quant_matmul, g)
+              for g in modes[args.graphs]],
             ("plain", paged_attention_decode_xla, paged_attention_spec_xla,
-             quant_matmul_ref)):
+             quant_matmul_ref, False)):
         runner.decode_attention_fn, runner.matmul_fn = attn_fn, mm_fn
         runner.spec_attention_fn = spec_fn
+        rc.cuda_graphs = graphs
         measure("decode_block",
                 lambda: runner.decode_multi(**args_np, k=BLOCK,
                                             return_device=True),
@@ -204,6 +224,13 @@ def main() -> None:
     runner.decode_attention_fn = paged_attention_decode_pool
     runner.spec_attention_fn = paged_attention_spec_pool
     runner.matmul_fn = quant_matmul
+    rc.cuda_graphs = True
+    _emit("graphs", captures=runner.graph_captures,
+          replays=runner.graph_replays, capture_s=runner.graph_capture_s,
+          keys=len(runner.step_graphs),
+          graph_pool_GB=runner.graph_memory_bytes() / 1e9,
+          memory_reserved_GB=torch.cuda.memory_reserved() / 1e9,
+          max_memory_allocated_GB=torch.cuda.max_memory_allocated() / 1e9)
 
     table = np.zeros(rc.max_pages_per_seq, np.int32)
     table[:96] = np.arange(next_page, next_page + 96)
