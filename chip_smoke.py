@@ -34,6 +34,19 @@ Phases, each printing one JSON line:
               host dispatch and device wall (CUDA events) of the fused
               block and the spec step on and off; a spec step replayed
               and eager on the same inputs draws the same targets
+  serve_bf16 - the serving edge on that worker, in this process: the
+              port's DistributedRuntime (file discovery in a temporary
+              directory, the TCP request plane on 127.0.0.1),
+              `worker.serve()` and the port's OpenAI Frontend; the 8
+              requests as /v1/completions (token-id prompts, half SSE, half
+              aggregate) from an asyncio HTTP client, one warm turn, then
+              three direct and three HTTP turns in turns, each admitted
+              whole on a new scheduler: every text equals the direct
+              stream's decode, usage and [DONE] checked, /metrics'
+              dynamo_requests_total moves by the requests sent, a chat
+              stream, a stream cut by its client frees its pages; TTFT and
+              ITL over HTTP beside direct, the frontend's and the request
+              plane's CPU shares
   unified   - the same traffic through TorchWorker(attention_fn=
               paged_attention), the reference's unified path: row 3 = 32 x
               decode forwards, row 1 = 0; then greedy parity against the
@@ -57,6 +70,7 @@ Phases, each printing one JSON line:
               attention and matmul) against plain versions
   graphs_q  - graphs_bf16 on that runner, plus a spec step at K = 5 (M =
               16 x 6 = 96: the GEMMs' TMA prefill body inside the graph)
+  serve_q   - serve_bf16 on that worker (rows 2 and 6 under HTTP)
   spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
               KV: a runner of 8 slots, all live, 5 positions each (the int8
               pool kernel folded, the q4 v2 kernel at M = 8 x 5 = 40),
@@ -69,7 +83,8 @@ Every decode, fused block and spec step runs as a CUDA-graph replay
 (`RunnerConfig.cuda_graphs`, on by default) except where a phase says
 otherwise; the engine and unified runners capture each key at its first use
 on the scheduler thread, engine_spec and engine_q prewarm first. Each of
-engine, unified, dropins, engine_spec, engine_q, spec_q and secondary checks
+engine, unified, dropins, engine_spec, engine_q, spec_q, secondary and the
+serve phases checks
 that it replayed graphs and ran no decode or spec forward of a graphable
 call eagerly, and prints its captures, replays, capture seconds and peak
 memory. The parity phases swap the plain versions in on a live runner: the
@@ -90,6 +105,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1640,6 +1656,390 @@ def phase_secondary(dev: torch.device, weight_dtype: str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The serving edge: the same traffic over HTTP through the port's frontend,
+# request plane and discovery, beside the direct TorchWorker.generate path
+
+
+async def _http(port: int, method: str, path: str, body=None,
+                cut_after_events: int = 0) -> dict:
+    """One HTTP/1.1 exchange on 127.0.0.1 with asyncio streams (the card's
+    machine has no aiohttp). A chunked (SSE) answer is read event by event,
+    each stamped on arrival; with `cut_after_events` the socket is closed
+    after that many events, as a client that goes away."""
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        data = b"" if body is None else json.dumps(body).encode()
+        writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                     "Connection: close\r\nContent-Type: application/json\r\n"
+                     f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+        await writer.drain()
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
+        status = int(head.split(" ", 2)[1])
+        headers = {k.strip().lower(): v.strip() for k, _, v in (
+            line.partition(":") for line in head.split("\r\n")[1:] if line)}
+        if headers.get("transfer-encoding") != "chunked":
+            text = (await reader.readexactly(
+                int(headers["content-length"]))).decode()
+            return {"status": status, "text": text, "t0": t0,
+                    "t_end": time.perf_counter()}
+        events, buf = [], b""
+        while True:
+            n = int((await reader.readuntil(b"\r\n")).strip(), 16)
+            if n == 0:
+                break
+            buf += (await reader.readexactly(n + 2))[:-2]
+            now = time.perf_counter()
+            while b"\n\n" in buf:
+                event, buf = buf.split(b"\n\n", 1)
+                events.append((now, event.decode()[len("data: "):]))
+            if cut_after_events and len(events) >= cut_after_events:
+                return {"status": status, "events": events, "t0": t0}
+        return {"status": status, "events": events, "t0": t0,
+                "t_end": time.perf_counter()}
+    finally:
+        writer.close()
+
+
+def _sse_outcome(res: dict) -> dict:
+    """Text, finish reason, usage and token-event stamps of an SSE answer."""
+    check(res["events"] and res["events"][-1][1] == "[DONE]",
+          "an SSE stream did not end with data: [DONE]")
+    text, finish, usage, stamps = [], None, None, []
+    for at, event in res["events"][:-1]:
+        chunk = json.loads(event)
+        check("error" not in chunk, f"in-band error {chunk}")
+        usage = chunk.get("usage") or usage
+        for choice in chunk["choices"]:
+            piece = choice.get("text", choice.get("delta", {}).get("content",
+                                                                   ""))
+            if piece:
+                text.append(piece)
+                stamps.append(at)
+            finish = choice["finish_reason"] or finish
+    return {"text": "".join(text), "finish": finish, "usage": usage,
+            "stamps": stamps, "t0": res["t0"]}
+
+
+def _aggregate_outcome(res: dict) -> dict:
+    check(res["status"] == 200, f"HTTP {res['status']}: {res['text']}")
+    data = json.loads(res["text"])
+    choice = data["choices"][0]
+    text = choice["text"] if "text" in choice else choice["message"][
+        "content"]
+    return {"text": text, "finish": choice["finish_reason"],
+            "usage": data["usage"], "stamps": [], "t0": res["t0"]}
+
+
+def _frontend_requests(metrics_text: str, model: str) -> float:
+    """dynamo_requests_total of the frontend for `model`, all statuses."""
+    total = 0.0
+    prefix = ('dynamo_requests_total{namespace="http",component="frontend",'
+              f'endpoint="{model}",')
+    for line in metrics_text.splitlines():
+        if line.startswith(prefix):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+class _LayerClock:
+    """CPU seconds spent in named functions, by layer: the request plane's
+    msgpack codec and the frontend's request lowering and response
+    building. Installed around the HTTP turns only."""
+
+    def __init__(self) -> None:
+        from dynamo_tpu_torch.llm import http_service, preprocessor
+        from dynamo_tpu_torch.runtime import msgpack
+
+        self.seconds = {"request_plane": 0.0, "frontend": 0.0}
+        self._targets = [
+            (msgpack, "packb", "request_plane"),
+            (msgpack, "unpackb", "request_plane"),
+            (preprocessor.OpenAIPreprocessor, "preprocess_completions",
+             "frontend"),
+            (preprocessor.OpenAIPreprocessor, "preprocess_chat", "frontend"),
+            (preprocessor.DeltaGenerator, "on_output", "frontend"),
+            (preprocessor.DeltaGenerator, "final_response", "frontend"),
+            (http_service, "_sse", "frontend"),
+        ]
+        self._saved = []
+
+    def __enter__(self):
+        for owner, name, layer in self._targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+
+            def timed(*args, _fn=fn, _layer=layer, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self.seconds[_layer] += time.perf_counter() - t
+
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+
+def _reclaimable_pages(pool) -> int:
+    """Free pages plus prefix-cache pages that no sequence pins."""
+    return pool.free_count() + sum(1 for h in pool._cached
+                                   if pool._refcount.get(h, 0) == 0)
+
+
+def phase_serve(dev: torch.device, worker, label: str) -> None:
+    """The serving edge on a served runner (its scheduler stopped): the
+    port's DistributedRuntime (file discovery in a temporary directory, the
+    TCP request plane on 127.0.0.1), `worker.serve()` and the port's
+    Frontend, in this process. The standard 8 requests go as
+    /v1/completions with token-id prompts, even ones streamed (SSE) and odd
+    ones aggregate, with the direct run's seeds, temperatures, max_tokens
+    and ignore_eos; one warm HTTP turn, then three direct and three HTTP
+    turns in turns. Each turn runs on a new scheduler (an empty prefix
+    cache) whose thread starts once the 8 requests are in, submitted in
+    order, so every turn drives the runner through the same calls. Checks:
+    every HTTP completion's text is the ByteTokenizer decode of the direct
+    stream, usage and finish reasons match, every stream ends in
+    [DONE], the frontend's dynamo_requests_total moves by the requests
+    sent, no graphable forward ran eagerly, the kernels launched once per
+    layer (projection) of each forward, one chat stream equals a direct
+    run of its rendered prompt, and a stream its client cuts mid-decode
+    frees its sequence and pages. TTFT and ITL are taken at the client,
+    over the streamed requests, beside the same four requests' direct
+    streams; the frontend's and the request plane's shares are the CPU
+    seconds `_LayerClock` counts over the HTTP turns' wall."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import InferenceScheduler
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.llm.preprocessor import render_default_chat_template
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    t_phase = time.perf_counter()
+    runner = worker.runner
+    model = worker.card.name
+    _, prompts = standard_traffic(worker.model_config.vocab_size)
+    bodies = _bodies(prompts, "req")
+    tok = ByteTokenizer()
+
+    def http_body(i: int) -> dict:
+        s = bodies[i]["sampling"]
+        out = {"model": model, "prompt": bodies[i]["token_ids"],
+               "max_tokens": s["max_tokens"],
+               "temperature": s["temperature"], "top_p": s["top_p"],
+               "seed": s["seed"], "ignore_eos": True}
+        if i % 2 == 0:
+            out.update(stream=True, stream_options={"include_usage": True})
+        return out
+
+    def fresh_scheduler():
+        worker.scheduler.stop()
+        worker.scheduler = InferenceScheduler(runner)
+        return worker.scheduler
+
+    async def wait_submitted(sched, n: int) -> None:
+        while sched._incoming.qsize() < n:
+            await asyncio.sleep(0.0005)
+
+    async def direct_turn() -> dict:
+        sched = fresh_scheduler()
+        start = time.perf_counter()
+        results = await _serve_wave(worker, bodies, hold=True)
+        wall = time.perf_counter() - start
+        check(sched.error is None, f"{label}: scheduler error {sched.error!r}")
+        return {"wall": wall, "streams": [r["tokens"] for r in results],
+                "results": results}
+
+    async def http_turn(port: int) -> dict:
+        sched = fresh_scheduler()
+        start = time.perf_counter()
+        tasks = []
+        for i in range(len(bodies)):
+            tasks.append(asyncio.ensure_future(
+                _http(port, "POST", "/v1/completions", http_body(i))))
+            await asyncio.wait_for(wait_submitted(sched, i + 1), 60)
+        sched.start()
+        answers = await asyncio.wait_for(asyncio.gather(*tasks), 300)
+        wall = time.perf_counter() - start
+        check(sched.error is None, f"{label}: scheduler error {sched.error!r}")
+        outs = [_sse_outcome(a) if i % 2 == 0 else _aggregate_outcome(a)
+                for i, a in enumerate(answers)]
+        return {"wall": wall, "outcomes": outs}
+
+    def latency(pairs) -> dict:
+        """Mean TTFT / ITL (ms) over (t0, stamps, n_tokens) of the streamed
+        requests."""
+        ttft = [(st[0] - t0) * 1e3 for t0, st, _ in pairs]
+        itl = [(st[-1] - st[0]) * 1e3 / (n - 1) for _, st, n in pairs]
+        return {"ttft_ms_mean": float(np.mean(ttft)),
+                "itl_ms_mean": float(np.mean(itl))}
+
+    async def serve() -> dict:
+        root = tempfile.mkdtemp(prefix="chip_smoke_discovery_")
+        cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
+                            tcp_host="127.0.0.1", system_enabled=False)
+        rt = await DistributedRuntime(cfg).start()
+        frontend = Frontend(rt, host="127.0.0.1", port=0)
+        out = {"direct": [], "http": []}
+        try:
+            await worker.serve(rt)
+            await frontend.start()
+            port = frontend.port
+            listed = []
+            t_list = time.perf_counter()
+            while model not in listed:
+                check(time.perf_counter() - t_list < 30,
+                      f"{label}: /v1/models never listed {model}")
+                res = await _http(port, "GET", "/v1/models")
+                listed = [m["id"] for m in json.loads(res["text"])["data"]]
+                await asyncio.sleep(0.05)
+            before = _frontend_requests(
+                (await _http(port, "GET", "/metrics"))["text"], model)
+            sent = 0
+            # counts to zero just before the main path
+            reset_counts()
+            reset_runner_counts(runner)
+            clock = _LayerClock()
+            out["warm"] = await http_turn(port)
+            sent += len(bodies)
+            for _ in range(3):
+                out["direct"].append(await direct_turn())
+                with clock:
+                    out["http"].append(await http_turn(port))
+                sent += len(bodies)
+            out["layer_seconds"] = dict(clock.seconds)
+            # one chat stream, greedy, against a direct run of its prompt
+            chat = {"model": model, "max_tokens": 64, "temperature": 0.0,
+                    "ignore_eos": True, "stream": True,
+                    "stream_options": {"include_usage": True},
+                    "messages": [{"role": "user", "content": "héllo"}]}
+            prompt_ids = tok.encode(
+                render_default_chat_template(chat["messages"]))
+            sched = fresh_scheduler()
+            sched.start()
+            res = await _http(port, "POST", "/v1/chat/completions", chat)
+            out["chat"] = _sse_outcome(res)
+            sent += 1
+            sched = fresh_scheduler()
+            sched.start()
+            direct = await _stream(worker,
+                                   _body("chat-0", prompt_ids, 0.0, 1.0))
+            out["chat_direct"] = direct["tokens"]
+            out["chat_prompt_tokens"] = len(prompt_ids)
+            # a stream its client cuts mid-way: after its third event (the
+            # prefill's token, then two blocks of decode tokens)
+            pages_before = _reclaimable_pages(sched.pool)
+            tokens_before = sched.stats.decode_tokens
+            cut = {"model": model, "prompt": bodies[2]["token_ids"],
+                   "max_tokens": 1024, "temperature": 0.0,
+                   "ignore_eos": True, "stream": True}
+            res = await _http(port, "POST", "/v1/completions", cut,
+                              cut_after_events=3)
+            sent += 1
+            check(res["status"] == 200, f"{label}: cut stream {res}")
+            t_cut = time.perf_counter()
+            while (sched._waiting or any(s is not None for s in sched._slots)
+                   or _reclaimable_pages(sched.pool) != pages_before):
+                check(time.perf_counter() - t_cut < 30,
+                      f"{label}: the cut stream's sequence was not released "
+                      f"(waiting {len(sched._waiting)}, live "
+                      f"{sum(s is not None for s in sched._slots)}, pages "
+                      f"{_reclaimable_pages(sched.pool)} of {pages_before})")
+                await asyncio.sleep(0.005)
+            out["cut"] = {"release_s": time.perf_counter() - t_cut,
+                          "pages_before": pages_before,
+                          "pages_after": _reclaimable_pages(sched.pool),
+                          "decode_tokens": (sched.stats.decode_tokens
+                                            - tokens_before)}
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["launches"] = read_counts()
+            after = _frontend_requests(
+                (await _http(port, "GET", "/metrics"))["text"], model)
+            out["requests_counted"] = after - before
+            out["requests_sent"] = sent
+        finally:
+            await frontend.close()
+            await worker.shutdown()
+            await rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        return out
+
+    out = asyncio.run(serve())
+    streams = out["direct"][0]["streams"]
+    for turn in out["direct"][1:]:
+        check(turn["streams"] == streams,
+              f"{label}: a direct turn's streams differ from the first's")
+    for turn in [out["warm"]] + out["http"]:
+        for i, got in enumerate(turn["outcomes"]):
+            want_text = tok.decode(streams[i])
+            check(got["text"] == want_text,
+                  f"{label}: req-{i} HTTP text differs from the direct "
+                  "stream's decode")
+            check(got["finish"] == "length",
+                  f"{label}: req-{i} finish {got['finish']}")
+            check(got["usage"] == {
+                "prompt_tokens": len(prompts[i]), "completion_tokens": 64,
+                "total_tokens": len(prompts[i]) + 64},
+                f"{label}: req-{i} usage {got['usage']}")
+    chat = out["chat"]
+    check(chat["text"] == tok.decode(out["chat_direct"])
+          and chat["finish"] == "length"
+          and chat["usage"]["completion_tokens"] == 64
+          and chat["usage"]["prompt_tokens"] == out["chat_prompt_tokens"],
+          f"{label}: the chat stream differs from the direct run of its "
+          f"prompt: {chat}")
+    check(0 < out["cut"]["decode_tokens"] < 1023,
+          f"{label}: the stream was not cut mid-way: {out['cut']}")
+    check(out["requests_counted"] == out["requests_sent"],
+          f"{label}: dynamo_requests_total moved by "
+          f"{out['requests_counted']}, {out['requests_sent']} sent")
+    check_graphed(runner, label)
+    want = expected_counts(runner, dev, decode=runner.decode_steps,
+                           prefill=runner.prefill_steps,
+                           warm=runner.graph_warm_forwards)
+    check(runner.decode_steps > 0 and out["launches"] == want,
+          f"{label}: kernel launches {out['launches']} != expected {want}")
+    streamed = [i for i in range(len(bodies)) if i % 2 == 0]
+    http_lat = [latency([(o["t0"], o["stamps"], 64)
+                         for i, o in enumerate(turn["outcomes"])
+                         if i in streamed]) for turn in out["http"]]
+    direct_lat = [latency([(r["t0"], r["stamps"], 64)
+                           for i, r in enumerate(turn["results"])
+                           if i in streamed]) for turn in out["direct"]]
+
+    def mean(rows, key):
+        return float(np.mean([r[key] for r in rows]))
+
+    http_wall = sum(t["wall"] for t in out["http"])
+    emit(label, model=model, weight_dtype=runner.config.weight_dtype,
+         kv_dtype=runner.config.kv_dtype, requests_per_turn=len(bodies),
+         turns={"http": len(out["http"]) + 1, "direct": len(out["direct"])},
+         http_ttft_ms_mean=mean(http_lat, "ttft_ms_mean"),
+         direct_ttft_ms_mean=mean(direct_lat, "ttft_ms_mean"),
+         http_itl_ms_mean=mean(http_lat, "itl_ms_mean"),
+         direct_itl_ms_mean=mean(direct_lat, "itl_ms_mean"),
+         http_turn_wall_s=[t["wall"] for t in out["http"]],
+         direct_turn_wall_s=[t["wall"] for t in out["direct"]],
+         frontend_s=out["layer_seconds"]["frontend"],
+         request_plane_codec_s=out["layer_seconds"]["request_plane"],
+         frontend_share=out["layer_seconds"]["frontend"] / http_wall,
+         request_plane_share=out["layer_seconds"]["request_plane"]
+         / http_wall,
+         texts_equal_direct=True, chat=chat["finish"], cut_stream=out["cut"],
+         requests_counted=out["requests_counted"],
+         decode_forwards=runner.decode_steps,
+         prefill_forwards=runner.prefill_steps, kernel_launches=out[
+             "launches"], **graph_report(runner),
+         seconds=time.perf_counter() - t_phase)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1668,6 +2068,7 @@ def main() -> None:
     try:
         phase_parity(worker)
         phase_graphs(dev, worker, "graphs_bf16")
+        phase_serve(dev, worker, "serve_bf16")
     finally:
         worker.close()
     del worker
@@ -1693,6 +2094,7 @@ def main() -> None:
     try:
         phase_parity(worker, "parity_q")
         phase_graphs(dev, worker, "graphs_q", spec_ks=(SPEC_K, SPEC_K + 1))
+        phase_serve(dev, worker, "serve_q")
     finally:
         worker.close()
     del worker

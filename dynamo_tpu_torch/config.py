@@ -25,6 +25,37 @@ def is_truthy(val: str) -> bool:
 
 
 _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
+    # Discovery and request plane (runtime/config.py RuntimeConfig)
+    "DYNT_DISCOVERY_BACKEND": (
+        "file", str,
+        "Discovery backend: mem | file | etcd (ref: DYN_DISCOVERY_BACKEND)"),
+    "DYNT_DISCOVERY_PATH": (
+        "/tmp/dynamo_tpu_discovery", str,
+        "Root dir for the file discovery backend"),
+    "DYNT_LEASE_TTL_SECS": (
+        10.0, float,
+        "Discovery lease TTL; dead workers deregister after this "
+        "(ref: docs/design-docs/discovery-plane.md, 10s default)"),
+    "DYNT_REQUEST_PLANE": (
+        "tcp", str,
+        "Request-plane transport: tcp (default) | http | mem "
+        "(ref: DYN_REQUEST_PLANE tcp/http2/nats); addresses carry their "
+        "scheme, so mixed-transport clusters interoperate"),
+    "DYNT_TCP_HOST": ("0.0.0.0", str, "Request-plane TCP bind host"),
+    "DYNT_TCP_ADVERTISE_HOST": (
+        "127.0.0.1", str,
+        "Host advertised to peers for request-plane connections"),
+    "DYNT_TCP_PORT": (0, int, "Request-plane TCP port (0 = ephemeral)"),
+    "DYNT_REQUEST_TIMEOUT_SECS": (
+        600.0, float, "Per-request end-to-end timeout on the request plane"),
+    "DYNT_CONNECT_TIMEOUT_SECS": (
+        5.0, float, "TCP connect timeout for request-plane clients"),
+    "DYNT_SYSTEM_PORT": (
+        0, int,
+        "System status server port (/health,/live,/metrics); 0 = ephemeral"),
+    "DYNT_SYSTEM_ENABLED": (
+        True, is_truthy, "Enable the system status server"),
+    # Engine
     "DYNT_DECODE_PIPELINE": (
         2, int,
         "Pipelined decode-block dispatches in flight (>1 overlaps the host "

@@ -1,0 +1,239 @@
+"""Prometheus metrics with the reference's hierarchical label scheme.
+
+Port of the part of `dynamo_tpu/runtime/metrics.py` that the frontend and
+the served endpoints record, without `prometheus_client`: a small
+per-process registry of Counter, Gauge and Histogram families with labels,
+rendered in the Prometheus text exposition format (version 0.0.4). Names,
+help strings, label sets and histogram buckets are the reference's.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Iterable, Optional
+
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _fmt(value: float) -> str:
+    if value == math.inf:
+        return "+Inf"
+    if value == -math.inf:
+        return "-Inf"
+    if value != value:
+        return "NaN"
+    return repr(float(value))
+
+
+def _escape(value: str) -> str:
+    return (value.replace("\\", r"\\").replace("\n", r"\n")
+            .replace('"', r"\""))
+
+
+def _label_text(names: tuple, values: tuple, extra: str = "") -> str:
+    parts = [f'{n}="{_escape(v)}"' for n, v in zip(names, values)]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+class _Family:
+    kind = ""
+
+    def __init__(self, name: str, doc: str, labelnames: Iterable[str] = (),
+                 registry: Optional["Registry"] = None) -> None:
+        self.name = name
+        self.doc = doc
+        self.labelnames = tuple(labelnames)
+        self._children: dict[tuple, object] = {}
+        self._lock = threading.Lock()
+        if not self.labelnames:
+            self._children[()] = self._new_child()
+        (registry or REGISTRY).register(self)
+
+    def _new_child(self):
+        raise NotImplementedError
+
+    def labels(self, *values: str, **kwargs: str):
+        if kwargs:
+            if values or set(kwargs) != set(self.labelnames):
+                raise ValueError(f"{self.name}: labels {self.labelnames}")
+            values = tuple(kwargs[n] for n in self.labelnames)
+        if len(values) != len(self.labelnames):
+            raise ValueError(f"{self.name}: labels {self.labelnames}")
+        key = tuple(str(v) for v in values)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = self._new_child()
+            return child
+
+    def _items(self) -> list:
+        with self._lock:
+            return sorted(self._children.items())
+
+    def render(self) -> list[str]:
+        lines = [f"# HELP {self.name} {self.doc}",
+                 f"# TYPE {self.name} {self.kind}"]
+        for key, child in self._items():
+            lines.extend(child.samples(self.name, self.labelnames, key))
+        return lines
+
+
+class _Value:
+    def __init__(self) -> None:
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def get(self) -> float:
+        return self._value
+
+    def samples(self, name: str, names: tuple, values: tuple) -> list[str]:
+        return [f"{name}{_label_text(names, values)} {_fmt(self._value)}"]
+
+
+class _CounterChild(_Value):
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self._value += amount
+
+
+class _GaugeChild(_Value):
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+
+class _HistogramChild:
+    def __init__(self, buckets: tuple) -> None:
+        self._buckets = buckets
+        self._counts = [0] * len(buckets)
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._sum += value
+            self._count += 1
+            for i, bound in enumerate(self._buckets):
+                if value <= bound:
+                    self._counts[i] += 1
+                    break
+
+    def samples(self, name: str, names: tuple, values: tuple) -> list[str]:
+        with self._lock:
+            counts, total, count = list(self._counts), self._sum, self._count
+        out, running = [], 0
+        for bound, n in zip(self._buckets, counts):
+            running += n
+            le = f'le="{_fmt(bound)}"'
+            out.append(f"{name}_bucket{_label_text(names, values, le)} "
+                       f"{_fmt(running)}")
+        labels = _label_text(names, values)
+        out.append(f"{name}_count{labels} {_fmt(count)}")
+        out.append(f"{name}_sum{labels} {_fmt(total)}")
+        return out
+
+
+class Counter(_Family):
+    kind = "counter"
+
+    def _new_child(self):
+        return _CounterChild()
+
+
+class Gauge(_Family):
+    kind = "gauge"
+
+    def _new_child(self):
+        return _GaugeChild()
+
+
+class Histogram(_Family):
+    kind = "histogram"
+
+    def __init__(self, name: str, doc: str, labelnames: Iterable[str] = (),
+                 registry: Optional["Registry"] = None,
+                 buckets: tuple = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                                   1.0, 2.5, 5.0, 10.0)) -> None:
+        buckets = tuple(float(b) for b in buckets)
+        if buckets[-1] != math.inf:
+            buckets += (math.inf,)
+        self.buckets = buckets
+        super().__init__(name, doc, labelnames, registry)
+
+    def _new_child(self):
+        return _HistogramChild(self.buckets)
+
+
+class Registry:
+    def __init__(self) -> None:
+        self._families: dict[str, _Family] = {}
+        self._lock = threading.Lock()
+
+    def register(self, family: _Family) -> None:
+        with self._lock:
+            if family.name in self._families:
+                raise ValueError(f"duplicate metric {family.name}")
+            self._families[family.name] = family
+
+    def render(self) -> bytes:
+        with self._lock:
+            families = list(self._families.values())
+        lines: list[str] = []
+        for family in families:
+            lines.extend(family.render())
+        return ("\n".join(lines) + "\n").encode()
+
+
+# One registry per process — mirrors the reference's DRT-rooted hierarchy.
+REGISTRY = Registry()
+
+_HIER = ["namespace", "component", "endpoint"]
+
+REQUESTS_TOTAL = Counter(
+    "dynamo_requests_total", "Requests handled", _HIER + ["status"])
+REQUEST_DURATION = Histogram(
+    "dynamo_request_duration_seconds", "End-to-end request duration", _HIER,
+    buckets=(0.005, 0.025, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 120.0))
+INFLIGHT = Gauge("dynamo_inflight_requests", "In-flight requests", _HIER)
+# Frontend service metrics that feed the Planner (ref: http/service/metrics.rs
+# TTFT/ITL histograms)
+TTFT_SECONDS = Histogram(
+    "dynamo_time_to_first_token_seconds", "Time to first token", ["model"],
+    buckets=(0.01, 0.025, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2, 6.4, 12.8))
+ITL_SECONDS = Histogram(
+    "dynamo_inter_token_latency_seconds", "Inter-token latency", ["model"],
+    buckets=(0.002, 0.005, 0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64))
+INPUT_TOKENS = Histogram(
+    "dynamo_input_sequence_tokens", "Input sequence length", ["model"],
+    buckets=(32, 128, 512, 1024, 2048, 4096, 8192, 16384, 32768))
+OUTPUT_TOKENS = Histogram(
+    "dynamo_output_sequence_tokens", "Output sequence length", ["model"],
+    buckets=(1, 16, 64, 128, 256, 512, 1024, 2048, 4096))
+
+
+def render() -> bytes:
+    return REGISTRY.render()
+
+
+class EndpointMetrics:
+    """Per-endpoint recording helper bound to hierarchy labels."""
+
+    def __init__(self, namespace: str, component: str, endpoint: str) -> None:
+        self._labels = dict(namespace=namespace, component=component,
+                            endpoint=endpoint)
+
+    def observe_request(self, start_monotonic: float, status: str) -> None:
+        REQUESTS_TOTAL.labels(status=status, **self._labels).inc()
+        REQUEST_DURATION.labels(**self._labels).observe(
+            max(0.0, time.monotonic() - start_monotonic))

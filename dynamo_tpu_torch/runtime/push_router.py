@@ -1,0 +1,99 @@
+"""PushRouter — instance selection and fault-aware dispatch.
+
+Port of `dynamo_tpu/runtime/push_router.py` for the modes round_robin,
+random and direct (ref: lib/runtime/src/pipeline/network/egress/
+push_router.rs:71,113-120). A transport failure marks its instance down for
+DOWN_COOLDOWN_SECS, the reference's default breaker (one failure opens it,
+re-admission after 5 s); discovery re-confirming the instance clears the
+mark (ref: push_router.rs:8-16,103-107).
+
+Not ported yet: p2c and kv (they need load metrics and the KV router), and
+the reference's retries, retry budget and half-open probes — a transport
+failure before any output is raised to the caller instead of retried.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import logging
+import random
+import time
+from typing import Any, AsyncIterator, Optional
+
+from .component import Client
+from .request_plane import ConnectionLost, EndpointNotFound
+
+log = logging.getLogger("dynamo_tpu_torch.push_router")
+
+# How long a marked-down instance stays out of rotation (the reference's
+# DYNT_BREAKER_RESET_SECS default).
+DOWN_COOLDOWN_SECS = 5.0
+
+
+class NoInstancesAvailable(RuntimeError):
+    pass
+
+
+class PushRouter:
+    def __init__(self, client: Client, mode: str = "round_robin") -> None:
+        if mode in ("p2c", "kv"):
+            raise NotImplementedError(
+                f"router mode {mode!r} is not ported yet "
+                "(round_robin | random | direct)")
+        assert mode in ("round_robin", "random", "direct"), mode
+        self.client = client
+        self.mode = mode
+        self._rr = itertools.count()
+        # instance id -> monotonic time its down-mark expires
+        self._down: dict[int, float] = {}
+        client.on_change(self._on_instance_change)
+
+    def _on_instance_change(self, kind: str, record: dict) -> None:
+        # A put re-confirms the instance; a delete forgets it.
+        self._down.pop(record.get("instance_id"), None)
+
+    def mark_down(self, instance_id: int) -> None:
+        """Take an instance out of rotation after a transport failure."""
+        self._down[instance_id] = time.monotonic() + DOWN_COOLDOWN_SECS
+
+    def available(self) -> list[int]:
+        now = time.monotonic()
+        return [iid for iid in self.client.instance_ids()
+                if self._down.get(iid, 0.0) <= now]
+
+    def _pick(self, instance_id: Optional[int]) -> int:
+        if self.mode == "direct":
+            if instance_id is None:
+                raise ValueError("direct mode requires instance_id")
+            return instance_id
+        avail = self.available()
+        if instance_id is not None:
+            # Explicit target: honoured only while it is live.
+            if instance_id not in avail:
+                raise NoInstancesAvailable(
+                    f"{self.client.endpoint.subject}: instance "
+                    f"{instance_id:x} unavailable")
+            return instance_id
+        if not avail:
+            raise NoInstancesAvailable(self.client.endpoint.subject)
+        if self.mode == "round_robin":
+            return avail[next(self._rr) % len(avail)]
+        return random.choice(avail)
+
+    async def generate(self, body: Any, instance_id: Optional[int] = None,
+                       headers: Optional[dict] = None) -> AsyncIterator[Any]:
+        """Route and stream. A transport failure marks the instance down and
+        is raised as ConnectionLost."""
+        await self.client.start()
+        iid = self._pick(instance_id)
+        try:
+            async with contextlib.aclosing(
+                    self.client.direct(body, iid, headers)) as stream:
+                async for item in stream:
+                    yield item
+        except (ConnectionLost, EndpointNotFound, KeyError,
+                TimeoutError) as exc:
+            self.mark_down(iid)
+            log.warning("instance %x faulted (%r)", iid, exc)
+            raise ConnectionLost(str(exc)) from exc

@@ -1,0 +1,65 @@
+"""System status server: /health, /live and /metrics.
+
+Port of `SystemStatusServer` in `dynamo_tpu/runtime/status.py` (ref:
+lib/runtime/src/system_status_server.rs:131-178), on this package's HTTP
+server (runtime/http.py). Every runtime process exposes liveness, endpoint
+health and its Prometheus metrics here. Not ported yet: /drain, /debug/*,
+/fleet and OpenMetrics negotiation.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+from . import metrics
+from .http import HttpServer, Request, Response, json_response
+
+
+def metrics_response(_request: Request) -> Response:
+    """Shared /metrics responder (status server + frontend)."""
+    return Response(metrics.render(), content_type=metrics.CONTENT_TYPE)
+
+
+class SystemStatusServer:
+    def __init__(self, port: int = 0, host: str = "0.0.0.0") -> None:
+        self._port = port
+        self._host = host
+        self._server: Optional[HttpServer] = None
+        self.port: Optional[int] = None
+        # Health callbacks: name -> () -> bool (endpoints register themselves)
+        self._health_checks: dict[str, Callable[[], bool]] = {}
+
+    def register_health(self, name: str, check: Callable[[], bool]) -> None:
+        self._health_checks[name] = check
+
+    def unregister_health(self, name: str) -> None:
+        self._health_checks.pop(name, None)
+
+    async def _health(self, _request: Request) -> Response:
+        results = {name: bool(check())
+                   for name, check in self._health_checks.items()}
+        healthy = all(results.values()) if results else True
+        return json_response(
+            {"status": "healthy" if healthy else "unhealthy",
+             "endpoints": results},
+            status=200 if healthy else 503)
+
+    async def _live(self, _request: Request) -> Response:
+        return json_response({"status": "live"})
+
+    async def _metrics(self, request: Request) -> Response:
+        return metrics_response(request)
+
+    async def start(self) -> None:
+        self._server = HttpServer({
+            ("GET", "/health"): self._health,
+            ("GET", "/live"): self._live,
+            ("GET", "/metrics"): self._metrics,
+        }, self._host, self._port)
+        await self._server.start()
+        self.port = self._server.port
+
+    async def close(self) -> None:
+        if self._server is not None:
+            await self._server.close()
+            self._server = None

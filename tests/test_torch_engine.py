@@ -11,6 +11,7 @@ cache hit on full pages, fused decode blocks with pipelined dispatch
 
 import dataclasses
 import threading
+import time
 
 import jax
 import numpy as np
@@ -61,8 +62,17 @@ def _prompts():
 
 
 def _serve(scheduler, requests, timeout=60.0):
-    """Submit all, wait until every stream finishes; returns {rid: (tokens,
-    finish reasons)}."""
+    """Submit all, wait until every stream finishes and the scheduler has
+    released every sequence; returns {rid: (tokens, finish reasons)}.
+
+    Both engines emit a stream's last token before they release its pages
+    (the release ends the step that emitted it), and both admit arrivals in
+    the middle of a step. Returning on the last emit alone let the next
+    wave be admitted before the previous wave's prompt blocks reached the
+    prefix cache whenever the scheduler thread was slow to reach the end of
+    its step, as it is on a loaded host: the prefix-cache hit that the
+    caller counts on then depended on thread timing."""
+    deadline = time.monotonic() + timeout
     out = {r.request_id: [] for r in requests}
     done = threading.Event()
     lock = threading.Lock()
@@ -81,6 +91,9 @@ def _serve(scheduler, requests, timeout=60.0):
     for r in requests:
         scheduler.submit(r, emitter(r.request_id))
     assert done.wait(timeout), "streams did not finish"
+    while scheduler._waiting or any(s is not None for s in scheduler._slots):
+        assert time.monotonic() < deadline, "sequences were not released"
+        time.sleep(0.001)
     return {rid: ([t for o in outs for t in o.token_ids],
                   [o.finish_reason for o in outs if o.finish_reason])
             for rid, outs in out.items()}

@@ -14,7 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "dynamo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "aiohttp", "xxhash",
-             "zmq", "prometheus_client")
+             "zmq", "prometheus_client", "jinja2")
 
 
 # Modules of the quantized-serving slice, which must be among the checked
@@ -23,6 +23,17 @@ QUANTIZED_MODULES = ("dynamo_tpu_torch.ops.q8_linear",
                      "dynamo_tpu_torch.ops.q4_linear",
                      "dynamo_tpu_torch.models.quantize",
                      "dynamo_tpu_torch.models.convert")
+
+
+# Modules of the serving edge: each must be among the checked sources and
+# import cleanly on its own.
+SERVING_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
+    "runtime.msgpack", "runtime.codec", "runtime.config",
+    "runtime.discovery", "runtime.request_plane", "runtime.component",
+    "runtime.push_router", "runtime.metrics", "runtime.distributed",
+    "runtime.http", "runtime.status", "runtime.signals", "llm.model_card",
+    "llm.tokenizer", "llm.validate", "llm.preprocessor", "llm.engine",
+    "llm.manager", "llm.http_service", "frontend.service", "engine.worker"))
 
 
 def _sources():
@@ -37,6 +48,25 @@ def test_sources_cover_the_quantized_modules():
     files = set(_sources())
     for module in QUANTIZED_MODULES:
         assert ROOT / (module.replace(".", "/") + ".py") in files
+
+
+def test_sources_cover_the_serving_modules():
+    files = set(_sources())
+    for module in SERVING_MODULES:
+        assert ROOT / (module.replace(".", "/") + ".py") in files
+    for package in ("frontend", "worker"):
+        assert PORT / package / "__main__.py" in files
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_module_imports_on_its_own(module):
+    code = (f"import sys, {module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def _imported(path: Path) -> set[str]:
@@ -87,6 +117,30 @@ def test_entry_points_default_to_the_card():
         ModelRunner(get_config("tiny-test"), RunnerConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         init_params(get_config("tiny-test"))
+
+
+def test_worker_cli_defaults_to_the_card(run, tmp_path, monkeypatch):
+    """`python -m dynamo_tpu_torch.worker` without --device asks for the card
+    and raises here before it starts a runtime or builds a model."""
+    from dynamo_tpu_torch.engine.worker import build_arg_parser, main
+
+    monkeypatch.setenv("DYNT_DISCOVERY_PATH", str(tmp_path))
+    assert build_arg_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        run(main(["--model", "tiny-test"]))
+    assert not any(tmp_path.iterdir())  # no discovery tree was written
+
+
+def test_frontend_cli_runs_without_the_card():
+    """The frontend holds no model: its CLI takes no device, and it refuses
+    the router modes that are not ported (they need the KV router)."""
+    from dynamo_tpu_torch.frontend.service import build_arg_parser
+
+    args = build_arg_parser().parse_args([])
+    assert not hasattr(args, "device") and args.router_mode == "round_robin"
+    for mode in ("kv", "p2c"):
+        with pytest.raises(SystemExit):
+            build_arg_parser().parse_args(["--router-mode", mode])
 
 
 def test_kernels_build_for_sm90a(monkeypatch):
