@@ -71,6 +71,19 @@ Phases, each printing one JSON line:
   graphs_q  - graphs_bf16 on that runner, plus a spec step at K = 5 (M =
               16 x 6 = 96: the GEMMs' TMA prefill body inside the graph)
   serve_q   - serve_bf16 on that worker (rows 2 and 6 under HTTP)
+  serve_kv  - KV-aware routing: a second mistral-7b W4A16 worker on the
+              first's weights, each prewarmed, on its own port runtime
+              (file discovery, the TCP request plane, the zmq event plane
+              over ZMTP), port Frontends in kv and round_robin mode; 4
+              prefixes of 1,024 tokens, wave 1 one request per prefix
+              together, wave 2 each prefix twice one at a time, wave 3 the
+              same together: wave 1 splits 2 / 2, every wave-2 request
+              goes to its prefix's worker with overlap >= 64 blocks, the
+              router's trees equal the workers' local indexes,
+              clear_kv_blocks empties them, load metrics arrive, a busy
+              threshold answers 503, the HTTP texts of waves 1 and 2 equal
+              a direct replay; the same waves in round_robin beside; event
+              lag and the event plane's CPU share; rows 2 and 6 counted
   spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
               KV: a runner of 8 slots, all live, 5 positions each (the int8
               pool kernel folded, the q4 v2 kernel at M = 8 x 5 = 40),
@@ -1744,40 +1757,57 @@ def _frontend_requests(metrics_text: str, model: str) -> float:
 
 
 class _LayerClock:
-    """CPU seconds spent in named functions, by layer: the request plane's
-    msgpack codec and the frontend's request lowering and response
-    building. Installed around the HTTP turns only."""
+    """CPU seconds spent in named functions, by layer. `targets` are
+    (owner, attribute, layer); a coroutine function is timed from its call
+    to its return, so it must not wait on anything. By default the request
+    plane's msgpack codec and the frontend's request lowering and response
+    building. Installed around the turns it measures only."""
 
-    def __init__(self) -> None:
-        from dynamo_tpu_torch.llm import http_service, preprocessor
-        from dynamo_tpu_torch.runtime import msgpack
+    def __init__(self, targets=None) -> None:
+        if targets is None:
+            from dynamo_tpu_torch.llm import http_service, preprocessor
+            from dynamo_tpu_torch.runtime import msgpack
 
-        self.seconds = {"request_plane": 0.0, "frontend": 0.0}
-        self._targets = [
-            (msgpack, "packb", "request_plane"),
-            (msgpack, "unpackb", "request_plane"),
-            (preprocessor.OpenAIPreprocessor, "preprocess_completions",
-             "frontend"),
-            (preprocessor.OpenAIPreprocessor, "preprocess_chat", "frontend"),
-            (preprocessor.DeltaGenerator, "on_output", "frontend"),
-            (preprocessor.DeltaGenerator, "final_response", "frontend"),
-            (http_service, "_sse", "frontend"),
-        ]
+            targets = [
+                (msgpack, "packb", "request_plane"),
+                (msgpack, "unpackb", "request_plane"),
+                (preprocessor.OpenAIPreprocessor, "preprocess_completions",
+                 "frontend"),
+                (preprocessor.OpenAIPreprocessor, "preprocess_chat",
+                 "frontend"),
+                (preprocessor.DeltaGenerator, "on_output", "frontend"),
+                (preprocessor.DeltaGenerator, "final_response", "frontend"),
+                (http_service, "_sse", "frontend"),
+            ]
+        self._targets = targets
+        self.seconds = {layer: 0.0 for _, _, layer in targets}
         self._saved = []
+
+    def _timed(self, fn, layer: str):
+        import inspect
+
+        if inspect.iscoroutinefunction(fn):
+            async def timed_async(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return await fn(*args, **kwargs)
+                finally:
+                    self.seconds[layer] += time.perf_counter() - t
+            return timed_async
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[layer] += time.perf_counter() - t
+        return timed
 
     def __enter__(self):
         for owner, name, layer in self._targets:
             fn = getattr(owner, name)
             self._saved.append((owner, name, fn))
-
-            def timed(*args, _fn=fn, _layer=layer, **kwargs):
-                t = time.perf_counter()
-                try:
-                    return _fn(*args, **kwargs)
-                finally:
-                    self.seconds[_layer] += time.perf_counter() - t
-
-            setattr(owner, name, timed)
+            setattr(owner, name, self._timed(fn, layer))
         return self
 
     def __exit__(self, *exc):
@@ -2040,6 +2070,508 @@ def phase_serve(dev: torch.device, worker, label: str) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
+# KV-aware routing: two workers behind the port's kv-mode frontend
+
+KV_PREFIX = 1024  # tokens of each shared prefix (64 pages of 16)
+KV_OUT = 32  # output tokens of every request
+
+
+def kv_traffic(vocab: int) -> dict:
+    """4 prefixes of KV_PREFIX tokens; wave 1 one request per prefix with a
+    64-token suffix; waves 2 and 3 the prefixes in the order 0, 0, 1, 1, 2,
+    2, 3, 3, each with a fresh suffix of 32-128 tokens. Items are (prefix
+    index, prompt)."""
+    rng = np.random.default_rng(SEED + 9)
+    prefixes = [rng.integers(1, vocab, KV_PREFIX) for _ in range(4)]
+
+    def wave(order, lengths):
+        return [(i, [int(t) for t in np.concatenate(
+            [prefixes[i], rng.integers(1, vocab, n)])])
+            for i, n in zip(order, lengths)]
+
+    order = (0, 0, 1, 1, 2, 2, 3, 3)
+    return {"w1": wave(range(4), [64] * 4),
+            "w2": wave(order, rng.integers(32, 129, 8)),
+            "w3": wave(order, rng.integers(32, 129, 8))}
+
+
+def phase_serve_kv(dev: torch.device, worker_a) -> dict:
+    """KV-aware routing at full width: a second TorchWorker on `worker_a`'s
+    weights (mistral-7b W4A16 + int8 KV, the default RunnerConfig, both
+    prewarmed), each on its own port DistributedRuntime (file discovery in
+    a temporary directory, the TCP request plane, the default zmq event
+    plane), and port Frontends in kv and in round_robin mode over the two,
+    in this process. `kv_traffic` goes as streamed /v1/completions with
+    token-id prompts, greedy: wave 1 together (each worker's scheduler
+    starts once the 4 requests are in, so a worker admits its requests
+    whole), wave 2 one request at a time (each sent once the previous one
+    finished and the router has its events and the workers' load), wave 3
+    together (reported only). Then the same waves in round_robin on fresh
+    schedulers after clear_kv_blocks, and a direct replay of waves 1 and 2:
+    fresh schedulers, each request submitted to the worker the router
+    chose, in the same order, wave 1 admitted whole.
+
+    Checks: wave 1 splits 2 / 2; every wave-2 request goes to the worker
+    that served its prefix in wave 1 with overlap >= 64 blocks, and that
+    worker's prefix-cached tokens rise by >= 1024; the router's tree equals
+    each worker's local index; clear_kv_blocks empties a worker's part of
+    the tree; both workers' LoadMetrics reach the manager; a busy threshold
+    below the workers' usage answers 503; every HTTP text of waves 1 and 2
+    equals the direct replay's decode; no graph captured and no graphable
+    forward ran eagerly; rows 2 and 6 launched once per layer (projection)
+    of each forward of the kv run. Returns the kv run's launches."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import InferenceScheduler, TorchWorker
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.kv_router import WorkerWithDpRank
+    from dynamo_tpu_torch.kv_router.protocols import (
+        LoadMetrics,
+        RouterEvent,
+    )
+    from dynamo_tpu_torch.llm.manager import ModelWatcher
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+    from dynamo_tpu_torch.runtime import events as ev_mod
+    from dynamo_tpu_torch.runtime import zmtp
+    from dynamo_tpu_torch.engine.worker import KvEventBuffer
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    label = "serve_kv"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    worker_b = TorchWorker(worker_a.model_config, worker_a.runner_config,
+                           device=worker_a.device,
+                           params=worker_a.runner.model)
+    worker_b.runner.prewarm()
+    prewarm_b_s = time.perf_counter() - t0
+    workers = [worker_a, worker_b]
+    runners = [w.runner for w in workers]
+    model = worker_a.card.name
+    page = worker_a.runner_config.page_size
+    traffic = kv_traffic(worker_a.model_config.vocab_size)
+    tok = ByteTokenizer()
+    prefix_hashes = {}
+    for i, p in traffic["w1"]:
+        prefix_hashes[i] = compute_block_hashes(p[:KV_PREFIX], page)
+
+    recorded = {}  # (worker_id, event_id) -> (perf_counter, kind) at
+    # registration on the scheduler thread
+    applied = {}  # (worker_id, event_id) -> perf_counter at the router
+    arrivals = []  # (worker index, prompt tuple), in arrival order
+
+    def stamped(buf, fn, kind: str):
+        def hook(*args):
+            fn(*args)
+            recorded[(buf.worker_id, buf._event_id - 1)] = (
+                time.perf_counter(), kind)
+        return hook
+
+    def fresh(k: int):
+        """A new scheduler (an empty page pool) on worker k, its pool's
+        hooks stamped; the old pool's blocks are announced cleared."""
+        w = workers[k]
+        w.scheduler.stop()
+        w.scheduler = InferenceScheduler(
+            w.runner,
+            on_stored=stamped(w.events, w.events.on_stored, "stored"),
+            on_removed=stamped(w.events, w.events.on_removed, "removed"))
+        w.events.on_cleared()
+        return w.scheduler
+
+    def recording(k: int, generate):
+        async def gen(body, ctx=None):
+            arrivals.append((k, tuple(body["token_ids"])))
+            async with contextlib.aclosing(generate(body, ctx)) as stream:
+                async for item in stream:
+                    yield item
+        return gen
+
+    for k, w in enumerate(workers):
+        w.generate = recording(k, w.generate)
+
+    def idle(w) -> bool:
+        s = w.scheduler
+        return not (s._incoming.qsize() or s._waiting
+                    or any(x is not None for x in s._slots))
+
+    def body(prompt) -> dict:
+        return {"model": model, "prompt": list(prompt),
+                "max_tokens": KV_OUT, "temperature": 0.0,
+                "ignore_eos": True, "stream": True,
+                "stream_options": {"include_usage": True}}
+
+    async def until(pred, what: str, timeout: float = 60.0) -> float:
+        t = time.perf_counter()
+        while not pred():
+            check(time.perf_counter() - t < timeout, f"{label}: {what}")
+            await asyncio.sleep(0.002)
+        return time.perf_counter() - t
+
+    async def run_waves(port: int, entry, mode: str) -> dict:
+        """Waves 1-3 through the frontend at `port` on fresh schedulers."""
+        out = {}
+        for k in range(2):
+            fresh(k)
+        for name in ("w1", "w2", "w3"):
+            items = traffic[name]
+            before_prefill = [w.scheduler.stats.prefill_tokens
+                              for w in workers]
+            first_arrival = len(arrivals)
+            t_wave = time.perf_counter()
+            if name == "w2":
+                answers = []
+                for _, prompt in items:
+                    if entry is not None:
+                        await until(lambda: settled(entry), "settle")
+                    else:
+                        await until(lambda: all(idle(w) for w in workers),
+                                    "idle")
+                    pre = [w.scheduler.stats.prefill_tokens
+                           for w in workers]
+                    answers.append(await _http(port, "POST",
+                                               "/v1/completions",
+                                               body(prompt)))
+                    await until(lambda: all(idle(w) for w in workers),
+                                "idle after a wave-2 request")
+                    k = arrivals[-1][0]
+                    out.setdefault("w2_cached", []).append(
+                        len(prompt) - (workers[k].scheduler.stats
+                                       .prefill_tokens - pre[k]))
+            else:
+                tasks = [asyncio.ensure_future(_http(
+                    port, "POST", "/v1/completions", body(p)))
+                    for _, p in items]
+                if name == "w1":  # every scheduler starts once all are in
+                    await until(lambda: sum(w.scheduler._incoming.qsize()
+                                            for w in workers) == len(items),
+                                "wave 1 submitted")
+                    for w in workers:
+                        w.scheduler.start()
+                answers = await asyncio.gather(*tasks)
+            wall = time.perf_counter() - t_wave
+            await until(lambda: all(idle(w) for w in workers), "idle")
+            outs = [_sse_outcome(a) for a in answers]
+            for o in outs:
+                check(o["finish"] == "length"
+                      and o["usage"]["completion_tokens"] == KV_OUT,
+                      f"{label}: {mode} {name}: {o['finish']} {o['usage']}")
+            where = {p: k for k, p in arrivals[first_arrival:]}
+            routed = [where[tuple(p)] for _, p in items]
+            prefill = sum(w.scheduler.stats.prefill_tokens - b
+                          for w, b in zip(workers, before_prefill))
+            isl = sum(len(p) for _, p in items)
+            ttft = [(o["stamps"][0] - o["t0"]) * 1e3 for o in outs]
+            itl = [(o["stamps"][-1] - o["stamps"][0]) * 1e3 / (KV_OUT - 1)
+                   for o in outs]
+            out[name] = {"routed": routed,
+                         "order": [(k, p) for k, p in
+                                   arrivals[first_arrival:]],
+                         "texts": [o["text"] for o in outs],
+                         "prefill_tokens": prefill,
+                         "prefix_cached_tokens": isl - prefill,
+                         "ttft_ms": ttft,
+                         "ttft_ms_mean": float(np.mean(ttft)),
+                         "ttft_ms_max": float(np.max(ttft)),
+                         "itl_ms_mean": float(np.mean(itl)),
+                         "wall_s": wall}
+        return out
+
+    def router_view(entry, w) -> list:
+        return sorted(entry.scheduler.indexer.dump_worker(
+            WorkerWithDpRank(w.instance_id)), key=str)
+
+    def local_view(w) -> list:
+        return sorted(((p, h) for p, h in
+                       w.events.local_index.dump()["blocks"]), key=str)
+
+    def settled(entry) -> bool:
+        """Both workers idle, the router holding every event they
+        registered, their latest published load equal to their pools'."""
+        for w in workers:
+            pool = w.scheduler.pool
+            pub = entry.scheduler.sequences._published.get(
+                WorkerWithDpRank(w.instance_id))
+            if (not idle(w) or pub is None
+                    or pub.active_blocks != pool.num_pages - 1
+                    - pool.free_count()
+                    or router_view(entry, w) != local_view(w)):
+                return False
+        return True
+
+    async def call(rt, w, endpoint: str) -> list:
+        client = (rt.namespace(w.card.namespace).component(w.card.component)
+                  .endpoint(endpoint).client())
+        await client.start()
+        try:
+            await client.wait_for_instances(2, timeout=30)
+            return [d async for d in client.direct({}, w.instance_id)]
+        finally:
+            await client.close()
+
+    async def serve() -> dict:
+        root = tempfile.mkdtemp(prefix="chip_smoke_kv_")
+        cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
+                            tcp_host="127.0.0.1", system_enabled=False)
+        check(cfg.event_plane == "zmq", f"{label}: {cfg.event_plane}")
+        rts = [await DistributedRuntime(dataclasses.replace(cfg)).start()
+               for _ in range(3)]
+        fes = {"kv": Frontend(rts[2], host="127.0.0.1", port=0,
+                              router_mode="kv"),
+               "rr": Frontend(rts[2], host="127.0.0.1", port=0,
+                              router_mode="round_robin")}
+        out = {}
+        try:
+            t_up = time.perf_counter()
+            for k, w in enumerate(workers):
+                fresh(k)
+                await w.serve(rts[k])
+            for fe in fes.values():
+                await fe.start()
+            ids = {w.instance_id for w in workers}
+            for fe in fes.values():
+                await until(lambda fe=fe: fe.manager.get(model) is not None
+                            and ids <= set(fe.manager.get(model)
+                                           .worker_usage),
+                            "both workers' LoadMetrics at the manager")
+            out["setup_s"] = time.perf_counter() - t_up
+            entry = fes["kv"].manager.get(model)
+            decisions = []
+            select = entry.scheduler.select_worker
+
+            def selecting(candidates, block_hashes, isl, **kw):
+                res = select(candidates, block_hashes, isl, **kw)
+                decisions.append({
+                    "first_hash": block_hashes[0], "isl": isl,
+                    "worker": res.worker.worker_id,
+                    "overlap_blocks": res.overlap_blocks,
+                    "logit": res.logit})
+                return res
+
+            entry.scheduler.select_worker = selecting
+            apply = entry.scheduler.indexer.apply_event
+
+            def applying(event):
+                applied[(event.worker_id, event.event_id)] = (
+                    time.perf_counter())
+                return apply(event)
+
+            entry.scheduler.indexer.apply_event = applying
+            clock = _LayerClock([
+                (ev_mod.ZmqEventPublisher, "publish", "event_plane"),
+                (ev_mod.ZmqEventSubscriberManager, "_on_message",
+                 "event_plane"),
+                (zmtp, "encode_message", "event_plane"),
+                (ModelWatcher, "_apply", "event_plane"),
+                (KvEventBuffer, "drain", "event_plane"),
+                (RouterEvent, "to_wire", "event_plane"),
+                (LoadMetrics, "to_wire", "event_plane"),
+            ])
+            # counts to zero just before the main path
+            reset_counts()
+            for r in runners:
+                reset_runner_counts(r)
+            recorded.clear()
+            t_kv = time.perf_counter()
+            with clock:
+                out["kv"] = await run_waves(fes["kv"].port, entry, "kv")
+                out["settle_s"] = await until(lambda: settled(entry),
+                                              "settle after wave 3")
+            out["kv_wall_s"] = time.perf_counter() - t_kv
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["launches"] = read_counts()
+            out["runner_counts"] = [launched_forwards(r) | {
+                "prefill": r.prefill_steps, "decode_steps": r.decode_steps,
+                "warm": dict(r.graph_warm_forwards),
+                "captures": r.graph_captures} for r in runners]
+            out["want"] = {}
+            for r in runners:
+                for name, n in expected_counts(
+                        r, dev, decode=r.decode_steps,
+                        prefill=r.prefill_steps,
+                        warm=r.graph_warm_forwards).items():
+                    out["want"][name] = out["want"].get(name, 0) + n
+            out["event_seconds"] = clock.seconds["event_plane"]
+            out["decisions"] = decisions
+            lags = [(applied[key] - t) * 1e3
+                    for key, (t, _) in recorded.items() if key in applied]
+            out["event_lag_ms"] = lags
+            out["events_recorded"] = len(recorded)
+            out["events_by_kind"] = {
+                kind: sum(1 for _, k in recorded.values() if k == kind)
+                for kind in ("stored", "removed")}
+            out["views_equal"] = [router_view(entry, w) == local_view(w)
+                                  for w in workers]
+            out["view_blocks"] = [len(local_view(w)) for w in workers]
+            out["usage"] = {f"{iid:x}": u
+                            for iid, u in entry.worker_usage.items()}
+            kinds = {"stored": 0, "removed": 0, "cleared": 0}
+            events_seen = []
+
+            def counting(event):
+                events_seen.append(event)
+                return applying(event)
+
+            entry.scheduler.indexer.apply_event = counting
+            # clear_kv_blocks on both workers: the router's tree empties
+            for k, w in enumerate(workers):
+                (answer,) = await call(rts[2], w, "clear_kv_blocks")
+                out.setdefault("cleared_blocks", []).append(
+                    answer["cleared_blocks"])
+                await until(lambda w=w: router_view(entry, w) == [],
+                            f"the router still holds worker {k}'s blocks "
+                            "after clear_kv_blocks")
+            for e in events_seen:
+                kinds["stored" if e.stored else "removed" if e.removed
+                      else "cleared"] += 1
+            out["clear_events"] = kinds
+            # the same waves in round_robin
+            out["rr"] = await run_waves(fes["rr"].port, None, "rr")
+            # busy shedding: a threshold below both workers' usage
+            rr_entry = fes["rr"].manager.get(model)
+            await until(lambda: all(rr_entry.worker_usage.get(
+                w.instance_id, 0) > 0 for w in workers), "usage published")
+            usage = min(rr_entry.worker_usage[w.instance_id]
+                        for w in workers)
+            fes["rr"].http.busy_threshold = usage / 2
+            res = await _http(fes["rr"].port, "POST", "/v1/completions",
+                              {**body(traffic["w1"][0][1]), "stream": False})
+            fes["rr"].http.busy_threshold = None
+            out["busy"] = {"threshold": usage / 2, "status": res["status"],
+                           "body": res["text"]}
+            # the direct replay of waves 1 and 2, to the kv run's workers
+            for w in workers:
+                await call(rts[2], w, "clear_kv_blocks")
+            replay = {}
+            for k in range(2):
+                fresh(k)
+            for name in ("w1", "w2"):
+                order = out["kv"][name]["order"]
+                streams = {}
+                if name == "w1":
+                    tasks = {p: asyncio.ensure_future(_stream(
+                        workers[k], _kv_body(f"kv-{n}", p)))
+                        for n, (k, p) in enumerate(order)}
+                    await asyncio.sleep(0)
+                    for w in workers:
+                        w.scheduler.start()
+                    for p, t in tasks.items():
+                        streams[p] = (await t)["tokens"]
+                else:
+                    for n, (k, p) in enumerate(order):
+                        await until(lambda: all(idle(w) for w in workers),
+                                    "idle")
+                        streams[p] = (await _stream(
+                            workers[k], _kv_body(f"kv2-{n}", p)))["tokens"]
+                replay[name] = streams
+            out["replay"] = replay
+            await until(lambda: all(idle(w) for w in workers), "idle")
+        finally:
+            for fe in fes.values():
+                await fe.close()
+            for w in workers:
+                await w.shutdown()
+                del w.generate
+            for rt in rts:
+                await rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        return out
+
+    out = asyncio.run(serve())
+    kv, rr = out["kv"], out["rr"]
+    ids = [w.instance_id for w in workers]
+    check(sorted(kv["w1"]["routed"]) == [0, 0, 1, 1],
+          f"{label}: wave 1 routed {kv['w1']['routed']}, not 2 / 2")
+    holder = {i: kv["w1"]["routed"][n]
+              for n, (i, _) in enumerate(traffic["w1"])}
+    by_hash = {prefix_hashes[i][0]: i for i in holder}
+    w2_decisions = out["decisions"][4:12]  # wave 1 made the first four
+    for n, ((i, prompt), d) in enumerate(zip(traffic["w2"], w2_decisions)):
+        check(by_hash[d["first_hash"]] == i and d["isl"] == len(prompt),
+              f"{label}: wave-2 decision {n} is not its request's")
+        check(d["worker"] == ids[holder[i]]
+              and kv["w2"]["routed"][n] == holder[i],
+              f"{label}: wave-2 request {n} (prefix {i}) went to worker "
+              f"{kv['w2']['routed'][n]}, its prefix is on {holder[i]}")
+        check(d["overlap_blocks"] >= KV_PREFIX // page,
+              f"{label}: wave-2 request {n} overlap {d['overlap_blocks']}")
+        check(kv["w2_cached"][n] >= KV_PREFIX,
+              f"{label}: wave-2 request {n} reused {kv['w2_cached'][n]} "
+              "cached tokens")
+    check(all(out["views_equal"]) and min(out["view_blocks"]) > 0,
+          f"{label}: the router's trees differ from the local indexes "
+          f"({out['views_equal']}, {out['view_blocks']})")
+    check(out["clear_events"]["cleared"] == 2,
+          f"{label}: cleared events {out['clear_events']}")
+    check(out["busy"]["status"] == 503
+          and "service busy" in out["busy"]["body"],
+          f"{label}: busy threshold answered {out['busy']}")
+    for name in ("w1", "w2"):
+        for n, (_, prompt) in enumerate(traffic[name]):
+            want = tok.decode(out["replay"][name][tuple(prompt)])
+            check(kv[name]["texts"][n] == want,
+                  f"{label}: {name} request {n}: the HTTP text differs from "
+                  "the direct replay's")
+    for r, rc in zip(runners, out["runner_counts"]):
+        check(rc["captures"] == 0, f"{label}: {rc['captures']} captures")
+        check_graphed(r, label)
+    check(out["launches"] == out["want"] and (dev.type != "cuda" or (
+        out["launches"]["q4_matmul_v2"] > 0
+        and out["launches"]["paged_decode_attention_pool_int8"] > 0)),
+          f"{label}: kernel launches {out['launches']} != expected "
+          f"{out['want']}")
+    lags = out["event_lag_ms"]
+    check(len(lags) == out["events_recorded"] > 0,
+          f"{label}: {out['events_recorded']} events registered, "
+          f"{len(lags)} applied by the router")
+
+    def wave_line(w) -> dict:
+        return {k: v for k, v in w.items() if k not in ("texts", "order")}
+
+    emit(label, model=model, nvidia_smi=nvidia_smi() if dev.type == "cuda"
+         else None, weight_dtype=worker_a.runner_config.weight_dtype,
+         kv_dtype=worker_a.runner_config.kv_dtype, workers=2,
+         event_plane="zmq", prewarm_b_s=prewarm_b_s,
+         setup_s=out["setup_s"],
+         kv={k: wave_line(v) for k, v in kv.items() if k != "w2_cached"},
+         kv_w2_cached_tokens=kv["w2_cached"],
+         rr={k: wave_line(v) for k, v in rr.items() if k != "w2_cached"},
+         decisions=[{k: v for k, v in d.items() if k != "first_hash"}
+                    for d in out["decisions"]],
+         events_recorded=out["events_recorded"],
+         events_by_kind=out["events_by_kind"],
+         event_lag_ms_mean=float(np.mean(lags)),
+         event_lag_ms_p50=float(np.median(lags)),
+         event_lag_ms_max=float(np.max(lags)),
+         clear_events=out["clear_events"],
+         cleared_blocks=out["cleared_blocks"],
+         router_equals_local_index=out["views_equal"],
+         indexed_blocks=out["view_blocks"], usage=out["usage"],
+         busy=out["busy"]["status"], texts_equal_replay=True,
+         event_plane_s=out["event_seconds"],
+         event_plane_share=out["event_seconds"] / out["kv_wall_s"],
+         kv_wall_s=out["kv_wall_s"], kernel_launches=out["launches"],
+         forwards=out["runner_counts"],
+         seconds=time.perf_counter() - t_phase)
+    worker_b.close()
+    return out["launches"]
+
+
+def _kv_body(rid: str, prompt) -> dict:
+    from dynamo_tpu_torch.llm.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    return PreprocessedRequest(
+        request_id=rid, token_ids=list(prompt),
+        sampling=SamplingOptions(max_tokens=KV_OUT, temperature=0.0),
+        stop=StopConditions(ignore_eos=True)).to_wire()
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2095,6 +2627,8 @@ def main() -> None:
         phase_parity(worker, "parity_q")
         phase_graphs(dev, worker, "graphs_q", spec_ks=(SPEC_K, SPEC_K + 1))
         phase_serve(dev, worker, "serve_q")
+        for name, n in phase_serve_kv(dev, worker).items():
+            launches[name] = launches.get(name, 0) + n
     finally:
         worker.close()
     del worker

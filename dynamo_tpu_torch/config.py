@@ -55,6 +55,62 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
         "System status server port (/health,/live,/metrics); 0 = ephemeral"),
     "DYNT_SYSTEM_ENABLED": (
         True, is_truthy, "Enable the system status server"),
+    # Event plane (runtime/config.py RuntimeConfig)
+    "DYNT_EVENT_PLANE": (
+        "zmq", str,
+        "Event-plane transport: zmq (default) | mem | journal (durable "
+        "replayable log — the JetStream-mode analog, ref: "
+        "kv_router/jetstream.rs)"),
+    "DYNT_ZMQ_HOST": (
+        "127.0.0.1", str, "Event-plane ZMQ bind/advertise host"),
+    "DYNT_EVENT_JOURNAL_PATH": (
+        "/tmp/dynamo_tpu_events", str,
+        "Journal event-plane root directory (shared storage: local disk "
+        "single-host, NFS/GCS-fuse across hosts)"),
+    "DYNT_EVENT_JOURNAL_MAX_MB": (
+        64, int,
+        "Per-publisher journal size that triggers a snapshot rotation"),
+    # Router
+    "DYNT_ROUTER_OVERLAP_WEIGHT": (
+        1.0, float,
+        "KV router cost weight for prefix-overlap blocks "
+        "(ref: kv-router scheduling/selector.rs:155)"),
+    "DYNT_ROUTER_TEMPERATURE": (
+        0.0, float, "KV router softmax sampling temperature (0 = argmin)"),
+    "DYNT_BUSY_THRESHOLD": (
+        None, float,
+        "KV-load busy threshold for 503 load shedding; unset disables "
+        "shedding (ref: http/service/busy_threshold.rs). The frontend "
+        "--busy-threshold flag overrides"),
+    "DYNT_ROUTER_QUEUE_POLICY": (
+        "fcfs", str,
+        "Router admission-queue ordering: fcfs | lcfs | wspt "
+        "(ref: kv-router scheduling/policy.rs)"),
+    "DYNT_ROUTER_QUEUE_THRESHOLD": (
+        -1.0, float,
+        "Park requests when every worker exceeds this fraction of its "
+        "token budget; negative disables queueing "
+        "(ref: kv-router scheduling/queue.rs threshold_frac)"),
+    "DYNT_MAX_BATCHED_TOKENS": (
+        0, int,
+        "Per-worker token budget for the router admission gate. 0 leaves "
+        "the gate effectively unlimited (DEFAULT_MAX_BATCHED_TOKENS) — "
+        "set a real budget for queueing to engage "
+        "(ref: queue.rs DEFAULT_MAX_BATCHED_TOKENS)"),
+    "DYNT_INDEXER_TTL_SECS": (
+        0.0, float,
+        "Radix-index block TTL; 0 disables expiry "
+        "(ref: indexer/pruning.rs PruneConfig ttl=120s when enabled)"),
+    "DYNT_INDEXER_MAX_TREE_SIZE": (
+        0, int,
+        "Radix-index node budget; above it the oldest blocks prune to "
+        "80% of budget (0 = unlimited; ref PruneConfig max_tree_size)"),
+    "DYNT_INDEXER_ADMISSION": (
+        False, is_truthy,
+        "TinyLFU admission/eviction for the router radix prefix index: "
+        "insertions at the DYNT_INDEXER_MAX_TREE_SIZE node cap are "
+        "frequency-gated (doorkeeper absorbs one-hit-wonders, a cold "
+        "chain cannot flush a hot shared prefix)"),
     # Engine
     "DYNT_DECODE_PIPELINE": (
         2, int,

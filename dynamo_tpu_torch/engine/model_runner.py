@@ -170,7 +170,8 @@ class ModelRunner:
                 f"{model_config.head_dim})")
         if params is None:
             params = init_params(model_config, device=self.device, seed=seed)
-        elif params.embed.device != self.device:
+        elif params.embed.device != torch.empty(0, device=self.device).device:
+            # (compared as placed: a bare "cuda" names the current card)
             raise ValueError(f"params live on {params.embed.device}, runner "
                              f"on {self.device}")
         kind = quantized_kind(params)

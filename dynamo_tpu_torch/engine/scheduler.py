@@ -6,7 +6,10 @@ based continuous batching, chunked prefill, the prefix cache through
 decoding (DYNT_SPEC_*: n-gram drafts verified in one batched forward,
 `_maybe_dispatch_spec`), per-token streaming, cancellation, and the stop
 conditions (max_tokens, eos, stop_token_ids, ignore_eos). It runs in its
-own thread; results cross into asyncio through the `emit` callbacks.
+own thread; results cross into asyncio through the `emit` callbacks. The
+page pool's registrations and evictions reach the `on_stored` /
+`on_removed` hooks (the worker's KV events), and `queue_depth` and the
+last step's stats feed its load metrics.
 
 Scheduling per iteration, as in the JAX package:
   1. admit waiting requests into free slots while pages allocate
@@ -37,6 +40,7 @@ import dataclasses
 import logging
 import queue as thread_queue
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -88,6 +92,10 @@ class SchedulerStats:
     steps: int = 0
     prefill_tokens: int = 0  # prompt tokens computed (prefix-cache hits excluded)
     decode_tokens: int = 0
+    # The last step's wall time and tokens, published in LoadMetrics
+    last_step_wall_ms: float = 0.0
+    prefill_tokens_last_step: int = 0
+    decode_tokens_last_step: int = 0
     # Speculative decoding: verification steps run, draft tokens proposed
     # and accepted (bonus tokens excluded); spec_last_k is the longest draft
     # mined in the latest step, spec_ema the mean acceptance EMA over the
@@ -118,7 +126,15 @@ def _unsupported(request: PreprocessedRequest) -> Optional[str]:
 
 
 class InferenceScheduler:
-    def __init__(self, runner: ModelRunner) -> None:
+    def __init__(
+        self,
+        runner: ModelRunner,
+        on_stored: Optional[Callable[[list[int], Optional[int]], None]] = None,
+        on_removed: Optional[Callable[[list[int]], None]] = None,
+    ) -> None:
+        """`on_stored(hashes, parent)` / `on_removed(hashes)` hear, on the
+        scheduler thread, the prefix-cache registrations and evictions of
+        the page pool: the worker's KV events."""
         self.runner = runner
         cfg = runner.config
         self.page_size = cfg.page_size
@@ -138,7 +154,8 @@ class InferenceScheduler:
         # prefix cache registers.
         self.spec_lookahead = (BlockLookahead(cfg.page_size)
                                if self.spec_enabled else None)
-        self.pool = PagePool(cfg.num_pages)
+        self.pool = PagePool(cfg.num_pages, on_stored=on_stored,
+                             on_removed=on_removed)
         self.max_batch = cfg.max_batch
         self._slots: list[Optional[_Seq]] = [None] * cfg.max_batch
         self._waiting: list[_Seq] = []
@@ -321,7 +338,13 @@ class InferenceScheduler:
             admitted += 1
         return admitted
 
+    def queue_depth(self) -> tuple[int, int]:
+        """(live slots, waiting sequences)."""
+        active = sum(1 for s in self._slots if s is not None)
+        return active, len(self._waiting)
+
     def _step(self) -> bool:
+        start = time.monotonic()
         admitted = self._admit()
         # Deferred prefill tokens from the PREVIOUS iteration: their device
         # work was queued before this iteration's dispatches.
@@ -342,6 +365,9 @@ class InferenceScheduler:
             self.stats.steps += 1
             self.stats.prefill_tokens += prefill_tokens
             self.stats.decode_tokens += decode_tokens
+            self.stats.prefill_tokens_last_step = prefill_tokens
+            self.stats.decode_tokens_last_step = decode_tokens
+            self.stats.last_step_wall_ms = (time.monotonic() - start) * 1e3
             return True
         return False
 

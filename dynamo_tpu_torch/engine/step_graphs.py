@@ -22,9 +22,10 @@ Capture, at a key's first use (as `jax.jit` compiles at first call):
 
 The kernel wrappers count their launches in Python (`.launches`, see
 `ops.kernel_wrappers`), so a replay cannot move the counts: the capture's
-increments are recorded and undone (the capture ran nothing), and every
+launches are tallied on the capturing thread only (`ops._launch.tally`; the
+capture ran nothing, and another runner's thread keeps counting), and every
 replay adds them back. The eager run of step 2 did launch its kernels and
-keeps its counts.
+adds its counts.
 
 On the CPU (the tests, which ask for `device="cpu"`) there is no graph: a
 replay runs the closure on the static inputs directly and copies its results
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import kernel_wrappers
+from ..ops._launch import count_launch, tally
 
 # A step: static inputs by name -> output tensors.
 Step = Callable[[dict], tuple]
@@ -49,23 +51,16 @@ NUMPY_DTYPES = {torch.int64: np.int64, torch.int32: np.int32,
                 torch.float32: np.float32, torch.bool: np.bool_}
 
 
-def _launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
-
-
-def _set_counts(counts: dict[str, int]) -> None:
-    for name, fn in kernel_wrappers().items():
-        fn.launches = counts[name]
+def _by_name(counts: dict) -> dict[str, int]:
+    """A tally (wrapper -> launches) by kernel name."""
+    return {name: counts[fn] for name, fn in kernel_wrappers().items()
+            if counts.get(fn)}
 
 
 def _add_counts(delta: dict[str, int]) -> None:
+    wrappers = kernel_wrappers()
     for name, n in delta.items():
-        kernel_wrappers()[name].launches += n
-
-
-def _delta(after: dict[str, int], before: dict[str, int]) -> dict[str, int]:
-    return {name: after[name] - before[name] for name in after
-            if after[name] != before[name]}
+        count_launch(wrappers[name], n)
 
 
 def _copy_in(dst: torch.Tensor, value) -> None:
@@ -103,25 +98,26 @@ class StepGraph:
                 ) -> None:
         """Steps 2 and 3 of the module docstring; the inputs arrive
         neutral. On the CPU only the eager run happens."""
-        before = _launch_counts()
-        if stream is None:  # the eager run's outputs become the static ones
-            self.outputs = self.step(self.inputs)
-            self.launches = _delta(_launch_counts(), before)
+        with tally() as counts:
+            if stream is None:
+                # the eager run's outputs become the static ones
+                self.outputs = self.step(self.inputs)
+            else:
+                stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(stream):
+                    self.step(self.inputs)
+        warm = _by_name(counts)
+        _add_counts(warm)  # the eager run launched
+        if stream is None:
+            self.launches = warm
             return
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            self.step(self.inputs)
-        warm = _delta(_launch_counts(), before)
         torch.cuda.current_stream().wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        try:
+        with tally() as counts:
             with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 outputs = self.step(self.inputs)
-            captured = _delta(_launch_counts(), before)
-        finally:
-            _set_counts(before)
+        captured = _by_name(counts)
         if captured != warm:
             raise RuntimeError(f"the captured step launched {captured}, its "
                                f"eager run {warm}")
@@ -135,9 +131,8 @@ class StepGraph:
         if self.graph is not None:
             self.graph.replay()
         else:
-            before = _launch_counts()
-            for static, out in zip(self.outputs, self.step(self.inputs)):
-                static.copy_(out)
-            _set_counts(before)
+            with tally():  # stands in for a replay: counted below
+                for static, out in zip(self.outputs, self.step(self.inputs)):
+                    static.copy_(out)
         _add_counts(self.launches)
         return tuple(out.clone() for out in self.outputs)

@@ -3,14 +3,17 @@
 Port of `TpuWorker` in `dynamo_tpu/engine/worker.py`. `generate` keeps the
 reference's contract: a `PreprocessedRequest` wire dict in, a stream of
 `EngineOutput` wire dicts out, the last one carrying `finish_reason`.
-`serve()` registers the `generate` and `clear_kv_blocks` endpoints on a
-DistributedRuntime's request plane and publishes the worker's
+`serve()` registers the `generate`, `clear_kv_blocks` and `kv_blocks`
+endpoints on a DistributedRuntime's request plane, publishes the worker's
 ModelDeploymentCard into discovery, as `TpuWorker.serve` does, so the
-frontends of both packages route to it. `main` is
+frontends of both packages route to it, and publishes the worker's KV events
+(stored / removed / cleared, every 50 ms) and load metrics (every 0.5 s) on
+the event plane, so either package's kv-mode router scores it. `main` is
 `python -m dynamo_tpu_torch.worker`.
 
-Not ported yet: the kv_blocks, weights, kv_pull and drain endpoints, KV
-events and load metrics, LoRA and disaggregated modes.
+LoadMetrics' `device_ms_in_step` and `host_ms_in_step` stay 0: the
+reference fills them from its steptrace, which is not ported. Not ported
+yet: the weights, kv_pull and drain endpoints, LoRA and disaggregated modes.
 """
 
 from __future__ import annotations
@@ -18,10 +21,21 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import threading
 from typing import AsyncIterator, Optional, Union
 
 from ..config import env
 from ..device import DeviceLike, resolve_device
+from ..kv_router.local_indexer import LocalKvIndexer
+from ..kv_router.protocols import (
+    KV_EVENT_TOPIC,
+    KV_SNAPSHOT_TOPIC,
+    LOAD_TOPIC,
+    KvCacheRemoved,
+    KvCacheStored,
+    LoadMetrics,
+    RouterEvent,
+)
 from ..llm.model_card import (
     CHAT,
     COMPLETIONS,
@@ -37,6 +51,60 @@ from .model_runner import ModelRunner, RunnerConfig
 from .scheduler import InferenceScheduler
 
 log = logging.getLogger("dynamo_tpu_torch.worker")
+
+
+class KvEventBuffer:
+    """Thread-safe KV event buffer: the scheduler thread records stored /
+    removed page hashes; an async drain task batches them onto the event
+    plane (the reference batches publishes the same way,
+    kv_router/publisher). Event ids are consecutive per worker, and the
+    local indexer records each event under the same lock."""
+
+    def __init__(self, worker_id: int, dp_rank: int = 0) -> None:
+        self.worker_id = worker_id
+        self.dp_rank = dp_rank
+        self._lock = threading.Lock()
+        self._pending: list[RouterEvent] = []
+        self._event_id = 0
+        # Queryable record of this worker's blocks — the router's resync/
+        # bootstrap source (kv_router/local_indexer.py).
+        self.local_index = LocalKvIndexer(worker_id, dp_rank)
+
+    def on_stored(self, hashes: list[int], parent: Optional[int]) -> None:
+        with self._lock:
+            self._pending.append(RouterEvent(
+                worker_id=self.worker_id, event_id=self._event_id,
+                dp_rank=self.dp_rank,
+                stored=KvCacheStored(block_hashes=list(hashes),
+                                     parent_hash=parent),
+            ))
+            self.local_index.on_stored(self._event_id, list(hashes), parent)
+            self._event_id += 1
+
+    def on_removed(self, hashes: list[int]) -> None:
+        with self._lock:
+            self._pending.append(RouterEvent(
+                worker_id=self.worker_id, event_id=self._event_id,
+                dp_rank=self.dp_rank,
+                removed=KvCacheRemoved(block_hashes=list(hashes)),
+            ))
+            self.local_index.on_removed(self._event_id, list(hashes))
+            self._event_id += 1
+
+    def on_cleared(self) -> None:
+        """Whole-cache invalidation (clear_kv_blocks)."""
+        with self._lock:
+            self._pending.append(RouterEvent(
+                worker_id=self.worker_id, event_id=self._event_id,
+                dp_rank=self.dp_rank, cleared=True,
+            ))
+            self.local_index.on_cleared(self._event_id)
+            self._event_id += 1
+
+    def drain(self) -> list[RouterEvent]:
+        with self._lock:
+            out, self._pending = self._pending, []
+            return out
 
 
 class TorchWorker:
@@ -67,9 +135,12 @@ class TorchWorker:
         self.runner = ModelRunner(self.model_config, self.runner_config,
                                   device=self.device, params=params,
                                   seed=seed, attention_fn=attention_fn)
-        self.scheduler = InferenceScheduler(self.runner)
         self.runtime = None
         self.instance_id = new_instance_id()
+        self.events = KvEventBuffer(self.instance_id)
+        self.scheduler = InferenceScheduler(
+            self.runner, on_stored=self.events.on_stored,
+            on_removed=self.events.on_removed)
         self.card = ModelDeploymentCard(
             name=self.model_config.name,
             model_types=[CHAT, COMPLETIONS],
@@ -81,7 +152,11 @@ class TorchWorker:
             kv_block_size=self.runner_config.page_size,
             total_kv_blocks=self.runner_config.num_pages,
         )
+        # Routers bootstrap / gap-resync from our local indexer (the
+        # frontend's manager gates its resync calls on this flag).
+        self.card.runtime_config["kv_blocks_endpoint"] = True
         self._served: list = []
+        self._tasks: list[asyncio.Task] = []
 
     def start(self) -> None:
         """Warm the runner up (builds the kernels on the card) and start the
@@ -94,32 +169,85 @@ class TorchWorker:
         self.scheduler.stop()
 
     async def serve(self, runtime) -> None:
-        """Register `generate` and `clear_kv_blocks` on `runtime`'s request
-        plane (a DistributedRuntime) and publish the card."""
+        """Register `generate`, `clear_kv_blocks` and `kv_blocks` on
+        `runtime`'s request plane (a DistributedRuntime), publish the card,
+        and start publishing KV events and load metrics on its event
+        plane."""
         self.runtime = runtime
         component = (self.runtime.namespace(self.card.namespace)
                      .component(self.card.component))
         for name, handler in (("generate", self.generate),
-                              ("clear_kv_blocks", self._clear_kv)):
+                              ("clear_kv_blocks", self._clear_kv),
+                              ("kv_blocks", self._kv_blocks)):
             self._served.append(await component.endpoint(name).serve_endpoint(
                 handler, instance_id=self.instance_id))
         await publish_card(self.runtime, self.card, self.instance_id)
+        publisher = self.runtime.event_publisher(self.card.namespace)
+        if hasattr(publisher, "set_snapshot_fn"):
+            # Durable journal plane: rotations seed the new generation
+            # with this worker's full index instead of the old history.
+            publisher.set_snapshot_fn(
+                lambda: [(KV_SNAPSHOT_TOPIC,
+                          self.events.local_index.dump())])
+        self._tasks.append(asyncio.create_task(self._event_drain(publisher)))
         log.info("torch worker serving %s (instance=%x, device=%s)",
                  self.card.name, self.instance_id, self.device)
 
     async def shutdown(self) -> None:
-        """Unpublish the card, deregister and drain the endpoints, then stop
-        the scheduler."""
+        """Unpublish the card, deregister and drain the endpoints, stop the
+        event drain, then stop the scheduler."""
         if self._served:
             await unpublish_card(self.runtime, self.card, self.instance_id)
             for served in self._served:
                 await served.shutdown()
             self._served = []
+        for task in self._tasks:
+            task.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        self._tasks = []
         self.close()
 
     async def _clear_kv(self, body, ctx) -> AsyncIterator[dict]:
         cleared = self.scheduler.pool.clear()
+        self.events.on_cleared()
         yield {"cleared_blocks": len(cleared)}
+
+    async def _kv_blocks(self, body, ctx=None) -> AsyncIterator[dict]:
+        yield self.events.local_index.dump()
+
+    def _load_metrics(self) -> LoadMetrics:
+        pool = self.scheduler.pool
+        stats = self.scheduler.stats
+        active, waiting = self.scheduler.queue_depth()
+        return LoadMetrics(
+            worker_id=self.instance_id,
+            active_blocks=pool.num_pages - 1 - pool.free_count(),
+            total_blocks=pool.num_pages,
+            active_requests=active,
+            waiting_requests=waiting,
+            kv_usage=pool.usage(),
+            step_wall_ms=stats.last_step_wall_ms,
+            prefill_tokens_in_step=stats.prefill_tokens_last_step,
+            decode_tokens_in_step=stats.decode_tokens_last_step,
+        )
+
+    async def _event_drain(self, publisher, interval: float = 0.05) -> None:
+        """KV events every tick, load metrics every 10th (~0.5 s)."""
+        ticks = 0
+        while True:
+            await asyncio.sleep(interval)
+            for event in self.events.drain():
+                try:
+                    await publisher.publish(KV_EVENT_TOPIC, event.to_wire())
+                except Exception:  # noqa: BLE001
+                    log.exception("kv event publish failed")
+            ticks += 1
+            if ticks % 10 == 0:
+                try:
+                    await publisher.publish(LOAD_TOPIC,
+                                            self._load_metrics().to_wire())
+                except Exception:  # noqa: BLE001
+                    log.exception("load metrics publish failed")
 
     async def generate(self, body: dict, ctx=None) -> AsyncIterator[dict]:
         request = PreprocessedRequest.from_wire(body)

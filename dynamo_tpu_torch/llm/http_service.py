@@ -8,14 +8,15 @@ openai.rs:1811-2191):
   GET  /v1/models
   GET  /health, /live, /metrics
 Status codes and error bodies are the reference's: 400 for a bad request,
-404 for an unknown model, 503 when no instance serves it, 502 for an engine
-error. A client disconnect cancels the handler, and the cancellation travels
-down the request plane to the worker (ref: http/service/disconnect.rs).
-Any other route answers 404.
+404 for an unknown model, 503 when no instance serves it or when every
+worker's published KV usage is at or above the busy threshold (ref:
+busy_threshold.rs), 502 for an engine error. A client disconnect cancels
+the handler, and the cancellation travels down the request plane to the
+worker (ref: http/service/disconnect.rs). Any other route answers 404.
 
-Not ported yet: embeddings, messages, responses, images and videos; busy
-thresholds, deadlines, admission and tenant quotas; sessions; tracing, the
-flight recorder and audit.
+Not ported yet: embeddings, messages, responses, images and videos; the
+per-model busy-threshold routes, deadlines, admission and tenant quotas;
+sessions; tracing, the flight recorder and audit.
 """
 
 from __future__ import annotations
@@ -81,10 +82,12 @@ class _LatencyObserver:
 
 class HttpService:
     def __init__(self, manager: ModelManager, host: str = "0.0.0.0",
-                 port: int = 8000) -> None:
+                 port: int = 8000,
+                 busy_threshold: Optional[float] = None) -> None:
         self.manager = manager
         self.host = host
         self.port = port
+        self.busy_threshold = busy_threshold
         self._server: Optional[HttpServer] = None
 
     # -- helpers -----------------------------------------------------------
@@ -96,6 +99,21 @@ class HttpService:
                 _error_body(404, f"model '{model}' not found",
                             "model_not_found"), status=404))
         return entry
+
+    def _check_busy(self, entry: ModelEntry) -> None:
+        """Shed load when every live worker is past the KV busy threshold
+        (ref: busy_threshold.rs + KvWorkerMonitor), by the usage its
+        LoadMetrics published, which flow in every router mode."""
+        if self.busy_threshold is None:
+            return
+        usages = [entry.worker_usage[iid]
+                  for iid in entry.router.client.instance_ids()
+                  if iid in entry.worker_usage]
+        if usages and min(usages) >= self.busy_threshold:
+            rt_metrics.REQUESTS_SHED.labels(reason="busy").inc()
+            raise HTTPError(json_response(
+                _error_body(503, "service busy", "overloaded"), status=503,
+                headers={"Retry-After": "1"}))
 
     # -- handlers ----------------------------------------------------------
 
@@ -132,6 +150,7 @@ class HttpService:
                 status=400)
         model = body.get("model", "")
         entry = self._lookup(model)
+        self._check_busy(entry)
         try:
             if kind == "chat":
                 preprocessed = entry.preprocessor.preprocess_chat(body)

@@ -3,24 +3,44 @@
 Port of `dynamo_tpu/llm/manager.py` (ref: lib/llm/src/discovery/
 watcher.rs:68 ModelWatcher, model_manager.rs:67 ModelManager). The frontend
 is not configured with workers: it watches discovery for
-ModelDeploymentCards and builds a serving pipeline (preprocessor + push
-router) per model as worker instances come and go. When the last instance of
-a model disappears, the model is unlisted. Cards of either package are
-served. Not ported yet: prefill, encoder and image pools, KV events and load
-metrics, LoRA adapters, and draining marks.
+ModelDeploymentCards and builds a serving pipeline (preprocessor + router)
+per model as worker instances come and go. When the last instance of a
+model disappears, the model is unlisted. Cards of either package are served.
+
+Every model subscribes to its namespace's event plane: load metrics feed
+`worker_usage` (busy-threshold shedding) in every router mode, and in `kv`
+mode KV events feed the model's radix index. A worker whose card advertises
+`kv_blocks_endpoint` is bootstrapped from its local indexer when it appears,
+and resynced when its event ids skip (the events that arrive meanwhile are
+buffered and replayed after the dump) or when the journal skipped corrupt
+frames. Not ported yet: prefill, encoder and image pools, LoRA adapters,
+draining marks, the session tier and the admission wait estimator.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import logging
 import threading
 from typing import Optional
 
+from ..kv_router import (
+    KV_EVENT_TOPIC,
+    KV_SNAPSHOT_TOPIC,
+    LOAD_TOPIC,
+    KvRouterConfig,
+    KvScheduler,
+    LoadMetrics,
+    RouterEvent,
+    WorkerWithDpRank,
+)
+from ..kv_router.indexer import sweep_tree
 from ..runtime.discovery import MODEL_CARD_PREFIX
+from ..runtime.events import JOURNAL_RESYNC_TOPIC
 from ..runtime.push_router import PushRouter
-from .engine import RouterEngine, TokenEngine
+from .engine import KvRouterEngine, RouterEngine, TokenEngine
 from .model_card import CHAT, COMPLETIONS, ModelDeploymentCard
 from .preprocessor import OpenAIPreprocessor
 
@@ -33,7 +53,11 @@ class ModelEntry:
     preprocessor: OpenAIPreprocessor
     engine: TokenEngine
     router: PushRouter
+    scheduler: Optional[KvScheduler] = None
     instances: set[int] = dataclasses.field(default_factory=set)
+    # worker instance_id -> last published kv usage (any router mode; feeds
+    # busy-threshold load shedding)
+    worker_usage: dict[int, float] = dataclasses.field(default_factory=dict)
 
 
 class ModelManager:
@@ -70,12 +94,24 @@ class ModelWatcher:
     handle_put/handle_delete)."""
 
     def __init__(self, runtime, manager: ModelManager,
-                 router_mode: str = "round_robin") -> None:
+                 router_mode: str = "round_robin",
+                 kv_config: Optional[KvRouterConfig] = None) -> None:
         self.runtime = runtime
         self.manager = manager
         self.router_mode = router_mode
+        self.kv_config = kv_config
         self._watch = None
         self._tasks: list[asyncio.Task] = []
+        self._maintain_task: Optional[asyncio.Task] = None
+        # (subject, worker_id) -> events buffered while a resync RPC is in
+        # flight for that worker; replayed (ids beyond the dump) after the
+        # snapshot loads, so live traffic during the RPC window can neither
+        # be lost nor re-applied.
+        self._resyncing: dict = {}
+        # namespace -> entries fed by that namespace's event stream; the
+        # list is shared with the running _event_loop so late-registered
+        # models start receiving events immediately.
+        self._ns_entries: dict[str, list[ModelEntry]] = {}
 
     async def start(self) -> None:
         self._watch = await self.runtime.discovery.watch_prefix(
@@ -119,6 +155,7 @@ class ModelWatcher:
             entry = self._build_entry(card)
             await entry.router.client.start()
             self.manager.register(entry)
+            await self._subscribe_events(card.namespace, entry)
             log.info("model registered: %s (%s, router=%s)", card.name,
                      subject, self.router_mode)
         elif entry.card.endpoint_subject != subject:
@@ -129,7 +166,14 @@ class ModelWatcher:
                         "at %s", card.name, entry.card.endpoint_subject,
                         subject)
             return
+        newly_seen = instance_id not in entry.instances
         entry.instances.add(instance_id)
+        if (newly_seen and entry.scheduler is not None
+                and card.runtime_config.get("kv_blocks_endpoint")):
+            # Bootstrap this worker's radix state from its local indexer
+            # (ref: router-design.md — "on worker discovery it dumps full
+            # state"; also how a restarted router recovers routing state).
+            self._schedule_resync(entry, instance_id, reason="discovered")
 
     async def _handle_delete(self, key: str) -> None:
         subject, instance_id = self._parse_key(key)
@@ -137,15 +181,178 @@ class ModelWatcher:
             if entry.card.endpoint_subject != subject:
                 continue
             entry.instances.discard(instance_id)
+            if entry.scheduler is not None:
+                entry.scheduler.remove_worker_id(instance_id)
             if not entry.instances:
                 log.info("model unlisted: %s (last instance gone)",
                          entry.card.name)
                 self.manager.unregister(entry.card.name)
+                entries = self._ns_entries.get(entry.card.namespace, [])
+                if entry in entries:
+                    entries.remove(entry)
                 await entry.router.client.close()
 
+    # -- worker state resync (bootstrap + gap recovery) --------------------
+
+    def _schedule_resync(self, entry: ModelEntry, instance_id: int,
+                         reason: str) -> None:
+        key = (entry.card.endpoint_subject, instance_id)
+        if key in self._resyncing:
+            return
+        self._resyncing[key] = []  # event buffer; _event_loop fills it
+        task = asyncio.create_task(
+            self._resync_worker(entry, instance_id, reason, key))
+        self._tasks.append(task)
+        task.add_done_callback(
+            lambda t: self._tasks.remove(t) if t in self._tasks else None)
+
+    async def _resync_worker(self, entry: ModelEntry, instance_id: int,
+                             reason: str, key) -> None:
+        card = entry.card
+        client = (self.runtime.namespace(card.namespace)
+                  .component(card.component).endpoint("kv_blocks").client())
+        indexer = entry.scheduler.indexer
+        regap = False
+        try:
+            await client.start()
+            await client.wait_for_instances(1, timeout=10)
+            async with contextlib.aclosing(
+                    client.direct({}, instance_id)) as stream:
+                dump = await anext(stream)
+                worker = WorkerWithDpRank(dump["worker_id"],
+                                          dump.get("dp_rank", 0))
+                pairs = [(p, h) for p, h in dump.get("blocks", [])]
+                indexer.load_worker(worker, pairs, dump.get("last_event_id"))
+                # Replay events that arrived during the RPC. Anything the
+                # dump already reflects (id <= dump_last) is skipped by the
+                # indexer's stale check; newer ones apply in order. No await
+                # between pop and replay, so no event can slip past both.
+                buffered = self._resyncing.pop(key, [])
+                for event in buffered:
+                    if indexer.apply_event(event) == "gap":
+                        regap = True
+                log.info("resynced worker %x for %s (%s): %d blocks, "
+                         "%d events replayed", instance_id, card.name,
+                         reason, len(pairs), len(buffered))
+        except Exception:  # noqa: BLE001 — resync is best-effort; events
+            # keep flowing and a later gap retries
+            log.exception("kv resync failed for %x (%s)", instance_id, reason)
+        finally:
+            # Failure path: don't drop what was buffered — apply it.
+            for event in self._resyncing.pop(key, []):
+                try:
+                    indexer.apply_event(event)
+                except Exception:  # noqa: BLE001
+                    log.exception("buffered event replay failed")
+            await client.close()
+        if regap:
+            # An event was lost inside the resync window itself; scheduled
+            # after the finally above so the retry's fresh buffer can't be
+            # popped by this invocation.
+            self._schedule_resync(entry, instance_id, reason="replay-gap")
+
     def _build_entry(self, card: ModelDeploymentCard) -> ModelEntry:
-        endpoint = (self.runtime.namespace(card.namespace)
-                    .component(card.component).endpoint(card.endpoint))
-        router = PushRouter(endpoint.client(), mode=self.router_mode)
+        client = (self.runtime.namespace(card.namespace)
+                  .component(card.component).endpoint(card.endpoint)
+                  .client())
+        scheduler: Optional[KvScheduler] = None
+        if self.router_mode == "kv":
+            config = dataclasses.replace(self.kv_config or KvRouterConfig(),
+                                         block_size=card.kv_block_size)
+            scheduler = KvScheduler(config)
+            router = PushRouter(client, mode="round_robin")
+            engine: TokenEngine = KvRouterEngine(router, scheduler)
+        else:
+            router = PushRouter(client, mode=self.router_mode)
+            engine = RouterEngine(router)
         return ModelEntry(card=card, preprocessor=OpenAIPreprocessor(card),
-                          engine=RouterEngine(router), router=router)
+                          engine=engine, router=router, scheduler=scheduler)
+
+    # -- the event plane ---------------------------------------------------
+
+    async def _subscribe_events(self, namespace: str,
+                                entry: ModelEntry) -> None:
+        """Feed KV events + load metrics from the event plane into every
+        model entry in this namespace (ref: kv_router/subscriber.rs)."""
+        entries = self._ns_entries.get(namespace)
+        if entries is not None:
+            entries.append(entry)
+            return
+        entries = [entry]
+        self._ns_entries[namespace] = entries
+        sub = await self.runtime.event_subscriber(namespace, topic_prefix="")
+        self._tasks.append(asyncio.create_task(self._event_loop(sub, entries)))
+        if self._maintain_task is None:
+            self._maintain_task = asyncio.create_task(
+                self._indexer_maintain_loop())
+            self._tasks.append(self._maintain_task)
+
+    async def _indexer_maintain_loop(self, interval: float = 1.0) -> None:
+        """Radix-index TTL/size sweep for every KV-routed entry (a no-op
+        unless DYNT_INDEXER_TTL_SECS / _MAX_TREE_SIZE enable pruning)."""
+        while True:
+            await asyncio.sleep(interval)
+            for entries in self._ns_entries.values():
+                for entry in entries:
+                    if entry.scheduler is not None:
+                        sweep_tree(entry.scheduler.indexer, entry.card.name,
+                                   log)
+
+    async def _event_loop(self, sub, entries: list[ModelEntry]) -> None:
+        async for topic, payload in sub:
+            try:
+                self._apply(topic, payload, entries)
+            except Exception:  # noqa: BLE001
+                log.exception("bad event on %s", topic)
+
+    def _apply(self, topic: str, payload, entries: list[ModelEntry]) -> None:
+        if topic.startswith(KV_EVENT_TOPIC):
+            event = RouterEvent.from_wire(payload)
+            for entry in entries:
+                if entry.scheduler is None:
+                    continue
+                buffer = self._resyncing.get(
+                    (entry.card.endpoint_subject, event.worker_id))
+                if buffer is not None:
+                    # Resync in flight: hold this worker's events for replay
+                    # after the snapshot loads.
+                    buffer.append(event)
+                    continue
+                status = entry.scheduler.indexer.apply_event(event)
+                if (status == "gap" and event.worker_id in entry.instances
+                        and entry.card.runtime_config.get(
+                            "kv_blocks_endpoint")):
+                    # Missed events: replace this worker's view from its
+                    # local indexer (ref: worker_query).
+                    self._schedule_resync(entry, event.worker_id,
+                                          reason="gap")
+        elif topic.startswith(KV_SNAPSHOT_TOPIC):
+            # Journal rotation snapshot: replace that worker's view
+            # wholesale (the same application path as a resync).
+            worker = WorkerWithDpRank(payload["worker_id"],
+                                      payload.get("dp_rank", 0))
+            for entry in entries:
+                if entry.scheduler is None or (
+                        entry.card.endpoint_subject,
+                        payload["worker_id"]) in self._resyncing:
+                    continue  # a live resync wins; it is fresher
+                entry.scheduler.indexer.load_worker(
+                    worker, [(p, h) for p, h in payload.get("blocks", [])],
+                    payload.get("last_event_id"))
+        elif topic.startswith(JOURNAL_RESYNC_TOPIC):
+            # The durable journal skipped corrupt frames: KV events were
+            # lost with no per-worker gap to flag them, so re-dump every
+            # routed worker's state from its local indexer.
+            for entry in entries:
+                if entry.scheduler is None or not \
+                        entry.card.runtime_config.get("kv_blocks_endpoint"):
+                    continue
+                for iid in list(entry.instances):
+                    self._schedule_resync(entry, iid,
+                                          reason="journal-corrupt")
+        elif topic.startswith(LOAD_TOPIC):
+            metrics = LoadMetrics.from_wire(payload)
+            for entry in entries:
+                entry.worker_usage[metrics.worker_id] = metrics.kv_usage
+                if entry.scheduler is not None:
+                    entry.scheduler.sequences.update_published(metrics)

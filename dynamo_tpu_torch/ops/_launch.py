@@ -7,7 +7,16 @@ launches there or the wrapper raises. Nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+# Every wrapper's `.launches` moves under this lock: two workers' scheduler
+# threads can launch (and replay graphs) at once, and `+=` on an attribute
+# is a read, an add and a write.
+COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()
 
 
 def runs_plain(name: str, tensors) -> bool:
@@ -36,3 +45,27 @@ def stream_of(t: torch.Tensor) -> int:
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add `n` to `wrapper.launches`, atomically; inside `tally()` on this
+    thread, to the tally instead."""
+    tally = getattr(_THREAD, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + n
+        return
+    with COUNT_LOCK:
+        wrapper.launches += n
+
+
+@contextlib.contextmanager
+def tally():
+    """Count this thread's launches into the yielded dict (wrapper -> n)
+    and leave `.launches` alone: what a graph capture launches runs
+    nothing, and another thread's launches meanwhile still count."""
+    saved = getattr(_THREAD, "tally", None)
+    _THREAD.tally = counts = {}
+    try:
+        yield counts
+    finally:
+        _THREAD.tally = saved

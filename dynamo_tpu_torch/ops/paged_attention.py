@@ -54,7 +54,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from ._launch import check_launch, require, runs_plain, stream_of
+from ._launch import (
+    check_launch,
+    count_launch,
+    require,
+    runs_plain,
+    stream_of,
+)
 
 _KERNEL = "paged_decode_pool"
 # The kernel's tiling (csrc/paged_decode_pool.cu): history tokens per ring
@@ -376,7 +382,7 @@ def _launch_pool(wrapper, q, kv_pool, layer, block_tables, kv_lens_hist,
         err = _kernel_fn("paged_decode_pool_bf16")(
             *head, *tail, 1.0 / math.sqrt(hd), stream_of(q))
     check_launch(name, err)
-    wrapper.launches += 1
+    count_launch(wrapper)
     return acc, m, l
 
 
@@ -495,7 +501,7 @@ def paged_decode_attention(
         block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), *parts,
         b, kh, group, hd, ps, block_tables.shape[1], *plan, s_page, s_tok,
         1.0 / math.sqrt(hd), stream_of(q)))
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return out
 
 
@@ -527,7 +533,7 @@ def paged_decode_attention_partial(
         m.data_ptr(), l.data_ptr(), *parts, b, kh, group, hd, ps,
         block_tables.shape[1], *plan, s_page, s_tok, 1.0 / math.sqrt(hd),
         stream_of(q)))
-    paged_decode_attention_partial.launches += 1
+    count_launch(paged_decode_attention_partial)
     return acc, m, l
 
 

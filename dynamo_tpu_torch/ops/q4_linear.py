@@ -40,7 +40,13 @@ from torch import nn
 from ..config import env
 from . import _build
 from ._gemm_plan import SMALL_M, SMS, STAGE_ROWS, SplitPlan, prefill_plan
-from ._launch import check_launch, require, runs_plain, stream_of
+from ._launch import (
+    check_launch,
+    count_launch,
+    require,
+    runs_plain,
+    stream_of,
+)
 
 # Preferred contracted rows per quantization group; DYNT_Q4_GROUP=128 gives
 # finer groups. Small weights fall back to the largest power-of-two divisor
@@ -383,7 +389,7 @@ def q4_matmul_v2(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     if runs_plain("q4_matmul_v2", (x, q4, scale, zero)):
         return q4_matmul_ref(x, q4, scale, zero)
     out = _q4_kernel(PACK_V2, x, q4, scale, zero)
-    q4_matmul_v2.launches += 1
+    count_launch(q4_matmul_v2)
     return out
 
 
@@ -394,7 +400,7 @@ def q4_matmul_v1(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     if runs_plain("q4_matmul_v1", (x, q4, scale, zero)):
         return q4_matmul_ref(x, q4, scale, zero)
     out = _q4_kernel(PACK_V1, x, q4, scale, zero)
-    q4_matmul_v1.launches += 1
+    count_launch(q4_matmul_v1)
     return out
 
 

@@ -28,7 +28,13 @@ from torch import nn
 
 from . import _build
 from ._gemm_plan import SMALL_M, SMS, STAGE_ROWS, SplitPlan, prefill_plan
-from ._launch import check_launch, require, runs_plain, stream_of
+from ._launch import (
+    check_launch,
+    count_launch,
+    require,
+    runs_plain,
+    stream_of,
+)
 
 # Leaf name -> number of LEADING contracted axes (the rest are output axes,
 # which carry the per-channel scale).
@@ -170,7 +176,7 @@ def q8_matmul(x: torch.Tensor, wq: torch.Tensor,
         x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
         part.data_ptr() if part is not None else None,
         m, n, k, plan.block_n, plan.n_split, plan.span, stream_of(x)))
-    q8_matmul.launches += 1
+    count_launch(q8_matmul)
     return out
 
 

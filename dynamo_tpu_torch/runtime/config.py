@@ -2,9 +2,8 @@
 
 Port of the `RuntimeConfig` part of `dynamo_tpu/runtime/config.py`: the same
 DYNT_* names, defaults and parsing, read through this package's registry
-(`dynamo_tpu_torch/config.py`). The event-plane and etcd fields are not
-carried: nothing in this package publishes events, and etcd discovery is not
-ported yet.
+(`dynamo_tpu_torch/config.py`). The etcd field is not carried: etcd
+discovery is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +30,10 @@ class RuntimeConfig:
     connect_timeout_secs: float = 5.0
     system_port: int = 0
     system_enabled: bool = True
+    event_plane: str = "zmq"
+    zmq_host: str = "127.0.0.1"
+    event_journal_path: str = "/tmp/dynamo_tpu_events"
+    event_journal_max_mb: int = 64
 
     @classmethod
     def from_env(cls, **overrides: Any) -> "RuntimeConfig":
@@ -46,6 +49,10 @@ class RuntimeConfig:
             connect_timeout_secs=env("DYNT_CONNECT_TIMEOUT_SECS"),
             system_port=env("DYNT_SYSTEM_PORT"),
             system_enabled=env("DYNT_SYSTEM_ENABLED"),
+            event_plane=env("DYNT_EVENT_PLANE"),
+            zmq_host=env("DYNT_ZMQ_HOST"),
+            event_journal_path=env("DYNT_EVENT_JOURNAL_PATH"),
+            event_journal_max_mb=env("DYNT_EVENT_JOURNAL_MAX_MB"),
         )
         for key, val in overrides.items():
             if val is not None:

@@ -2,9 +2,10 @@
 
 Port of `dynamo_tpu/runtime/distributed.py` (ref: lib/runtime/src/
 distributed.rs:42): owns the discovery connection with its lease and
-keep-alive loop, the request-plane server and client, and the system status
-server. Components, endpoints and clients hang off it. It starts no event
-plane (nothing in this package publishes events yet).
+keep-alive loop, the request-plane server and client, the event plane's
+publishers and subscriber managers (`event_publisher`, `event_subscriber`),
+and the system status server. Components, endpoints and clients hang off
+it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,15 @@ from typing import Optional
 from .component import Namespace, ServedEndpoint
 from .config import RuntimeConfig
 from .discovery import Discovery, Lease, LeaseExpired, make_discovery
+from .events import (
+    EventPublisher,
+    EventSubscriber,
+    JournalEventPublisher,
+    JournalEventSubscriberManager,
+    MemEventPlane,
+    ZmqEventPublisher,
+    ZmqEventSubscriberManager,
+)
 from .request_plane import MemRequestPlane, RequestClient, TcpRequestServer
 from .status import SystemStatusServer
 
@@ -43,6 +53,8 @@ class DistributedRuntime:
         self.status_server: Optional[SystemStatusServer] = None
         self._keepalive_task: Optional[asyncio.Task] = None
         self._served: list[ServedEndpoint] = []
+        self._publishers: list[EventPublisher] = []
+        self._subscriber_managers: list = []
         self._started = False
         # Everything put under the runtime lease, replayed under a fresh
         # lease if the old one is lost (a discovery outage past the TTL).
@@ -120,6 +132,36 @@ class DistributedRuntime:
     def namespace(self, name: str) -> Namespace:
         return Namespace(self, name)
 
+    # -- event plane -------------------------------------------------------
+
+    def event_publisher(self, namespace: str) -> EventPublisher:
+        if self.config.event_plane == "mem":
+            return MemEventPlane(cluster=namespace).publisher()
+        if self.config.event_plane == "journal":
+            publisher = JournalEventPublisher(
+                self.config.event_journal_path, namespace,
+                max_bytes=self.config.event_journal_max_mb * 2**20)
+        else:
+            publisher = ZmqEventPublisher(
+                namespace, self.discovery, self.lease,
+                host=self.config.zmq_host, put_leased=self.put_leased,
+                delete_leased=self.delete_leased)
+        self._publishers.append(publisher)
+        return publisher
+
+    async def event_subscriber(self, namespace: str,
+                               topic_prefix: str = "") -> EventSubscriber:
+        if self.config.event_plane == "mem":
+            return MemEventPlane(cluster=namespace).subscribe(topic_prefix)
+        if self.config.event_plane == "journal":
+            manager = JournalEventSubscriberManager(
+                self.config.event_journal_path, namespace, topic_prefix)
+        else:
+            manager = ZmqEventSubscriberManager(namespace, self.discovery,
+                                                topic_prefix)
+        self._subscriber_managers.append(manager)
+        return await manager.start()
+
     def track_served(self, served: ServedEndpoint) -> None:
         self._served.append(served)
         if self.status_server is not None:
@@ -143,6 +185,12 @@ class DistributedRuntime:
                 await self._keepalive_task
             except asyncio.CancelledError:
                 pass
+        for manager in self._subscriber_managers:
+            await manager.close()
+        self._subscriber_managers.clear()
+        for publisher in self._publishers:
+            await publisher.close()
+        self._publishers.clear()
         if self.lease is not None:
             try:
                 await self.discovery.revoke_lease(self.lease)

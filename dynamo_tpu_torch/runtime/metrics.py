@@ -206,6 +206,9 @@ REQUEST_DURATION = Histogram(
     "dynamo_request_duration_seconds", "End-to-end request duration", _HIER,
     buckets=(0.005, 0.025, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 120.0))
 INFLIGHT = Gauge("dynamo_inflight_requests", "In-flight requests", _HIER)
+REQUESTS_SHED = Counter(
+    "dynamo_requests_shed_total",
+    "Requests shed at admission with 503, by reason", ["reason"])
 # Frontend service metrics that feed the Planner (ref: http/service/metrics.rs
 # TTFT/ITL histograms)
 TTFT_SECONDS = Histogram(

@@ -1,15 +1,18 @@
 """PushRouter — instance selection and fault-aware dispatch.
 
-Port of `dynamo_tpu/runtime/push_router.py` for the modes round_robin,
-random and direct (ref: lib/runtime/src/pipeline/network/egress/
-push_router.rs:71,113-120). A transport failure marks its instance down for
-DOWN_COOLDOWN_SECS, the reference's default breaker (one failure opens it,
-re-admission after 5 s); discovery re-confirming the instance clears the
-mark (ref: push_router.rs:8-16,103-107).
+Port of `dynamo_tpu/runtime/push_router.py` with its five modes:
+round_robin, random, p2c (power of two choices on local in-flight counts),
+kv (an external selector callback) and direct (ref: lib/runtime/src/
+pipeline/network/egress/push_router.rs:71,113-120). The KV router engine,
+as the reference's, routes through a round_robin router to the instance it
+chose. A transport failure marks its instance down for DOWN_COOLDOWN_SECS,
+the reference's default breaker (one failure opens it, re-admission after
+5 s); discovery re-confirming the instance clears the mark (ref:
+push_router.rs:8-16,103-107).
 
-Not ported yet: p2c and kv (they need load metrics and the KV router), and
-the reference's retries, retry budget and half-open probes — a transport
-failure before any output is raised to the caller instead of retried.
+Not ported yet: the reference's retries, retry budget and half-open probes
+— a transport failure before any output is raised to the caller instead of
+retried.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import itertools
 import logging
 import random
 import time
-from typing import Any, AsyncIterator, Optional
+from typing import Any, AsyncIterator, Awaitable, Callable, Optional
 
 from .component import Client
 from .request_plane import ConnectionLost, EndpointNotFound
@@ -36,15 +39,18 @@ class NoInstancesAvailable(RuntimeError):
 
 
 class PushRouter:
-    def __init__(self, client: Client, mode: str = "round_robin") -> None:
-        if mode in ("p2c", "kv"):
-            raise NotImplementedError(
-                f"router mode {mode!r} is not ported yet "
-                "(round_robin | random | direct)")
-        assert mode in ("round_robin", "random", "direct"), mode
+    def __init__(
+        self,
+        client: Client,
+        mode: str = "round_robin",
+        selector: Optional[Callable[[Any, list[int]], Awaitable[int]]] = None,
+    ) -> None:
+        assert mode in ("round_robin", "random", "direct", "kv", "p2c"), mode
         self.client = client
         self.mode = mode
+        self._selector = selector
         self._rr = itertools.count()
+        self._inflight: dict[int, int] = {}
         # instance id -> monotonic time its down-mark expires
         self._down: dict[int, float] = {}
         client.on_change(self._on_instance_change)
@@ -79,14 +85,34 @@ class PushRouter:
             raise NoInstancesAvailable(self.client.endpoint.subject)
         if self.mode == "round_robin":
             return avail[next(self._rr) % len(avail)]
-        return random.choice(avail)
+        if self.mode == "random":
+            return random.choice(avail)
+        if self.mode == "p2c":
+            # Power-of-two-choices on local in-flight counts.
+            a, b = (random.sample(avail, 2) if len(avail) >= 2
+                    else (avail[0], avail[0]))
+            return (a if self._inflight.get(a, 0) <= self._inflight.get(b, 0)
+                    else b)
+        raise AssertionError(f"{self.mode} mode picks in _select")
+
+    async def _select(self, body: Any, instance_id: Optional[int]) -> int:
+        """`_pick`, or the kv mode's selector over the available
+        instances."""
+        if self.mode != "kv" or instance_id is not None:
+            return self._pick(instance_id)
+        assert self._selector is not None, "kv mode requires a selector"
+        avail = self.available()
+        if not avail:
+            raise NoInstancesAvailable(self.client.endpoint.subject)
+        return await self._selector(body, avail)
 
     async def generate(self, body: Any, instance_id: Optional[int] = None,
                        headers: Optional[dict] = None) -> AsyncIterator[Any]:
         """Route and stream. A transport failure marks the instance down and
         is raised as ConnectionLost."""
         await self.client.start()
-        iid = self._pick(instance_id)
+        iid = await self._select(body, instance_id)
+        self._inflight[iid] = self._inflight.get(iid, 0) + 1
         try:
             async with contextlib.aclosing(
                     self.client.direct(body, iid, headers)) as stream:
@@ -97,3 +123,5 @@ class PushRouter:
             self.mark_down(iid)
             log.warning("instance %x faulted (%r)", iid, exc)
             raise ConnectionLost(str(exc)) from exc
+        finally:
+            self._inflight[iid] = max(0, self._inflight.get(iid, 1) - 1)

@@ -44,6 +44,7 @@ from dynamo_tpu_torch.models.transformer import (
     quant_matmul_ref,
 )
 from dynamo_tpu_torch.ops import Q8Weight, q8_linear
+from dynamo_tpu_torch.ops._launch import count_launch
 
 CFG = dataclasses.replace(get_config("tiny-test"), dtype="float32")
 RUNNER = dict(page_size=4, num_pages=128, max_batch=4, max_pages_per_seq=16,
@@ -263,7 +264,7 @@ def test_prewarm_captures_the_key_space_and_serving_captures_nothing(
 def _counting_matmul(x, w):
     """A stand-in for the quantized-matmul kernel on the CPU: counts a launch
     on the q8 wrapper, as the kernel does on the card."""
-    q8_linear.q8_matmul.launches += 1
+    count_launch(q8_linear.q8_matmul)
     return quant_matmul_ref(x, w)
 
 

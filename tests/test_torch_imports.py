@@ -36,6 +36,15 @@ SERVING_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
     "llm.manager", "llm.http_service", "frontend.service", "engine.worker"))
 
 
+# Modules of the KV-aware routing slice: each must be among the checked
+# sources and import cleanly on its own.
+KV_ROUTING_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
+    "kv_router", "kv_router.protocols", "kv_router.tinylfu",
+    "kv_router.indexer", "kv_router.local_indexer", "kv_router.sequences",
+    "kv_router.scheduler", "kv_router.queue", "runtime.events",
+    "runtime.zmtp"))
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "scripts" /
@@ -58,7 +67,15 @@ def test_sources_cover_the_serving_modules():
         assert PORT / package / "__main__.py" in files
 
 
-@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_sources_cover_the_kv_routing_modules():
+    files = set(_sources())
+    for module in KV_ROUTING_MODULES:
+        path = ROOT / module.replace(".", "/")
+        assert (path.with_suffix(".py") in files
+                or path / "__init__.py" in files), module
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES + KV_ROUTING_MODULES)
 def test_serving_module_imports_on_its_own(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -132,15 +149,17 @@ def test_worker_cli_defaults_to_the_card(run, tmp_path, monkeypatch):
 
 
 def test_frontend_cli_runs_without_the_card():
-    """The frontend holds no model: its CLI takes no device, and it refuses
-    the router modes that are not ported (they need the KV router)."""
+    """The frontend holds no model: its CLI takes no device, and it takes
+    the reference's router modes (and refuses any other)."""
     from dynamo_tpu_torch.frontend.service import build_arg_parser
 
     args = build_arg_parser().parse_args([])
     assert not hasattr(args, "device") and args.router_mode == "round_robin"
-    for mode in ("kv", "p2c"):
-        with pytest.raises(SystemExit):
-            build_arg_parser().parse_args(["--router-mode", mode])
+    for mode in ("round_robin", "random", "kv", "p2c"):
+        assert build_arg_parser().parse_args(
+            ["--router-mode", mode]).router_mode == mode
+    with pytest.raises(SystemExit):
+        build_arg_parser().parse_args(["--router-mode", "least_loaded"])
 
 
 def test_kernels_build_for_sm90a(monkeypatch):

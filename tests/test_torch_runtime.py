@@ -394,9 +394,44 @@ def test_mark_down_as_the_reference(run, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["p2c", "kv"])
-def test_unported_router_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        push_router.PushRouter(_StubClient(IDS), mode=mode)
+def test_p2c_and_kv_modes_pick_as_the_reference(run, monkeypatch, mode):
+    """p2c: the less loaded of two random instances by local in-flight
+    counts; kv: the selector's choice among the available instances, an
+    explicit target honoured while it is live. Both as the reference's."""
+    seen = {"port": [], "ref": []}
+
+    def selector(side):
+        async def select(body, avail):
+            seen[side].append((body, list(avail)))
+            return avail[body % len(avail)]
+        return select
+
+    async def go():
+        port = push_router.PushRouter(_StubClient(IDS), mode=mode,
+                                      selector=selector("port"))
+        ref = ref_push_router.PushRouter(_StubClient(IDS), mode=mode,
+                                         selector=selector("ref"))
+        loads = {0x51: 3, 0x12: 0, 0x7FFF: 1, 0x3: 2}
+        port._inflight.update(loads)
+        ref._inflight.update(loads)
+        port.mark_down(0x7FFF)
+        ref.mark_down(0x7FFF)
+        random.seed(5)
+        mine = [await port._select(i, None) for i in range(17)]
+        random.seed(5)
+        theirs = [await ref._pick(i, None) for i in range(17)]
+        explicit = (await port._select(3, 0x3), await ref._pick(3, 0x3))
+        return mine, theirs, explicit
+
+    mine, theirs, explicit = run(go())
+    assert mine == theirs
+    assert 0x7FFF not in mine
+    assert explicit == (0x3, 0x3)
+    if mode == "p2c":
+        assert set(mine) <= {0x12, 0x3, 0x51} and 0x12 in mine
+    else:
+        assert seen["port"] == seen["ref"] == [
+            (i, [0x3, 0x12, 0x51]) for i in range(17)]
 
 
 # -- metrics -----------------------------------------------------------------

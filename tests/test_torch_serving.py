@@ -485,8 +485,8 @@ def test_cli_refuses_what_is_not_ported():
     from dynamo_tpu_torch.engine.worker import build_arg_parser as worker_cli
     from dynamo_tpu_torch.frontend.service import build_arg_parser
 
-    for argv in (["--router-mode", "kv"], ["--router-mode", "p2c"],
-                 ["--busy-threshold", "0.9"], ["--kserve-grpc-port", "1"]):
+    for argv in (["--router-mode", "least_loaded"], ["--namespace", "g"],
+                 ["--audit-sinks", "log"], ["--kserve-grpc-port", "1"]):
         with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
             build_arg_parser().parse_args(argv)
     for argv in (["--mode", "prefill"], ["--max-loras", "2"],
