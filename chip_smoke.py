@@ -28,6 +28,17 @@ Phases, each printing one JSON line:
               forward), and no other kernel may launch
   parity    - one greedy prompt through that runner with the kernels and
               with the plain versions: first-step logits and greedy tokens
+  prefill_bf16 - prefill as the reference runs it, on a fresh runner that
+              shares the weights: the 25 (batch, bucket) keys captured
+              (seconds, graph pool), then chunks of 38, 127, 512 and 1,500
+              tokens over 0 and over 1,024 cached tokens (1,500 over 544,
+              the most the 2,048-token context leaves), each padded to its
+              bucket and one graph replay, against the same padded step
+              eagerly (last-row logits bit-equal) and the parent's unpadded
+              eager forward (within a tolerance; greedy tokens equal but
+              at a near-tie), best of three wall times each way in turns;
+              one batched dispatch of 4 rows (32-127 tokens) graphed,
+              eagerly and one row at a time
   graphs_bf16 - that runner prewarmed, then the 8 requests served three
               times with CUDA graphs on and three times off, in turns: the
               same streams every run, ITL and memory of each; per-step
@@ -68,6 +79,8 @@ Phases, each printing one JSON line:
               none of the others
   parity_q  - the parity prompt on the quantized runner, kernels (decode
               attention and matmul) against plain versions
+  prefill_q - prefill_bf16 on the quantized runner (row 6 at M = the padded
+              batch x bucket, launches counted)
   graphs_q  - graphs_bf16 on that runner, plus a spec step at K = 5 (M =
               16 x 6 = 96: the GEMMs' TMA prefill body inside the graph)
   serve_q   - serve_bf16 on that worker (rows 2 and 6 under HTTP)
@@ -83,7 +96,11 @@ Phases, each printing one JSON line:
               clear_kv_blocks empties them, load metrics arrive, a busy
               threshold answers 503, the HTTP texts of waves 1 and 2 equal
               a direct replay; the same waves in round_robin beside; event
-              lag and the event plane's CPU share; rows 2 and 6 counted
+              lag and the event plane's CPU share; rows 2 and 6 counted;
+              wave 2's prefill tokens exactly its suffixes' (kv) and 4
+              prefixes more (round_robin), its TTFT for cache hits and
+              misses, each wave's batched prefill dispatches; run three
+              times
   spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
               KV: a runner of 8 slots, all live, 5 positions each (the int8
               pool kernel folded, the q4 v2 kernel at M = 8 x 5 = 40),
@@ -92,15 +109,15 @@ Phases, each printing one JSON line:
               int8 KV, and W4A16 under DYNT_Q4_VARIANT=v1; a few greedy
               steps each against the plain versions, launches checked
 
-Every decode, fused block and spec step runs as a CUDA-graph replay
-(`RunnerConfig.cuda_graphs`, on by default) except where a phase says
-otherwise; the engine and unified runners capture each key at its first use
-on the scheduler thread, engine_spec and engine_q prewarm first. Each of
-engine, unified, dropins, engine_spec, engine_q, spec_q, secondary and the
-serve phases checks
-that it replayed graphs and ran no decode or spec forward of a graphable
-call eagerly, and prints its captures, replays, capture seconds and peak
-memory. The parity phases swap the plain versions in on a live runner: the
+Every decode, fused block, spec step and prefill chunk (padded to its
+bucket) runs as a CUDA-graph replay (`RunnerConfig.cuda_graphs`, on by
+default) except where a phase says otherwise; the engine and unified
+runners capture each key at its first use on the scheduler thread,
+engine_spec and engine_q prewarm first. Each of engine, unified, dropins,
+engine_spec, engine_q, spec_q, secondary and the serve phases checks that
+it replayed graphs and ran no decode, spec or prefill forward of a
+graphable call eagerly, and prints its captures, replays, capture seconds
+and peak memory. The parity phases swap the plain versions in on a live runner: the
 graph key holds the step functions, so those runs capture their own graphs.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
@@ -299,8 +316,8 @@ def reset_runner_counts(runner) -> None:
     runner.decode_steps = runner.spec_steps = runner.prefill_steps = 0
     runner.graph_captures = runner.graph_replays = 0
     runner.graph_capture_s = 0.0
-    runner.graph_warm_forwards = {"decode": 0, "spec": 0}
-    runner.eager_forwards = {"decode": 0, "spec": 0}
+    runner.graph_warm_forwards = {"decode": 0, "spec": 0, "prefill": 0}
+    runner.eager_forwards = {"decode": 0, "spec": 0, "prefill": 0}
 
 
 def launched_forwards(runner) -> dict:
@@ -323,6 +340,8 @@ def graph_report(runner) -> dict:
             "graph_warm_forwards": dict(runner.graph_warm_forwards),
             "eager_forwards": dict(runner.eager_forwards),
             "graph_keys": len(runner.step_graphs),
+            "graph_keys_prefill": sum(key[0].startswith("prefill")
+                                      for key in runner.step_graphs),
             "graph_pool_GB": runner.graph_memory_bytes() / 1e9,
             "max_memory_allocated_GB": (torch.cuda.max_memory_allocated() / 1e9
                                         if cuda else None),
@@ -331,12 +350,13 @@ def graph_report(runner) -> dict:
 
 
 def check_graphed(runner, label: str) -> None:
-    """A graphed phase replayed graphs and ran no decode or spec forward of
-    a graphable call eagerly."""
+    """A graphed phase replayed graphs and ran no decode, spec or prefill
+    forward of a graphable call eagerly: every prefill chunk was one
+    replay."""
     check(runner.config.cuda_graphs and runner.graph_replays > 0,
           f"{label}: no graph replay (cuda_graphs="
           f"{runner.config.cuda_graphs})")
-    check(runner.eager_forwards == {"decode": 0, "spec": 0},
+    check(runner.eager_forwards == {"decode": 0, "spec": 0, "prefill": 0},
           f"{label}: eager forwards on graphable keys {runner.eager_forwards}")
 
 
@@ -378,27 +398,27 @@ def attention_kernels(runner) -> tuple:
 
 
 def expected_counts(runner, dev: torch.device, decode: int = 0,
-                    prefill: int = 0, spec: int = 0,
-                    prefill_t1: int = 0, warm=None) -> dict:
+                    prefill: int = 0, spec: int = 0, warm=None) -> dict:
     """Launches per kernel for the forwards run: each layer of a decode
-    (spec) forward launches the decode (spec) attention kernel once, and
-    of a unified forward the row-3 kernel once per T = 1 forward (decode,
-    and prefill chunks of one token, `prefill_t1`); each quantized
-    projection launches its matmul kernel once per forward. `warm` adds
-    the graph captures' eager forwards ({"decode": n, "spec": n}, the
-    runner's `graph_warm_forwards`), which launch as any forward does; a
-    replay counts as the forward it replays."""
+    (spec) forward launches the decode (spec) attention kernel once (of a
+    unified forward, the row-3 kernel: decode is its only T = 1 forward,
+    since every prefill chunk is padded to a bucket of 8 or more tokens);
+    each quantized projection launches its matmul kernel once per forward,
+    whatever its M (the padded batch x bucket of a prefill forward). `warm`
+    adds the graph captures' eager forwards ({"decode": n, "spec": n,
+    "prefill": n}, the runner's `graph_warm_forwards`), which launch as any
+    forward does; a replay counts as the forward it replays."""
     want = {name: 0 for name in counters()}
     if dev.type != "cuda":
         return want
     if warm is not None:
         decode += warm["decode"]
         spec += warm["spec"]
+        prefill += warm["prefill"]
     n_layers = runner.model_config.n_layers
     decode_kernel, spec_kernel = attention_kernels(runner)
     if decode_kernel is not None:
-        t1 = prefill_t1 if runner.attention_fn is not None else 0
-        want[decode_kernel] += n_layers * (decode + t1)
+        want[decode_kernel] += n_layers * decode
     if spec_kernel is not None:
         want[spec_kernel] += n_layers * spec
     for name, n in matmul_kernels_per_forward(runner).items():
@@ -881,20 +901,6 @@ def repetitive_traffic(vocab: int, n: int = 4):
     return [np.tile(rng.integers(1, vocab, 6), 40) for _ in range(n)]
 
 
-def _count_t1_prefills(runner) -> list:
-    """Count the runner's one-token prefill chunks (a unified runner sends
-    them through its attention_fn's T = 1 kernel) in a list cell."""
-    count = [0]
-    prefill = runner.prefill_chunk
-
-    def counting(tokens, *args, **kwargs):
-        count[0] += len(tokens) == 1
-        return prefill(tokens, *args, **kwargs)
-
-    runner.prefill_chunk = counting
-    return count
-
-
 def _latency(results) -> dict:
     ttft = [(r["stamps"][0] - r["t0"]) * 1e3 for r in results]
     itl = [(r["stamps"][-1] - r["stamps"][0]) * 1e3 / (len(r["tokens"]) - 1)
@@ -936,7 +942,6 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
     sched = worker.scheduler
     vocab = cfg.vocab_size
     warm, prompts = standard_traffic(vocab)
-    t1 = _count_t1_prefills(runner)
 
     # counts to zero just before the main path
     reset_counts()
@@ -956,7 +961,6 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
     launches = read_counts()
     decode_forwards = runner.decode_steps
     prefill_forwards = runner.prefill_steps
-    del runner.prefill_chunk  # the instance's counting wrapper
 
     for res in [warm_res] + results:
         check(res["finish"] == ["length"], f"finish reasons {res['finish']}")
@@ -968,7 +972,7 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
     check(cached == 2 * 512,
           f"prefix cache reused {cached} tokens, expected {2 * 512}")
     want = expected_counts(runner, dev, decode=decode_forwards,
-                           prefill=prefill_forwards, prefill_t1=t1[0],
+                           prefill=prefill_forwards,
                            warm=runner.graph_warm_forwards)
     check(decode_forwards > 0 and prefill_forwards > 0 and launches == want,
           f"{label}: kernel launches {launches} != expected {want} for "
@@ -985,7 +989,8 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
          init_and_warmup_s=init_s, requests=len(results),
          prompt_lengths=[len(p) for p in prompts],
          prefix_cached_tokens=cached, decode_forwards=decode_forwards,
-         prefill_forwards=prefill_forwards, one_token_prefills=t1[0],
+         prefill_forwards=prefill_forwards,
+         prefill_batched_steps=sched.stats.prefill_batched_steps,
          kernel_launches=launches,
          decode_block=sched.decode_block, decode_pipeline=sched.decode_pipeline,
          **_latency(results),
@@ -1378,7 +1383,9 @@ def _itl_runs(dev: torch.device, worker, runs: int) -> dict:
                   "prewarm")
         else:
             check(runner.graph_replays == 0
-                  and runner.eager_forwards["decode"] == runner.decode_steps,
+                  and runner.eager_forwards["decode"] == runner.decode_steps
+                  and runner.eager_forwards["prefill"]
+                  == runner.prefill_steps,
                   f"graphs {mode}: replays {runner.graph_replays}, eager "
                   f"{runner.eager_forwards}")
         out[mode].append({
@@ -1654,16 +1661,253 @@ def phase_secondary(dev: torch.device, weight_dtype: str,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = read_counts()
-    # the kernel run: 1 prefill + `steps` decode forwards and the warm-up
-    # forward of its graph key; the plain run launches nothing
-    want = expected_counts(runner, dev, decode=forwards["kernel"]["decode"],
-                           prefill=1)
+    # the kernel run: 1 prefill (a replay) + `steps` decode forwards and the
+    # warm-up forwards of their graph keys; the plain run launches nothing
+    want = expected_counts(
+        runner, dev, decode=forwards["kernel"]["decode"],
+        prefill=runner.prefill_steps + runner.graph_warm_forwards["prefill"])
     check(forwards["kernel"]["decode"] == steps + 1 and launches == want,
           f"{label}: kernel launches {launches} != expected {want} for "
           f"forwards {forwards}")
     check_graphed(runner, label)
     emit(label + "_launches", kernel_launches=launches,
          launched_forwards=forwards, **graph_report(runner))
+    del runner
+    free_memory()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Prefill as the reference runs it: padded to a bucket, one graph replay
+
+
+# Chunk lengths of the prefill phase, each over 0 and over PREFILL_CACHED
+# cached tokens (or the most the 2,048-token context leaves, a whole number
+# of pages); then one batched dispatch of four rows over 0 cached tokens
+# (B = 4 x bucket 128).
+PREFILL_CHUNKS = (38, 127, 512, 1500)
+PREFILL_CACHED = 1024
+PREFILL_BATCH = (32, 57, 100, 127)
+# Greedy tokens of two paths whose logits are not bit-equal may part only
+# at a near-tie: a top-2 gap within this many nats.
+NEAR_TIE_NATS = 0.1
+
+
+def _unpadded_prefill(runner, tokens, start: int, table, kv_after: int):
+    """The parent's prefill, kept as the reference for the padded graphed
+    step: one eager `forward` of the chunk as it is (M = its tokens) over
+    the table cut to its pages, logits at every position, sampled from the
+    last. Returns (last-row logits [V] on the device, greedy token)."""
+    from dynamo_tpu_torch.engine.sampler import sample_with_logprobs
+    from dynamo_tpu_torch.models.transformer import (
+        forward,
+        paged_attention_xla,
+    )
+
+    dev, t = runner.device, len(tokens)
+    pages = -(-kv_after // runner.config.page_size)
+    with torch.inference_mode():
+        logits = forward(
+            runner.model, torch.as_tensor(tokens, device=dev).long()[None],
+            torch.arange(start, start + t, device=dev)[None],
+            runner.kv_cache, torch.as_tensor(table[None, :pages], device=dev),
+            torch.tensor([kv_after], dtype=torch.int32, device=dev),
+            attention_fn=runner.attention_fn or paged_attention_xla,
+            matmul_fn=runner.matmul_fn)[:, -1]
+        zero = torch.zeros(1, device=dev)
+        token = sample_with_logprobs(
+            logits, zero, torch.ones(1, device=dev),
+            torch.zeros(1, dtype=torch.int64, device=dev),
+            torch.zeros(1, dtype=torch.int64, device=dev), 0)[0]
+    return logits[0], int(token.cpu()[0])
+
+
+def _wall_ms(fn) -> float:
+    """Host wall time of fn(), from an idle card until fn returns (every
+    call timed here reads its token back, a sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _near_tie(logits: np.ndarray) -> float:
+    top2 = np.sort(logits)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def phase_prefill(dev: torch.device, worker, label: str) -> dict:
+    """Padded, graphed prefill at full width on a fresh runner that shares
+    `worker`'s weights (the worker's scheduler is stopped): prewarm's
+    prefill keys first (their capture seconds and graph pool), then the
+    rest of prewarm. Each chunk of PREFILL_CHUNKS, over 0 and over cached
+    tokens, three ways: the padded step graphed (the serving path), the
+    same step eagerly (cuda_graphs off) and the parent's unpadded eager
+    forward. Checks: graphed and eager padded last-row logits bit-equal and
+    the same token; graphed against unpadded within PARITY_LOGITS_REL_TOL x
+    max |logit| (padding changes the GEMMs' M and so their summation order)
+    and the same greedy token but at a near-tie; each graphed chunk one
+    replay, no eager prefill forward meanwhile. Times: best of three each
+    way, in turns. Then one batched dispatch of PREFILL_BATCH rows, graphed
+    against eager (tokens and logprobs bit-equal) and against the rows one
+    at a time. The kernels' launches (row 6 on the W4A16 model) are counted
+    from 0 after prewarm and checked against every forward that ran.
+    Returns them."""
+    from dynamo_tpu_torch.engine import ModelRunner
+
+    cfg, t_phase = worker.model_config, time.perf_counter()
+    runner = ModelRunner(cfg, dataclasses.replace(worker.runner_config),
+                         device=dev, params=worker.runner.model)
+    rc = runner.config
+    p, ps = rc.max_pages_per_seq, rc.page_size
+    t0 = time.perf_counter()
+    for rows, bucket in runner.prefill_keys():  # prewarm's prefill loop
+        row = (np.zeros(bucket, np.int32), 0, np.zeros(p, np.int32),
+               min(bucket, rc.max_context), (0.0, 1.0, 0, 0))
+        runner.prefill_chunk_batch([row] * rows)
+    torch.cuda.synchronize()
+    prefill_keys_s = time.perf_counter() - t0
+    prefill_pool = runner.graph_memory_bytes()
+    prefill_keys = sorted(key[1:4] for key in runner.step_graphs)
+    t0 = time.perf_counter()
+    runner.prewarm()
+    torch.cuda.synchronize()
+    prewarm_rest_s = time.perf_counter() - t0
+    keys_all = len(runner.step_graphs)
+
+    rng = np.random.default_rng(SEED + 10)
+    # history: pages 1-128, 1,024 tokens written by two graphed chunks
+    hist_table = np.arange(1, p + 1, dtype=np.int32)
+    fresh_table = np.arange(p + 1, 2 * p + 1, dtype=np.int32)
+    history = rng.integers(1, cfg.vocab_size, PREFILL_CACHED)
+    for start in range(0, PREFILL_CACHED, 512):
+        runner.prefill_chunk(history[start:start + 512], start, hist_table,
+                             start + 512, (0.0, 1.0, 0, 0))
+    torch.cuda.synchronize()
+
+    # counts to zero just before this path
+    reset_counts()
+    reset_runner_counts(runner)
+    unpadded = 0
+    cases = []
+    for n in PREFILL_CHUNKS:
+        for cached in (0, min(PREFILL_CACHED,
+                              (rc.max_context - n) // ps * ps)):
+            tokens = rng.integers(1, cfg.vocab_size, n)
+            table = hist_table if cached else fresh_table
+            args = (tokens, cached, table, cached + n, (0.0, 1.0, 0, 0))
+            tok_g = runner.prefill_chunk(*args, want_logits=True)
+            logits_g = runner.last_prefill_logits
+            rc.cuda_graphs = False
+            tok_e = runner.prefill_chunk(*args, want_logits=True)
+            logits_e = runner.last_prefill_logits
+            rc.cuda_graphs = True
+            logits_u, tok_u = _unpadded_prefill(runner, *args[:4])
+            unpadded += 1
+            logits_u = logits_u.float().cpu().numpy()
+            what = f"{label}: {n} tokens over {cached}"
+            check(np.all(np.isfinite(logits_g))
+                  and logits_g.shape == (cfg.vocab_size,),
+                  f"{what}: bad graphed logits")
+            check(np.array_equal(logits_g, logits_e) and tok_g == tok_e,
+                  f"{what}: graphed and eager padded steps differ")
+            diff = float(np.abs(logits_g - logits_u).max())
+            scale = float(np.abs(logits_u).max())
+            check(diff <= PARITY_LOGITS_REL_TOL * scale,
+                  f"{what}: padded vs unpadded logits max|d| {diff} > "
+                  f"{PARITY_LOGITS_REL_TOL} x {scale}")
+            check(tok_g == tok_u or _near_tie(logits_u) <= NEAR_TIE_NATS,
+                  f"{what}: greedy token {tok_g} != unpadded {tok_u}")
+            ways = {"graphed": [], "eager_padded": [], "eager_unpadded": []}
+            for _ in range(3):
+                replays = runner.graph_replays
+                eager = dict(runner.eager_forwards)
+                ways["graphed"].append(_wall_ms(
+                    lambda: runner.prefill_chunk(*args)))
+                check(runner.graph_replays == replays + 1
+                      and runner.eager_forwards == eager,
+                      f"{what}: a graphed chunk was not one replay")
+                rc.cuda_graphs = False
+                ways["eager_padded"].append(_wall_ms(
+                    lambda: runner.prefill_chunk(*args)))
+                rc.cuda_graphs = True
+                ways["eager_unpadded"].append(_wall_ms(
+                    lambda: _unpadded_prefill(runner, *args[:4])))
+                unpadded += 1
+            cases.append({
+                "tokens": n, "cached": cached,
+                "bucket": runner._bucket_for(n),
+                "logits_max_abs_diff_unpadded": diff,
+                "logits_max_abs": scale, "greedy_equal": tok_g == tok_u,
+                **{f"{k}_ms": min(v) for k, v in ways.items()},
+                **{f"{k}_ms_runs": v for k, v in ways.items()}})
+
+    # one batched dispatch of four rows, fresh pages for each
+    rows = []
+    next_page = 2 * p + 1
+    for i, n in enumerate(PREFILL_BATCH):
+        table = np.zeros(p, np.int32)
+        pages = -(-n // ps)
+        table[:pages] = np.arange(next_page, next_page + pages)
+        next_page += pages
+        rows.append((rng.integers(1, cfg.vocab_size, n), 0, table, n,
+                     (0.0, 1.0, 0, SEED + i)))
+    batched = {}
+    for graphs in (True, False):
+        rc.cuda_graphs = graphs
+        toks = runner.prefill_chunk_batch(rows, want_samples=True)
+        batched[graphs] = (toks.cpu().numpy()[:len(rows)],
+                           runner.last_prefill_samples)
+    rc.cuda_graphs = True
+    (tok_bg, samp_bg), (tok_be, samp_be) = batched[True], batched[False]
+    check(np.array_equal(tok_bg, tok_be)
+          and all(a[0] == b[0] and np.array_equal(a[2], b[2])
+                  for a, b in zip(samp_bg, samp_be)),
+          f"{label}: batched graphed and eager differ")
+    singles = [runner.prefill_chunk(*row) for row in rows]
+    for i, (tok, samp) in enumerate(zip(tok_bg, samp_bg)):
+        check(tok == singles[i] or samp[2][0] - samp[2][1] <= NEAR_TIE_NATS,
+              f"{label}: batched row {i} token {tok} != alone {singles[i]}")
+    ways = {"batched_graphed": [], "one_at_a_time_graphed": [],
+            "batched_eager": []}
+    for _ in range(3):
+        replays = runner.graph_replays
+        ways["batched_graphed"].append(_wall_ms(
+            lambda: runner.prefill_chunk_batch(rows).cpu()))
+        check(runner.graph_replays == replays + 1,
+              f"{label}: the batched dispatch was not one replay")
+        ways["one_at_a_time_graphed"].append(_wall_ms(
+            lambda: [runner.prefill_chunk(*row) for row in rows]))
+        rc.cuda_graphs = False
+        ways["batched_eager"].append(_wall_ms(
+            lambda: runner.prefill_chunk_batch(rows).cpu()))
+        rc.cuda_graphs = True
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = expected_counts(runner, dev,
+                           prefill=runner.prefill_steps + unpadded,
+                           warm=runner.graph_warm_forwards)
+    check(launches == want,
+          f"{label}: kernel launches {launches} != expected {want} for "
+          f"{runner.prefill_steps} padded and {unpadded} unpadded forwards, "
+          f"warm-up {runner.graph_warm_forwards}")
+    emit(label, model=cfg.name, weight_dtype=rc.weight_dtype,
+         kv_dtype=rc.kv_dtype, nvidia_smi=nvidia_smi(),
+         prefill_buckets=list(rc.prefill_buckets), max_batch=rc.max_batch,
+         prefill_keys=len(prefill_keys), prefill_key_list=prefill_keys,
+         prefill_keys_capture_s=prefill_keys_s,
+         prefill_graph_pool_GB=prefill_pool / 1e9,
+         prewarm_rest_s=prewarm_rest_s, graph_keys_after_prewarm=keys_all,
+         tolerance_rel=PARITY_LOGITS_REL_TOL, near_tie_nats=NEAR_TIE_NATS,
+         chunks=cases, batch_rows=list(PREFILL_BATCH),
+         batch_key=[4, runner._bucket_for(max(PREFILL_BATCH))],
+         batch_tokens_equal_one_at_a_time=[
+             int(a) == b for a, b in zip(tok_bg, singles)],
+         **{f"{k}_ms": min(v) for k, v in ways.items()},
+         **{f"{k}_ms_runs": v for k, v in ways.items()},
+         unpadded_forwards=unpadded, kernel_launches=launches,
+         **graph_report(runner), seconds=time.perf_counter() - t_phase)
     del runner
     free_memory()
     return launches
@@ -2074,6 +2318,7 @@ def phase_serve(dev: torch.device, worker, label: str) -> None:
 
 KV_PREFIX = 1024  # tokens of each shared prefix (64 pages of 16)
 KV_OUT = 32  # output tokens of every request
+KV_RUNS = 3  # serve_kv runs, each with its own second worker and frontends
 
 
 def kv_traffic(vocab: int) -> dict:
@@ -2095,7 +2340,7 @@ def kv_traffic(vocab: int) -> dict:
             "w3": wave(order, rng.integers(32, 129, 8))}
 
 
-def phase_serve_kv(dev: torch.device, worker_a) -> dict:
+def phase_serve_kv(dev: torch.device, worker_a, run: int = 0) -> dict:
     """KV-aware routing at full width: a second TorchWorker on `worker_a`'s
     weights (mistral-7b W4A16 + int8 KV, the default RunnerConfig, both
     prewarmed), each on its own port DistributedRuntime (file discovery in
@@ -2118,8 +2363,12 @@ def phase_serve_kv(dev: torch.device, worker_a) -> dict:
     the tree; both workers' LoadMetrics reach the manager; a busy threshold
     below the workers' usage answers 503; every HTTP text of waves 1 and 2
     equals the direct replay's decode; no graph captured and no graphable
-    forward ran eagerly; rows 2 and 6 launched once per layer (projection)
-    of each forward of the kv run. Returns the kv run's launches."""
+    forward ran eagerly (every prefill chunk a replay); rows 2 and 6
+    launched once per layer (projection) of each forward of the kv run;
+    wave 2 computes exactly its suffixes' prefill tokens in kv mode and 4
+    prefixes more in round_robin (its 4 misses). `run` numbers the phase
+    line when the phase runs more than once. Returns the kv run's
+    launches."""
     import tempfile
 
     from dynamo_tpu_torch.engine import InferenceScheduler, TorchWorker
@@ -2217,6 +2466,8 @@ def phase_serve_kv(dev: torch.device, worker_a) -> dict:
             items = traffic[name]
             before_prefill = [w.scheduler.stats.prefill_tokens
                               for w in workers]
+            before_batched = [w.scheduler.stats.prefill_batched_steps
+                              for w in workers]
             first_arrival = len(arrivals)
             t_wave = time.perf_counter()
             if name == "w2":
@@ -2274,7 +2525,18 @@ def phase_serve_kv(dev: torch.device, worker_a) -> dict:
                          "ttft_ms_mean": float(np.mean(ttft)),
                          "ttft_ms_max": float(np.max(ttft)),
                          "itl_ms_mean": float(np.mean(itl)),
+                         "prefill_batched_steps": sum(
+                             w.scheduler.stats.prefill_batched_steps - b
+                             for w, b in zip(workers, before_batched)),
                          "wall_s": wall}
+            if name == "w2":
+                # a hit: the request's worker served its 1,024-token prefix
+                # from its cache
+                hit = [c >= KV_PREFIX for c in out["w2_cached"]]
+                out[name]["ttft_ms_hits"] = [
+                    t for t, h in zip(ttft, hit) if h]
+                out[name]["ttft_ms_misses"] = [
+                    t for t, h in zip(ttft, hit) if not h]
         return out
 
     def router_view(entry, w) -> list:
@@ -2499,6 +2761,12 @@ def phase_serve_kv(dev: torch.device, worker_a) -> dict:
         check(kv["w2_cached"][n] >= KV_PREFIX,
               f"{label}: wave-2 request {n} reused {kv['w2_cached'][n]} "
               "cached tokens")
+    suffixes = sum(len(p) - KV_PREFIX for _, p in traffic["w2"])
+    check(kv["w2"]["prefill_tokens"] == suffixes
+          and rr["w2"]["prefill_tokens"] == suffixes + 4 * KV_PREFIX,
+          f"{label}: wave-2 prefill tokens kv {kv['w2']['prefill_tokens']}, "
+          f"round_robin {rr['w2']['prefill_tokens']}; want {suffixes} and "
+          f"{suffixes + 4 * KV_PREFIX}")
     check(all(out["views_equal"]) and min(out["view_blocks"]) > 0,
           f"{label}: the router's trees differ from the local indexes "
           f"({out['views_equal']}, {out['view_blocks']})")
@@ -2529,7 +2797,8 @@ def phase_serve_kv(dev: torch.device, worker_a) -> dict:
     def wave_line(w) -> dict:
         return {k: v for k, v in w.items() if k not in ("texts", "order")}
 
-    emit(label, model=model, nvidia_smi=nvidia_smi() if dev.type == "cuda"
+    emit(label, run=run, model=model,
+         nvidia_smi=nvidia_smi() if dev.type == "cuda"
          else None, weight_dtype=worker_a.runner_config.weight_dtype,
          kv_dtype=worker_a.runner_config.kv_dtype, workers=2,
          event_plane="zmq", prewarm_b_s=prewarm_b_s,
@@ -2599,6 +2868,7 @@ def main() -> None:
         "paged_decode_attention_pool"]
     try:
         phase_parity(worker)
+        phase_prefill(dev, worker, "prefill_bf16")
         phase_graphs(dev, worker, "graphs_bf16")
         phase_serve(dev, worker, "serve_bf16")
     finally:
@@ -2625,10 +2895,13 @@ def main() -> None:
         launches[name] = counts[name]
     try:
         phase_parity(worker, "parity_q")
+        for name, n in phase_prefill(dev, worker, "prefill_q").items():
+            launches[name] = launches.get(name, 0) + n
         phase_graphs(dev, worker, "graphs_q", spec_ks=(SPEC_K, SPEC_K + 1))
         phase_serve(dev, worker, "serve_q")
-        for name, n in phase_serve_kv(dev, worker).items():
-            launches[name] = launches.get(name, 0) + n
+        for run in range(KV_RUNS):
+            for name, n in phase_serve_kv(dev, worker, run).items():
+                launches[name] = launches.get(name, 0) + n
     finally:
         worker.close()
     del worker

@@ -6,6 +6,8 @@ host entry points the scheduler drives:
 
   * prefill_chunk(...) — one sequence's chunk: writes its KV, samples the
                          next token (meaningful on the final chunk)
+  * prefill_chunk_batch(...) — several sequences' chunks in one forward
+                         per group that fits the largest bucket
   * decode(...)        — one token for every slot
   * decode_multi(...)  — K chained decode steps with no host sync: each
                          step's sampled tokens feed the next step on the
@@ -30,13 +32,26 @@ forward goes through `models.transformer.quant_matmul`, the W8A16 / W4A16
 kernels on the card. With `kv_dtype` "int8" the pool is an int8
 (values, scales) pair and decode attention takes the int8 kernel.
 
-With `RunnerConfig.cuda_graphs` (the default) each `decode`, `decode_multi`
-and `decode_spec` call is one CUDA-graph replay (`engine/step_graphs.py`),
-keyed as the reference keys its jit calls plus what a graph bakes in: the
-batch, the block table's width (`bucket_table_width`), `want_logprobs` /
-k / t, and the functions the step calls. A key is captured at its first
-use; `prewarm` captures the whole steady-state key space up front. The
-`want_logits` variants and prefill chunks run eagerly.
+Prefill runs as the reference runs it: every chunk is padded to its
+`prefill_buckets` size (padding tokens write to scratch page 0), the whole
+`max_pages_per_seq` block table is passed, and only each row's last token
+goes through the final norm and the head before it is sampled. Several
+sequences' chunks share one forward (`prefill_chunk_batch`), the batch
+padded to a power of two B; a group runs only where B x bucket <= the
+largest bucket, so a longer work list is split into groups in work order
+(the reference does not split; the sampler keys on (seed, step), never on
+the row, so each row's result is the same under any grouping).
+
+With `RunnerConfig.cuda_graphs` (the default) each `decode`, `decode_multi`,
+`decode_spec` and prefill call is one CUDA-graph replay per group
+(`engine/step_graphs.py`), keyed as the reference keys its jit calls plus
+what a graph bakes in: the batch, the block table's width
+(`bucket_table_width`; prefill's is always `max_pages_per_seq`),
+`want_logprobs` / k / t / the prefill bucket, and the functions the step
+calls. A key is captured at its first use; `prewarm` captures the whole
+steady-state key space up front. The decode and spec `want_logits`
+variants run eagerly; with `cuda_graphs` off every step runs the same
+function op by op.
 """
 
 from __future__ import annotations
@@ -98,13 +113,20 @@ def table_widths(max_pages: int) -> list[int]:
                    for n in range(1, max_pages + 1)})
 
 
-# The dtype of each input of a decode-kind step, as the step sees it.
+# The dtype of each input of a step, as the step sees it (prefill's tokens,
+# positions and valid are [B, T]; its last_idx [B] is each row's last token).
 STEP_INPUTS = {
     "tokens": torch.int64, "positions": torch.int64, "tables": torch.int32,
     "lens": torch.int32, "active": torch.bool, "temperature": torch.float32,
     "top_p": torch.float32, "top_k": torch.int64, "seeds": torch.int64,
-    "steps": torch.int64, "drafts": torch.int64,
+    "steps": torch.int64, "drafts": torch.int64, "valid": torch.bool,
+    "last_idx": torch.int64,
 }
+
+
+def _pow2(n: int) -> int:
+    """The smallest power of two >= n (n >= 1)."""
+    return 1 << max(0, n - 1).bit_length()
 
 
 @dataclasses.dataclass
@@ -124,8 +146,8 @@ class RunnerConfig:
     # channel scales) | "int4" (W4A16: packed codes + per-group scale and
     # zero rows, layout by DYNT_Q4_VARIANT). Quantized at init on the device.
     weight_dtype: str = "model"
-    # Decode, decode_multi and decode_spec as one CUDA-graph replay each
-    # (captured per key at first use); False runs them op by op.
+    # Decode, decode_multi, decode_spec and prefill as one CUDA-graph replay
+    # each (captured per key at first use); False runs them op by op.
     cuda_graphs: bool = True
 
     @property
@@ -205,10 +227,10 @@ class ModelRunner:
         self.decode_attention_fn = paged_attention_decode_pool
         self.spec_attention_fn = paged_attention_spec_pool
         self.matmul_fn = quant_matmul
-        # Decode, spec and prefill forwards run: on the card each decode or
-        # spec forward launches its attention kernel once per layer, and
-        # every forward of a quantized model launches its matmul kernel
-        # once per projection.
+        # Decode, spec and prefill forwards run (a batched prefill group is
+        # one): on the card each decode or spec forward launches its
+        # attention kernel once per layer, and every forward of a quantized
+        # model launches its matmul kernel once per projection.
         self.decode_steps = 0
         self.spec_steps = 0
         self.prefill_steps = 0
@@ -223,9 +245,11 @@ class ModelRunner:
         self.graph_captures = 0
         self.graph_replays = 0
         self.graph_capture_s = 0.0
-        self.graph_warm_forwards = {"decode": 0, "spec": 0}
-        self.eager_forwards = {"decode": 0, "spec": 0}
+        self.graph_warm_forwards = {"decode": 0, "spec": 0, "prefill": 0}
+        self.eager_forwards = {"decode": 0, "spec": 0, "prefill": 0}
         self.last_prefill_sample = None
+        self.last_prefill_samples: list = []
+        self.last_prefill_logits = None
         self.last_decode_sample = (None, None, None)
         self.last_decode_logits = None
         self.last_spec_logits = None
@@ -235,6 +259,41 @@ class ModelRunner:
     @property
     def max_prefill_chunk(self) -> int:
         return self.config.prefill_buckets[-1]
+
+    def _bucket_for(self, n: int) -> int:
+        """The smallest prefill bucket >= n, else the largest."""
+        for b in self.config.prefill_buckets:
+            if n <= b:
+                return b
+        return self.config.prefill_buckets[-1]
+
+    def prefill_groups(self, lengths: Sequence[int]) -> list[list[int]]:
+        """Split a prefill work list (chunk lengths, in work order) into
+        groups of row indices, each run as one forward: a group grows while
+        its padded batch times its bucket stays within the largest bucket,
+        which bounds both the key space and the largest step."""
+        groups: list[list[int]] = []
+        longest = 0
+        for i, n in enumerate(lengths):
+            if groups and (_pow2(len(groups[-1]) + 1)
+                           * self._bucket_for(max(longest, n))
+                           <= self.max_prefill_chunk):
+                groups[-1].append(i)
+                longest = max(longest, n)
+            else:
+                groups.append([i])
+                longest = n
+        return groups
+
+    def prefill_keys(self) -> list[tuple[int, int]]:
+        """Every (padded batch, bucket) a prefill group can take: batches
+        up to max_batch rounded to a power of two, B x bucket within the
+        largest bucket."""
+        cap = self.max_prefill_chunk
+        batches = [1 << i for i in range(
+            _pow2(self.config.max_batch).bit_length())]
+        return [(b, bucket) for bucket in self.config.prefill_buckets
+                for b in batches if b * bucket <= cap]
 
     @property
     def supports_spec(self) -> bool:
@@ -251,12 +310,6 @@ class ModelRunner:
         return torch.from_numpy(np.ascontiguousarray(x)).to(
             device=self.device, dtype=dtype)
 
-    def _sampling(self, temperature, top_p, top_k, seeds):
-        return (self._t(np.asarray(temperature, np.float32), torch.float32),
-                self._t(np.asarray(top_p, np.float32), torch.float32),
-                self._t(np.asarray(top_k, np.int64), torch.int64),
-                self._t(np.asarray(seeds, np.int64), torch.int64))
-
     # -- host API ----------------------------------------------------------
 
     @torch.inference_mode()
@@ -264,43 +317,120 @@ class ModelRunner:
         self,
         tokens: np.ndarray,  # [t] chunk token ids
         start_pos: int,  # absolute position of tokens[0]
-        block_table: np.ndarray,  # [max_pages_per_seq] int32
+        block_table: np.ndarray,  # [<= max_pages_per_seq] int32
         kv_len_after: int,
         sampling: tuple[float, float, int, int],  # (temp, top_p, top_k, seed)
         return_device: bool = False,
+        want_logits: bool = False,
     ):
-        """Run one prefill chunk; returns the sampled token id (meaningful
-        only on the final chunk). `return_device=True` returns the device
-        token tensor [1] without a host sync. Otherwise the logprob data
-        lands in `last_prefill_sample`."""
-        t = len(tokens)
-        pages = -(-kv_len_after // self.config.page_size)
-        table = self._t(np.asarray(block_table, np.int32)[None, :pages],
-                        torch.int32)
-        tok = self._t(np.asarray(tokens, np.int64)[None, :], torch.int64)
-        pos = torch.arange(start_pos, start_pos + t, device=self.device)[None, :]
-        self.prefill_steps += 1
-        logits = forward(self.model, tok, pos, self.kv_cache, table,
-                         self._t(np.asarray([kv_len_after], np.int32),
-                                 torch.int32),
-                         attention_fn=self.attention_fn or paged_attention_xla,
-                         matmul_fn=self.matmul_fn)
-        temp, top_p, top_k, seed = sampling
-        token, lp, top_ids, top_lps = sample_with_logprobs(
-            logits[:, -1, :], *self._sampling([temp], [top_p], [top_k],
-                                              [seed]), 0)
+        """Run one prefill chunk, padded to its bucket; returns the sampled
+        token id (meaningful only on the final chunk). `return_device=True`
+        returns the device token tensor [1] without a host sync (a clone, so
+        a later replay of the same key leaves it alone). Otherwise the
+        logprob data lands in `last_prefill_sample`. `want_logits` also
+        fills `last_prefill_logits` with the raw last-row logits [V] (a key
+        of its own, "prefill_logits")."""
+        outs = self._prefill_group(
+            [(tokens, start_pos, block_table, kv_len_after, sampling)],
+            want_logits)
+        token, lp, top_ids, top_lps = outs[:4]
+        self.last_prefill_logits = (outs[4][0].cpu().numpy() if want_logits
+                                    else None)
         if return_device:
             self.last_prefill_sample = None
             return token
-        self.last_prefill_sample = (float(lp.cpu()[0]), top_ids.cpu().numpy()[0],
+        self.last_prefill_sample = (float(lp.cpu()[0]),
+                                    top_ids.cpu().numpy()[0],
                                     top_lps.cpu().numpy()[0])
         return int(token.cpu()[0])
+
+    @torch.inference_mode()
+    def prefill_chunk_batch(self, rows: list, want_samples: bool = False):
+        """Several sequences' prefill chunks, rows of (tokens, start_pos,
+        block_table, kv_len_after, sampling) as `prefill_chunk` takes them:
+        one forward per group of `prefill_groups`. Returns the device tokens
+        with row i = rows[i]: one group's [B_padded] tensor as it came out
+        of the step, or the groups' rows concatenated. `want_samples=True`
+        fills `last_prefill_samples` with each row's (logprob, top_ids,
+        top_logprobs), a host sync; otherwise it holds None per row."""
+        groups = self.prefill_groups([len(r[0]) for r in rows])
+        outs = [self._prefill_group([rows[i] for i in g]) for g in groups]
+        if len(groups) == 1:
+            tokens = outs[0][0]
+        else:
+            tokens = torch.cat([o[0][:len(g)] for o, g in zip(outs, groups)])
+        if want_samples:
+            samples = []
+            for o, g in zip(outs, groups):
+                lp, ids, lps = (t.cpu().numpy() for t in o[1:4])
+                samples += [(float(lp[j]), ids[j], lps[j])
+                            for j in range(len(g))]
+            self.last_prefill_samples = samples
+        else:
+            self.last_prefill_samples = [None] * len(rows)
+        return tokens
+
+    def _prefill_group(self, rows: list, want_logits: bool = False) -> tuple:
+        """One prefill forward over `rows`, padded to (power-of-two B, the
+        bucket of the longest chunk) and to the full table width (a shorter
+        table is padded with page 0): padding tokens and rows write to
+        scratch page 0 (valid False; padding rows have a zero table and
+        kv_len 0). Returns the step's cloned outputs (tokens [B], logprob
+        [B], top ids and logprobs [B, K], and with `want_logits` the
+        last-row logits [B, V])."""
+        n = len(rows)
+        b = _pow2(n)
+        longest = max(len(r[0]) for r in rows)
+        bucket = self._bucket_for(longest)
+        if longest > bucket or b * bucket > self.max_prefill_chunk:
+            raise ValueError(
+                f"prefill group of {n} rows up to {longest} tokens exceeds "
+                f"the largest bucket {self.max_prefill_chunk}")
+        p = self.config.max_pages_per_seq
+        values = {
+            "tokens": np.zeros((b, bucket), np.int64),
+            "positions": np.zeros((b, bucket), np.int64),
+            "valid": np.zeros((b, bucket), bool),
+            "tables": np.zeros((b, p), np.int32),
+            "lens": np.zeros(b, np.int32),
+            "last_idx": np.zeros(b, np.int64),
+            "temperature": np.zeros(b, np.float32),
+            "top_p": np.ones(b, np.float32),
+            "top_k": np.zeros(b, np.int64),
+            "seeds": np.zeros(b, np.int64),
+        }
+        for i, (tokens, start, table, kv_after, sampling) in enumerate(rows):
+            t = len(tokens)
+            values["tokens"][i, :t] = tokens
+            values["positions"][i, :t] = np.arange(start, start + t)
+            values["valid"][i, :t] = True
+            values["tables"][i, :len(table)] = table
+            values["lens"][i] = kv_after
+            values["last_idx"][i] = t - 1
+            (values["temperature"][i], values["top_p"][i], values["top_k"][i],
+             values["seeds"][i]) = sampling
+        self.prefill_steps += 1
+        attention_fn = self.attention_fn or paged_attention_xla
+        model, kv, matmul_fn = self.model, self.kv_cache, self.matmul_fn
+
+        def step(x):
+            logits = forward(model, x["tokens"], x["positions"], kv,
+                             x["tables"], x["lens"], valid=x["valid"],
+                             attention_fn=attention_fn, matmul_fn=matmul_fn,
+                             last_idx=x["last_idx"])[:, 0, :]
+            out = sample_with_logprobs(
+                logits, x["temperature"], x["top_p"], x["top_k"], x["seeds"],
+                torch.zeros_like(x["seeds"]))
+            return out + ((logits,) if want_logits else ())
+
+        return self._run_step("prefill_logits" if want_logits else "prefill",
+                              bucket, 1, step, values)
 
     # -- decode-kind steps ---------------------------------------------------
 
     def _functions(self) -> tuple:
-        """The functions a decode-kind step calls: part of every graph key,
-        since a graph keeps the functions it was captured with."""
+        """The functions a step may call: part of every graph key, since a
+        graph keeps the functions it was captured with."""
         return (self.attention_fn, self.decode_attention_fn,
                 self.spec_attention_fn, self.matmul_fn)
 
@@ -337,8 +467,10 @@ class ModelRunner:
         `STEP_INPUTS` name): replay the graph of key (method, batch, table
         width, variant, functions), capturing it first if it is new, or run
         eagerly when the call is not graphable or `cuda_graphs` is off.
-        `forwards` is the number of model forwards the step runs."""
-        kind = "spec" if method == "decode_spec" else "decode"
+        `forwards` is the number of model forwards the step runs. A capture
+        that fails raises; nothing falls back to eager."""
+        kind = {"decode_spec": "spec", "prefill": "prefill",
+                "prefill_logits": "prefill"}.get(method, "decode")
         if not (graphable and self.config.cuda_graphs):
             if graphable:
                 self.eager_forwards[kind] += forwards
@@ -532,7 +664,8 @@ class ModelRunner:
     def warmup(self) -> None:
         """One decode step and one tiny prefill (on the card this builds the
         kernels, initializes the math libraries and captures the decode
-        step at the widest table before traffic)."""
+        step at the widest table and the (1, smallest bucket) prefill key
+        before traffic)."""
         b = self.config.max_batch
         p = self.config.max_pages_per_seq
         self.decode(
@@ -549,8 +682,9 @@ class ModelRunner:
 
     def prewarm(self, spec_widths: Optional[Sequence[int]] = None) -> None:
         """Build the whole steady-state key space before serving, as the
-        reference's `prewarm` compiles its jit keys: `warmup`, one eager
-        run of every prefill bucket, then for every table-width bucket the
+        reference's `prewarm` compiles its jit keys: `warmup`, every
+        prefill key of `prefill_keys` (one batched call each, its rows
+        writing to scratch page 0), then for every table-width bucket the
         fused block (k = DYNT_DECODE_BLOCK, when above 1), `decode` with
         and without logprobs, and the verification step for each draft
         count in `spec_widths` (default: [DYNT_SPEC_MAX_K] when
@@ -560,11 +694,10 @@ class ModelRunner:
         self.warmup()
         b = self.config.max_batch
         p = self.config.max_pages_per_seq
-        for bucket in self.config.prefill_buckets:
-            self.prefill_chunk(
-                np.zeros(bucket, np.int32), 0, np.zeros(p, np.int32),
-                min(bucket, self.config.max_context), (0.0, 1.0, 0, 0),
-            )
+        for rows, bucket in self.prefill_keys():
+            row = (np.zeros(bucket, np.int32), 0, np.zeros(p, np.int32),
+                   min(bucket, self.config.max_context), (0.0, 1.0, 0, 0))
+            self.prefill_chunk_batch([row] * rows)
         if spec_widths is None:
             spec_widths = ([max(1, int(env("DYNT_SPEC_MAX_K")))]
                            if env("DYNT_SPEC_ENABLE") and self.supports_spec

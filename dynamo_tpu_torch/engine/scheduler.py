@@ -17,7 +17,9 @@ Scheduling per iteration, as in the JAX package:
      worth it, else a fused decode block (decode_multi, optionally
      depth-pipelined on device-resident tokens) for all decode-ready slots,
      no readback yet
-  3. advance at most one prefill-chunk budget of prompt tokens
+  3. advance at most one prefill-chunk budget of prompt tokens: one chunk
+     per prefilling sequence, several sequences' chunks in one batched
+     dispatch (`ModelRunner.prefill_chunk_batch`)
   4. admit again (arrivals that landed during dispatch)
   5. drain the decode block: the loop's one blocking device-to-host copy
 
@@ -105,6 +107,8 @@ class SchedulerStats:
     spec_accepted: int = 0
     spec_last_k: int = 0
     spec_ema: float = 0.0
+    # Prefill iterations whose chunks went out as one batched dispatch
+    prefill_batched_steps: int = 0
 
 
 def _unsupported(request: PreprocessedRequest) -> Optional[str]:
@@ -373,8 +377,12 @@ class InferenceScheduler:
 
     def _prefill_some(self) -> int:
         """Advance prefill by one chunk per prefilling sequence, filling one
-        SHARED token budget per iteration (decode ITL protection)."""
+        SHARED token budget per iteration (decode ITL protection). Several
+        sequences' chunks go out as one batched dispatch; per-row results
+        equal single dispatches (the sampler keys on (seed, step), never
+        on the row)."""
         budget = self.runner.max_prefill_chunk
+        work: list[tuple[_Seq, int]] = []
         spent = 0
         for seq in self._slots:
             if seq is None or seq.cancelled or seq.decode_ready:
@@ -384,8 +392,18 @@ class InferenceScheduler:
             chunk = min(budget - spent, seq.prompt_len - seq.prefill_pos)
             if chunk <= 0:
                 continue
-            spent += self._prefill_single(seq, chunk)
-        return spent
+            work.append((seq, chunk))
+            spent += chunk
+        if not work:
+            return 0
+        if len(work) > 1 and self._can_batch_prefill(work):
+            return self._prefill_batch(work)
+        return sum(self._prefill_single(seq, chunk) for seq, chunk in work)
+
+    def _can_batch_prefill(self, work: list) -> bool:
+        """Cross-sequence chunk batching needs a runner with the batched
+        entry point (the port has no mirrored driver and no media)."""
+        return hasattr(self.runner, "prefill_chunk_batch")
 
     def _prefill_single(self, seq: _Seq, chunk: int) -> int:
         tokens = np.asarray(
@@ -411,6 +429,43 @@ class InferenceScheduler:
             else:
                 self._pending_prefill.append((seq, token))
         return chunk
+
+    def _prefill_batch(self, work: list) -> int:
+        """Dispatch several sequences' prefill chunks at once
+        (`ModelRunner.prefill_chunk_batch`); final chunks are handled as
+        `_prefill_single` handles them: a plain final token is deferred
+        through `_pending_prefill`, a logprobs row reads back at once."""
+        finals = [seq.prefill_pos + chunk >= seq.prompt_len
+                  for seq, chunk in work]
+        rows = []
+        for seq, chunk in work:
+            s = seq.request.sampling
+            rows.append((np.asarray(seq.request.token_ids[
+                seq.prefill_pos : seq.prefill_pos + chunk], np.int32),
+                seq.prefill_pos, seq.block_table, seq.prefill_pos + chunk,
+                (s.temperature, s.top_p, s.top_k, seq.seed)))
+        want_samples = any(final and seq.request.sampling.logprobs
+                           for final, (seq, _) in zip(finals, work))
+        toks_dev = self.runner.prefill_chunk_batch(rows,
+                                                   want_samples=want_samples)
+        samples = self.runner.last_prefill_samples
+        self.stats.prefill_batched_steps += 1
+        host_toks = None
+        total = 0
+        for row, ((seq, chunk), is_final) in enumerate(zip(work, finals)):
+            seq.prefill_pos += chunk
+            total += chunk
+            if not is_final:
+                continue
+            if not seq.request.sampling.logprobs:
+                self._pending_prefill.append((seq, toks_dev[row]))
+                continue
+            if host_toks is None:
+                host_toks = toks_dev.cpu().numpy()
+            self._append_token(seq, int(host_toks[row]),
+                               prompt_tokens=seq.prompt_len,
+                               sample_info=samples[row])
+        return total
 
     def _finalize_prefill(self, seq: _Seq, tok_dev) -> int:
         """Copy a deferred final-chunk token to the host and hand the

@@ -1,18 +1,21 @@
-"""Decode-kind steps as CUDA graphs, one graph per key.
+"""Runner steps as CUDA graphs, one graph per key.
 
-The JAX package never runs a decode step op by op from Python: `decode`,
-`decode_multi` (K steps inside one `lax.scan`) and `decode_spec` are each one
-compiled call, cached per key (`dynamo_tpu/engine/model_runner.py`
-`_decode_fn` / `_decode_fn_lp`, `_decode_multi_fns`, `_decode_spec_fns`), and
-the block table's width is part of every compiled shape. The port's
-counterpart is one `StepGraph` per key (`ModelRunner._run_step` builds the
-key): the step's closure over static input tensors, captured once as a
+The JAX package never runs a step op by op from Python: `decode`,
+`decode_multi` (K steps inside one `lax.scan`), `decode_spec` and each
+padded prefill chunk (or batch of chunks) are each one compiled call, cached
+per key (`dynamo_tpu/engine/model_runner.py` `_decode_fn` / `_decode_fn_lp`,
+`_decode_multi_fns`, `_decode_spec_fns`, `_prefill_fns` by bucket), and the
+block table's width is part of every compiled shape. The port's counterpart
+is one `StepGraph` per key (`ModelRunner._run_step` builds the key): the
+step's closure over static input tensors, captured once as a
 `torch.cuda.CUDAGraph`, then replayed after each call's inputs are copied
-into the static tensors.
+into the static tensors. Prefill no longer runs eagerly: a chunk is one
+replay of its (batch, bucket) key.
 
 Capture, at a key's first use (as `jax.jit` compiles at first call):
-  1. the static inputs hold neutral values: every slot inactive, lengths and
-     tables 0, so the step's deferred KV write goes to scratch page 0;
+  1. the static inputs hold neutral values: every slot inactive (prefill:
+     every token invalid), lengths and tables 0, so the step's KV write
+     goes to scratch page 0;
   2. the closure runs once eagerly, on the capturing thread and the capture
      stream: that builds the kernels, creates the thread's cuBLAS handle and
      workspace, and runs the kernels' one-time static initializers

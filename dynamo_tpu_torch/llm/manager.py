@@ -13,8 +13,12 @@ mode KV events feed the model's radix index. A worker whose card advertises
 `kv_blocks_endpoint` is bootstrapped from its local indexer when it appears,
 and resynced when its event ids skip (the events that arrive meanwhile are
 buffered and replayed after the dump) or when the journal skipped corrupt
-frames. Not ported yet: prefill, encoder and image pools, LoRA adapters,
-draining marks, the session tier and the admission wait estimator.
+frames. A worker that announces its departure, by the `draining` flag of
+its card or of its load metrics, leaves routing at once: its router stops
+selecting it, its radix state is dropped and its later KV events are
+ignored, until its discovery record goes. Not ported yet: prefill, encoder
+and image pools, LoRA adapters, the session tier and the admission wait
+estimator.
 """
 
 from __future__ import annotations
@@ -58,6 +62,9 @@ class ModelEntry:
     # worker instance_id -> last published kv usage (any router mode; feeds
     # busy-threshold load shedding)
     worker_usage: dict[int, float] = dataclasses.field(default_factory=dict)
+    # instance ids that announced their departure (card flag or
+    # LoadMetrics.draining); cleared when the instance's record goes
+    draining: set[int] = dataclasses.field(default_factory=set)
 
 
 class ModelManager:
@@ -168,6 +175,13 @@ class ModelWatcher:
             return
         newly_seen = instance_id not in entry.instances
         entry.instances.add(instance_id)
+        if card.runtime_config.get("draining"):
+            # The worker announced its departure on the discovery plane:
+            # stop selecting it, drop its radix state, and skip the
+            # bootstrap resync (dumping a vacating worker's index would
+            # attract traffic back to it).
+            self._mark_draining(entry, instance_id)
+            return
         if (newly_seen and entry.scheduler is not None
                 and card.runtime_config.get("kv_blocks_endpoint")):
             # Bootstrap this worker's radix state from its local indexer
@@ -181,6 +195,10 @@ class ModelWatcher:
             if entry.card.endpoint_subject != subject:
                 continue
             entry.instances.discard(instance_id)
+            # Deregistration completes a drain: a restarted worker at the
+            # same id starts clean (the router's mark clears on the same
+            # delete).
+            entry.draining.discard(instance_id)
             if entry.scheduler is not None:
                 entry.scheduler.remove_worker_id(instance_id)
             if not entry.instances:
@@ -192,10 +210,26 @@ class ModelWatcher:
                     entries.remove(entry)
                 await entry.router.client.close()
 
+    def _mark_draining(self, entry: ModelEntry, instance_id: int) -> None:
+        """One-shot draining transition, from the card flag or the load
+        metrics (`set_draining` dedups): exclude the instance from
+        selection and drop its radix state."""
+        if not entry.router.set_draining(instance_id, True):
+            return
+        entry.draining.add(instance_id)
+        if entry.scheduler is not None:
+            entry.scheduler.remove_worker_id(instance_id)
+        log.info("worker %x draining: removed from selection for %s",
+                 instance_id, entry.card.name)
+
     # -- worker state resync (bootstrap + gap recovery) --------------------
 
     def _schedule_resync(self, entry: ModelEntry, instance_id: int,
                          reason: str) -> None:
+        if instance_id in entry.draining:
+            # A vacating worker's radix state was dropped on purpose; this
+            # guard covers the gap, journal and bootstrap paths.
+            return
         key = (entry.card.endpoint_subject, instance_id)
         if key in self._resyncing:
             return
@@ -311,6 +345,10 @@ class ModelWatcher:
             for entry in entries:
                 if entry.scheduler is None:
                     continue
+                if event.worker_id in entry.draining:
+                    # Vacating: its late events would re-create the radix
+                    # state _mark_draining dropped.
+                    continue
                 buffer = self._resyncing.get(
                     (entry.card.endpoint_subject, event.worker_id))
                 if buffer is not None:
@@ -333,7 +371,9 @@ class ModelWatcher:
                                       payload.get("dp_rank", 0))
             for entry in entries:
                 if entry.scheduler is None or (
-                        entry.card.endpoint_subject,
+                        payload["worker_id"] in entry.draining):
+                    continue  # vacating: its state stays dropped
+                if (entry.card.endpoint_subject,
                         payload["worker_id"]) in self._resyncing:
                     continue  # a live resync wins; it is fresher
                 entry.scheduler.indexer.load_worker(
@@ -354,5 +394,12 @@ class ModelWatcher:
             metrics = LoadMetrics.from_wire(payload)
             for entry in entries:
                 entry.worker_usage[metrics.worker_id] = metrics.kv_usage
+                if (metrics.draining
+                        and metrics.worker_id in entry.instances):
+                    # Departure announced on the load plane, sooner than
+                    # the card republish lands; update_published would
+                    # re-add the worker remove_worker_id just dropped.
+                    self._mark_draining(entry, metrics.worker_id)
+                    continue
                 if entry.scheduler is not None:
                     entry.scheduler.sequences.update_published(metrics)

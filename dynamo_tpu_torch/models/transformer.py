@@ -574,10 +574,13 @@ def forward(
     valid: Optional[torch.Tensor] = None,  # [B, T] bool
     attention_fn: Optional[AttentionFn] = None,
     matmul_fn: Optional[MatmulFn] = None,
+    last_idx: Optional[torch.Tensor] = None,  # [B] int64
 ) -> torch.Tensor:
     """Unified chunk forward (prefill T > 1 or decode T = 1): each layer
     writes its K/V into the pool, then attends over the pool. Returns logits
-    [B, T, V] f32."""
+    [B, T, V] f32, or with `last_idx` the rows x[b, last_idx[b]] only,
+    [B, 1, V]: the final norm and the head then run on the sampled rows
+    alone (each row's values are the full logits' row)."""
     config = model.config
     if valid is None:
         valid = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
@@ -594,4 +597,7 @@ def forward(
         x = x + _mm(attn, lp["wo"], k=2, matmul_fn=matmul_fn)
         x = x + _swiglu(rms_norm(x, lp["mlp_norm"], config.rms_eps), lp,
                         matmul_fn)
+    if last_idx is not None:
+        x = torch.gather(x, 1, last_idx.long()[:, None, None].expand(
+            -1, 1, x.shape[-1]))
     return _logits(model, x, matmul_fn)

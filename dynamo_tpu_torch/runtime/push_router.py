@@ -8,7 +8,9 @@ as the reference's, routes through a round_robin router to the instance it
 chose. A transport failure marks its instance down for DOWN_COOLDOWN_SECS,
 the reference's default breaker (one failure opens it, re-admission after
 5 s); discovery re-confirming the instance clears the mark (ref:
-push_router.rs:8-16,103-107).
+push_router.rs:8-16,103-107). A watcher marks a vacating instance as
+draining (`set_draining`): no mode but direct selects it until its
+discovery record is deleted.
 
 Not ported yet: the reference's retries, retry budget and half-open probes
 — a transport failure before any output is raised to the caller instead of
@@ -53,20 +55,41 @@ class PushRouter:
         self._inflight: dict[int, int] = {}
         # instance id -> monotonic time its down-mark expires
         self._down: dict[int, float] = {}
+        # Instances a watcher marked as vacating. A card re-put does not
+        # clear the mark (a draining worker republishes its card with the
+        # flag set, and drains are terminal); the delete at deregistration
+        # does.
+        self._draining: set[int] = set()
         client.on_change(self._on_instance_change)
 
     def _on_instance_change(self, kind: str, record: dict) -> None:
         # A put re-confirms the instance; a delete forgets it.
-        self._down.pop(record.get("instance_id"), None)
+        iid = record.get("instance_id")
+        self._down.pop(iid, None)
+        if kind == "delete":
+            self._draining.discard(iid)
 
     def mark_down(self, instance_id: int) -> None:
         """Take an instance out of rotation after a transport failure."""
         self._down[instance_id] = time.monotonic() + DOWN_COOLDOWN_SECS
 
+    def set_draining(self, instance_id: int, draining: bool = True) -> bool:
+        """Mark or unmark an instance as vacating. Returns True only on a
+        transition, so callers drop derived state (radix entries) once,
+        not on every load-metrics tick."""
+        if draining == (instance_id in self._draining):
+            return False
+        if draining:
+            self._draining.add(instance_id)
+        else:
+            self._draining.discard(instance_id)
+        return True
+
     def available(self) -> list[int]:
         now = time.monotonic()
         return [iid for iid in self.client.instance_ids()
-                if self._down.get(iid, 0.0) <= now]
+                if iid not in self._draining
+                and self._down.get(iid, 0.0) <= now]
 
     def _pick(self, instance_id: Optional[int]) -> int:
         if self.mode == "direct":

@@ -24,8 +24,13 @@ op) in turn:
     K = 4 drafts per slot (5 positions each: the folded attention, the
     projections at M = 16 slots x 5 = 80, since the runner's 16 slots all
     run, 8 of them live; the verification sampler);
-  * one prefill chunk of 512 and of 1,500 tokens (wall time, synchronized;
-    the best of three runs after a warm-up).
+  * one prefill chunk of 38, 127, 512 and 1,500 tokens over no history,
+    three ways in turns: the serving path (`prefill_chunk`, padded to its
+    bucket, one graph replay), the same padded step op by op (cuda_graphs
+    off) and the unpadded eager forward the runner ran before prefill was
+    padded (`chip_smoke._unpadded_prefill`); wall time until the token is
+    on the host, the best of three runs after a warm-up; and a
+    `torch.profiler` trace of one graphed chunk (busy time, kernels).
 
 Prints one JSON line per measurement; the trace tables go to --out.
 Needs a CUDA card; exits non-zero without one.
@@ -232,20 +237,58 @@ def main() -> None:
           memory_reserved_GB=torch.cuda.memory_reserved() / 1e9,
           max_memory_allocated_GB=torch.cuda.max_memory_allocated() / 1e9)
 
+    from chip_smoke import _unpadded_prefill
+
     table = np.zeros(rc.max_pages_per_seq, np.int32)
     table[:96] = np.arange(next_page, next_page + 96)
     rng = np.random.default_rng(0)
-    for n in (512, 1500):
+    for n in (38, 127, 512, 1500):
         toks = rng.integers(1, cfg.vocab_size, n).astype(np.int32)
-        runner.prefill_chunk(toks, 0, table, n, (0.0, 1.0, 0, 0))  # warm
-        torch.cuda.synchronize()
-        runs = []
+        args = (toks, 0, table, n, (0.0, 1.0, 0, 0))
+
+        def padded(graphs):
+            rc.cuda_graphs = graphs
+            try:
+                runner.prefill_chunk(*args)
+            finally:
+                rc.cuda_graphs = True
+
+        ways = {"graphed": lambda: padded(True),
+                "eager_padded": lambda: padded(False),
+                "eager_unpadded": lambda: _unpadded_prefill(runner,
+                                                            *args[:4])}
+        runs = {way: [] for way in ways}
+        for fn in ways.values():
+            fn()  # warm: captures the bucket's key if it is new
         for _ in range(3):
+            for way, fn in ways.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs[way].append((time.perf_counter() - t0) * 1e3)
+        # one graphed chunk traced: the card's busy time and its kernels
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            runner.prefill_chunk(toks, 0, table, n, (0.0, 1.0, 0, 0))
+            padded(True)
             torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0) * 1e3)
-        _emit("prefill_chunk", tokens=n, ms=min(runs), runs_ms=runs)
+            traced_us = (time.perf_counter() - t0) * 1e6
+        events = sorted((e for e in prof.key_averages() if _is_kernel(e)),
+                        key=_device_us, reverse=True)
+        busy_us = sum(_device_us(e) for e in events)
+        (out_dir / f"prefill_{n}_{cfg.name}_{rc.weight_dtype}_graphs.txt"
+         ).write_text(prof.key_averages().table(
+             sort_by="self_cuda_time_total", row_limit=40))
+        _emit("prefill_chunk", tokens=n, bucket=runner._bucket_for(n),
+              **{f"{way}_ms": min(r) for way, r in runs.items()},
+              runs_ms=runs, traced_graphed_ms=traced_us / 1e3,
+              device_busy_ms=busy_us / 1e3,
+              device_busy_share=busy_us / traced_us,
+              kernel_launches=sum(e.count for e in events),
+              top=[{"name": e.key[:80], "ms": _device_us(e) / 1e3,
+                    "calls": e.count} for e in events[:12]])
 
 
 if __name__ == "__main__":

@@ -156,10 +156,11 @@ def test_greedy_streams_equal_graphs_on_off_and_jax(params, spec,
         assert j_sched.stats.spec_steps > 0
     assert g_stats.decode_tokens == e_stats.decode_tokens
     assert g_runner.graph_replays > 0 and g_runner.graph_captures > 0
-    assert g_runner.eager_forwards == {"decode": 0, "spec": 0}
+    assert g_runner.eager_forwards == {"decode": 0, "spec": 0, "prefill": 0}
     assert e_runner.graph_replays == e_runner.graph_captures == 0
     assert e_runner.eager_forwards == {"decode": e_runner.decode_steps,
-                                       "spec": e_runner.spec_steps}
+                                       "spec": e_runner.spec_steps,
+                                       "prefill": e_runner.prefill_steps}
     assert g_runner.decode_steps == e_runner.decode_steps
 
 
@@ -231,8 +232,10 @@ def test_prewarm_captures_the_key_space_and_serving_captures_nothing(
     """prewarm: for every table-width bucket, the fused block (k =
     DYNT_DECODE_BLOCK, above 1), decode with and without logprobs, and with
     DYNT_SPEC_ENABLE the verification step at t = DYNT_SPEC_MAX_K + 1; every
-    prefill bucket once. Two passes of traffic (one request asking for
-    logprobs) then capture nothing."""
+    prefill (padded batch, bucket) with batch x bucket within the largest
+    bucket, at the full table width, one forward each after warmup's. Two
+    passes of traffic (one request asking for logprobs; the first wave
+    admitted whole, so its chunks go out batched) then capture nothing."""
     monkeypatch.setenv("DYNT_DECODE_BLOCK", block)
     monkeypatch.setenv("DYNT_DECODE_PIPELINE", "2")
     monkeypatch.setenv("DYNT_SPEC_ENABLE", "1" if spec else "0")
@@ -246,9 +249,12 @@ def test_prewarm_captures_the_key_space_and_serving_captures_nothing(
         want |= {("decode_multi", B, w, int(block)) for w in widths}
     if spec:
         want |= {("decode_spec", B, w, SPEC_K + 1) for w in widths}
-    assert {key[:4] for key in runner.step_graphs} == want
-    assert runner.graph_captures == len(want)
-    assert runner.prefill_steps == 1 + len(RUNNER["prefill_buckets"])
+    prefill = {("prefill", b, RUNNER["max_pages_per_seq"], bucket)
+               for b, bucket in [(1, 8), (2, 8), (4, 8), (1, 16), (2, 16),
+                                 (1, 32)]}
+    assert {key[:4] for key in runner.step_graphs} == want | prefill
+    assert runner.graph_captures == len(want) + len(prefill)
+    assert runner.prefill_steps == 1 + len(prefill)
     captures = runner.graph_captures
     replays = runner.graph_replays
     sched = InferenceScheduler(runner)
@@ -257,6 +263,8 @@ def test_prewarm_captures_the_key_space_and_serving_captures_nothing(
     assert all(len(t) == MAX_TOKENS for t in streams.values())
     assert runner.graph_captures == captures
     assert runner.graph_replays > replays
+    assert sched.stats.prefill_batched_steps > 0
+    assert runner.eager_forwards == {"decode": 0, "spec": 0, "prefill": 0}
     if spec:
         assert sched.stats.spec_steps > 0
 
@@ -304,7 +312,8 @@ def test_replays_advance_launch_counts_as_eager_steps(params, method,
     assert graphed == [2 * eager[0], eager[0]]
     kind = "spec" if method == "decode_spec" else "decode"
     assert g_runner.graph_warm_forwards[kind] == forwards
-    assert e_runner.graph_warm_forwards == {"decode": 0, "spec": 0}
+    assert e_runner.graph_warm_forwards == {"decode": 0, "spec": 0,
+                                            "prefill": 0}
     (graph,) = g_runner.step_graphs.values()
     assert graph.launches == {"q8_matmul": eager[0]}
     assert g_runner.graph_replays == 2

@@ -14,7 +14,10 @@ package where the two meet:
   * the cross-package kv pairings over the journal plane in tmp_path: the
     port's frontend with the reference's worker, and the reference's
     frontend with the port's worker; each router scores the other package's
-    cached prefix.
+    cached prefix;
+  * draining: reference workers announcing their departure (card flag,
+    LoadMetrics) leave the port's kv frontend as they leave the
+    reference's, and a card the port does not serve stays ignored.
 
 Binds 127.0.0.1 only, spawns no subprocess; inputs from numpy seeds."""
 
@@ -537,3 +540,160 @@ def test_kv_routers_score_the_other_package_over_the_journal(params,
     assert got["P"] == {state["ref_worker"].instance_id: 4}
     assert got["R"] == {state["worker"].instance_id: 4}
     assert texts["P"] == texts["R"]
+
+
+# -- draining workers --------------------------------------------------------
+
+
+def test_kv_frontends_drop_a_draining_worker_as_the_reference_does(
+        params, tmp_path, caplog):
+    """Three reference workers' records on one reference runtime (a served
+    `generate` instance, the reference's card, its KV event buffer and load
+    metrics on the journal plane), watched by the port's kv frontend and
+    the reference's. A announces its departure by its card's `draining`
+    flag, B by `LoadMetrics.draining`: each leaves `available()` and its
+    radix state goes, and the KV events both send later are ignored, in
+    both frontends alike. A's deregistration clears its marks. A card that
+    serves neither chat nor completions stays ignored by the port."""
+    from dynamo_tpu.kv_router import LOAD_TOPIC
+    from dynamo_tpu.kv_router import KV_EVENT_TOPIC
+    from dynamo_tpu.kv_router import LoadMetrics as RefLoadMetrics
+    from dynamo_tpu.llm.model_card import ModelDeploymentCard as RefCard
+    from dynamo_tpu.llm.model_card import publish_card, unpublish_card
+
+    lt = _LoopThread()
+    state: dict = {}
+    ids = {"A": 0xA1, "B": 0xB2, "C": 0xC3}
+    rng = np.random.default_rng(41)
+    # per worker: blocks stored before the drain, blocks sent after it
+    prompts = {(w, late): rng.integers(1, CFG.vocab_size, 12).tolist()
+               for w in ids for late in (False, True)}
+    hashes = {k: compute_block_hashes(p, 4) for k, p in prompts.items()}
+    plane = dict(discovery_backend="file", discovery_path=str(tmp_path / "d"),
+                 event_plane="journal",
+                 event_journal_path=str(tmp_path / "events"))
+
+    async def handler(body, ctx=None):
+        return
+        yield
+
+    async def up():
+        ref_w = await RefRuntime(RefRuntimeConfig.from_env(
+            request_plane="tcp", tcp_host="127.0.0.1", system_enabled=False,
+            **plane)).start()
+        port_fe = await DistributedRuntime(RuntimeConfig(
+            tcp_host="127.0.0.1", system_enabled=False, **plane)).start()
+        ref_fe = await RefRuntime(RefRuntimeConfig.from_env(
+            request_plane="tcp", tcp_host="127.0.0.1", system_enabled=False,
+            **plane)).start()
+        state["runtimes"] = [ref_w, port_fe, ref_fe]
+        endpoint = (ref_w.namespace("dynamo").component("backend")
+                    .endpoint("generate"))
+        state["served"] = {w: await endpoint.serve_endpoint(
+            handler, instance_id=iid) for w, iid in ids.items()}
+        state["cards"] = {w: RefCard(name=MODEL, kv_block_size=4)
+                          for w in ids}
+        for w, iid in ids.items():
+            await publish_card(ref_w, state["cards"][w], iid)
+        state["publisher"] = ref_w.event_publisher("dynamo")
+        state["buffers"] = {w: RefEventBuffer(iid) for w, iid in ids.items()}
+        fes = {"port": Frontend(port_fe, host="127.0.0.1", port=0,
+                                router_mode="kv"),
+               "ref": RefFrontend(ref_fe, host="127.0.0.1", port=0,
+                                  router_mode="kv")}
+        state["frontends"] = fes
+        for fe in fes.values():
+            await fe.start()
+        for fe in fes.values():
+            await _until(lambda fe=fe: available(fe) == sorted(ids.values()),
+                         "three instances listed")
+
+    async def store(*keys):
+        """Each (worker, late) prompt's blocks stored, published in order."""
+        for w, late in keys:
+            state["buffers"][w].on_stored(hashes[(w, late)], None)
+            for event in state["buffers"][w].drain():
+                await state["publisher"].publish(KV_EVENT_TOPIC,
+                                                 event.to_wire())
+
+    async def down():
+        for fe in state.get("frontends", {}).values():
+            await fe.close()
+        for rt in state.get("runtimes", []):
+            await rt.shutdown()
+
+    def entry(fe):
+        return fe.manager.get(MODEL)
+
+    def available(fe) -> list:
+        e = entry(fe)
+        return sorted(e.router.available()) if e is not None else []
+
+    def overlap(fe, key) -> dict:
+        return {w.worker_id: n for w, n in entry(fe).scheduler.indexer
+                .find_matches(hashes[key]).scores.items()}
+
+    def both(pred) -> bool:
+        return all(pred(fe) for fe in state["frontends"].values())
+
+    try:
+        lt.run(up(), timeout=60.0)
+        fes = state["frontends"]
+        lt.run(store(*((w, False) for w in ids)))
+        lt.run(_until(lambda: both(lambda fe: all(
+            overlap(fe, (w, False)) == {iid: 3} for w, iid in ids.items())),
+            "every worker's blocks indexed"))
+
+        # A: the card flag (the reference worker's announce republishes it)
+        state["cards"]["A"].runtime_config["draining"] = True
+        lt.run(publish_card(state["runtimes"][0], state["cards"]["A"],
+                            ids["A"]))
+        lt.run(_until(lambda: both(lambda fe: ids["A"] not in available(fe)),
+                      "A leaves selection"))
+        # B: the load plane
+        lt.run(state["publisher"].publish(LOAD_TOPIC, RefLoadMetrics(
+            worker_id=ids["B"], draining=True).to_wire()))
+        lt.run(_until(lambda: both(lambda fe: ids["B"] not in available(fe)),
+                      "B leaves selection"))
+        # later events of A and B, then C's as the marker that they landed
+        lt.run(store(("A", True), ("B", True), ("C", True)))
+        lt.run(_until(lambda: both(
+            lambda fe: overlap(fe, ("C", True)) == {ids["C"]: 3}),
+            "C's later blocks indexed"))
+        got = {name: (available(fe),
+                      {key: overlap(fe, key) for key in hashes},
+                      set(entry(fe).draining))
+               for name, fe in fes.items()}
+
+        # A deregisters: its marks go with its records
+        lt.run(unpublish_card(state["runtimes"][0], state["cards"]["A"],
+                              ids["A"]))
+        lt.run(state["served"]["A"].shutdown(drain_timeout=1.0))
+        lt.run(_until(lambda: both(
+            lambda fe: ids["A"] not in entry(fe).instances
+            and ids["A"] not in entry(fe).router._draining),
+            "A deregistered"))
+        after = {name: set(entry(fe).draining) for name, fe in fes.items()}
+
+        # a card the port does not serve yet
+        with caplog.at_level("WARNING", logger="dynamo_tpu_torch.manager"):
+            lt.run(publish_card(state["runtimes"][0], RefCard(
+                name="tiny-embed", model_types=["embedding"],
+                kv_block_size=4), 0xD4))
+            lt.run(_until(lambda: any("tiny-embed" in r.getMessage()
+                                      for r in caplog.records),
+                          "the port's watcher saw the embedding card"))
+        port_models = [c.name for c in fes["port"].manager.list_models()]
+    finally:
+        try:
+            lt.run(down(), timeout=60.0)
+        finally:
+            lt.close()
+    assert got["port"] == got["ref"]
+    avail, overlaps, draining = got["port"]
+    assert avail == [ids["C"]]
+    assert draining == {ids["A"], ids["B"]}
+    assert overlaps == {(w, late): ({ids["C"]: 3} if w == "C" else {})
+                        for w, late in hashes}
+    assert after == {"port": {ids["B"]}, "ref": {ids["B"]}}
+    assert port_models == [MODEL]
