@@ -68,10 +68,14 @@ Phases, each printing one JSON line:
               greedy steps; row 4 = 32 x their forwards
   engine_spec - llama3-8b with DYNT_SPEC_ENABLE=1, DYNT_SPEC_MAX_K=4, and
               again with speculation off: the 8 requests plus 4 repetitive
-              prompts, then the first of those again; speculation must
-              verify drafts,
-              every greedy request's first 16 tokens must agree on and off,
-              and the folded pool kernel = 32 x spec forwards
+              prompts, then the first of those again, then a greedy
+              repetition-penalty request and a guided-regex request on
+              repetitive prompts, one at a time; speculation must verify
+              drafts, processor slots must ride verification steps (checked
+              on the host), every greedy request's first 16 tokens must
+              agree on and off (a processor stream may part only at a
+              near-tie of its processed logits), and the folded pool
+              kernel = 32 x spec forwards
   engine_q  - the quantized path: the same traffic through a TorchWorker
               serving mistral-7b with W4A16 weights (quantized on the card)
               and an int8 KV pool; launches: int8 decode kernel = 32 x
@@ -84,6 +88,20 @@ Phases, each printing one JSON line:
   graphs_q  - graphs_bf16 on that runner, plus a spec step at K = 5 (M =
               16 x 6 = 96: the GEMMs' TMA prefill body inside the graph)
   serve_q   - serve_bf16 on that worker (rows 2 and 6 under HTTP)
+  logits_q  - logits processors and structured outputs on that worker over
+              HTTP, its card naming the hermes tool parser: 8 concurrent
+              requests of 256-1,024 tokens (two greedy controls; penalties;
+              min_tokens 16 with EOS biased +100; seeded min_p; a chat
+              json_schema response_format; a guided choice; a chat with
+              tool_choice forcing get_weather), each checked (64 tokens,
+              stop after exactly 16, valid JSON, one of the choices, one
+              tool call and finish tool_calls); the same requests again
+              with CUDA graphs off give the same streams; the graphed turns
+              run no eager decode forward and capture nothing; rows 2 and 6
+              counted; TTFT and ITL per request, the controls' ITL beside
+              the same prompts without processors, host ms per logits step
+              by processor, bytes read back per step, the logits keys'
+              count, capture seconds and static outputs
   serve_kv  - KV-aware routing: a second mistral-7b W4A16 worker on the
               first's weights, each prewarmed, on its own port runtime
               (file discovery, the TCP request plane, the zmq event plane
@@ -135,6 +153,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -190,6 +209,8 @@ SPEC_K = 4
 SPEC_T = SPEC_K + 1
 # Leading greedy tokens that must be identical with speculation on and off.
 SPEC_PARITY_TOKENS = 16
+# engine_spec's guided request: lower-case a-h and spaces, at least 80
+SPEC_GUIDED_REGEX = "[a-h ]{80,}"
 # Attention cases beside the six at decode shapes: a fold of 40 rows per
 # kv head (llama3-70b's g = 8 at DYNT_SPEC_MAX_K = 4, two row tiles) and
 # the runner's full batch of 16 sequences, every history 2,047 tokens.
@@ -867,6 +888,27 @@ def _body(rid: str, token_ids, temperature: float, top_p: float) -> dict:
         stop=StopConditions(ignore_eos=True)).to_wire()
 
 
+def _processor_bodies(prompts, prefix: str) -> list:
+    """engine_spec's processor requests on repetitive prompts, greedy, 64
+    tokens: a repetition penalty, and a guided regex whose 80-character
+    minimum keeps EOS out of the 64 tokens."""
+    from dynamo_tpu_torch.llm.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    kinds = [({"repetition_penalty": 1.3}, []),
+             ({}, [{"name": "guided", "args": {"regex": SPEC_GUIDED_REGEX}}])]
+    return [PreprocessedRequest(
+        request_id=f"{prefix}-{i}", token_ids=[int(t) for t in p],
+        sampling=SamplingOptions(max_tokens=64, temperature=0.0, seed=i,
+                                 **sampling),
+        stop=StopConditions(ignore_eos=True),
+        logits_processors=procs).to_wire()
+        for i, (p, (sampling, procs)) in enumerate(zip(prompts, kinds))]
+
+
 def _bodies(prompts, prefix: str) -> list:
     """Half greedy (even i), half temperature 0.8 / top_p 0.9; the seed is
     i, so two waves of one prefix-free index draw alike."""
@@ -1006,15 +1048,40 @@ def _first_divergence(a: list, b: list) -> int:
                 min(len(a), len(b)))
 
 
+@contextlib.contextmanager
+def _host_margins():
+    """Record, for every greedy host sample of the scheduler (the processor
+    path), the gap between the processed row's two largest logits, keyed
+    by (seed, step): where two runs' processor streams part, this says
+    whether the step was a near-tie that rounding can flip."""
+    from dynamo_tpu_torch.engine import scheduler
+
+    margins = {}
+    plain = scheduler.host_sample
+
+    def recording(row, temperature, top_p, top_k, seed, step):
+        if temperature <= 0.0:
+            margins[(int(seed), int(step))] = _near_tie(row)
+        return plain(row, temperature, top_p, top_k, seed, step)
+
+    scheduler.host_sample = recording
+    try:
+        yield margins
+    finally:
+        scheduler.host_sample = plain
+
+
 def _spec_run(dev: torch.device, spec: bool) -> dict:
     """One llama3-8b worker with DYNT_SPEC_ENABLE on or off, DYNT_SPEC_MAX_K
     = 4: wave 1 is the standard 8 requests plus 4 repetitive prompts,
     admitted together; wave 2 repeats the first repetitive request (same
     prompt and seed), which the cross-request lookahead then drafts from
-    wave 1. Both waves are admitted whole (wave 2 is one request), so the
-    run is the same every time: which steps speculate, and so where the
-    verification forward's rounding meets the decode forward's, does not
-    depend on host timing."""
+    wave 1; then the two processor requests of `_processor_bodies` on the
+    second and third repetitive prompts, one at a time (with speculation on
+    they ride verification steps, checked on the host, _commit_spec_host).
+    Every wave is admitted whole, so the run is the same every time: which
+    steps speculate, and so where the verification forward's rounding meets
+    the decode forward's, does not depend on host timing."""
     from dynamo_tpu_torch.engine import TorchWorker
 
     torch.cuda.reset_peak_memory_stats()
@@ -1035,6 +1102,7 @@ def _spec_run(dev: torch.device, spec: bool) -> dict:
     rep = repetitive_traffic(vocab)
     wave1 = _bodies(prompts, "req") + _bodies(rep, "rep")
     wave2 = _bodies(rep[:1], "rep2")
+    procs = _processor_bodies(rep[1:3], "proc")
 
     # counts to zero just before the main path
     reset_counts()
@@ -1044,17 +1112,20 @@ def _spec_run(dev: torch.device, spec: bool) -> dict:
         start = time.perf_counter()
         first = await _serve_wave(worker, wave1, hold=True)
         second = await _serve_wave(worker, wave2)
+        for body in procs:
+            second += await _serve_wave(worker, [body])
         return first, second, time.perf_counter() - start
 
     try:
-        first, second, wall = asyncio.run(serve())
+        with _host_margins() as margins:
+            first, second, wall = asyncio.run(serve())
         torch.cuda.synchronize()
         launches = read_counts()
     finally:
         worker.close()
     check(sched.error is None, f"scheduler error {sched.error!r}")
     streams = {}
-    for body, res in zip(wave1 + wave2, first + second):
+    for body, res in zip(wave1 + wave2 + procs, first + second):
         check(res["finish"] == ["length"] and len(res["tokens"]) == 64,
               f"{body['request_id']}: finish {res['finish']}, "
               f"{len(res['tokens'])} tokens")
@@ -1071,6 +1142,7 @@ def _spec_run(dev: torch.device, spec: bool) -> dict:
     check(runner.graph_captures == 0,
           f"{label}: {runner.graph_captures} captures after prewarm")
     out = {"streams": streams, "stats": dataclasses.asdict(sched.stats),
+           "margins": margins,
            "launches": launches, "forwards": forwards, "wall_s": wall,
            "graphs": {**graph_report(runner),
                       "prewarm_captures": prewarm_captures},
@@ -1085,9 +1157,13 @@ def phase_engine_spec(dev: torch.device) -> dict:
     off. Checks: the spec run verified proposals; every greedy request's
     first 16 tokens are identical on and off (later tokens may part at a
     near-tie: the T = 5 verification forward and the T = 1 decode forward
-    round differently); the folded pool kernel launched once per layer of
-    every spec forward, the unfolded one once per layer of every decode
-    forward. Returns the spec run's launches."""
+    round differently); the two processor requests ran through verification
+    steps on the host (_commit_spec_host), their streams are the same on
+    and off or part where the processed row's top two logits are within
+    NEAR_TIE_NATS (`_host_margins`), and the guided one kept its grammar;
+    the folded pool kernel launched once per layer of every spec forward,
+    the unfolded one once per layer of every decode forward. Returns the
+    spec run's launches."""
     on = _spec_run(dev, True)
     off = _spec_run(dev, False)
     stats = on["stats"]
@@ -1096,19 +1172,52 @@ def phase_engine_spec(dev: torch.device) -> dict:
     check(off["stats"]["spec_steps"] == 0 and off["forwards"]["spec"] == 0,
           "engine_spec: the spec-off run speculated")
     divergence = {rid: _first_divergence(toks, off["streams"][rid])
-                  for rid, toks in on["streams"].items() if _greedy(rid)}
+                  for rid, toks in on["streams"].items()
+                  if _greedy(rid) or rid.startswith("proc-")}
     for rid, at in divergence.items():
+        if rid.startswith("proc-"):
+            continue
         check(at >= SPEC_PARITY_TOKENS,
               f"engine_spec: greedy {rid} differs with speculation on at "
               f"token {at} (< {SPEC_PARITY_TOKENS})")
+    # a processor stream is picked on the host from the processed rows: on
+    # and off it may part only where that row's top two were a near-tie
+    proc_margins = {}
+    for rid in (r for r in divergence if r.startswith("proc-")):
+        at = divergence[rid]
+        if at == len(on["streams"][rid]):
+            continue
+        key = (int(rid.split("-")[-1]), at)
+        gap = min(on["margins"].get(key, math.inf),
+                  off["margins"].get(key, math.inf))
+        proc_margins[rid] = gap
+        check(gap < NEAR_TIE_NATS,
+              f"engine_spec: {rid} differs with speculation on at token "
+              f"{at}, where its processed logits' top two are {gap} apart "
+              f"(not a near-tie, < {NEAR_TIE_NATS})")
+    check(stats["spec_logits_steps"] > 0,
+          f"engine_spec: no verification step carried a processor slot: "
+          f"{stats}")
+    guided = on["streams"]["proc-1"]
+    check(re.fullmatch(SPEC_GUIDED_REGEX.replace("{80,}", "{64}"),
+                       bytes(t for t in guided if t < 256).decode(
+                           "latin-1")) is not None and max(guided) < 256,
+          f"engine_spec: the guided stream left its grammar: {guided}")
     emit("engine_spec", model=MODEL, spec_max_k=SPEC_K,
-         requests_wave1=12, requests_wave2=1, spec_stats=stats,
+         requests_wave1=12, requests_wave2=1, processor_requests=2,
+         spec_stats=stats,
          acceptance_rate=(stats["spec_accepted"] / stats["spec_proposed"]),
          forwards_on=on["forwards"], forwards_off=off["forwards"],
          kernel_launches_on=on["launches"],
          kernel_launches_off=off["launches"],
          greedy_first_divergence=divergence,
          greedy_tokens_checked=SPEC_PARITY_TOKENS,
+         processor_streams_equal={
+             rid: on["streams"][rid] == off["streams"][rid]
+             for rid in on["streams"] if rid.startswith("proc-")},
+         processor_divergence_margin=proc_margins,
+         spec_logits_steps=stats["spec_logits_steps"],
+         host_ms_on=stats["host_ms"], logits_steps_on=stats["logits_steps"],
          itl_ms_mean_on=on["itl_ms_mean"], itl_ms_mean_off=off["itl_ms_mean"],
          ttft_ms_mean_on=on["ttft_ms_mean"],
          ttft_ms_mean_off=off["ttft_ms_mean"],
@@ -1130,8 +1239,8 @@ def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
     before reading them, so the two runs see the same pool.
 
     The first decode step and the verification chunk want logits, so they
-    run eagerly; the other steps replay graphs. The plain run is graphed
-    too: the graph key holds the step functions, so it captures its own
+    replay their logits keys; the other steps replay the plain keys. The
+    plain run is graphed too: the graph key holds the step functions, so it captures its own
     graphs and never replays the kernel run's. Returns each run's
     `launched_forwards`."""
     from dynamo_tpu_torch.engine.model_runner import bucket_table_width
@@ -1314,8 +1423,10 @@ def phase_dropins(dev: torch.device, worker) -> int:
             kernel["decode"] + kernel["spec"])
         want["paged_decode_attention_pool"] = n_layers * plain["decode"]
         want["paged_decode_attention_pool_folded"] = n_layers * plain["spec"]
-    check(kernel["decode"] >= steps and kernel["spec"] == 1
-          and plain["decode"] >= steps and plain["spec"] == 1,
+    # one verification forward each, plus its logits key's warm-up forward
+    # where that key was new
+    check(kernel["decode"] >= steps and 1 <= kernel["spec"] <= 2
+          and plain["decode"] >= steps and 1 <= plain["spec"] <= 2,
           f"dropins: forwards {forwards}")
     check(launches == want,
           f"dropins: kernel launches {launches} != expected {want}")
@@ -1580,8 +1691,9 @@ def phase_spec_q(dev: torch.device) -> dict:
         return targets, runner.last_spec_logits
 
     # the kernel run: 8 prefill forwards, then the spec forward at M = 8 x 5
-    # as a graph replay (its key captured first) and again eagerly for its
-    # logits; the two draw the same targets
+    # as a graph replay (its key captured first) and again through the
+    # logits key (its own graph) for its logits; the two draw the same
+    # targets
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1601,8 +1713,8 @@ def phase_spec_q(dev: torch.device) -> dict:
           f"spec_q: kernel launches {launches} != expected {want}")
     check_graphed(runner, "spec_q")
     check(np.array_equal(g_targets, k_targets),
-          "spec_q: the replayed spec step drew other targets than the "
-          "eager one")
+          "spec_q: the spec step drew other targets than its logits "
+          "variant")
     graphs = graph_report(runner)
     # the plain run over the same history
     runner.spec_attention_fn = paged_attention_spec_xla
@@ -1624,7 +1736,7 @@ def phase_spec_q(dev: torch.device) -> dict:
          tolerance_rel=PARITY_LOGITS_REL_TOL,
          targets_equal=int((k_targets == p_targets).sum()),
          targets=int(k_targets.size), kernel_launches=launches,
-         replayed_targets_equal_eager=True, **graphs)
+         targets_equal_logits_variant=True, **graphs)
     del runner
     free_memory()
     return launches
@@ -1662,11 +1774,12 @@ def phase_secondary(dev: torch.device, weight_dtype: str,
         torch.cuda.synchronize()
     launches = read_counts()
     # the kernel run: 1 prefill (a replay) + `steps` decode forwards and the
-    # warm-up forwards of their graph keys; the plain run launches nothing
+    # warm-up forwards of their two graph keys (the first step's
+    # decode_logits and the others' decode); the plain run launches nothing
     want = expected_counts(
         runner, dev, decode=forwards["kernel"]["decode"],
         prefill=runner.prefill_steps + runner.graph_warm_forwards["prefill"])
-    check(forwards["kernel"]["decode"] == steps + 1 and launches == want,
+    check(forwards["kernel"]["decode"] == steps + 2 and launches == want,
           f"{label}: kernel launches {launches} != expected {want} for "
           f"forwards {forwards}")
     check_graphed(runner, label)
@@ -1963,7 +2076,7 @@ def _sse_outcome(res: dict) -> dict:
     """Text, finish reason, usage and token-event stamps of an SSE answer."""
     check(res["events"] and res["events"][-1][1] == "[DONE]",
           "an SSE stream did not end with data: [DONE]")
-    text, finish, usage, stamps = [], None, None, []
+    text, finish, usage, stamps, calls = [], None, None, [], []
     for at, event in res["events"][:-1]:
         chunk = json.loads(event)
         check("error" not in chunk, f"in-band error {chunk}")
@@ -1971,12 +2084,16 @@ def _sse_outcome(res: dict) -> dict:
         for choice in chunk["choices"]:
             piece = choice.get("text", choice.get("delta", {}).get("content",
                                                                    ""))
+            called = choice.get("delta", {}).get("tool_calls")
             if piece:
                 text.append(piece)
+            if called:
+                calls += called
+            if piece or called:
                 stamps.append(at)
             finish = choice["finish_reason"] or finish
     return {"text": "".join(text), "finish": finish, "usage": usage,
-            "stamps": stamps, "t0": res["t0"]}
+            "stamps": stamps, "t0": res["t0"], "tool_calls": calls}
 
 
 def _aggregate_outcome(res: dict) -> dict:
@@ -2312,6 +2429,282 @@ def phase_serve(dev: torch.device, worker, label: str) -> None:
          prefill_forwards=runner.prefill_steps, kernel_launches=out[
              "launches"], **graph_report(runner),
          seconds=time.perf_counter() - t_phase)
+
+
+# Logits processors and structured outputs over HTTP: the host-sampling path
+
+LOGITS_LENGTHS = (600, 700, 256, 1024, 300, 400, 900, 512)
+LOGITS_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"},
+    "color": {"enum": ["red", "green", "blue"]}}, "required": ["ok", "color"]}
+LOGITS_CHOICES = ("alpha", "beta", "gamma")
+LOGITS_TOOL = {"type": "function", "function": {
+    "name": "get_weather",
+    "parameters": {"type": "object",
+                   "properties": {"city": {"type": "string"}},
+                   "required": ["city"]}}}
+
+
+def logits_traffic(vocab: int, model: str) -> list:
+    """logits_q's 8 requests as (name, body without processors, the fields
+    that add them). Prompts of 256-1,024 tokens from the standard traffic's
+    seed; the two chat requests carry them as printable ASCII (one token a
+    character under the byte tokenizer, plus the chat template's). All
+    stream (SSE)."""
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(1, vocab, n) for n in LOGITS_LENGTHS]
+    base = {"model": model, "stream": True,
+            "stream_options": {"include_usage": True}, "temperature": 0.0,
+            "max_tokens": 64}
+
+    def completion(i, **kw):
+        return {**base, "prompt": [int(t) for t in prompts[i]],
+                "ignore_eos": True, **kw}
+
+    def chat(i, **kw):
+        text = "".join(chr(32 + int(t) % 95) for t in prompts[i])
+        return {**base, "messages": [{"role": "user", "content": text}],
+                **kw}
+
+    eos = ByteTokenizer.EOS
+    return [
+        ("a-control", completion(0), {}),
+        ("b-control", completion(1), {}),
+        ("c-penalties", completion(2), {
+            "repetition_penalty": 1.3, "frequency_penalty": 0.5,
+            "presence_penalty": 0.5}),
+        ("d-min-tokens", completion(3, ignore_eos=False), {
+            "logit_bias": {str(eos): 100}, "min_tokens": 16}),
+        ("e-min-p", completion(4, temperature=0.8, top_p=0.9, seed=7),
+         {"min_p": 0.1}),
+        ("f-json-schema", chat(5), {"response_format": {
+            "type": "json_schema",
+            "json_schema": {"name": "answer", "schema": LOGITS_SCHEMA}}}),
+        ("g-choice", completion(6, ignore_eos=False), {
+            "nvext": {"guided_decoding": {"choice": list(LOGITS_CHOICES)}}}),
+        # the bias on '"' keeps the random model's free string short
+        ("h-tool", chat(7, max_tokens=128), {
+            "tools": [LOGITS_TOOL], "logit_bias": {"34": 8},
+            "tool_choice": {"type": "function",
+                            "function": {"name": "get_weather"}}}),
+    ]
+
+
+def _check_logits_outcome(label: str, name: str, out: dict) -> None:
+    """What each logits_q request must give (see logits_traffic)."""
+    usage, finish, text = out["usage"], out["finish"], out["text"]
+    if name in ("a-control", "b-control", "c-penalties", "e-min-p"):
+        check(finish == "length" and usage["completion_tokens"] == 64,
+              f"{label}: {name} finish {finish}, usage {usage}")
+    elif name == "d-min-tokens":
+        # min_tokens bans EOS for 16 tokens, then the +100 bias picks it
+        check(finish == "stop" and usage["completion_tokens"] == 17,
+              f"{label}: {name} must stop after 16 non-EOS tokens: "
+              f"{finish}, {usage}")
+    elif name == "f-json-schema":
+        check(finish == "stop", f"{label}: {name} finish {finish}")
+        value = json.loads(text)
+        check(set(value) == {"ok", "color"}
+              and isinstance(value["ok"], bool)
+              and value["color"] in ("red", "green", "blue"),
+              f"{label}: {name} does not validate: {text!r}")
+    elif name == "g-choice":
+        check(finish == "stop" and text in LOGITS_CHOICES,
+              f"{label}: {name} gave {text!r} ({finish})")
+    elif name == "h-tool":
+        calls = out["tool_calls"]
+        check(finish == "tool_calls" and len(calls) == 1
+              and calls[0]["function"]["name"] == "get_weather"
+              and isinstance(json.loads(calls[0]["function"]["arguments"]),
+                             dict),
+              f"{label}: {name} finish {finish}, tool_calls {calls}, "
+              f"text {text!r}")
+
+
+def phase_logits_q(dev: torch.device, worker) -> dict:
+    """Logits processors, penalties and structured outputs on a served,
+    prewarmed runner (its scheduler stopped), over HTTP through the port's
+    frontend as serve_q runs it, the card naming the hermes tool parser.
+    The 8 requests of `logits_traffic`: two greedy controls, penalties,
+    min_tokens with EOS biased up, seeded min_p, a chat json_schema
+    response_format, a guided choice and a chat with tool_choice forcing.
+    Turns, each on a new scheduler that starts once all 8 are in: the
+    requests without processors (warm), with them, without them again, and
+    with them on the same runner with CUDA graphs off. Checks: each
+    request's outcome (logits_traffic), the processor turn's streams equal
+    the eager turn's, the graphed turns ran no decode forward eagerly and
+    captured nothing, and the kernels launched once per layer (projection)
+    of each forward. Prints TTFT and ITL of each request, the controls' ITL
+    with and without the processor slots beside them, the host milliseconds
+    per logits step by processor and in host_sample, the bytes read back
+    per logits step, and the logits keys' count, capture seconds and static
+    outputs. Returns the graphed turns' launches."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import InferenceScheduler
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.llm.tokenizer import load_tokenizer
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    label = "logits_q"
+    t_phase = time.perf_counter()
+    runner = worker.runner
+    model = worker.card.name
+    worker.card.tool_parser = "hermes"  # published for this phase
+    traffic = logits_traffic(worker.model_config.vocab_size, model)
+    plain = [body for _, body, _ in traffic]
+    processed = [{**body, **extra} for _, body, extra in traffic]
+
+    def fresh_scheduler():
+        worker.scheduler.stop()
+        worker.scheduler = InferenceScheduler(runner)
+        worker.scheduler.logits_tokenizer = load_tokenizer(
+            worker.card.tokenizer)
+        return worker.scheduler
+
+    async def wait_submitted(sched, n: int) -> None:
+        while sched._incoming.qsize() < n:
+            await asyncio.sleep(0.0005)
+
+    async def turn(port: int, bodies: list, graphs: bool = True) -> dict:
+        sched = fresh_scheduler()
+        runner.config.cuda_graphs = graphs
+        reads, read_bytes = runner.logits_reads, runner.logits_bytes_read
+        try:
+            start = time.perf_counter()
+            tasks = []
+            for i, body in enumerate(bodies):
+                tasks.append(asyncio.ensure_future(
+                    _http(port, "POST", "/v1/chat/completions"
+                          if "messages" in body else "/v1/completions",
+                          body)))
+                await asyncio.wait_for(wait_submitted(sched, i + 1), 60)
+            sched.start()
+            answers = await asyncio.wait_for(asyncio.gather(*tasks), 300)
+            wall = time.perf_counter() - start
+        finally:
+            runner.config.cuda_graphs = True
+        check(sched.error is None, f"{label}: scheduler error {sched.error!r}")
+        for (name, _, _), a in zip(traffic, answers):
+            check(a["status"] == 200, f"{label}: {name} HTTP {a['status']}")
+        return {"wall": wall, "stats": sched.stats,
+                "outcomes": [_sse_outcome(a) for a in answers],
+                "logits_reads": runner.logits_reads - reads,
+                "logits_bytes": runner.logits_bytes_read - read_bytes}
+
+    async def serve() -> dict:
+        root = tempfile.mkdtemp(prefix="chip_smoke_discovery_")
+        cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
+                            tcp_host="127.0.0.1", system_enabled=False)
+        rt = await DistributedRuntime(cfg).start()
+        frontend = Frontend(rt, host="127.0.0.1", port=0)
+        out = {}
+        try:
+            await worker.serve(rt)
+            await frontend.start()
+            port = frontend.port
+            t_list = time.perf_counter()
+            while frontend.manager.get(model) is None:
+                check(time.perf_counter() - t_list < 30,
+                      f"{label}: the frontend never listed {model}")
+                await asyncio.sleep(0.05)
+            check(frontend.manager.get(model).preprocessor.card.tool_parser
+                  == "hermes", f"{label}: the card's tool parser is not "
+                  "hermes at the frontend")
+            out["warm"] = await turn(port, plain)
+            # counts to zero just before the main path
+            reset_counts()
+            reset_runner_counts(runner)
+            out["processors"] = await turn(port, processed)
+            out["plain"] = await turn(port, plain)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["launches"] = read_counts()
+            out["forwards"] = {"decode": runner.decode_steps,
+                               "prefill": runner.prefill_steps,
+                               "spec": runner.spec_steps}
+            out["graphs"] = graph_report(runner)
+            check_graphed(runner, label)
+            check(runner.graph_captures == 0,
+                  f"{label}: {runner.graph_captures} captures while serving")
+            want = expected_counts(runner, dev, **out["forwards"],
+                                   warm=runner.graph_warm_forwards)
+            check(runner.decode_steps > 0 and out["launches"] == want,
+                  f"{label}: kernel launches {out['launches']} != expected "
+                  f"{want} for forwards {out['forwards']}")
+            reset_runner_counts(runner)
+            out["eager"] = await turn(port, processed, graphs=False)
+            out["eager_forwards"] = dict(runner.eager_forwards)
+        finally:
+            await frontend.close()
+            await worker.shutdown()
+            await rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        return out
+
+    out = asyncio.run(serve())
+    proc, eager, plain_turn = out["processors"], out["eager"], out["plain"]
+    check(out["eager_forwards"]["decode"] > 0,
+          f"{label}: the graphs-off turn ran no eager decode forward")
+    names = [name for name, _, _ in traffic]
+    for name, o in zip(names, proc["outcomes"]):
+        _check_logits_outcome(label, name, o)
+    for name, got, want in zip(names, eager["outcomes"], proc["outcomes"]):
+        check((got["text"], got["tool_calls"] and [
+            c["function"] for c in got["tool_calls"]], got["finish"],
+            got["usage"]) == (want["text"], want["tool_calls"] and [
+                c["function"] for c in want["tool_calls"]], want["finish"],
+                want["usage"]),
+              f"{label}: {name} differs with CUDA graphs off")
+    stats = proc["stats"]
+    steps = max(stats.logits_steps, 1)
+    keys = [k for k in runner.step_graphs
+            if k[0] in ("decode_logits", "decode_spec_logits")]
+
+    def latency(o: dict) -> dict:
+        st, n = o["stamps"], o["usage"]["completion_tokens"]
+        return {"ttft_ms": (st[0] - o["t0"]) * 1e3,
+                "itl_ms": ((st[-1] - st[0]) * 1e3 / (n - 1)
+                           if len(st) > 1 and n > 1 else None)}
+
+    emit(label, model=model, weight_dtype=runner.config.weight_dtype,
+         kv_dtype=runner.config.kv_dtype, tool_parser="hermes",
+         requests=names, prompt_lengths=list(LOGITS_LENGTHS),
+         latency={name: latency(o)
+                  for name, o in zip(names, proc["outcomes"])},
+         controls_itl_ms_with_processors=[
+             latency(o)["itl_ms"] for o in proc["outcomes"][:2]],
+         controls_itl_ms_without=[
+             latency(o)["itl_ms"] for o in plain_turn["outcomes"][:2]],
+         outcomes={name: {"finish": o["finish"], "text": o["text"][:80],
+                          "completion_tokens":
+                          o["usage"]["completion_tokens"],
+                          "tool_calls": [c["function"]
+                                         for c in o["tool_calls"]]}
+                   for name, o in zip(names, proc["outcomes"])},
+         logits_steps=stats.logits_steps,
+         decode_tokens=stats.decode_tokens,
+         host_ms_per_logits_step={k: v / steps
+                                  for k, v in sorted(stats.host_ms.items())},
+         host_ms_total=dict(sorted(stats.host_ms.items())),
+         bytes_read_per_logits_step=(proc["logits_bytes"]
+                                     / max(proc["logits_reads"], 1)),
+         logits_reads=proc["logits_reads"],
+         turn_wall_s={"processors": proc["wall"], "plain": plain_turn["wall"],
+                      "eager": eager["wall"]},
+         streams_equal_graphs_off=True,
+         eager_turn_forwards=out["eager_forwards"],
+         logits_keys=len(keys),
+         logits_keys_capture_s=sum(runner.step_graphs[k].capture_s
+                                   for k in keys),
+         logits_keys_output_MB=sum(
+             t.numel() * t.element_size()
+             for k in keys for t in runner.step_graphs[k].outputs) / 1e6,
+         forwards=out["forwards"], kernel_launches=out["launches"],
+         **out["graphs"], seconds=time.perf_counter() - t_phase)
+    return out["launches"]
 
 
 # KV-aware routing: two workers behind the port's kv-mode frontend
@@ -2899,6 +3292,8 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + n
         phase_graphs(dev, worker, "graphs_q", spec_ks=(SPEC_K, SPEC_K + 1))
         phase_serve(dev, worker, "serve_q")
+        for name, n in phase_logits_q(dev, worker).items():
+            launches[name] = launches.get(name, 0) + n
         for run in range(KV_RUNS):
             for name, n in phase_serve_kv(dev, worker, run).items():
                 launches[name] = launches.get(name, 0) + n

@@ -49,9 +49,13 @@ what a graph bakes in: the batch, the block table's width
 (`bucket_table_width`; prefill's is always `max_pages_per_seq`),
 `want_logprobs` / k / t / the prefill bucket, and the functions the step
 calls. A key is captured at its first use; `prewarm` captures the whole
-steady-state key space up front. The decode and spec `want_logits`
-variants run eagerly; with `cuda_graphs` off every step runs the same
-function op by op.
+steady-state key space up front. The logits-processor variants
+(`decode(want_logits=True)`, `decode_spec(want_logits=True)`) are keys of
+their own ("decode_logits", "decode_spec_logits") with the raw [B, V] /
+[B, K+1, V] logits as one more output; only the rows of the slots the
+caller names are indexed out on the device and copied to the host, through
+pinned memory. With `cuda_graphs` off every step runs the same function op
+by op.
 """
 
 from __future__ import annotations
@@ -237,8 +241,8 @@ class ModelRunner:
         # The step graphs by key (`_run_step`), sharing one memory pool and
         # one capture stream. Captures, replays and the seconds captures
         # took; the eager forwards a capture ran before capturing (they
-        # launch kernels; not in decode_steps / spec_steps); forwards of
-        # graphable calls that ran eagerly (cuda_graphs off).
+        # launch kernels; not in decode_steps / spec_steps); forwards that
+        # ran eagerly (cuda_graphs off).
         self.step_graphs: dict[tuple, StepGraph] = {}
         self._graph_pool = None
         self._capture_stream = None
@@ -253,6 +257,10 @@ class ModelRunner:
         self.last_decode_sample = (None, None, None)
         self.last_decode_logits = None
         self.last_spec_logits = None
+        # Logits-processor readbacks: steps that copied logits rows to the
+        # host, and the bytes they copied.
+        self.logits_reads = 0
+        self.logits_bytes_read = 0
 
     # -- helpers -----------------------------------------------------------
 
@@ -462,18 +470,20 @@ class ModelRunner:
                 "seeds": seeds, "steps": steps}
 
     def _run_step(self, method: str, variant, forwards: int, step: Step,
-                  values: dict, graphable: bool = True) -> tuple:
+                  values: dict, clone: bool = True) -> tuple:
         """Run `step` over `values` (host arrays or device tensors, by
         `STEP_INPUTS` name): replay the graph of key (method, batch, table
         width, variant, functions), capturing it first if it is new, or run
-        eagerly when the call is not graphable or `cuda_graphs` is off.
-        `forwards` is the number of model forwards the step runs. A capture
-        that fails raises; nothing falls back to eager."""
-        kind = {"decode_spec": "spec", "prefill": "prefill",
+        eagerly when `cuda_graphs` is off.
+        `forwards` is the number of model forwards the step runs. With
+        `clone=False` a replay returns the graph's static outputs, valid
+        until the key's next replay. A capture that fails raises; nothing
+        falls back to eager."""
+        kind = {"decode_spec": "spec", "decode_spec_logits": "spec",
+                "prefill": "prefill",
                 "prefill_logits": "prefill"}.get(method, "decode")
-        if not (graphable and self.config.cuda_graphs):
-            if graphable:
-                self.eager_forwards[kind] += forwards
+        if not self.config.cuda_graphs:
+            self.eager_forwards[kind] += forwards
             return step({name: self._t(
                 value if isinstance(value, torch.Tensor)
                 else np.asarray(value, NUMPY_DTYPES[STEP_INPUTS[name]]),
@@ -486,7 +496,7 @@ class ModelRunner:
             self.step_graphs[key] = graph
             self.graph_warm_forwards[kind] += forwards
         self.graph_replays += 1
-        return graph.run(values)
+        return graph.run(values, clone=clone)
 
     def _capture(self, step: Step, values: dict) -> StepGraph:
         """A new key's graph over neutral static inputs (every slot
@@ -503,7 +513,8 @@ class ModelRunner:
             graph.capture(self._graph_pool, self._capture_stream)
         else:
             graph.capture()
-        self.graph_capture_s += time.perf_counter() - t0
+        graph.capture_s = time.perf_counter() - t0
+        self.graph_capture_s += graph.capture_s
         self.graph_captures += 1
         return graph
 
@@ -516,6 +527,27 @@ class ModelRunner:
         pool = tuple(self._graph_pool)
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def _logits_rows(self, logits: torch.Tensor,
+                     slots: Optional[Sequence[int]]) -> torch.Tensor:
+        """The logits rows of `slots` (all rows when None) as a host tensor:
+        indexed on the device, so only those rows cross, then one copy into
+        pinned memory. On the card the copy is asynchronous: the host tensor
+        is ready after the next synchronizing readback on the same stream
+        (each caller reads its tokens back right after)."""
+        if slots is not None:
+            idx = torch.from_numpy(np.asarray(slots, np.int64))
+            if logits.is_cuda:  # pinned: the index copy does not sync
+                idx = idx.pin_memory().to(logits.device, non_blocking=True)
+            logits = logits.index_select(0, idx)
+        self.logits_reads += 1
+        self.logits_bytes_read += logits.numel() * logits.element_size()
+        if logits.device.type != "cuda":
+            return logits.clone()
+        host = torch.empty(logits.shape, dtype=logits.dtype,
+                           pin_memory=True)
+        host.copy_(logits, non_blocking=True)
+        return host
 
     @torch.inference_mode()
     def decode(
@@ -532,13 +564,18 @@ class ModelRunner:
         steps: Optional[np.ndarray] = None,  # [B] per-slot token index
         want_logprobs: bool = False,
         want_logits: bool = False,
+        logits_slots: Optional[Sequence[int]] = None,
     ) -> np.ndarray:
         """One decode step for all slots; returns sampled tokens [B] on the
-        host. `want_logprobs` fills `last_decode_sample`; `want_logits`
-        fills `last_decode_logits` with the raw [B, V] rows (and runs
-        eagerly)."""
+        host. `want_logprobs` fills `last_decode_sample`. `want_logits`
+        selects the logits-processor variant (key "decode_logits"): it
+        fills `last_decode_logits` with the raw logits rows of
+        `logits_slots`, in that order ([len(slots), V]; every slot's row
+        when None), and overrides `want_logprobs` as in the reference (the
+        scheduler derives logprob data on the host from the raw rows)."""
         self.decode_steps += 1
         fwd = self._decode_forward_fn()
+        want_logprobs = want_logprobs and not want_logits
 
         def step(x):
             logits = fwd(x["tokens"], x["positions"], x["tables"], x["lens"],
@@ -549,14 +586,22 @@ class ModelRunner:
                    else (sample(logits, *samp),))
             return out + ((logits,) if want_logits else ())
 
-        out = self._run_step(
-            "decode", want_logprobs, 1, step,
-            self._step_values(tokens, positions, block_tables, kv_lens,
-                              active, temperature, top_p, top_k, seeds, steps),
-            graphable=not want_logits)
+        values = self._step_values(tokens, positions, block_tables, kv_lens,
+                                   active, temperature, top_p, top_k, seeds,
+                                   steps)
+        if want_logits:
+            # Static outputs, no clone: only the asked rows leave the graph.
+            out = self._run_step("decode_logits", None, 1, step, values,
+                                 clone=False)
+            rows = self._logits_rows(out[1], logits_slots)
+            next_tokens = out[0].cpu().numpy()  # syncs: `rows` has landed
+            self.last_decode_sample = (None, None, None)
+            self.last_decode_logits = rows.numpy()
+            return next_tokens
+        out = self._run_step("decode", want_logprobs, 1, step, values)
         self.last_decode_sample = (tuple(t.cpu().numpy() for t in out[1:4])
                                    if want_logprobs else (None, None, None))
-        self.last_decode_logits = out[-1].cpu().numpy() if want_logits else None
+        self.last_decode_logits = None
         return out[0].cpu().numpy()
 
     @torch.inference_mode()
@@ -623,14 +668,17 @@ class ModelRunner:
         steps: Optional[np.ndarray] = None,
         want_logits: bool = False,
         return_device: bool = False,
+        logits_slots: Optional[Sequence[int]] = None,
     ):
         """One speculative verification step. Returns (targets [B, K+1],
         n_accept [B]); callers commit targets[b, : n_accept[b] + 1], the
         tokens K+1 sequential decode steps would sample for the accepted
-        prefix. `want_logits` fills `last_spec_logits` with the raw
-        [B, K+1, V] rows (and runs eagerly); `return_device=True` skips the
-        readback (the scheduler drains after overlapping prefill and
-        admission)."""
+        prefix. `want_logits` selects the key "decode_spec_logits" and fills
+        `last_spec_logits` with the raw [len(slots), K+1, V] rows of
+        `logits_slots` (every slot's when None). `return_device=True` skips
+        the readback (the scheduler drains after overlapping prefill and
+        admission); `last_spec_logits` is then a host tensor, ready once the
+        targets have been read back."""
         t = _shape(drafts)[1] + 1
         self.spec_steps += 1
         model, kv = self.model, self.kv_cache
@@ -653,13 +701,23 @@ class ModelRunner:
                                    active, temperature, top_p, top_k, seeds,
                                    steps)
         values["drafts"] = drafts
-        out = self._run_step("decode_spec", t, 1, step, values,
-                             graphable=not want_logits)
-        targets, n_accept = out[:2]
-        self.last_spec_logits = out[2].cpu().numpy() if want_logits else None
+        if want_logits:
+            # Static outputs: the targets are cloned, the logits indexed to
+            # the asked rows before they leave the graph.
+            out = self._run_step("decode_spec_logits", t, 1, step, values,
+                                 clone=False)
+            targets, n_accept = out[0].clone(), out[1].clone()
+            self.last_spec_logits = self._logits_rows(out[2], logits_slots)
+        else:
+            targets, n_accept = self._run_step("decode_spec", t, 1, step,
+                                               values)
+            self.last_spec_logits = None
         if return_device:
             return targets, n_accept
-        return targets.cpu().numpy(), n_accept.cpu().numpy()
+        targets, n_accept = targets.cpu().numpy(), n_accept.cpu().numpy()
+        if want_logits:
+            self.last_spec_logits = self.last_spec_logits.numpy()
+        return targets, n_accept
 
     def warmup(self) -> None:
         """One decode step and one tiny prefill (on the card this builds the
@@ -686,11 +744,13 @@ class ModelRunner:
         prefill key of `prefill_keys` (one batched call each, its rows
         writing to scratch page 0), then for every table-width bucket the
         fused block (k = DYNT_DECODE_BLOCK, when above 1), `decode` with
-        and without logprobs, and the verification step for each draft
-        count in `spec_widths` (default: [DYNT_SPEC_MAX_K] when
-        DYNT_SPEC_ENABLE is set and the runner supports speculation). The
-        scheduler's batch is `max_batch`. The `want_logits` variants stay
-        lazy, as in the reference."""
+        and without logprobs and its logits-processor variant, and the
+        verification step, with and without logits, for each draft count in
+        `spec_widths` (default: [DYNT_SPEC_MAX_K] when DYNT_SPEC_ENABLE is
+        set and the runner supports speculation). The scheduler's batch is
+        `max_batch`. The reference compiles its logits variants lazily; here
+        they are captured up front, so a first processor request does not
+        stall every stream while its key is captured."""
         self.warmup()
         b = self.config.max_batch
         p = self.config.max_pages_per_seq
@@ -715,9 +775,14 @@ class ModelRunner:
             for want_logprobs in (False, True):
                 self.decode(zeros_i, zeros_i, tables, *idle,
                             want_logprobs=want_logprobs)
+            self.decode(zeros_i, zeros_i, tables, *idle, want_logits=True,
+                        logits_slots=[])
             for k in spec_widths:
-                self.decode_spec(zeros_i, np.zeros((b, k), np.int32), zeros_i,
-                                 tables, *idle, return_device=True)
+                for want_logits in (False, True):
+                    self.decode_spec(zeros_i, np.zeros((b, k), np.int32),
+                                     zeros_i, tables, *idle,
+                                     want_logits=want_logits,
+                                     logits_slots=[], return_device=True)
 
 
 def _shape(x) -> tuple:

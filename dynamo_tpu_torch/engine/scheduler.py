@@ -4,12 +4,16 @@ Port of `dynamo_tpu/engine/scheduler.py`, trimmed to the engine core: slot
 based continuous batching, chunked prefill, the prefix cache through
 `PagePool`, fused decode blocks with pipelined dispatch/drain, speculative
 decoding (DYNT_SPEC_*: n-gram drafts verified in one batched forward,
-`_maybe_dispatch_spec`), per-token streaming, cancellation, and the stop
-conditions (max_tokens, eos, stop_token_ids, ignore_eos). It runs in its
-own thread; results cross into asyncio through the `emit` callbacks. The
-page pool's registrations and evictions reach the `on_stored` /
-`on_removed` hooks (the worker's KV events), and `queue_depth` and the
-last step's stats feed its load metrics.
+`_maybe_dispatch_spec`), per-token streaming, cancellation, the stop
+conditions (max_tokens, eos, stop_token_ids, ignore_eos), and logits
+processors: penalties, logit_bias, min_p, min_tokens, guided decoding and
+registered `logits_processors` (`llm/logits_processing.py`). A processor
+sequence takes the host-sampling decode path: per-token steps that copy its
+raw logits row to the host (`_decode_single`), verified on the host under
+speculation (`_commit_spec_host`). It runs in its own thread; results cross
+into asyncio through the `emit` callbacks. The page pool's registrations
+and evictions reach the `on_stored` / `on_removed` hooks (the worker's KV
+events), and `queue_depth` and the last step's stats feed its load metrics.
 
 Scheduling per iteration, as in the JAX package:
   1. admit waiting requests into free slots while pages allocate
@@ -28,9 +32,7 @@ least spec_k + 1 with speculation on), so a sequence that stops inside a
 block, or past rejected drafts, writes its surplus KV into its own pages;
 the surplus tokens are discarded at drain.
 
-Not ported yet (each is a later slice): KVBM tiers, preemption/park, logits
-processors and penalties (and with them speculation's host verification
-leg for processor slots, the reference's `_commit_spec_host`),
+Not ported yet (each is a later slice): KVBM tiers, preemption/park,
 drain/handoff, prefill-only/disaggregated serving, LoRA, multimodal,
 steptrace and the flight recorder. Requests that need one of them finish
 with an error.
@@ -48,10 +50,20 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..config import env
+from ..llm.logits_processing import (
+    LogitBiasProcessor,
+    MinPProcessor,
+    MinTokensProcessor,
+    PenaltyProcessor,
+    RepetitionPenaltyProcessor,
+    host_sample,
+    resolve_processors,
+)
 from ..llm.protocols import EngineOutput, PreprocessedRequest
 from ..tokens import TokenBlockSequence, compute_block_hashes
 from .model_runner import ModelRunner, bucket_table_width
 from .pages import PageAllocation, PagePool
+from .sampler import TOP_LOGPROBS_K
 from .spec import BlockLookahead, NGramProposer, SlotSpec, propose_for
 
 log = logging.getLogger("dynamo_tpu_torch.scheduler")
@@ -79,6 +91,15 @@ class _Seq:
     # Speculation state (engine/spec.py): the proposer's index over this
     # sequence's history and its acceptance EMA; None with speculation off.
     spec: Optional[SlotSpec] = None
+    # Logits processors (llm/logits_processing.py), instantiated per request
+    # at _prepare; non-empty routes this sequence through the host-sampling
+    # decode path (per-token steps with a raw-logits readback).
+    processors: Optional[list] = None
+    # Processor sequences defer their FIRST token past prefill (prefill
+    # samples on the device, with no processors): the first decode step
+    # re-runs the last prompt token at prompt_len - 1 (a KV rewrite of the
+    # same values, up to rounding) and the host path picks the token.
+    first_deferred: bool = False
 
     @property
     def decode_ready(self) -> bool:
@@ -109,15 +130,18 @@ class SchedulerStats:
     spec_ema: float = 0.0
     # Prefill iterations whose chunks went out as one batched dispatch
     prefill_batched_steps: int = 0
+    # Logits processors: per-token decode or verification steps that read
+    # raw logits rows back for processor slots, and the host milliseconds
+    # spent in each processor class and in `host_sample` (key
+    # "host_sample") over all of them.
+    logits_steps: int = 0
+    host_ms: dict = dataclasses.field(default_factory=dict)
+    # Verification steps that carried a processor slot (_commit_spec_host)
+    spec_logits_steps: int = 0
 
 
 def _unsupported(request: PreprocessedRequest) -> Optional[str]:
     """Why this engine cannot serve `request` yet, or None."""
-    s = request.sampling
-    if (s.logit_bias or s.frequency_penalty or s.presence_penalty
-            or s.repetition_penalty != 1.0 or (s.min_p and s.temperature > 0)
-            or request.stop.min_tokens or request.logits_processors):
-        return "logits processors / penalties are not ported yet"
     if request.lora_name:
         return "LoRA adapters are not ported yet"
     if request.media_hashes or request.media_embeddings is not None:
@@ -173,6 +197,10 @@ class InferenceScheduler:
         self._thread: Optional[threading.Thread] = None
         self.error: Optional[BaseException] = None
         self.stats = SchedulerStats()
+        # The tokenizer handed to logits-processor factories that declare a
+        # `tokenizer` parameter (guided decoding needs it); the worker sets
+        # it from its card.
+        self.logits_tokenizer = None
         # decode input buffers (reused)
         b, p = cfg.max_batch, cfg.max_pages_per_seq
         self._tokens = np.zeros(b, np.int32)
@@ -288,12 +316,19 @@ class InferenceScheduler:
         seed = request.sampling.seed
         if seed is None:
             seed = abs(hash(request.request_id)) & 0xFFFFFFFF
+        try:
+            processors = self._build_processors(request)
+        except (ValueError, TypeError, KeyError) as exc:
+            emit(EngineOutput(finish_reason="error",
+                              error=f"logits processors: {exc}"))
+            return None
         seq = _Seq(
             request=request, emit=emit, block_hashes=block_hashes,
             alloc=PageAllocation([], [], 0),
             block_table=np.zeros(self.runner.config.max_pages_per_seq,
                                  np.int32),
             slot=-1, prompt_len=prompt_len, prefill_pos=0, seed=seed,
+            processors=processors,
         )
         if self.spec_enabled:
             stop_ids = set(request.stop.stop_token_ids)
@@ -305,6 +340,41 @@ class InferenceScheduler:
             seq.spec = SlotSpec(proposer=NGramProposer(request.token_ids),
                                 stop_ids=frozenset(stop_ids), hasher=hasher)
         return seq
+
+    def _build_processors(self, request: PreprocessedRequest):
+        """Instantiate the request's logits processors (explicit specs +
+        implicit ones for logit_bias and penalties), in the reference's
+        order. Non-empty switches the sequence onto the host-sampling decode
+        path."""
+        procs: list = []
+        s = request.sampling
+        if s.logit_bias:
+            procs.append(LogitBiasProcessor(
+                {int(k): float(v) for k, v in s.logit_bias.items()}))
+        if s.frequency_penalty or s.presence_penalty:
+            procs.append(PenaltyProcessor(s.frequency_penalty,
+                                          s.presence_penalty))
+        if s.repetition_penalty != 1.0:
+            # HF semantics penalize prompt AND generated tokens
+            procs.append(RepetitionPenaltyProcessor(
+                s.repetition_penalty, prompt_ids=request.token_ids))
+        if request.stop.min_tokens:
+            procs.append(MinTokensProcessor(
+                request.stop.min_tokens,
+                list(request.eos_token_ids)
+                + list(request.stop.stop_token_ids)))
+        if request.logits_processors:
+            procs.extend(resolve_processors(request.logits_processors,
+                                            tokenizer=self.logits_tokenizer))
+        if s.min_p and s.temperature > 0:
+            # temperature 0 is argmax: min_p can never change it, and the
+            # processor would force the per-step host readback for nothing.
+            # LAST: the min_p floor is relative to the max probability of
+            # the distribution actually sampled from, after guided / user
+            # processors have masked it; ahead of them it could mask every
+            # grammar-legal token (an all -inf row).
+            procs.append(MinPProcessor(s.min_p, s.temperature))
+        return procs or None
 
     def _admit(self) -> int:
         admitted = 0
@@ -412,8 +482,9 @@ class InferenceScheduler:
         is_final = seq.prefill_pos + chunk >= seq.prompt_len
         sampling = seq.request.sampling
         # Only a final chunk that needs logprob data reads back now; plain
-        # final chunks defer the copy one iteration (_pending_prefill).
-        sync = is_final and sampling.logprobs
+        # final chunks defer the copy one iteration (_pending_prefill), and
+        # a processor sequence discards its token (_defer_first_token).
+        sync = is_final and sampling.logprobs and not seq.processors
         token = self.runner.prefill_chunk(
             tokens, seq.prefill_pos, seq.block_table,
             kv_len_after=seq.prefill_pos + chunk,
@@ -423,7 +494,9 @@ class InferenceScheduler:
         )
         seq.prefill_pos += chunk
         if is_final:
-            if sync:
+            if seq.processors:
+                self._defer_first_token(seq)
+            elif sync:
                 self._append_token(seq, token, prompt_tokens=seq.prompt_len,
                                    sample_info=self.runner.last_prefill_sample)
             else:
@@ -434,7 +507,8 @@ class InferenceScheduler:
         """Dispatch several sequences' prefill chunks at once
         (`ModelRunner.prefill_chunk_batch`); final chunks are handled as
         `_prefill_single` handles them: a plain final token is deferred
-        through `_pending_prefill`, a logprobs row reads back at once."""
+        through `_pending_prefill`, a logprobs row reads back at once, and a
+        processor sequence defers its first token to decode."""
         finals = [seq.prefill_pos + chunk >= seq.prompt_len
                   for seq, chunk in work]
         rows = []
@@ -445,6 +519,7 @@ class InferenceScheduler:
                 seq.prefill_pos, seq.block_table, seq.prefill_pos + chunk,
                 (s.temperature, s.top_p, s.top_k, seq.seed)))
         want_samples = any(final and seq.request.sampling.logprobs
+                           and not seq.processors
                            for final, (seq, _) in zip(finals, work))
         toks_dev = self.runner.prefill_chunk_batch(rows,
                                                    want_samples=want_samples)
@@ -456,6 +531,9 @@ class InferenceScheduler:
             seq.prefill_pos += chunk
             total += chunk
             if not is_final:
+                continue
+            if seq.processors:
+                self._defer_first_token(seq)
                 continue
             if not seq.request.sampling.logprobs:
                 self._pending_prefill.append((seq, toks_dev[row]))
@@ -476,17 +554,28 @@ class InferenceScheduler:
         self._append_token(seq, token, prompt_tokens=seq.prompt_len)
         return 1
 
+    def _defer_first_token(self, seq: _Seq) -> None:
+        """Processor sequences discard the device-sampled prefill token; the
+        first decode step (input = the last prompt token at position
+        prompt_len - 1, rewriting its KV) regenerates its logits and the
+        host path picks the token."""
+        seq.first_deferred = True
+        seq.last_token = int(seq.request.token_ids[-1])
+
     def _dispatch_decode(self):
         """Decode phase 1: fill the batch buffers and issue the fused
         block(s) with no readback; `_drain_decode` copies them back after
         prefill and admission have overlapped the device time. The
-        per-token path (block 1, or logprobs) reads back here and returns a
-        ("count", n) handle."""
+        per-token path (block 1, logprobs, or logits processors) reads back
+        here and returns a ("count", n) handle."""
         ready = [s for s in self._slots
                  if s is not None and s.decode_ready and not s.finished
-                 and not s.cancelled and len(s.generated) > 0]
+                 and not s.cancelled
+                 and (len(s.generated) > 0 or s.first_deferred)]
         # Sequences whose first token just came from prefill already have
-        # generated[0]; they join decode from the next step.
+        # generated[0]; they join decode from the next step. (Processor
+        # sequences instead join with first_deferred set: their first token
+        # comes from the host path.)
         if not ready:
             return None
         self._active[:] = False
@@ -511,14 +600,17 @@ class InferenceScheduler:
             self._seeds[i] = seq.seed
             self._steps[i] = len(seq.generated)
         want_logprobs = any(s.request.sampling.logprobs for s in ready)
-        spec = self._maybe_dispatch_spec(ready, want_logprobs)
+        want_logits = any(s.processors for s in ready)
+        spec = self._maybe_dispatch_spec(ready, want_logprobs, want_logits)
         if spec is not None:
             return spec
         prefill_pending = any(
             s is not None and not s.decode_ready and not s.cancelled
             for s in self._slots)
-        block, depth = self._decode_block_for(ready, want_logprobs,
-                                              prefill_pending)
+        # One processor slot puts the whole batch on per-token steps, as in
+        # the reference.
+        block, depth = self._decode_block_for(
+            ready, want_logprobs or want_logits, prefill_pending)
         # Cut the block table to the live context (power-of-two widths), so
         # no decode attention path reads past what the batch can reach and
         # the runner's step graphs stay one per width bucket.
@@ -542,7 +634,8 @@ class InferenceScheduler:
                 )
                 device_blocks.append(toks_dev)
             return ("blocks", device_blocks, ready, block)
-        return ("count", self._decode_single(ready, tables, want_logprobs))
+        return ("count", self._decode_single(ready, tables, want_logprobs,
+                                             want_logits))
 
     def _drain_decode(self, pending) -> int:
         """Decode phase 2: copy the fused block(s) to the host and append
@@ -571,7 +664,8 @@ class InferenceScheduler:
 
     # -- speculative decoding (engine/spec.py) ------------------------------
 
-    def _maybe_dispatch_spec(self, ready: list, want_logprobs: bool):
+    def _maybe_dispatch_spec(self, ready: list, want_logprobs: bool,
+                             want_logits: bool):
         """Try a speculative verification step instead of the fused /
         per-token decode. Returns a ("spec", ...) handle (drained by
         `_drain_decode`) or None to fall through.
@@ -580,13 +674,21 @@ class InferenceScheduler:
         on predictable text. Gated off batch-wide for logprobs requests
         (their data needs a readback per step), per iteration above the
         batch-pressure cutoff, and per slot by the acceptance EMA with
-        periodic probing."""
+        periodic probing. Logits-processor slots ride along: their raw rows
+        are read back and verified on the host with their processors applied
+        position by position (`_commit_spec_host`), as the per-token path
+        applies them."""
         if not self.spec_enabled:
             return None
         # Every fall-through means "no speculation this iteration": zero the
         # per-step k up front; the drain of a dispatched step writes it.
         self.stats.spec_last_k = 0
         if want_logprobs:
+            return None
+        if any(s.first_deferred for s in ready):
+            # First-token-deferred processor sequences take their first
+            # token through _decode_single; they speculate from the next
+            # iteration.
             return None
         if self.spec_cutoff and len(ready) > self.spec_cutoff:
             return None
@@ -618,19 +720,25 @@ class InferenceScheduler:
         # A spec step is ONE dispatch emitting 1 + accepted tokens per slot;
         # the fused block it displaces emits `block` tokens per slot. The
         # expected accepted total must cover half a token per ready slot
-        # (against per-token decode any expected acceptance wins).
-        threshold = 0.0 if self.decode_block <= 1 else 0.5 * len(ready)
+        # (against per-token decode, as with block 1 or a processor batch,
+        # any expected acceptance wins).
+        per_token_alt = self.decode_block <= 1 or want_logits
+        threshold = 0.0 if per_token_alt else 0.5 * len(ready)
         if mined == 0 or expected < threshold:
             return None
         max_kv = max(s.kv_len for s in ready) + need
         width = bucket_table_width(-(-max_kv // self.page_size),
                                    self.runner.config.max_pages_per_seq)
+        proc_slots = [s.slot for s in ready if s.processors]
         targets, n_acc = self.runner.decode_spec(
             self._tokens, drafts, self._positions,
             np.ascontiguousarray(self._tables[:, :width]), self._kv_lens,
             self._active, self._temp, self._top_p, self._top_k, self._seeds,
-            self._steps, return_device=True)
-        return ("spec", targets, n_acc, ready)
+            self._steps, want_logits=want_logits,
+            logits_slots=proc_slots if want_logits else None,
+            return_device=True)
+        logits = self.runner.last_spec_logits if want_logits else None
+        return ("spec", targets, n_acc, ready, drafts, logits, proc_slots)
 
     def _drain_spec(self, pending) -> int:
         """Copy a verification step back and commit each slot's verified
@@ -639,9 +747,15 @@ class InferenceScheduler:
         release flow through `_append_token` unchanged; rejected-draft KV
         sits in the sequence's own slack pages and is rewritten by the next
         step."""
-        _kind, targets_dev, n_acc_dev, ready = pending
+        _kind, targets_dev, n_acc_dev, ready, drafts, logits, slots = pending
         targets = targets_dev.cpu().numpy()
         n_acc = n_acc_dev.cpu().numpy()
+        # The targets' readback synchronized: the logits rows have landed.
+        rows = {}
+        if logits is not None:
+            rows = dict(zip(slots, logits.numpy()))
+            self.stats.logits_steps += 1
+            self.stats.spec_logits_steps += 1
         self.stats.spec_steps += 1
         self.stats.spec_last_k = max(
             (s.spec.pending for s in ready if s.spec is not None), default=0)
@@ -651,8 +765,11 @@ class InferenceScheduler:
             if seq.finished or seq.cancelled:
                 continue
             i = seq.slot
-            count += self._commit_spec(
-                seq, [int(t) for t in targets[i, : int(n_acc[i]) + 1]])
+            if seq.processors:
+                count += self._commit_spec_host(seq, drafts[i], rows[i])
+            else:
+                count += self._commit_spec(
+                    seq, [int(t) for t in targets[i, : int(n_acc[i]) + 1]])
             if seq.spec is not None and seq.spec.pending:
                 emas.append(seq.spec.ema)
         if emas:
@@ -678,32 +795,154 @@ class InferenceScheduler:
             self.stats.spec_accepted += accepted
         return emitted
 
+    def _commit_spec_host(self, seq: _Seq, draft_row: np.ndarray,
+                          logits_rows: np.ndarray) -> int:
+        """Host verification leg for logits-processor sequences: apply the
+        slot's processors to each raw row exactly as the per-token path does
+        (same input_ids prefix, same host_sample (seed, step) key), and
+        accept the draft only when it equals the processed sample. One
+        processor call per committed token: the same call counts and
+        mutation order as sequential decode, so stateful processors (guided
+        DFAs, forced responses) stay in step."""
+        sp = seq.spec
+        input_ids = list(seq.generated)
+        k = len(draft_row)
+        emitted = 0
+        accepted = 0
+        for i in range(k + 1):
+            try:
+                token = self._host_process_sample(seq, logits_rows[i],
+                                                  input_ids)
+            except Exception as exc:  # noqa: BLE001 -- same contract as
+                # the per-token host path in _decode_single
+                self._fail_processor_seq(seq, exc)
+                break
+            self._append_token(seq, token)
+            emitted += 1
+            if seq.finished or seq.cancelled:
+                break
+            if not seq.processors:
+                # Processors retired mid-chunk (min_tokens met): sequential
+                # decode would continue on the DEVICE sampler, whose draws
+                # differ from host_sample; stop here so the next iteration
+                # takes the device path as sequential decode does.
+                break
+            input_ids.append(token)
+            if i < k and int(draft_row[i]) == token:
+                accepted += 1
+                continue
+            break
+        if sp is not None and sp.pending:
+            sp.observe(sp.pending, min(accepted, sp.pending))
+            self.stats.spec_proposed += sp.pending
+            self.stats.spec_accepted += min(accepted, sp.pending)
+        return emitted
+
     def _decode_single(self, ready: list, tables: np.ndarray,
-                       want_logprobs: bool) -> int:
+                       want_logprobs: bool, want_logits: bool) -> int:
         """Per-token decode with an immediate readback (block 1, or a batch
-        with a logprobs request)."""
+        with a logprobs request or a processor slot). With processors the
+        raw logits rows of the processor and logprobs slots come back too,
+        and those slots' tokens and logprob data are made on the host."""
+        slots = ([s.slot for s in ready
+                  if s.processors or s.request.sampling.logprobs]
+                 if want_logits else None)
         next_tokens = self.runner.decode(
             self._tokens, self._positions, tables, self._kv_lens,
             self._active, self._temp, self._top_p, self._top_k, self._seeds,
-            self._steps, want_logprobs=want_logprobs)
+            self._steps, want_logprobs=want_logprobs,
+            want_logits=want_logits, logits_slots=slots)
         lp_b, tid_b, tlp_b = self.runner.last_decode_sample
+        rows = {}
+        if want_logits:
+            rows = dict(zip(slots, self.runner.last_decode_logits))
+            self.stats.logits_steps += 1
         count = 0
         for seq in ready:
             i = seq.slot
             info = ((lp_b[i], tid_b[i], tlp_b[i])
                     if lp_b is not None else None)
-            self._append_token(seq, int(next_tokens[i]), sample_info=info)
+            token = int(next_tokens[i])
+            if i in rows:
+                try:
+                    token, info = self._host_sample_slot(seq, rows[i], token)
+                except Exception as exc:  # noqa: BLE001 -- same contract
+                    # as the speculative host leg (_fail_processor_seq)
+                    self._fail_processor_seq(seq, exc)
+                    continue
+            first = seq.first_deferred and not seq.generated
+            seq.first_deferred = False
+            self._append_token(
+                seq, token, sample_info=info,
+                prompt_tokens=seq.prompt_len if first else None)
             count += 1
         return count
+
+    def _timed(self, name: str, fn, *args):
+        """fn(*args), its host milliseconds added to stats.host_ms[name]."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            ms = (time.perf_counter() - t0) * 1e3
+            self.stats.host_ms[name] = self.stats.host_ms.get(name, 0.0) + ms
+
+    def _host_process_sample(self, seq: _Seq, raw_row: np.ndarray,
+                             input_ids: list) -> int:
+        """The host sampling leg shared by the per-token processor path
+        (_host_sample_slot) and the speculative verification leg
+        (_commit_spec_host): apply the sequence's processors to a copy of
+        the raw logits row, then host_sample keyed by (seed,
+        len(input_ids)). ONE definition, so the two paths cannot drift
+        apart on processor order or sampling keys."""
+        s = seq.request.sampling
+        row = raw_row.astype(np.float32).copy()
+        for proc in seq.processors:
+            self._timed(type(proc).__name__, proc, input_ids, row)
+        return self._timed("host_sample", host_sample, row, s.temperature,
+                           s.top_p, s.top_k, seq.seed, len(input_ids))
+
+    def _fail_processor_seq(self, seq: _Seq, exc: Exception) -> None:
+        """A misbehaving user processor (bad token id, all-banned vocab)
+        errors ITS request, not the scheduler thread and every stream."""
+        log.warning("logits processor failed for %s: %r",
+                    seq.request.request_id, exc)
+        seq.finished = True
+        seq.emit(EngineOutput(finish_reason="error",
+                              error=f"logits processor failed: {exc}"))
+
+    def _host_sample_slot(self, seq: _Seq, raw_row: np.ndarray,
+                          device_token: int):
+        """Host leg of the logits-processor path: apply the sequence's
+        processors to its raw logits row and re-sample; a sequence without
+        processors keeps the device-sampled token. Logprob data (when the
+        request asks) comes from the RAW distribution (OpenAI semantics:
+        logprobs reflect the model, not the processors)."""
+        s = seq.request.sampling
+        token = device_token
+        if seq.processors:
+            token = self._host_process_sample(seq, raw_row,
+                                              list(seq.generated))
+        info = None
+        if s.logprobs:
+            logp = raw_row.astype(np.float64)
+            logp -= logp.max()
+            logp -= np.log(np.exp(logp).sum())
+            k = min(TOP_LOGPROBS_K, len(logp))
+            top_ids = np.argpartition(logp, -k)[-k:]
+            top_ids = top_ids[np.argsort(logp[top_ids])[::-1]]
+            info = (float(logp[token]), top_ids.astype(np.int32),
+                    logp[top_ids].astype(np.float32))
+        return token, info
 
     def _decode_block_for(self, ready: list, want_host: bool,
                           prefill_pending: bool) -> tuple[int, int]:
         """(block, pipeline depth) for this iteration. Per-token (1, 1) when
-        a sequence wants logprobs (a readback per step). Prefill work or
-        waiting requests keep depth at 1; pure-decode phases chain
-        `decode_pipeline` blocks on device-resident tokens. A sequence
-        without slack pages fuses only while its token budget covers the
-        block."""
+        a sequence wants logprobs or has logits processors (a readback per
+        step). Prefill work or waiting requests keep depth at 1; pure-decode
+        phases chain `decode_pipeline` blocks on device-resident tokens. A
+        sequence without slack pages fuses only while its token budget
+        covers the block."""
         if self.decode_block <= 1 or want_host:
             return 1, 1
         depth = (1 if (prefill_pending or self._waiting)
@@ -751,6 +990,19 @@ class InferenceScheduler:
         ))
         if finish is not None:
             seq.finished = True
+        elif seq.processors:
+            self._maybe_retire_processors(seq)
+
+    def _maybe_retire_processors(self, seq: _Seq) -> None:
+        """min_tokens is the only processor that EXPIRES: once its budget is
+        met it is a no-op for the rest of the stream, so a sequence whose
+        processors are all met MinTokens drops them and rejoins the fused,
+        device-sampled decode path instead of paying a logits readback per
+        step for its whole life."""
+        if all(isinstance(p, MinTokensProcessor)
+               and len(seq.generated) >= p.min_tokens
+               for p in seq.processors):
+            seq.processors = None
 
     def _reap_finished(self) -> None:
         for i, seq in enumerate(self._slots):

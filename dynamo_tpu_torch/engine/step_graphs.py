@@ -96,6 +96,7 @@ class StepGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: tuple = ()
         self.launches: dict[str, int] = {}
+        self.capture_s = 0.0  # the seconds its capture took
 
     def capture(self, pool=None, stream: Optional[torch.cuda.Stream] = None
                 ) -> None:
@@ -126,9 +127,11 @@ class StepGraph:
                                f"eager run {warm}")
         self.graph, self.outputs, self.launches = graph, outputs, captured
 
-    def run(self, values: dict) -> tuple:
+    def run(self, values: dict, clone: bool = True) -> tuple:
         """Copy `values` into the static inputs, replay, and return clones
-        of the outputs (a later replay overwrites the static ones)."""
+        of the outputs (a later replay overwrites the static ones). With
+        `clone=False` the static outputs themselves: the caller reads or
+        indexes them before the key's next replay."""
         for name, value in values.items():
             _copy_in(self.inputs[name], value)
         if self.graph is not None:
@@ -138,4 +141,6 @@ class StepGraph:
                 for static, out in zip(self.outputs, self.step(self.inputs)):
                     static.copy_(out)
         _add_counts(self.launches)
+        if not clone:
+            return self.outputs
         return tuple(out.clone() for out in self.outputs)

@@ -14,6 +14,9 @@ the event plane, so either package's kv-mode router scores it. `main` is
 LoadMetrics' `device_ms_in_step` and `host_ms_in_step` stay 0: the
 reference fills them from its steptrace, which is not ported. Not ported
 yet: the weights, kv_pull and drain endpoints, LoRA and disaggregated modes.
+The card names the worker's tool and reasoning parsers (`--tool-call-parser`,
+`--reasoning-parser`), and the scheduler's logits processors get the card's
+tokenizer, as in the reference.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..llm.model_card import (
     unpublish_card,
 )
 from ..llm.protocols import EngineOutput, PreprocessedRequest
+from ..llm.tokenizer import load_tokenizer
 from ..models import ModelConfig, Transformer, get_config
 from ..models.transformer import AttentionFn
 from ..runtime.component import new_instance_id
@@ -119,6 +123,8 @@ class TorchWorker:
         attention_fn: Optional[AttentionFn] = None,
         namespace: str = "dynamo",
         component: str = "backend",
+        tool_parser: Optional[str] = None,
+        reasoning_parser: Optional[str] = None,
     ) -> None:
         """`model` is a preset name or a ModelConfig. Without `params` the
         weights are random, drawn from `seed` on `device`. `attention_fn`
@@ -126,7 +132,8 @@ class TorchWorker:
         unified forward then serves decode and prefill with it (for example
         `ops.paged_attention.paged_attention`, the T = 1 kernel), and
         speculation is off. `namespace` and `component` place the worker's
-        endpoints and card for `serve`."""
+        endpoints and card for `serve`; `tool_parser` and `reasoning_parser`
+        go on the card, for the frontends' output parsers."""
         self.device = resolve_device(device)
         self.model_config = (get_config(model) if isinstance(model, str)
                              else model)
@@ -151,10 +158,15 @@ class TorchWorker:
                                self.runner_config.max_context),
             kv_block_size=self.runner_config.page_size,
             total_kv_blocks=self.runner_config.num_pages,
+            tool_parser=tool_parser,
+            reasoning_parser=reasoning_parser,
         )
         # Routers bootstrap / gap-resync from our local indexer (the
         # frontend's manager gates its resync calls on this flag).
         self.card.runtime_config["kv_blocks_endpoint"] = True
+        # Logits-processor factories that declare a `tokenizer` parameter
+        # (guided decoding) get this model's tokenizer.
+        self.scheduler.logits_tokenizer = load_tokenizer(self.card.tokenizer)
         self._served: list = []
         self._tasks: list[asyncio.Task] = []
 
@@ -289,6 +301,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--kv-dtype", default="model",
                         choices=["model", "int8"],
                         help="KV pool storage: model dtype or int8")
+    parser.add_argument("--tool-call-parser", default=None,
+                        choices=["hermes", "qwen", "mistral", "llama3_json",
+                                 "pythonic", "xml", "dsml", "harmony"])
+    parser.add_argument("--reasoning-parser", default=None,
+                        choices=["think", "deepseek-r1", "granite",
+                                 "harmony", "gpt-oss"])
     parser.add_argument("--prewarm", action="store_true",
                         help="capture the whole steady-state key space "
                              "(ModelRunner.prewarm) before publishing the "
@@ -315,7 +333,8 @@ async def main(argv: Optional[list[str]] = None) -> None:
                          weight_dtype=args.weight_dtype,
                          kv_dtype=args.kv_dtype),
             device=device, namespace=args.namespace,
-            component=args.component)
+            component=args.component, tool_parser=args.tool_call_parser,
+            reasoning_parser=args.reasoning_parser)
         await asyncio.to_thread(worker.runner.prewarm if args.prewarm
                                 else worker.runner.warmup)
         worker.scheduler.start()

@@ -158,8 +158,14 @@ class HttpService:
                 preprocessed = entry.preprocessor.preprocess_completions(body)
         except RequestError as exc:
             return json_response(_error_body(400, str(exc)), status=400)
-        delta_gen = DeltaGenerator(entry.preprocessor, preprocessed,
-                                   kind=kind)
+        # Tool parsing activates only when the request declares tools (the
+        # reference gates on request.tools the same way); reasoning parsing
+        # follows the model card.
+        card = entry.preprocessor.card
+        delta_gen = DeltaGenerator(
+            entry.preprocessor, preprocessed, kind=kind,
+            tool_parser=card.tool_parser if body.get("tools") else None,
+            reasoning_parser=card.reasoning_parser)
         rt_metrics.INPUT_TOKENS.labels(model=model).observe(
             len(preprocessed.token_ids))
         if body.get("stream", False):

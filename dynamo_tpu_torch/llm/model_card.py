@@ -6,8 +6,8 @@ v1/mdc/{ns}/{component}/{endpoint}/{instance_id}). Workers publish it when
 they register; a frontend's ModelWatcher builds a serving pipeline from it.
 `runtime_config["kv_hash_version"]` is the block-hash scheme's version, the
 reference's HASH_VERSION, since this package's block hashes are the
-reference's (tokens.py). Tool and reasoning parsers are not ported yet: a
-card that names one is refused.
+reference's (tokens.py). A card names its tool and reasoning parsers
+(`parsers/`), checked against the parsers this package has.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from ..parsers import REASONING_PARSERS, TOOL_PARSERS
 from ..runtime.discovery import MODEL_CARD_PREFIX
 
 # Model types (ref: ModelType Chat|Completions|Prefill|Embeddings...)
@@ -40,8 +41,9 @@ class ModelDeploymentCard:
     max_output_tokens: int = 4096
     kv_block_size: int = 16
     chat_template: Optional[str] = None
-    tool_parser: Optional[str] = None
-    reasoning_parser: Optional[str] = None
+    # Output parsing (ref: lib/parsers wiring via model card runtime config)
+    tool_parser: Optional[str] = None  # hermes|mistral|llama3_json|pythonic
+    reasoning_parser: Optional[str] = None  # think|deepseek-r1|granite
     # Serving component this card belongs to
     namespace: str = "dynamo"
     component: str = "backend"
@@ -52,12 +54,17 @@ class ModelDeploymentCard:
     runtime_config: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:
-        for kind, name in (("tool", self.tool_parser),
-                           ("reasoning", self.reasoning_parser)):
-            if name:
-                raise ValueError(
-                    f"{kind} parser {name!r}: output parsers are not ported "
-                    "yet")
+        # Fail at card construction (worker startup / card publish), not per
+        # request inside the frontend's delta generator.
+        if self.tool_parser and self.tool_parser.lower() not in TOOL_PARSERS:
+            raise ValueError(
+                f"unknown tool parser {self.tool_parser!r}; "
+                f"one of {sorted(TOOL_PARSERS)}")
+        if (self.reasoning_parser
+                and self.reasoning_parser.lower() not in REASONING_PARSERS):
+            raise ValueError(
+                f"unknown reasoning parser {self.reasoning_parser!r}; "
+                f"one of {sorted(REASONING_PARSERS)}")
         # KV identities only match between processes on the same hash scheme.
         self.runtime_config.setdefault("kv_hash_version", HASH_VERSION)
 

@@ -9,9 +9,12 @@ text that might be a prefix of a stop string is held until disambiguated
 
 The default ChatML template is rendered by `render_default_chat_template`,
 which gives the string jinja2 renders from the reference's
-DEFAULT_CHAT_TEMPLATE. Not ported yet: custom chat templates (a card or
-tokenizer that carries one answers chat requests with 400), tool and
-reasoning output parsers, and multimodal prompts.
+DEFAULT_CHAT_TEMPLATE. Structured outputs (`response_format`,
+`nvext.guided_decoding`, `tool_choice` forcing) lower to the worker's
+'guided' logits processor (`llm/guided.py`); chat responses go through the
+card's tool and reasoning parsers (`parsers/`). Not ported yet: custom chat
+templates (a card or tokenizer that carries one answers chat requests with
+400) and multimodal prompts.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..engine.sampler import TOP_LOGPROBS_K
+from ..parsers import make_reasoning_parser, make_tool_parser
 from .model_card import ModelDeploymentCard
 from .protocols import (
     EngineOutput,
@@ -241,25 +245,48 @@ class OpenAIPreprocessor:
                     args = {"json_schema": schema}
             pre.logits_processors.append({"name": "guided", "args": args})
         tc = request.get("tool_choice")
-        if tc == "required" or (isinstance(tc, dict)
-                                and tc.get("type") == "function"):
-            # OpenAI tool_choice forcing needs a tool parser, and no card of
-            # this package names one.
-            raise RequestError(
-                "tool_choice forcing needs a model served with a "
-                "tool parser (--tool-call-parser)")
+        forced_name = None
+        force_tools = False
+        if tc == "required":
+            force_tools = True
+        elif isinstance(tc, dict) and tc.get("type") == "function":
+            force_tools = True
+            forced_name = (tc.get("function") or {}).get("name")
+        if force_tools:
+            # OpenAI tool_choice forcing: constrain the output to a
+            # declared function call in the model's tool-parser format
+            # (validated in llm/validate.py; the grammar is built by
+            # guided.tool_call_regex so the parser extracts it).
+            if not self.card.tool_parser:
+                raise RequestError(
+                    "tool_choice forcing needs a model served with a "
+                    "tool parser (--tool-call-parser)")
+            if self.card.tool_parser.lower() not in (
+                    "hermes", "qwen", "llama3_json", "mistral"):
+                # reject HERE (-> 400), not at engine grammar-build time
+                raise RequestError(
+                    "tool_choice forcing is not supported for tool "
+                    f"parser {self.card.tool_parser!r} (hermes/qwen, "
+                    "llama3_json, mistral)")
+            pre.logits_processors.append({"name": "guided", "args": {
+                "tool_call": {"format": self.card.tool_parser,
+                              "tools": request.get("tools") or [],
+                              "name": forced_name}}})
         return pre
 
 
 class DeltaGenerator:
     """Backward edge: EngineOutput stream -> OpenAI SSE chunk dicts, with
-    incremental detokenization and stop-string jailing."""
+    incremental detokenization, stop-string jailing and, for chat, the
+    reasoning and tool-call parsers."""
 
     def __init__(
         self,
         preprocessor: OpenAIPreprocessor,
         request: PreprocessedRequest,
         kind: str = "chat",  # chat | completions
+        tool_parser: Optional[str] = None,
+        reasoning_parser: Optional[str] = None,
     ) -> None:
         self.pre = preprocessor
         self.request = request
@@ -273,9 +300,16 @@ class DeltaGenerator:
         self._stopped = False
         self._role_sent = False
         self.full_text = ""
+        self.full_reasoning = ""
+        self.tool_calls: list = []
         # OpenAI-shape logprob entries, one per generated token (populated
         # only when the request asked for logprobs)
         self.logprob_entries: list[dict] = []
+        # Output parsers (chat only; ref: chat_completions/jail.rs wiring)
+        self._reasoning = (make_reasoning_parser(reasoning_parser)
+                           if kind == "chat" else None)
+        self._tools = (make_tool_parser(tool_parser)
+                       if kind == "chat" else None)
 
     # stop-string handling ------------------------------------------------
 
@@ -334,12 +368,44 @@ class DeltaGenerator:
             }],
         }
 
-    def _route(self, text: str) -> list[dict]:
-        """Emitted text as OpenAI delta dicts (no output parsers yet)."""
-        if not text:
-            return []
-        self.full_text += text
-        return [{"content": text}]
+    def _route(self, text: str, final: bool) -> list[dict]:
+        """Route emitted text through the reasoning and tool parsers into
+        OpenAI delta dicts (ref: parsers crate via chat_completions/jail.rs)."""
+        deltas: list[dict] = []
+        reason_text, content_text = "", text
+        if self._reasoning is not None:
+            ev = self._reasoning.push(text)
+            if final:
+                fin = self._reasoning.finalize()
+                ev.reasoning += fin.reasoning
+                ev.content += fin.content
+            reason_text, content_text = ev.reasoning, ev.content
+        if reason_text:
+            self.full_reasoning += reason_text
+            deltas.append({"reasoning_content": reason_text})
+        if self._tools is not None:
+            tev = self._tools.push(content_text)
+            if final:
+                fin = self._tools.finalize()
+                tev.content += fin.content
+                tev.calls.extend(fin.calls)
+            if tev.content:
+                self.full_text += tev.content
+                deltas.append({"content": tev.content})
+            if tev.calls:
+                start = len(self.tool_calls)
+                payload = [c.to_openai(start + i)
+                           for i, c in enumerate(tev.calls)]
+                self.tool_calls.extend(tev.calls)
+                deltas.append({"tool_calls": payload})
+        elif content_text:
+            self.full_text += content_text
+            deltas.append({"content": content_text})
+        return deltas
+
+    def _final_reason(self, reason: str) -> str:
+        return ("tool_calls" if (self.tool_calls and reason == "stop")
+                else reason)
 
     def on_output(self, output: EngineOutput) -> list[dict]:
         """Convert one engine item into zero or more SSE chunks."""
@@ -375,17 +441,17 @@ class DeltaGenerator:
         if final:
             text += self.detok.flush()
         emit, hit_stop = self._filter_stop(text, final)
-        for delta in self._route(emit):
+        for delta in self._route(emit, final or hit_stop):
             if self.kind == "chat" and not self._role_sent:
                 delta["role"] = "assistant"
                 self._role_sent = True
             chunks.append(self._chunk(delta, None))
         if hit_stop:
-            self.finish_reason = "stop"
+            self.finish_reason = self._final_reason("stop")
             self._stopped = True
             chunks.append(self._chunk({}, self.finish_reason))
         elif final:
-            self.finish_reason = output.finish_reason
+            self.finish_reason = self._final_reason(output.finish_reason)
             self._stopped = True
             chunks.append(self._chunk({}, self.finish_reason))
         if new_lp_entries and chunks:
@@ -445,6 +511,14 @@ class DeltaGenerator:
         """Non-streaming aggregate response."""
         if self.kind == "chat":
             message: dict = {"role": "assistant", "content": self.full_text}
+            if self.full_reasoning:
+                message["reasoning_content"] = self.full_reasoning
+            if self.tool_calls:
+                message["tool_calls"] = [
+                    {k: v for k, v in c.to_openai(i).items() if k != "index"}
+                    for i, c in enumerate(self.tool_calls)]
+                if not self.full_text:
+                    message["content"] = None
             choice = {
                 "index": 0,
                 "message": message,

@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 
 class Tokenizer:
     eos_token_ids: list[int] = []
+    vocab_size: int = 0
     chat_template: Optional[str] = None
     # How many trailing tokens may still merge with future tokens when
     # decoding incrementally (BPE merges / sentencepiece boundary spaces).
@@ -28,6 +29,13 @@ class Tokenizer:
 
     def decode(self, token_ids: Sequence[int]) -> str:
         raise NotImplementedError
+
+    def token_text(self, token_id: int) -> Optional[str]:
+        """Raw vocab string of one token (e.g. 'Ġhello', 'â' for a lone
+        UTF-8 continuation byte under byte-level BPE), or None if
+        unknown. Unlike decode(), never lossy: guided decoding inverts
+        byte-level-BPE strings back to true bytes (llm/guided.py)."""
+        return None
 
 
 class ByteTokenizer(Tokenizer):
@@ -45,6 +53,7 @@ class ByteTokenizer(Tokenizer):
 
     def __init__(self) -> None:
         self.eos_token_ids = [self.EOS, self.IM_END]
+        self.vocab_size = 512  # headroom above 261 for model round numbers
         self.stable_window = 0
 
     def encode(self, text: str) -> list[int]:

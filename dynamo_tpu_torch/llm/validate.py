@@ -4,9 +4,12 @@ Copy of `dynamo_tpu/llm/validate.py`, with the same 400 messages. Unknown
 request fields are rejected with 400 "Unsupported parameter" instead of
 being silently dropped (ref: lib/llm/src/protocols/openai/{completions.rs:44,
 422,validate.rs:101}); known fields get the reference's range checks
-(validate.rs temperature/top_p/penalties/logit_bias/n). Fields the engine
-cannot honour yet (penalties, logit_bias, guided decoding) pass validation
-and are refused in-band by the worker, as the reference's fields are.
+(validate.rs temperature/top_p/penalties/logit_bias/n): a client sending
+`response_format` for JSON mode must get it honoured or a 400, never
+confidently unconstrained output. Penalties, logit_bias, min_p, min_tokens,
+guided decoding (`response_format`, `nvext.guided_decoding`) and
+`tool_choice` forcing are served by the worker's logits processors; an EBNF
+`grammar` answers 400 here, as in the reference.
 """
 
 from __future__ import annotations

@@ -182,15 +182,20 @@ def test_worker_generate_wire_stream(params, run, monkeypatch):
     assert [t for f in frames for t in f["t"]] == j_streams["0-0"][0]
 
 
-def test_unported_request_features_error_in_band(params, run):
+@pytest.mark.parametrize("feature", [
+    {"lora_name": "adapter"},
+    {"media_hashes": [123]},
+    {"annotations": {"prefill_only": True}},
+], ids=["lora", "multimodal", "prefill_only"])
+def test_unported_request_features_error_in_band(params, run, feature):
     worker = TorchWorker(CFG, RunnerConfig(**RUNNER), device="cpu",
                          params=params_from_numpy(params, CFG, device="cpu"))
     worker.start()
     try:
         body = PreprocessedRequest(
             request_id="x", token_ids=[1, 2, 3],
-            sampling=SamplingOptions(max_tokens=4, repetition_penalty=1.3),
-            stop=StopConditions()).to_wire()
+            sampling=SamplingOptions(max_tokens=4),
+            stop=StopConditions(), **feature).to_wire()
 
         async def collect():
             return [d async for d in worker.generate(body)]

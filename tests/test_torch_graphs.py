@@ -230,12 +230,14 @@ def test_swapping_a_step_function_selects_a_new_key(params, name, fn):
 def test_prewarm_captures_the_key_space_and_serving_captures_nothing(
         params, block, spec, monkeypatch):
     """prewarm: for every table-width bucket, the fused block (k =
-    DYNT_DECODE_BLOCK, above 1), decode with and without logprobs, and with
-    DYNT_SPEC_ENABLE the verification step at t = DYNT_SPEC_MAX_K + 1; every
-    prefill (padded batch, bucket) with batch x bucket within the largest
-    bucket, at the full table width, one forward each after warmup's. Two
-    passes of traffic (one request asking for logprobs; the first wave
-    admitted whole, so its chunks go out batched) then capture nothing."""
+    DYNT_DECODE_BLOCK, above 1), decode with and without logprobs and its
+    logits-processor variant, and with DYNT_SPEC_ENABLE the verification
+    step at t = DYNT_SPEC_MAX_K + 1 with and without logits; every prefill
+    (padded batch, bucket) with batch x bucket within the largest bucket, at
+    the full table width, one forward each after warmup's. Three passes of
+    traffic (one request asking for logprobs; the first wave admitted whole,
+    so its chunks go out batched; a wave with logits processors) then
+    capture nothing and run no forward eagerly."""
     monkeypatch.setenv("DYNT_DECODE_BLOCK", block)
     monkeypatch.setenv("DYNT_DECODE_PIPELINE", "2")
     monkeypatch.setenv("DYNT_SPEC_ENABLE", "1" if spec else "0")
@@ -245,10 +247,12 @@ def test_prewarm_captures_the_key_space_and_serving_captures_nothing(
     widths = table_widths(RUNNER["max_pages_per_seq"])
     assert widths == [8, 16]
     want = {("decode", B, w, lp) for w in widths for lp in (False, True)}
+    want |= {("decode_logits", B, w, None) for w in widths}
     if block != "1":
         want |= {("decode_multi", B, w, int(block)) for w in widths}
     if spec:
-        want |= {("decode_spec", B, w, SPEC_K + 1) for w in widths}
+        want |= {(method, B, w, SPEC_K + 1) for w in widths
+                 for method in ("decode_spec", "decode_spec_logits")}
     prefill = {("prefill", b, RUNNER["max_pages_per_seq"], bucket)
                for b, bucket in [(1, 8), (2, 8), (4, 8), (1, 16), (2, 16),
                                  (1, 32)]}
@@ -258,9 +262,13 @@ def test_prewarm_captures_the_key_space_and_serving_captures_nothing(
     captures = runner.graph_captures
     replays = runner.graph_replays
     sched = InferenceScheduler(runner)
+    processors = _port_requests(2)
+    processors[0].sampling.repetition_penalty = 1.3
+    processors[2].sampling.logit_bias = {"7": 5.0}
     streams = _run(sched, [_port_requests(0),
-                           _port_requests(1, logprobs=True)])
+                           _port_requests(1, logprobs=True), processors])
     assert all(len(t) == MAX_TOKENS for t in streams.values())
+    assert sched.stats.logits_steps > 0
     assert runner.graph_captures == captures
     assert runner.graph_replays > replays
     assert sched.stats.prefill_batched_steps > 0

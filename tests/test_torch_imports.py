@@ -45,6 +45,13 @@ KV_ROUTING_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
     "runtime.zmtp"))
 
 
+# Modules of the logits-processor slice: each must be among the checked
+# sources and import cleanly on its own.
+LOGITS_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
+    "llm.logits_processing", "llm.guided", "parsers", "parsers.tool_calls",
+    "parsers.reasoning"))
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "scripts" /
@@ -75,7 +82,16 @@ def test_sources_cover_the_kv_routing_modules():
                 or path / "__init__.py" in files), module
 
 
-@pytest.mark.parametrize("module", SERVING_MODULES + KV_ROUTING_MODULES)
+def test_sources_cover_the_logits_modules():
+    files = set(_sources())
+    for module in LOGITS_MODULES:
+        path = ROOT / module.replace(".", "/")
+        assert (path.with_suffix(".py") in files
+                or path / "__init__.py" in files), module
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES + KV_ROUTING_MODULES
+                         + LOGITS_MODULES)
 def test_serving_module_imports_on_its_own(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

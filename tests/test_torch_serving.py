@@ -224,6 +224,19 @@ REQUESTS = {
         "messages": [{"role": "system", "content": "be brief"},
                      {"role": "user", "content": "héllo"}],
         "max_tokens": 7, **_STREAM}),
+    # served by the workers' logits processors (guided decoding, penalties)
+    "chat-json-schema": ("chat", {
+        "messages": [{"role": "user", "content": "json"}], "max_tokens": 40,
+        "response_format": {"type": "json_schema", "json_schema": {
+            "name": "s", "schema": {
+                "type": "object",
+                "properties": {"ok": {"type": "boolean"},
+                               "color": {"enum": ["red", "green", "blue"]}},
+                "required": ["ok", "color"]}}}}),
+    "completions-penalty-stream": ("completions", {
+        "prompt": [5, 6, 7, 5, 6, 7, 5, 6], "max_tokens": 12,
+        "repetition_penalty": 1.3, "frequency_penalty": 0.5,
+        "presence_penalty": 0.25, "min_tokens": 4, **_STREAM}),
 }
 
 
