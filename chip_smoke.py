@@ -6,6 +6,11 @@ Phases, each printing one JSON line:
   device    - the card (nvidia-smi name and power limit), torch and CUDA
   build     - nvcc builds every kernel under dynamo_tpu_torch/ops/csrc/ for
               sm_90a, all sources at once
+  noise     - the sampler's Gumbel noise (JAX's threefry draw, one fused
+              Triton pass; no TPU kernel's port, so not in the kernels
+              line) held bit-equal to its plain int64 version at 16 x
+              128,256, 16 x 32,768, 80 x 128,256 and ragged shapes, and
+              timed beside it and its store bound
   kernels   - the attention kernels at llama3-8b decode shapes, each held
               against its plain PyTorch version, then timed beside it, one
               PyTorch library call for the same function, and its bound:
@@ -43,8 +48,10 @@ Phases, each printing one JSON line:
               times with CUDA graphs on and three times off, in turns: the
               same streams every run, ITL and memory of each; per-step
               host dispatch and device wall (CUDA events) of the fused
-              block and the spec step on and off; a spec step replayed
-              and eager on the same inputs draws the same targets
+              block and the spec step on and off, and the fused block
+              with every slot sampled (temperature 0.8, top_p 0.9); a spec
+              step replayed and eager on the same inputs draws the same
+              targets
   serve_bf16 - the serving edge on that worker, in this process: the
               port's DistributedRuntime (file discovery in a temporary
               directory, the TCP request plane on 127.0.0.1),
@@ -58,6 +65,24 @@ Phases, each printing one JSON line:
               stream, a stream cut by its client frees its pages; TTFT and
               ITL over HTTP beside direct, the frontend's and the request
               plane's CPU shares
+  checkpoint - that worker's weights written as an HF checkpoint
+              directory (safetensors shards of at most 5 GB, the index,
+              config.json, a generated Llama-3-form tokenizer.json of
+              128,256 ids, a chat template; 32 layers, or the first N if
+              the disk is short) and served from it: the tokenizer's load,
+              encode (1,500 tokens), render and first guided-mask costs;
+              `TorchWorker(model_path=...)` in bf16 (config = the preset
+              but its name, every leaf equal, the standard traffic's
+              greedy streams equal the in-memory worker's, one seeded
+              temperature request the same ids twice; write and load
+              seconds, GB/s, host RSS and device peaks) and in W4A16 +
+              int8 KV (every q4 leaf equal to quantize_params_int4 of the
+              in-memory weights, greedy streams equal a worker built from
+              those; rows 2 and 6); then the port's frontend in front of
+              it: chat requests through the template (the prompt ids the
+              worker receives = encode(render(messages)), each text = the
+              decode of the worker's ids) and a json_schema request guided
+              over the 128,256 ids; the directory is deleted after
   unified   - the same traffic through TorchWorker(attention_fn=
               paged_attention), the reference's unified path: row 3 = 32 x
               decode forwards, row 1 = 0; then greedy parity against the
@@ -652,6 +677,43 @@ def _attention_case(dev: torch.device, st: dict, name: str, label: str,
          bytes=n_bytes, flops=flops, kernel_ms=ms,
          achieved_GBps=n_bytes / (ms * 1e-3) / 1e9, **extra, **entry)
     return entry
+
+
+NOISE_SHAPES = ((16, 128256), (16, 32768), (80, 128256), (3, 1000), (1, 7))
+
+
+def phase_noise(dev: torch.device) -> None:
+    """The sampler's Gumbel noise (`ops.gumbel`): the fused Triton pass
+    against its plain int64 version, bit for bit, at the decode batch
+    (16 slots) over llama3-8b's and mistral-7b's vocabularies, a spec
+    step's 16 x 5 rows, and ragged small shapes; then both timed at 16 x
+    128,256 beside the least time for its store (B * V * 4 bytes). The pass
+    replaces no TPU kernel, so it stays out of the kernels line."""
+    from dynamo_tpu_torch.ops import gumbel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    out = {}
+    for b, v in NOISE_SHAPES:
+        seeds = torch.randint(0, 2**32, (b,), generator=gen, device=dev,
+                              dtype=torch.int64)
+        steps = torch.randint(0, 5000, (b,), generator=gen, device=dev,
+                              dtype=torch.int64)
+        got = gumbel.gumbel_noise(seeds, steps, v)
+        want = gumbel.gumbel_noise_ref(seeds, steps, v)
+        torch.cuda.synchronize()
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        check(n_diff == 0 and bool(torch.isfinite(got).all()),
+              f"noise {b} x {v}: {n_diff} values differ from the plain "
+              "version")
+        out[f"{b}x{v}"] = {"bit_equal": True}
+        if (b, v) == NOISE_SHAPES[0]:
+            out["ms"] = gpu_time_ms(
+                lambda i: gumbel.gumbel_noise(seeds, steps, v), 50)
+            out["plain_ms"] = gpu_time_ms(
+                lambda i: gumbel.gumbel_noise_ref(seeds, steps, v), 10)
+            out["bound_ms"] = b * v * 4 / HBM_BYTES_PER_S * 1e3
+    emit("noise", route="triton", source="dynamo_tpu_torch/ops/gumbel.py",
+         shapes=out)
 
 
 def phase_kernels(dev: torch.device) -> list:
@@ -1538,10 +1600,12 @@ def _time_step(fn, steps: int, repeats: int = 3) -> dict:
             "wall_ms_runs": wall}
 
 
-def _step_inputs(runner, spec_k: int = 0) -> dict:
+def _step_inputs(runner, spec_k: int = 0, sampled: bool = False) -> dict:
     """Decode (or, with spec_k, verification) inputs for the runner's slots:
     8 live with STEP_HISTORY tokens of history in pages 1 and up (their
-    contents are whatever the pool holds), the rest idle; greedy."""
+    contents are whatever the pool holds), the rest idle; greedy, or with
+    `sampled` every slot at temperature 0.8 / top_p 0.9 from its own
+    seed."""
     from dynamo_tpu_torch.engine.model_runner import bucket_table_width
 
     rc = runner.config
@@ -1560,9 +1624,10 @@ def _step_inputs(runner, spec_k: int = 0) -> dict:
     args = dict(tokens=np.arange(b, dtype=np.int32), positions=kv_lens - 1,
                 block_tables=np.ascontiguousarray(tables[:, :width]),
                 kv_lens=kv_lens, active=active,
-                temperature=np.zeros(b, np.float32),
-                top_p=np.ones(b, np.float32), top_k=np.zeros(b, np.int32),
-                seeds=np.zeros(b, np.uint32))
+                temperature=np.full(b, 0.8 if sampled else 0.0, np.float32),
+                top_p=np.full(b, 0.9 if sampled else 1.0, np.float32),
+                top_k=np.zeros(b, np.int32),
+                seeds=np.arange(b, dtype=np.uint32))
     if spec_k:
         args["drafts"] = np.random.default_rng(SEED + 8).integers(
             1, runner.model_config.vocab_size, (b, spec_k)).astype(np.int32)
@@ -1630,6 +1695,12 @@ def phase_graphs(dev: torch.device, worker, label: str, spec_ks=(SPEC_K,),
         spec_check[f"k{k}"] = {"gemm_m": m, "prefill_body": m > SMALL_M,
                                "targets_equal": True}
     timings = _step_timings(runner, spec_ks)
+    # the same fused block with every slot sampled (graphs on): the noise
+    # and the truncation run in every step either way, so the two agree
+    sampled_args = _step_inputs(runner, sampled=True)
+    timings["decode_block_sampled"] = {"on": _time_step(
+        lambda: runner.decode_multi(**sampled_args, k=BLOCK,
+                                    return_device=True), BLOCK)}
 
     def mean(mode, key):
         return float(np.mean([r[key] for r in itl[mode]]))
@@ -2208,7 +2279,8 @@ def phase_serve(dev: torch.device, worker, label: str) -> None:
 
     from dynamo_tpu_torch.engine import InferenceScheduler
     from dynamo_tpu_torch.frontend import Frontend
-    from dynamo_tpu_torch.llm.preprocessor import render_default_chat_template
+    from dynamo_tpu_torch.llm.chat_template import ChatTemplate
+    from dynamo_tpu_torch.llm.preprocessor import DEFAULT_CHAT_TEMPLATE
     from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
     from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
 
@@ -2311,7 +2383,8 @@ def phase_serve(dev: torch.device, worker, label: str) -> None:
                     "stream_options": {"include_usage": True},
                     "messages": [{"role": "user", "content": "héllo"}]}
             prompt_ids = tok.encode(
-                render_default_chat_template(chat["messages"]))
+                ChatTemplate(DEFAULT_CHAT_TEMPLATE).render(
+                    messages=chat["messages"], add_generation_prompt=True))
             sched = fresh_scheduler()
             sched.start()
             res = await _http(port, "POST", "/v1/chat/completions", chat)
@@ -2429,6 +2502,573 @@ def phase_serve(dev: torch.device, worker, label: str) -> None:
          prefill_forwards=runner.prefill_steps, kernel_launches=out[
              "launches"], **graph_report(runner),
          seconds=time.perf_counter() - t_phase)
+
+
+# An HF checkpoint directory: written by the port, served from disk
+
+CKPT_SHARD_BYTES = 5 * 10**9  # the HF writers' default shard size ("5GB")
+CKPT_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+              r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)"
+              r"|\s+")
+# Llama-3's named special tokens among its 256 (ids 128,000 + offset)
+CKPT_SPECIALS = {0: "<|begin_of_text|>", 1: "<|end_of_text|>",
+                 6: "<|start_header_id|>", 7: "<|end_header_id|>",
+                 8: "<|eom_id|>", 9: "<|eot_id|>"}
+CKPT_TEMPLATE = (
+    "{{- bos_token }}"
+    "{%- if messages[0]['role'] == 'system' %}"
+    "{%- set system_message = messages[0]['content']|trim %}"
+    "{%- set messages = messages[1:] %}"
+    "{%- else %}{%- set system_message = '' %}{%- endif %}"
+    "{{- '<|start_header_id|>system<|end_header_id|>\\n\\n' }}"
+    "{{- system_message }}{{- '<|eot_id|>' }}"
+    "{%- for message in messages %}"
+    "{{- '<|start_header_id|>' + message['role'] + '<|end_header_id|>\\n\\n'"
+    " + message['content'] | trim + '<|eot_id|>' }}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}"
+    "{{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}"
+    "{%- endif %}")
+CKPT_CHATS = (
+    [{"role": "user", "content": "héllo"}],
+    [{"role": "system", "content": " You are terse. "},
+     {"role": "user", "content": "Name three colors, then 42."}],
+    [{"role": "user", "content": "a"}, {"role": "assistant", "content": "b"},
+     {"role": "user", "content": "日本語 and emoji 😀 — ok?"}],
+)
+
+
+def llama3_tokenizer_json(vocab_size: int) -> dict:
+    """A byte-level BPE `tokenizer.json` in Llama-3's form (the Split regex,
+    then ByteLevel; ignore_merges) with exactly `vocab_size` ids: the 256
+    byte tokens, merges from a fixed rule up to vocab_size - 256 (every pair
+    of printable-ASCII byte tokens, then each pair with one more, in order),
+    and 256 special tokens after them."""
+    from dynamo_tpu_torch.llm.hf_tokenizer import bytes_to_unicode
+
+    table = bytes_to_unicode()
+    vocab = {table[b]: b for b in range(256)}
+    n_regular = vocab_size - 256
+    printable = [table[b] for b in range(32, 127)]
+    merges = []
+    pairs = [(a, b) for a in printable for b in printable]
+    rule = pairs + [(a + b, c) for a, b in pairs for c in printable]
+    for a, b in rule[:n_regular - len(vocab)]:
+        vocab[a + b] = len(vocab)
+        merges.append(f"{a} {b}")
+    check(len(vocab) == n_regular, "the merge rule ran out of tokens")
+    reserved = iter(range(256))
+    added = []
+    for k in range(256):
+        name = CKPT_SPECIALS.get(k)
+        if name is None:
+            name = f"<|reserved_special_token_{next(reserved)}|>"
+        added.append({"id": n_regular + k, "content": name,
+                      "single_word": False, "lstrip": False,
+                      "rstrip": False, "normalized": False, "special": True})
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": True, "use_regex": False}
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": added, "normalizer": None,
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": CKPT_SPLIT},
+                 "behavior": "Isolated", "invert": False}, byte_level]},
+            "post_processor": byte_level, "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": False,
+                      "byte_fallback": False, "ignore_merges": True,
+                      "vocab": vocab, "merges": merges}}
+
+
+def _view_model(model, config):
+    """A Transformer over the first config.n_layers layers of `model`,
+    sharing its tensors (quantizing it replaces its leaves, not
+    `model`'s)."""
+    from dynamo_tpu_torch.models import Transformer
+
+    tree = {"embed": model.embed, "final_norm": model.final_norm,
+            "lm_head": model.lm_head,
+            "layers": [{k: layer[k] for k in layer.keys()}
+                       for layer in model.layers[:config.n_layers]]}
+    return Transformer(config, tree)
+
+
+class _RssPeak:
+    """The process's resident set, sampled every 20 ms from /proc while
+    the block runs; `peak` in bytes."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self.start = self._rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _timed_load(label: str, path: str, make_worker) -> tuple:
+    """Build a worker from `path` through `make_worker()`, timing the
+    checkpoint load inside it (`models.checkpoint.load_params`, as the
+    worker calls it): seconds, GB/s, host RSS peak above the start, device
+    memory peak above the weights' bytes."""
+    import resource
+
+    from dynamo_tpu_torch.engine import worker as worker_mod
+
+    stats = {}
+    load = worker_mod.load_params
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            model = load(*args, **kwargs)
+            torch.cuda.synchronize()
+            stats["load_s"] = time.perf_counter() - t0
+        weights = sum(t.numel() * t.element_size() for t in model.parameters())
+        stats.update(
+            weights_GB=weights / 1e9,
+            load_GB_per_s=weights / 1e9 / stats["load_s"],
+            host_rss_peak_above_start_GB=(rss.peak - rss.start) / 1e9,
+            host_rss_peak_GB=rss.peak / 1e9,
+            device_peak_above_weights_GB=(torch.cuda.max_memory_allocated()
+                                          - before - weights) / 1e9)
+        return model
+
+    worker_mod.load_params = timed
+    try:
+        t0 = time.perf_counter()
+        worker = make_worker()
+        stats["worker_s"] = time.perf_counter() - t0
+    finally:
+        worker_mod.load_params = load
+    stats["ru_maxrss_GB"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    emit(f"{label}_load", path=path, **stats)
+    return worker, stats
+
+
+def _held_streams(dev: torch.device, worker, label: str) -> dict:
+    """The standard 8 requests through `worker` on a new scheduler whose
+    thread starts once all are in (one admission, so two workers with the
+    same weights make the same calls); launches checked against the
+    forwards run. Returns streams by request id and the launches."""
+    from dynamo_tpu_torch.engine import InferenceScheduler
+    from dynamo_tpu_torch.ops.gumbel import gumbel_noise
+
+    runner = worker.runner
+    _, prompts = standard_traffic(worker.model_config.vocab_size)
+    worker.scheduler.stop()
+    worker.scheduler = InferenceScheduler(runner)
+    reset_counts()
+    reset_runner_counts(runner)
+    gumbel_noise.launches = 0
+    try:
+        results = asyncio.run(_serve_wave(worker, _bodies(prompts, "req"),
+                                          hold=True))
+        torch.cuda.synchronize()
+    finally:
+        worker.scheduler.stop()
+    launches = read_counts()
+    check(worker.scheduler.error is None,
+          f"{label}: scheduler error {worker.scheduler.error!r}")
+    want = expected_counts(runner, dev, decode=runner.decode_steps,
+                           prefill=runner.prefill_steps,
+                           warm=runner.graph_warm_forwards)
+    check(runner.decode_steps > 0 and launches == want,
+          f"{label}: kernel launches {launches} != expected {want}")
+    check(dev.type != "cuda" or gumbel_noise.launches > 0,
+          f"{label}: the noise pass never ran")
+    return {"streams": {f"req-{i}": r["tokens"]
+                        for i, r in enumerate(results)},
+            "launches": launches, "noise_launches": gumbel_noise.launches}
+
+
+def _compare_streams(label: str, got: dict, want: dict) -> dict:
+    divergence = {rid: _first_divergence(got[rid], want[rid])
+                  for rid in want}
+    check(all(at == 64 for rid, at in divergence.items() if _greedy(rid)),
+          f"{label}: greedy streams differ from the in-memory worker's at "
+          f"{divergence}")
+    return {"greedy_equal": True, "sampled_equal": all(
+        at == 64 for rid, at in divergence.items() if not _greedy(rid))}
+
+
+def _seeded_twice(worker, label: str) -> list:
+    """One seeded temperature request, twice, each on a new scheduler:
+    the same ids both times."""
+    from dynamo_tpu_torch.engine import InferenceScheduler
+
+    prompt = np.random.default_rng(SEED + 12).integers(
+        1, worker.model_config.vocab_size, 300)
+    runs = []
+    for _ in range(2):
+        worker.scheduler.stop()
+        worker.scheduler = InferenceScheduler(worker.runner)
+        worker.scheduler.start()
+        try:
+            runs.append(asyncio.run(_stream(
+                worker, _body("seeded-7", prompt, 0.8, 0.9)))["tokens"])
+        finally:
+            worker.scheduler.stop()
+    check(runs[0] == runs[1] and len(runs[0]) == 64,
+          f"{label}: a seeded temperature request drew different ids twice")
+    return runs[0]
+
+
+def _checkpoint_http(dev: torch.device, worker, tok, template) -> dict:
+    """The port's frontend in front of `worker` (served from the checkpoint
+    directory, its card naming the hf tokenizer): chat requests rendered
+    through the directory's template, one at a time, and a json_schema
+    request. The prompt ids the worker receives must equal
+    encode(render(messages)), and each text the decode of the ids the
+    worker streamed."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import InferenceScheduler
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    model = worker.card.name
+    seen = []
+    generate = worker.generate
+
+    async def recording(body, ctx=None):
+        rec = {"prompt": list(body["token_ids"]), "out": []}
+        seen.append(rec)
+        async with contextlib.aclosing(generate(body, ctx)) as stream:
+            async for frame in stream:
+                rec["out"] += frame.get("t") or []
+                yield frame
+
+    worker.generate = recording
+    worker.scheduler.stop()
+    worker.scheduler = InferenceScheduler(worker.runner)
+    worker.scheduler.logits_tokenizer = tok
+    worker.scheduler.start()
+
+    async def serve() -> dict:
+        root = tempfile.mkdtemp(prefix="chip_smoke_discovery_")
+        cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
+                            tcp_host="127.0.0.1", system_enabled=False)
+        rt = await DistributedRuntime(cfg).start()
+        frontend = Frontend(rt, host="127.0.0.1", port=0)
+        out = {"chats": []}
+        try:
+            await worker.serve(rt)
+            t0 = time.perf_counter()
+            await frontend.start()
+            listed = []
+            while model not in listed:
+                check(time.perf_counter() - t0 < 60,
+                      f"checkpoint: /v1/models never listed {model}")
+                res = await _http(frontend.port, "GET", "/v1/models")
+                listed = [m["id"] for m in json.loads(res["text"])["data"]]
+                await asyncio.sleep(0.05)
+            out["listed_s"] = time.perf_counter() - t0
+            for i, messages in enumerate(CKPT_CHATS):
+                body = {"model": model, "messages": messages,
+                        "max_tokens": 32, "temperature": 0.0,
+                        "ignore_eos": True}
+                if i % 2 == 0:
+                    body.update(stream=True,
+                                stream_options={"include_usage": True})
+                res = await _http(frontend.port, "POST",
+                                  "/v1/chat/completions", body)
+                out["chats"].append(_sse_outcome(res) if i % 2 == 0
+                                    else _aggregate_outcome(res))
+            body = {"model": model, "max_tokens": 64, "temperature": 0.0,
+                    "messages": [{"role": "user", "content": "json"}],
+                    "response_format": {"type": "json_schema", "json_schema": {
+                        "name": "answer", "schema": LOGITS_SCHEMA}}}
+            out["json"] = _aggregate_outcome(await _http(
+                frontend.port, "POST", "/v1/chat/completions", body))
+        finally:
+            await frontend.close()
+            await worker.shutdown()
+            await rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        return out
+
+    out = asyncio.run(serve())
+    del worker.generate  # the class's method again
+    check(len(seen) == len(CKPT_CHATS) + 1,
+          f"checkpoint: the worker saw {len(seen)} requests")
+    for i, (messages, got, rec) in enumerate(zip(CKPT_CHATS, out["chats"],
+                                                 seen)):
+        want_ids = tok.encode(template.render(messages=[dict(m) for m in
+                                                        messages],
+                                              add_generation_prompt=True))
+        check(rec["prompt"] == want_ids,
+              f"checkpoint: chat {i}'s prompt ids differ from "
+              "encode(render(messages))")
+        check(got["text"] == tok.decode(rec["out"])
+              and got["usage"]["prompt_tokens"] == len(want_ids)
+              and got["usage"]["completion_tokens"] == 32 == len(rec["out"]),
+              f"checkpoint: chat {i}: text or usage differ from the "
+              f"worker's stream: {got}")
+    answer = json.loads(out["json"]["text"])
+    check(set(answer) == {"ok", "color"} and isinstance(answer["ok"], bool)
+          and answer["color"] in ("red", "green", "blue")
+          and out["json"]["finish"] == "stop",
+          f"checkpoint: the json_schema answer {out['json']}")
+    return {"listed_s": out["listed_s"], "json": answer,
+            "chat_prompt_tokens": [c["usage"]["prompt_tokens"]
+                                   for c in out["chats"]]}
+
+
+def phase_checkpoint(dev: torch.device, worker) -> dict:
+    """An HF checkpoint directory, written by the port and served from disk
+    (llama3-8b at full width):
+
+    - write: the bf16 engine worker's weights as safetensors shards of at
+      most 5 GB with model.safetensors.index.json and config.json
+      (`hf_config_dict`), all 32 layers unless the disk is short (then the
+      first N layers, N and the reason printed); beside them a generated
+      Llama-3-form tokenizer.json of exactly 128,256 ids, a
+      tokenizer_config.json with a Llama-3-form chat template and
+      eos_token, and a generation_config.json;
+    - tokenizer: its load seconds, us a token encoding a 1,500-token
+      prompt (cold and cached), the template's render ms, and a json_schema
+      guide's first mask over the 128,256 ids;
+    - load bf16 (its shards first evicted from the page cache):
+      `TorchWorker(model_path=dir)`; the config equals the
+      preset but for the name, every leaf equals the in-memory one, and the
+      standard traffic's greedy streams equal the in-memory worker's (one
+      admission each); a seeded temperature request draws the same ids
+      twice; load seconds, GB/s, host RSS and device memory peaks;
+    - load int4 + int8 KV from the same directory: every q4 leaf equals
+      `quantize_params_int4` of the in-memory weights, and the greedy
+      streams equal a worker built from those with the same RunnerConfig;
+    - over HTTP: the port's frontend in front of that worker, chat requests
+      rendered through the directory's template and a json_schema request
+      guided over the 128,256 ids.
+
+    The directory is deleted in a `finally`. Returns the launches of rows
+    1 (the bf16 load's run), 2 and 6 (the int4 load's)."""
+    from dynamo_tpu_torch.engine import RunnerConfig, TorchWorker
+    from dynamo_tpu_torch.llm import guided
+    from dynamo_tpu_torch.llm.chat_template import ChatTemplate
+    from dynamo_tpu_torch.llm.hf_tokenizer import HfTokenizer
+    from dynamo_tpu_torch.models import get_config
+    from dynamo_tpu_torch.models.checkpoint import save_params
+    from dynamo_tpu_torch.models.quantize import quantize_params_int4
+
+    t_phase = time.perf_counter()
+    cfg = worker.model_config
+    model = worker.runner.model
+    root = ROOT / "build" / "checkpoint" / cfg.name
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out: dict = {}
+    launches: dict = {}
+    try:
+        # -- write
+        free = shutil.disk_usage(root).free
+        nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts)
+        layer_bytes = nbytes(model.layers[0].parameters())
+        other = nbytes([model.embed, model.final_norm]
+                       + ([model.lm_head] if model.lm_head is not None
+                          else []))
+        need = other + cfg.n_layers * layer_bytes
+        n_layers, reason = cfg.n_layers, None
+        if free < need + 2**30:
+            n_layers = int((free - 2**30 - other) // layer_bytes)
+            check(n_layers >= 1, f"checkpoint: {free} bytes free cannot hold "
+                  "one layer")
+            reason = (f"{free} bytes free, {need} needed for all "
+                      f"{cfg.n_layers} layers")
+        ckpt_cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        emit("checkpoint_disk", path=str(root), free_bytes=free,
+             need_bytes=need, layers_written=n_layers, reason=reason)
+        source = _view_model(model, ckpt_cfg)
+        t0 = time.perf_counter()
+        save_params(source, ckpt_cfg, str(root),
+                    max_shard_bytes=CKPT_SHARD_BYTES)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.sync()
+        sync_s = time.perf_counter() - t0
+        shards = sorted(root.glob("*.safetensors"))
+        # evict the written shards from the page cache, so the bf16 load
+        # reads the disk (the int4 load after it finds them cached)
+        for f in shards:
+            fd = os.open(f, os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+        written = sum(f.stat().st_size for f in shards)
+        with open(root / "model.safetensors.index.json") as f:
+            index = json.load(f)
+        check(all(f.stat().st_size <= CKPT_SHARD_BYTES + 2**20
+                  for f in shards) and len(set(index["weight_map"].values()))
+              == len(shards), "checkpoint: shards and index disagree")
+        t0 = time.perf_counter()
+        (root / "tokenizer.json").write_text(json.dumps(
+            llama3_tokenizer_json(cfg.vocab_size)))
+        (root / "tokenizer_config.json").write_text(json.dumps(
+            {"chat_template": CKPT_TEMPLATE, "eos_token": "<|eot_id|>",
+             "bos_token": "<|begin_of_text|>"}))
+        special = cfg.vocab_size - 256  # <|begin_of_text|>'s id
+        (root / "generation_config.json").write_text(json.dumps(
+            {"bos_token_id": special,
+             "eos_token_id": [special + 1, special + 9]}))
+        out["write"] = {"seconds": write_s, "sync_s": sync_s,
+                        "bytes": written, "shards": len(shards),
+                        "GB_per_s": written / 1e9 / write_s,
+                        "tokenizer_files_s": time.perf_counter() - t0}
+
+        # -- the tokenizer and the template, as a frontend loads them
+        t0 = time.perf_counter()
+        tok = HfTokenizer(str(root))
+        tok_load_s = time.perf_counter() - t0
+        check(tok.vocab_size == cfg.vocab_size
+              and tok.eos_token_ids == [special + 9, special + 1],
+              f"checkpoint: tokenizer vocab {tok.vocab_size}, eos "
+              f"{tok.eos_token_ids}")
+        rng = np.random.default_rng(SEED + 13)
+        words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"),
+                                    rng.integers(2, 10)))
+                 for _ in range(1200)]
+        text = " ".join(f"{w}{rng.choice(['', ',', '.', ' 42'])}"
+                        for w in words)
+        ids = tok.encode(text)
+        while len(ids) > 1500:
+            text = text[:int(len(text) * 1500 / len(ids))]
+            ids = tok.encode(text)
+        fresh = HfTokenizer(str(root))
+        t0 = time.perf_counter()
+        cold = fresh.encode(text)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = fresh.encode(text)
+        warm_s = time.perf_counter() - t0
+        check(cold == warm == ids and fresh.decode(ids) == text,
+              "checkpoint: encode / decode do not round-trip")
+        template = ChatTemplate(tok.chat_template)
+        t0 = time.perf_counter()
+        for messages in CKPT_CHATS:
+            template.render(messages=messages, add_generation_prompt=True)
+        render_ms = (time.perf_counter() - t0) * 1e3 / len(CKPT_CHATS)
+        t0 = time.perf_counter()
+        proc = guided.make_guided_processor(fresh, json_schema=LOGITS_SCHEMA)
+        proc([], np.zeros(cfg.vocab_size, np.float32))
+        mask_ms = (time.perf_counter() - t0) * 1e3
+        out["tokenizer"] = {"load_s": tok_load_s, "prompt_tokens": len(ids),
+                            "encode_us_per_token_cold": cold_s * 1e6
+                            / len(ids),
+                            "encode_us_per_token_cached": warm_s * 1e6
+                            / len(ids),
+                            "render_ms": render_ms,
+                            "guided_first_mask_ms": mask_ms}
+        emit("checkpoint_tokenizer", **out["tokenizer"])
+
+        # -- the in-memory streams (the engine worker's, or for fewer
+        #    layers a worker over the first N of them)
+        if n_layers == cfg.n_layers:
+            mem = worker
+        else:
+            mem = TorchWorker(ckpt_cfg, RunnerConfig(), params=source,
+                              device=dev)
+        want = _held_streams(dev, mem, "checkpoint in-memory")
+
+        # -- load bf16
+        loaded, load_stats = _timed_load(
+            "checkpoint_bf16", str(root),
+            lambda: TorchWorker(model_path=str(root), device=dev))
+        got_cfg = loaded.model_config
+        preset = get_config(cfg.name) if n_layers == cfg.n_layers else cfg
+        check(dataclasses.replace(got_cfg, name=cfg.name,
+                                  n_layers=preset.n_layers) == preset
+              and got_cfg.n_layers == n_layers
+              and loaded.card.name == root.name
+              and loaded.card.tokenizer == {"kind": "hf", "path": str(root)},
+              f"checkpoint: config {got_cfg} / card {loaded.card}")
+        mine = dict(loaded.runner.model.named_parameters())
+        ref_leaves = dict(source.named_parameters())
+        check(mine.keys() == ref_leaves.keys() and all(
+            mine[k].dtype == t.dtype and torch.equal(mine[k], t)
+            for k, t in ref_leaves.items()),
+            "checkpoint: a loaded bf16 leaf differs from the in-memory one")
+        got = _held_streams(dev, loaded, "checkpoint bf16")
+        out["bf16"] = {**load_stats, "leaves": len(mine),
+                       **_compare_streams("checkpoint bf16", got["streams"],
+                                          want["streams"]),
+                       "launches": got["launches"],
+                       "noise_launches": got["noise_launches"],
+                       "seeded_ids_head": _seeded_twice(loaded,
+                                                        "checkpoint bf16")[
+                                                            :8]}
+        launches["paged_decode_attention_pool"] = got["launches"][
+            "paged_decode_attention_pool"]
+        loaded.close()
+        del loaded, mine
+        if mem is not worker:
+            mem.close()
+        del mem
+        free_memory()
+
+        # -- load int4 + int8 KV
+        qcfg = RunnerConfig(weight_dtype="int4", kv_dtype="int8")
+        qref = TorchWorker(ckpt_cfg, qcfg, device=dev,
+                           params=quantize_params_int4(
+                               _view_model(model, ckpt_cfg)))
+        qwant = _held_streams(dev, qref, "checkpoint int4 in-memory")
+        loaded, load_stats = _timed_load(
+            "checkpoint_q", str(root),
+            lambda: TorchWorker(model_path=str(root), runner_config=qcfg,
+                                device=dev))
+        mine = loaded.runner.model.state_dict()
+        ref_state = qref.runner.model.state_dict()
+        check(mine.keys() == ref_state.keys() and all(
+            torch.equal(mine[k], t) for k, t in ref_state.items()),
+            "checkpoint: a loaded q4 leaf differs from quantize_params_int4 "
+            "of the in-memory weights")
+        qref.close()
+        del qref, ref_state, mine
+        free_memory()
+        got = _held_streams(dev, loaded, "checkpoint int4")
+        out["q"] = {**load_stats, **_compare_streams(
+            "checkpoint int4", got["streams"], qwant["streams"]),
+            "launches": got["launches"]}
+        for name in ("paged_decode_attention_pool_int8", "q4_matmul_v2"):
+            launches[name] = got["launches"][name]
+            check(dev.type != "cuda" or launches[name] > 0,
+                  f"checkpoint: {name} never launched")
+
+        # -- over HTTP through the port's frontend
+        out["http"] = _checkpoint_http(dev, loaded, tok, template)
+        loaded.close()
+        del loaded
+        free_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("checkpoint", model=cfg.name, layers_written=n_layers,
+         **out, launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 # Logits processors and structured outputs over HTTP: the host-sampling path
@@ -3252,6 +3892,7 @@ def main() -> None:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
     phase_build()
+    phase_noise(dev)
     entries = phase_kernels(dev) + phase_gemms(dev)
     launches = {}
 
@@ -3264,6 +3905,8 @@ def main() -> None:
         phase_prefill(dev, worker, "prefill_bf16")
         phase_graphs(dev, worker, "graphs_bf16")
         phase_serve(dev, worker, "serve_bf16")
+        for name, n in phase_checkpoint(dev, worker).items():
+            launches[name] = launches.get(name, 0) + n
     finally:
         worker.close()
     del worker
@@ -3285,7 +3928,7 @@ def main() -> None:
           == {"q4_matmul_v2": 7 * n_layers + 1},
           "mistral-7b int4 must pack every projection in the v2 layout")
     for name in ("paged_decode_attention_pool_int8", "q4_matmul_v2"):
-        launches[name] = counts[name]
+        launches[name] = launches.get(name, 0) + counts[name]
     try:
         phase_parity(worker, "parity_q")
         for name, n in phase_prefill(dev, worker, "prefill_q").items():

@@ -7,11 +7,12 @@ bit-exact `argmax`. The truncation masks are the JAX package's, expression for
 expression.
 
 Randomness: the contract is (seed, step) -> token, independent of whatever
-else is in the batch. JAX folds the step into a per-slot threefry key; here
-the Gumbel noise comes from a counter-based hash of (seed, step, vocab index)
-computed with integer tensor ops, so no global generator is involved and a
-row's draw never depends on its neighbours. The two frameworks therefore give
-different tokens for the same seed; the distributions agree.
+else is in the batch. As in JAX, each slot's key is
+`fold_in(PRNGKey(seed), step)` and its Gumbel noise JAX's threefry draw
+(`ops.gumbel.gumbel_noise`: a fused Triton pass on the card, int64 tensor
+ops on the CPU), so no global generator is involved, a row's draw never
+depends on its neighbours, and the two frameworks sample the same token for
+the same logits, seed and step.
 
 The JAX sampler skips the truncation sort and the noise at run time when no
 slot needs them (`lax.cond`). Deciding that here would cost a host sync per
@@ -23,43 +24,10 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.gumbel import gumbel_noise
+
 # Top alternatives returned with every sampled token.
 TOP_LOGPROBS_K = 8
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for int64 x in [0, 2^32), in 16-bit halves so no
-    intermediate leaves int64."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _fmix32(h: torch.Tensor) -> torch.Tensor:
-    """MurmurHash3's 32-bit finalizer: a bijection with full avalanche."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
-def gumbel_noise(seeds: torch.Tensor, steps: torch.Tensor,
-                 vocab: int) -> torch.Tensor:
-    """[B, vocab] f32 Gumbel(0, 1) noise, a pure function of
-    (seed, step, vocab index) per element."""
-    seeds = seeds.long() & _M32
-    steps = steps.long() & _M32
-    key_a = _fmix32(seeds ^ 0x2545F491)
-    key_b = _fmix32(_mul32(steps, 0x9E3779B1) ^ key_a)
-    idx = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
-    h = _fmix32((_mul32(idx, 0x9E3779B1)[None, :] + key_a[:, None]) & _M32)
-    h = _fmix32(h ^ key_b[:, None])
-    # 24 random bits -> u in (0, 1), exact in f32
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
 
 
 def _truncate(scaled: torch.Tensor, top_p: torch.Tensor,

@@ -24,7 +24,7 @@ Capture, at a key's first use (as `jax.jit` compiles at first call):
      capture that fails raises; nothing falls back to eager.
 
 The kernel wrappers count their launches in Python (`.launches`, see
-`ops.kernel_wrappers`), so a replay cannot move the counts: the capture's
+`ops.counted_wrappers`), so a replay cannot move the counts: the capture's
 launches are tallied on the capturing thread only (`ops._launch.tally`; the
 capture ran nothing, and another runner's thread keeps counting), and every
 replay adds them back. The eager run of step 2 did launch its kernels and
@@ -44,7 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..ops import kernel_wrappers
+from ..ops import counted_wrappers
 from ..ops._launch import count_launch, tally
 
 # A step: static inputs by name -> output tensors.
@@ -56,12 +56,12 @@ NUMPY_DTYPES = {torch.int64: np.int64, torch.int32: np.int32,
 
 def _by_name(counts: dict) -> dict[str, int]:
     """A tally (wrapper -> launches) by kernel name."""
-    return {name: counts[fn] for name, fn in kernel_wrappers().items()
+    return {name: counts[fn] for name, fn in counted_wrappers().items()
             if counts.get(fn)}
 
 
 def _add_counts(delta: dict[str, int]) -> None:
-    wrappers = kernel_wrappers()
+    wrappers = counted_wrappers()
     for name, n in delta.items():
         count_launch(wrappers[name], n)
 

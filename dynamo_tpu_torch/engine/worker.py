@@ -11,6 +11,13 @@ frontends of both packages route to it, and publishes the worker's KV events
 the event plane, so either package's kv-mode router scores it. `main` is
 `python -m dynamo_tpu_torch.worker`.
 
+`TorchWorker(model_path=dir)` serves an HF checkpoint directory, as
+`TpuWorker(model_path=...)` does: the architecture from its config.json,
+the weights from its safetensors shards (`models/checkpoint.py`, loaded on
+the device leaf by leaf; a load error is fatal, never random weights), and
+the card advertises an `hf` tokenizer when the directory holds a
+`tokenizer.json`.
+
 LoadMetrics' `device_ms_in_step` and `host_ms_in_step` stay 0: the
 reference fills them from its steptrace, which is not ported. Not ported
 yet: the weights, kv_pull and drain endpoints, LoRA and disaggregated modes.
@@ -24,6 +31,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import threading
 from typing import AsyncIterator, Optional, Union
 
@@ -49,6 +57,7 @@ from ..llm.model_card import (
 from ..llm.protocols import EngineOutput, PreprocessedRequest
 from ..llm.tokenizer import load_tokenizer
 from ..models import ModelConfig, Transformer, get_config
+from ..models.checkpoint import config_from_checkpoint, load_params
 from ..models.transformer import AttentionFn
 from ..runtime.component import new_instance_id
 from .model_runner import ModelRunner, RunnerConfig
@@ -125,9 +134,17 @@ class TorchWorker:
         component: str = "backend",
         tool_parser: Optional[str] = None,
         reasoning_parser: Optional[str] = None,
+        model_path: Optional[str] = None,
+        served_name: Optional[str] = None,
+        dtype: str = "bfloat16",
     ) -> None:
         """`model` is a preset name or a ModelConfig. Without `params` the
-        weights are random, drawn from `seed` on `device`. `attention_fn`
+        weights are random, drawn from `seed` on `device`. `model_path`, an
+        HF checkpoint directory, overrides both: the config comes from its
+        config.json (named after the directory) and the weights, cast to
+        `dtype` (bfloat16, as the reference), from its shards; the
+        runner's weight_dtype then quantizes them in place. The card is
+        named `served_name` when given. `attention_fn`
         goes to the runner, as `TpuWorker(attention_fn=...)` does: the
         unified forward then serves decode and prefill with it (for example
         `ops.paged_attention.paged_attention`, the T = 1 kernel), and
@@ -135,8 +152,19 @@ class TorchWorker:
         endpoints and card for `serve`; `tool_parser` and `reasoning_parser`
         go on the card, for the frontends' output parsers."""
         self.device = resolve_device(device)
-        self.model_config = (get_config(model) if isinstance(model, str)
-                             else model)
+        tokenizer = {"kind": "byte"}
+        if model_path:
+            if params is not None:
+                raise ValueError("give model_path or params, not both")
+            self.model_config = config_from_checkpoint(model_path,
+                                                       dtype=dtype)
+            params = load_params(model_path, self.model_config,
+                                 device=self.device)
+            if os.path.exists(os.path.join(model_path, "tokenizer.json")):
+                tokenizer = {"kind": "hf", "path": model_path}
+        else:
+            self.model_config = (get_config(model) if isinstance(model, str)
+                                 else model)
         self.runner_config = runner_config or RunnerConfig(
             page_size=env("DYNT_KV_BLOCK_SIZE"))
         self.runner = ModelRunner(self.model_config, self.runner_config,
@@ -149,7 +177,7 @@ class TorchWorker:
             self.runner, on_stored=self.events.on_stored,
             on_removed=self.events.on_removed)
         self.card = ModelDeploymentCard(
-            name=self.model_config.name,
+            name=served_name or self.model_config.name,
             model_types=[CHAT, COMPLETIONS],
             namespace=namespace,
             component=component,
@@ -158,6 +186,7 @@ class TorchWorker:
                                self.runner_config.max_context),
             kv_block_size=self.runner_config.page_size,
             total_kv_blocks=self.runner_config.num_pages,
+            tokenizer=tokenizer,
             tool_parser=tool_parser,
             reasoning_parser=reasoning_parser,
         )
@@ -281,12 +310,19 @@ class TorchWorker:
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
-    """The subset of the reference worker's CLI that this package serves,
-    plus --prewarm and --device."""
+    """The subset of the reference worker's CLI that this package serves
+    (--model-ref stays refused: the model registry is not ported), plus
+    --prewarm and --device."""
     parser = argparse.ArgumentParser("dynamo_tpu_torch.worker",
                                      allow_abbrev=False)
     parser.add_argument("--model", default="tiny-test",
                         help="model preset (models/config.py PRESETS)")
+    parser.add_argument("--model-path", default=None,
+                        help="HF checkpoint directory (config.json + "
+                             "*.safetensors [+ tokenizer.json]); overrides "
+                             "--model — the architecture comes from the "
+                             "checkpoint's config.json")
+    parser.add_argument("--served-model-name", default=None)
     parser.add_argument("--namespace", default="dynamo")
     parser.add_argument("--component", default="backend")
     parser.add_argument("--page-size", type=int,
@@ -325,13 +361,15 @@ async def main(argv: Optional[list[str]] = None) -> None:
     runtime = await DistributedRuntime(RuntimeConfig.from_env()).start()
     worker: Optional[TorchWorker] = None
     try:
-        worker = TorchWorker(
-            args.model,
+        # in a thread: loading a checkpoint takes seconds
+        worker = await asyncio.to_thread(
+            TorchWorker, args.model,
             RunnerConfig(page_size=args.page_size, num_pages=args.num_pages,
                          max_batch=args.max_batch,
                          max_pages_per_seq=args.max_pages_per_seq,
                          weight_dtype=args.weight_dtype,
                          kv_dtype=args.kv_dtype),
+            model_path=args.model_path, served_name=args.served_model_name,
             device=device, namespace=args.namespace,
             component=args.component, tool_parser=args.tool_call_parser,
             reasoning_parser=args.reasoning_parser)

@@ -10,7 +10,9 @@ openai.rs:1811-2191):
 Status codes and error bodies are the reference's: 400 for a bad request,
 404 for an unknown model, 503 when no instance serves it or when every
 worker's published KV usage is at or above the busy threshold (ref:
-busy_threshold.rs), 502 for an engine error. A client disconnect cancels
+busy_threshold.rs), 502 for an engine error, and for a chat template that
+fails while it renders the 500 the reference's aiohttp server gives an
+uncaught exception. A client disconnect cancels
 the handler, and the cancellation travels down the request plane to the
 worker (ref: http/service/disconnect.rs). Any other route answers 404.
 
@@ -40,11 +42,17 @@ from ..runtime.http import (
 from ..runtime.push_router import NoInstancesAvailable
 from ..runtime.request_plane import RemoteError
 from ..runtime.status import metrics_response
+from .chat_template import TemplateError
 from .manager import ModelEntry, ModelManager
 from .preprocessor import DeltaGenerator, RequestError
 from .protocols import EngineOutput, PreprocessedRequest
 
 log = logging.getLogger("dynamo_tpu_torch.http_service")
+
+# What aiohttp's server answers (text/plain, status 500) when a handler
+# raises, as the reference's does for a jinja2 error while rendering.
+TEMPLATE_ERROR_BODY = ("500 Internal Server Error\n\n"
+                       "Server got itself in trouble")
 
 
 def _error_body(status: int, message: str,
@@ -158,6 +166,9 @@ class HttpService:
                 preprocessed = entry.preprocessor.preprocess_completions(body)
         except RequestError as exc:
             return json_response(_error_body(400, str(exc)), status=400)
+        except TemplateError:
+            log.exception("chat template failed for model %s", model)
+            return Response(TEMPLATE_ERROR_BODY, 500)
         # Tool parsing activates only when the request declares tools (the
         # reference gates on request.tools the same way); reasoning parsing
         # follows the model card.

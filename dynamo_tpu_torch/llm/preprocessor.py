@@ -7,22 +7,29 @@ detokenization + OpenAI SSE delta construction with stop-string jailing —
 text that might be a prefix of a stop string is held until disambiguated
 (ref: backend.rs detokenizer + http delta path, chat_completions/jail.rs).
 
-The default ChatML template is rendered by `render_default_chat_template`,
-which gives the string jinja2 renders from the reference's
-DEFAULT_CHAT_TEMPLATE. Structured outputs (`response_format`,
+The card's or the tokenizer's chat template, or without one the
+reference's default (ChatML), is rendered by `llm/chat_template.py` (the
+part of Jinja that HF templates use, with jinja2's semantics). A template
+outside the renderer's
+grammar is refused when the preprocessor is built: chat requests then
+answer 400 and completions still serve. A template that fails while it
+renders (an undefined `raise_exception`, say) raises its `TemplateError`,
+which the HTTP service answers as the reference's server answers an
+uncaught jinja2 error. Structured outputs (`response_format`,
 `nvext.guided_decoding`, `tool_choice` forcing) lower to the worker's
 'guided' logits processor (`llm/guided.py`); chat responses go through the
-card's tool and reasoning parsers (`parsers/`). Not ported yet: custom chat
-templates (a card or tokenizer that carries one answers chat requests with
-400) and multimodal prompts.
+card's tool and reasoning parsers (`parsers/`). Not ported yet: multimodal
+prompts.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 from ..engine.sampler import TOP_LOGPROBS_K
 from ..parsers import make_reasoning_parser, make_tool_parser
+from .chat_template import ChatTemplate, TemplateSyntaxError
 from .model_card import ModelDeploymentCard
 from .protocols import (
     EngineOutput,
@@ -37,6 +44,8 @@ from .protocols import (
 from .tokenizer import IncrementalDetokenizer, Tokenizer, load_tokenizer
 from .validate import RequestError, validate_logit_bias, validate_request
 
+log = logging.getLogger("dynamo_tpu_torch.preprocessor")
+
 # ChatML — the de-facto default template when a model ships none (the
 # reference renders this string with jinja2).
 DEFAULT_CHAT_TEMPLATE = (
@@ -47,34 +56,29 @@ DEFAULT_CHAT_TEMPLATE = (
 )
 
 
-def _jinja_str(message: dict, key: str) -> str:
-    """`{{ message[key] }}` as jinja2 prints it: a missing key renders empty,
-    anything else as str()."""
-    return str(message[key]) if key in message else ""
-
-
-def render_default_chat_template(messages: list[dict],
-                                 add_generation_prompt: bool = True) -> str:
-    out = [f"<|im_start|>{_jinja_str(m, 'role')}\n"
-           f"{_jinja_str(m, 'content')}<|im_end|>\n" for m in messages]
-    if add_generation_prompt:
-        out.append("<|im_start|>assistant\n")
-    return "".join(out)
-
-
 class OpenAIPreprocessor:
     def __init__(self, card: ModelDeploymentCard,
                  tokenizer: Optional[Tokenizer] = None) -> None:
         self.card = card
         self.tokenizer = tokenizer or load_tokenizer(card.tokenizer)
-        self.custom_template = (card.chat_template
-                                or self.tokenizer.chat_template)
+        source = (card.chat_template or self.tokenizer.chat_template
+                  or DEFAULT_CHAT_TEMPLATE)
+        self.template: Optional[ChatTemplate] = None
+        self.template_refused: Optional[str] = None
+        try:
+            self.template = ChatTemplate(source)
+        except TemplateSyntaxError as exc:
+            self.template_refused = (
+                f"model '{card.name}' has a chat template outside the "
+                f"renderer's grammar ({exc})")
+            log.warning("%s; chat requests will answer 400",
+                        self.template_refused)
 
     # -- forward: OpenAI request -> PreprocessedRequest --------------------
 
     def render_chat(self, messages: list[dict]) -> str:
-        if self.custom_template:
-            raise RequestError("custom chat templates are not ported yet")
+        if self.template_refused:
+            raise RequestError(self.template_refused)
         for msg in messages:
             if not isinstance(msg, dict) or "role" not in msg:
                 raise RequestError("each message needs a 'role'")
@@ -85,7 +89,8 @@ class OpenAIPreprocessor:
                     part.get("text", "") for part in content
                     if isinstance(part, dict) and part.get("type") == "text"
                 )
-        return render_default_chat_template(messages)
+        return self.template.render(messages=messages,
+                                    add_generation_prompt=True)
 
     def preprocess_chat(self, request: dict) -> PreprocessedRequest:
         validate_request(request, "chat")

@@ -1,9 +1,12 @@
-"""Tokenizer abstraction: the byte-level tokenizer and streaming decode.
+"""Tokenizer abstraction: the byte-level tokenizer, HF tokenizers and
+streaming decode.
 
 Port of `dynamo_tpu/llm/tokenizer.py`. `ByteTokenizer` (256 byte vocab +
 special tokens; zero-asset) is what the workers of both packages advertise
-on their cards for random-weight presets. HF tokenizers are not ported yet
-(the reference's need the `tokenizers` package, not a dependency here).
+on their cards for random-weight presets; a worker serving a checkpoint
+directory with a `tokenizer.json` advertises {"kind": "hf", "path": dir},
+which `load_tokenizer` builds as `llm.hf_tokenizer.HfTokenizer` (the file
+interpreted on the standard library, as the `tokenizers` package runs it).
 
 Incremental (streaming) detokenization uses the prefix-offset technique: keep
 decoding the tail window of tokens and only emit the stable UTF-8 suffix, so
@@ -80,7 +83,9 @@ def load_tokenizer(spec: dict) -> Tokenizer:
     if kind == "byte":
         return ByteTokenizer()
     if kind == "hf":
-        raise NotImplementedError("HF tokenizers are not ported yet")
+        from .hf_tokenizer import HfTokenizer
+
+        return HfTokenizer(spec["path"])
     raise ValueError(f"unknown tokenizer spec: {spec!r}")
 
 

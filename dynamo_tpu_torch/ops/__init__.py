@@ -37,6 +37,7 @@ __all__ = [
     "paged_decode_attention_pool_ref",
     "Q4Weight", "q4_matmul", "q4_matmul_ref", "q4_matmul_v1", "q4_matmul_v2",
     "Q8Weight", "q8_matmul", "q8_matmul_ref", "kernel_wrappers",
+    "counted_wrappers",
 ]
 
 
@@ -57,3 +58,12 @@ def kernel_wrappers() -> dict:
         "q4_matmul_v2": q4_matmul_v2,
         "q4_matmul_v1": q4_matmul_v1,
     }
+
+
+def counted_wrappers() -> dict:
+    """`kernel_wrappers()` and the fused passes that port no TPU kernel
+    (the sampler's noise): every wrapper whose `.launches` a CUDA-graph
+    replay re-adds."""
+    from .gumbel import gumbel_noise
+
+    return {**kernel_wrappers(), "gumbel_noise": gumbel_noise}

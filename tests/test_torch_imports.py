@@ -1,7 +1,9 @@
 """The port stands alone: dynamo_tpu_torch and chip_smoke.py import nothing
 of JAX, nothing of the JAX package, and none of the JAX package's runtime
-dependencies the card's machine lacks. Its entry points default to the
-card and raise where there is none."""
+dependencies the card's machine lacks (among them `safetensors`,
+`tokenizers`, `jinja2`, `ml_dtypes` and `regex`, which the checkpoint,
+tokenizer and chat-template modules replace). Its entry points default to
+the card and raise where there is none."""
 
 import ast
 import os
@@ -14,7 +16,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "dynamo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "aiohttp", "xxhash",
-             "zmq", "prometheus_client", "jinja2")
+             "zmq", "prometheus_client", "jinja2", "safetensors",
+             "tokenizers", "ml_dtypes", "regex")
 
 
 # Modules of the quantized-serving slice, which must be among the checked
@@ -52,6 +55,13 @@ LOGITS_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
     "parsers.reasoning"))
 
 
+# Modules of the checkpoint slice (and the sampler's noise): each must be
+# among the checked sources and import cleanly on its own.
+CHECKPOINT_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
+    "models.safetensors", "models.checkpoint", "llm.hf_tokenizer",
+    "llm.chat_template", "ops.gumbel"))
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "scripts" /
@@ -82,6 +92,13 @@ def test_sources_cover_the_kv_routing_modules():
                 or path / "__init__.py" in files), module
 
 
+def test_sources_cover_the_checkpoint_modules():
+    files = set(_sources())
+    for module in CHECKPOINT_MODULES:
+        assert ROOT / (module.replace(".", "/") + ".py") in files
+    assert PORT / "ops" / "gumbel_triton.py" in files
+
+
 def test_sources_cover_the_logits_modules():
     files = set(_sources())
     for module in LOGITS_MODULES:
@@ -91,7 +108,7 @@ def test_sources_cover_the_logits_modules():
 
 
 @pytest.mark.parametrize("module", SERVING_MODULES + KV_ROUTING_MODULES
-                         + LOGITS_MODULES)
+                         + LOGITS_MODULES + CHECKPOINT_MODULES)
 def test_serving_module_imports_on_its_own(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -48,10 +48,8 @@ from dynamo_tpu.runtime import RuntimeConfig as RefRuntimeConfig
 from dynamo_tpu_torch.engine import RunnerConfig, TorchWorker
 from dynamo_tpu_torch.frontend import Frontend
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
-from dynamo_tpu_torch.llm.preprocessor import (
-    DEFAULT_CHAT_TEMPLATE,
-    render_default_chat_template,
-)
+from dynamo_tpu_torch.llm.chat_template import ChatTemplate
+from dynamo_tpu_torch.llm.preprocessor import DEFAULT_CHAT_TEMPLATE
 from dynamo_tpu_torch.models import params_from_numpy
 from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
 from dynamo_tpu_torch.runtime.discovery import FileDiscovery
@@ -414,21 +412,44 @@ def test_chat_template_renders_as_jinja2(msgs, add_generation_prompt):
     expected = jinja2.Environment().from_string(
         ref_preprocessor.DEFAULT_CHAT_TEMPLATE).render(
             messages=msgs, add_generation_prompt=add_generation_prompt)
-    assert render_default_chat_template(
-        msgs, add_generation_prompt) == expected
+    assert ChatTemplate(DEFAULT_CHAT_TEMPLATE).render(
+        messages=msgs, add_generation_prompt=add_generation_prompt) \
+        == expected
     assert DEFAULT_CHAT_TEMPLATE == ref_preprocessor.DEFAULT_CHAT_TEMPLATE
 
 
 def test_custom_chat_template_is_refused(stacks):
+    """A template outside the renderer's grammar: chat answers 400 (the
+    preprocessor refused it when it was built); completions still serve."""
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.llm.validate import RequestError
 
     pre = OpenAIPreprocessor(ModelDeploymentCard(
-        name="m", chat_template="{{ messages }}"))
-    with pytest.raises(RequestError, match="custom chat templates"):
+        name="m", chat_template="{% macro m() %}{% endmacro %}"))
+    with pytest.raises(RequestError, match="outside the renderer's grammar"):
         pre.preprocess_chat({"messages": [{"role": "user", "content": "x"}]})
     # completions do not render the template
     assert pre.preprocess_completions({"prompt": "x"}).token_ids == [120]
+
+
+def test_custom_chat_template_renders(stacks):
+    """A custom template inside the grammar renders as jinja2 renders it
+    through the reference's preprocessor."""
+    from dynamo_tpu.llm.model_card import ModelDeploymentCard as RefCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+
+    template = ("{{ messages }}{% for m in messages %}<{{ m.role }}>"
+                "{{ m.content|trim }}{% endfor %}")
+    msgs = [{"role": "user", "content": " x "}, {"role": "assistant"}]
+    pre = OpenAIPreprocessor(ModelDeploymentCard(name="m",
+                                                 chat_template=template))
+    ref = ref_preprocessor.OpenAIPreprocessor(
+        RefCard(name="m", chat_template=template))
+    assert pre.render_chat([dict(m) for m in msgs]) == ref.render_chat(
+        [dict(m) for m in msgs])
+    got = pre.preprocess_chat({"messages": msgs})
+    want = ref.preprocess_chat({"messages": msgs})
+    assert got.token_ids == want.token_ids
 
 
 class _PortLog(logging.Handler):
@@ -503,7 +524,172 @@ def test_cli_refuses_what_is_not_ported():
         with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
             build_arg_parser().parse_args(argv)
     for argv in (["--mode", "prefill"], ["--max-loras", "2"],
-                 ["--tp", "2"], ["--kv-dtype", "fp8"]):
+                 ["--tp", "2"], ["--kv-dtype", "fp8"],
+                 ["--model-ref", "ns/model"]):
         with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
             worker_cli().parse_args(argv)
     assert worker_cli().parse_args([]).device == "cuda"
+    args = worker_cli().parse_args(["--model-path", "/ckpt",
+                                    "--served-model-name", "m"])
+    assert (args.model_path, args.served_model_name) == ("/ckpt", "m")
+
+
+# -- one HF checkpoint directory (weights, tokenizer.json, chat template),
+#    served by a worker of each package behind a frontend of each ---------------
+
+CKPT_TEMPLATE = (
+    "{{- bos_token }}{% for m in messages %}"
+    "{% if m['role'] not in ['system', 'user', 'assistant'] %}"
+    "{{ raise_exception('unknown role ' + m['role']) }}{% endif %}"
+    "{{- '<|start_header_id|>' + m['role'] + '<|end_header_id|>\\n\\n' "
+    "+ m['content'] | trim + '<|eot_id|>' }}{% endfor %}"
+    "{% if add_generation_prompt %}"
+    "{{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}{% endif %}")
+CKPT_SPECIALS = ["<|begin_of_text|>", "<|eot_id|>", "<|start_header_id|>",
+                 "<|end_header_id|>"]
+
+
+def _checkpoint_dir(path, params) -> str:
+    """tiny-test's weights, a Llama-3-form byte-level BPE of under 512 ids
+    and the config files a checkpoint ships."""
+    from tokenizers import Regex, Tokenizer, decoders, models
+    from tokenizers import pre_tokenizers, trainers
+
+    from dynamo_tpu.models.checkpoint import save_params as ref_save
+
+    ref_save(params, CFG, str(path))
+    tok = Tokenizer(models.BPE(ignore_merges=True))
+    tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(
+            r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+            r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)"
+            r"|\s+"), behavior="isolated"),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)])
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(
+        ["The quick brown fox jumps over the lazy dog.", "héllo wörld 123",
+         "be brief, json and 'quotes'", "{\"ok\": true, \"color\": \"red\"}"]
+        * 20, trainers.BpeTrainer(
+            vocab_size=480, special_tokens=CKPT_SPECIALS, show_progress=False,
+            initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    assert tok.get_vocab_size() <= CFG.vocab_size
+    tok.save(str(path / "tokenizer.json"))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"chat_template": CKPT_TEMPLATE, "eos_token": "<|eot_id|>"}))
+    (path / "generation_config.json").write_text(json.dumps(
+        {"eos_token_id": tok.token_to_id("<|eot_id|>")}))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def ckpt_stacks(tmp_path_factory):
+    """The a / b / c / d pairings of `stacks`, both workers started from
+    one checkpoint directory (float32 weights), the frontends loading its
+    tokenizer and template from the card."""
+    params = jax.device_get(j_init(jax.random.PRNGKey(4), CFG))
+    root = tmp_path_factory.mktemp("ckpt_serving")
+    ckpt_dir = root / "tiny-ckpt"
+    ckpt_dir.mkdir()
+    path = _checkpoint_dir(ckpt_dir, params)
+    lt = _LoopThread()
+    state: dict = {"model": "tiny-ckpt", "path": path}
+
+    async def up():
+        port_p = await DistributedRuntime(_port_config(root / "P")).start()
+        ref_p = await RefRuntime(_ref_config(root / "P")).start()
+        ref_r = await RefRuntime(_ref_config(root / "R")).start()
+        port_r = await DistributedRuntime(_port_config(root / "R")).start()
+        state["runtimes"] = [port_p, ref_p, ref_r, port_r]
+        worker = TorchWorker(model_path=path, dtype="float32", device="cpu",
+                             runner_config=RunnerConfig(**RUNNER))
+        worker.start()
+        await worker.serve(port_p)
+        state["worker"] = worker
+        ref_worker = TpuWorker(ref_r, model_path=path,
+                               runner_config=JRunnerConfig(**RUNNER))
+        ref_worker.model_config = dataclasses.replace(
+            ref_worker.model_config, dtype="float32")
+        await ref_worker.start()
+        state["ref_worker"] = ref_worker
+        fes = {"a": Frontend(port_p, host="127.0.0.1", port=0),
+               "b": RefFrontend(ref_p, host="127.0.0.1", port=0),
+               "c": RefFrontend(ref_r, host="127.0.0.1", port=0),
+               "d": Frontend(port_r, host="127.0.0.1", port=0)}
+        state["frontends"] = fes
+        for fe in fes.values():
+            await fe.start()
+        for fe in fes.values():
+            await _wait_for(fe.manager, state["model"])
+
+    async def down():
+        for fe in state.get("frontends", {}).values():
+            await fe.close()
+        if "worker" in state:
+            await state["worker"].shutdown()
+        if "ref_worker" in state:
+            await state["ref_worker"].close()
+        for rt in state.get("runtimes", []):
+            await rt.shutdown()
+
+    try:
+        lt.run(up(), timeout=120.0)
+        state["ports"] = {k: fe.port for k, fe in state["frontends"].items()}
+        yield state
+    finally:
+        try:
+            lt.run(down(), timeout=60.0)
+        finally:
+            lt.close()
+
+
+CKPT_REQUESTS = {
+    "chat": ("chat", {"messages": [{"role": "user", "content": "héllo"}],
+                      "max_tokens": 8}),
+    "chat-stream": ("chat", {
+        "messages": [{"role": "system", "content": " be brief "},
+                     {"role": "user", "content": "The quick fox"}],
+        "max_tokens": 9, **_STREAM}),
+    "completions-text": ("completions", {"prompt": "jumps over the",
+                                         "max_tokens": 6}),
+    "chat-json-schema": ("chat", {
+        "messages": [{"role": "user", "content": "json"}], "max_tokens": 40,
+        "response_format": {"type": "json_schema", "json_schema": {
+            "name": "s", "schema": {
+                "type": "object",
+                "properties": {"ok": {"type": "boolean"},
+                               "color": {"enum": ["red", "green", "blue"]}},
+                "required": ["ok", "color"]}}}}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CKPT_REQUESTS))
+def test_checkpoint_directory_serves_across_packages(ckpt_stacks, name):
+    kind, body = CKPT_REQUESTS[name]
+    path = "/v1/chat/completions" if kind == "chat" else "/v1/completions"
+    full = {"model": ckpt_stacks["model"], "temperature": 0.0, **body}
+    got = {}
+    for which in "acbd":  # each worker sees the same history per frontend
+        status, _, text = _request(ckpt_stacks["ports"][which], "POST",
+                                   path, full)
+        got[which] = _outcome(kind, full, status, text)
+    assert got["a"] == got["c"], "port stack != reference stack"
+    assert got["b"] == got["d"], "cross-package pairings disagree"
+    text, finish, usage = got["a"]
+    assert usage["prompt_tokens"] == got["b"][2]["prompt_tokens"]
+    if name == "chat-json-schema":
+        assert set(json.loads(text)) == {"ok", "color"}
+
+
+def test_checkpoint_template_error_answers_as_the_reference(ckpt_stacks):
+    """The template's raise_exception branch: both frontends answer the
+    reference server's 500 for an uncaught template error."""
+    from dynamo_tpu_torch.llm.http_service import TEMPLATE_ERROR_BODY
+
+    body = {"model": ckpt_stacks["model"], "max_tokens": 2,
+            "messages": [{"role": "tool", "content": "x"}]}
+    port = _request(ckpt_stacks["ports"]["a"], "POST",
+                    "/v1/chat/completions", body)
+    ref = _request(ckpt_stacks["ports"]["c"], "POST",
+                   "/v1/chat/completions", body)
+    assert port[0] == ref[0] == 500
+    assert port[2] == ref[2] == TEMPLATE_ERROR_BODY

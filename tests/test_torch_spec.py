@@ -337,7 +337,7 @@ def test_greedy_spec_stream_matches_jax_engine(params, runner, monkeypatch):
     monkeypatch.setenv("DYNT_DECODE_BLOCK", "4")
     monkeypatch.setenv("DYNT_DECODE_PIPELINE", "2")
     reqs, max_tokens = _requests(0.0)
-    reqs = [r for r in reqs if r[2] == 0.0]  # temperature draws differ
+    reqs = [r for r in reqs if r[2] == 0.0]  # sampled: test_torch_sampler.py
     j_runner = JRunner(CFG, JRunnerConfig(**RUNNER), make_mesh(MeshConfig()),
                        params=params)
     j_streams, j_stats = _run(j_runner, True, monkeypatch, reqs, max_tokens,
