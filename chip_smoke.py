@@ -144,6 +144,27 @@ Phases, each printing one JSON line:
               prefixes more (round_robin), its TTFT for cache hits and
               misses, each wave's batched prefill dispatches; run three
               times
+  resilience - migration, deadlines and admission at full width: a second
+              mistral-7b W4A16 worker on the first's weights, each prewarmed
+              on its own port runtime with a HealthCheckManager, a port
+              Frontend in round_robin; 4 streams of 256 tokens (2 per
+              worker), worker B killed once each has 32 tokens (server
+              drops its connections, lease revoked, scheduler stopped):
+              every stream ends with 256 tokens and the original prompt
+              length, each migrated stream is B's tokens before the cut
+              then A's replay, equal to a direct continuation on A up to
+              a near-tie; B
+              restarted and its scheduler frozen with the stream idle
+              timeout at 3 s: the streams migrate, B's canaries fail and
+              deregister it, its /health answers 503, and it re-registers
+              after a thaw; a 1,000 ms deadline ends a long request with
+              the in-band 504 and its pages return within one iteration, a
+              spent budget gets 503; 48 requests saturate both workers: a
+              deadline below the estimated queue wait gets 503 with the
+              estimator's Retry-After before any prefill, a generous one is
+              admitted, a tenant over DYNT_TENANT_RATE_LIMIT is refused
+              while another is served; stall, deregistration and estimate
+              against actual wait; rows 2 and 6 counted, no graph captured
   spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
               KV: a runner of 8 slots, all live, 5 positions each (the int8
               pool kernel folded, the q4 v2 kernel at M = 8 x 5 = 40),
@@ -2103,18 +2124,22 @@ def phase_prefill(dev: torch.device, worker, label: str) -> dict:
 
 
 async def _http(port: int, method: str, path: str, body=None,
-                cut_after_events: int = 0) -> dict:
+                cut_after_events: int = 0,
+                headers: dict | None = None) -> dict:
     """One HTTP/1.1 exchange on 127.0.0.1 with asyncio streams (the card's
-    machine has no aiohttp). A chunked (SSE) answer is read event by event,
-    each stamped on arrival; with `cut_after_events` the socket is closed
-    after that many events, as a client that goes away."""
+    machine has no aiohttp), sending `headers` besides the usual ones. A
+    chunked (SSE) answer is read event by event, each stamped on arrival;
+    with `cut_after_events` the socket is closed after that many events, as
+    a client that goes away. The answer's headers come back lower-cased."""
     t0 = time.perf_counter()
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     try:
         data = b"" if body is None else json.dumps(body).encode()
+        extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
         writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
                      "Connection: close\r\nContent-Type: application/json\r\n"
-                     f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+                     f"{extra}Content-Length: {len(data)}\r\n\r\n".encode()
+                     + data)
         await writer.drain()
         head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
         status = int(head.split(" ", 2)[1])
@@ -2124,7 +2149,7 @@ async def _http(port: int, method: str, path: str, body=None,
             text = (await reader.readexactly(
                 int(headers["content-length"]))).decode()
             return {"status": status, "text": text, "t0": t0,
-                    "t_end": time.perf_counter()}
+                    "t_end": time.perf_counter(), "headers": headers}
         events, buf = [], b""
         while True:
             n = int((await reader.readuntil(b"\r\n")).strip(), 16)
@@ -2136,9 +2161,10 @@ async def _http(port: int, method: str, path: str, body=None,
                 event, buf = buf.split(b"\n\n", 1)
                 events.append((now, event.decode()[len("data: "):]))
             if cut_after_events and len(events) >= cut_after_events:
-                return {"status": status, "events": events, "t0": t0}
+                return {"status": status, "events": events, "t0": t0,
+                        "headers": headers}
         return {"status": status, "events": events, "t0": t0,
-                "t_end": time.perf_counter()}
+                "t_end": time.perf_counter(), "headers": headers}
     finally:
         writer.close()
 
@@ -3860,6 +3886,651 @@ def phase_serve_kv(dev: torch.device, worker_a, run: int = 0) -> dict:
     return out["launches"]
 
 
+RES_PROMPTS = (256, 512, 768, 1024)  # the migrating streams' prompt lengths
+RES_OUT = 256  # their max_tokens
+RES_CUT = 32  # tokens every stream has before worker B dies
+RES_IDLE_S = "3"  # DYNT_STREAM_IDLE_TIMEOUT_SECS while B is wedged
+RES_BACKLOG = 48  # requests that saturate both workers' 16 slots
+RES_TENANT_LIMIT = "50"  # DYNT_TENANT_RATE_LIMIT, tokens/s
+# Each worker's HealthCheckManager: probe after 1 s idle, sweep every 0.5 s,
+# 2 s per canary, deregister after 2 failures. A canary waits behind the
+# worker's batch, and a long stream leaves its endpoint's idle clock alone
+# while it runs, so the timeout must cover a scheduler iteration under load.
+RES_HEALTH = {"canary_wait_time": 1.0, "check_interval": 0.5,
+              "canary_timeout": 2.0, "max_failures": 2}
+
+
+def phase_resilience(dev: torch.device, worker_a) -> dict:
+    """Resilience and admission at full width: a second TorchWorker (B) on
+    `worker_a`'s weights (mistral-7b W4A16 + int8 KV, the default
+    RunnerConfig, both prewarmed), each on its own port DistributedRuntime
+    (file discovery in a temporary directory, the TCP request plane, the
+    zmq event plane; B's status server on), a HealthCheckManager on each
+    (RES_HEALTH) and a port Frontend in round_robin in front, in this
+    process. Greedy /v1/completions with token-id prompts, streamed.
+
+    1. hard failure: 4 streams of 256-1,024 prompt tokens and 256 tokens
+       each (2 per worker); once each has sent >= 32 tokens B dies (its
+       request-plane server drops every connection without a final frame,
+       its lease is revoked, its scheduler stops). Every stream must end
+       with finish_reason length, 256 tokens and the original prompt length
+       in usage; each migrated stream's text is the tokens B sent before
+       the cut followed by A's replay (prior_output_tokens = those tokens),
+       and the replay equals a direct request to A (fresh scheduler, empty
+       cache) of the prompt plus those tokens, or parts from it only at a
+       near-tie (check_continuations says why).
+    2. wedged worker: B restarts (a new runtime, a fresh scheduler); the
+       same 4 streams with DYNT_STREAM_IDLE_TIMEOUT_SECS=3, and once B's
+       two have >= 32 tokens B's scheduler freezes while its connections
+       stay open: they migrate after the idle timeout with the same checks,
+       B's canaries fail, its HealthCheckManager deregisters it and its
+       /health answers 503; B thaws and its canaries re-register it.
+    3. deadlines: a 1,024-token request with x-dynt-deadline-ms 1,000 ends
+       with the in-band 504 deadline error, its sequence is cancelled and
+       its worker's reclaimable pages return to their count within one
+       scheduler iteration; a request with a spent budget (0 ms) gets 503
+       with Retry-After and reaches no worker.
+    4. admission (DYNT_ADMISSION_ENABLE=1): 48 requests saturate both
+       workers; a request whose deadline is below the estimated queue wait
+       gets 503 with Retry-After = the estimator's clamped value and
+       reaches no worker; a request with a generous deadline is admitted
+       (its estimate against its actual wait is printed); with
+       DYNT_TENANT_RATE_LIMIT=50 a tenant over its share is refused while
+       another tenant is served.
+
+    Throughout: no graph is captured and no graphable forward runs eagerly,
+    and rows 2 and 6 are launched once per layer (projection) of every
+    forward of both runners, the canaries' and the direct checks' included.
+    Returns the phase's launches."""
+    import tempfile
+    import threading
+
+    from dynamo_tpu_torch.engine import InferenceScheduler, TorchWorker
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.llm.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime import (
+        DistributedRuntime,
+        HealthCheckManager,
+        RuntimeConfig,
+    )
+    from dynamo_tpu_torch.runtime import admission as adm
+    from dynamo_tpu_torch.runtime import metrics as rt_metrics
+
+    label = "resilience"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    worker_b = TorchWorker(worker_a.model_config, worker_a.runner_config,
+                           device=worker_a.device,
+                           params=worker_a.runner.model)
+    worker_b.runner.prewarm()
+    prewarm_b_s = time.perf_counter() - t0
+    workers = [worker_a, worker_b]
+    runners = [w.runner for w in workers]
+    model = worker_a.card.name
+    vocab = worker_a.model_config.vocab_size
+    rng = np.random.default_rng(SEED + 13)
+    tok = ByteTokenizer()
+    originals = [w.generate for w in workers]
+    # request_id -> {"worker": k, "prompt", "prior", "tokens"} of every
+    # non-canary request each worker served, in arrival order
+    served: list = []
+    canaries = [0, 0]
+    # the near-tie checks' eager forwards on A (context lengths): outside
+    # the runner's counters, they launch row 6 once per projection
+    eager_forwards: list = []
+
+    def recording(k: int):
+        async def gen(body, ctx=None):
+            if (body.get("annotations") or {}).get("canary"):
+                canaries[k] += 1
+                async with contextlib.aclosing(
+                        originals[k](body, ctx)) as stream:
+                    async for item in stream:
+                        yield item
+                return
+            rec = {"worker": k, "rid": body["request_id"],
+                   "prompt": list(body["token_ids"]),
+                   "prior": list(body.get("prior_output_tokens") or []),
+                   "tokens": [], "t_first": None}
+            served.append(rec)
+            async with contextlib.aclosing(originals[k](body, ctx)) as stream:
+                async for item in stream:
+                    if item.get("t") and rec["t_first"] is None:
+                        rec["t_first"] = time.perf_counter()
+                    rec["tokens"] += item.get("t") or []
+                    yield item
+        return gen
+
+    for k, w in enumerate(workers):
+        w.generate = recording(k)
+
+    def fresh(k: int) -> None:
+        """A new, started scheduler (an empty page pool) on worker k."""
+        w = workers[k]
+        w.scheduler.stop()
+        old = w.scheduler
+        w.scheduler = InferenceScheduler(w.runner,
+                                         on_stored=w.events.on_stored,
+                                         on_removed=w.events.on_removed)
+        w.scheduler.logits_tokenizer = old.logits_tokenizer
+        w.events.on_cleared()
+        w.scheduler.start()
+
+    def prompt(n: int) -> list:
+        return rng.integers(1, vocab, n).tolist()
+
+    def body(p, max_tokens: int, stream: bool = True) -> dict:
+        return {"model": model, "prompt": list(p), "max_tokens": max_tokens,
+                "temperature": 0.0, "ignore_eos": True, "stream": stream,
+                "stream_options": {"include_usage": True}}
+
+    async def until(pred, what: str, timeout: float = 60.0) -> float:
+        t = time.perf_counter()
+        while not pred():
+            check(time.perf_counter() - t < timeout, f"{label}: {what}")
+            await asyncio.sleep(0.002)
+        return time.perf_counter() - t
+
+    def sent(rid: str) -> int:
+        return sum(len(r["tokens"]) for r in served if r["rid"] == rid)
+
+    def prefill_tokens() -> list:
+        return [w.scheduler.stats.prefill_tokens for w in workers]
+
+    def all_reclaimable(k: int) -> bool:
+        """No live sequence on worker k: every page but the reserved one
+        is free or an unpinned prefix-cache page."""
+        pool = workers[k].scheduler.pool
+        return (_reclaimable_pages(pool) == pool.num_pages - 1
+                and workers[k].scheduler.queue_depth() == (0, 0))
+
+    async def direct(prompt_ids, max_tokens: int) -> list:
+        """The greedy continuation on worker A alone: a fresh scheduler,
+        the cache empty."""
+        fresh(0)
+        req = PreprocessedRequest(
+            request_id=f"direct-{len(prompt_ids)}", token_ids=list(prompt_ids),
+            sampling=SamplingOptions(max_tokens=max_tokens, temperature=0.0),
+            stop=StopConditions(ignore_eos=True)).to_wire()
+        out = []
+        async for frame in originals[0](req):
+            out += frame.get("t") or []
+        return out
+
+    async def migrate_round(port: int, entry, trigger, what: str) -> dict:
+        """4 streams, 2 per worker; `trigger` kills or freezes B once each
+        stream on it has >= RES_CUT tokens. Returns the outcomes and the
+        migrated streams' records."""
+        first = len(served)
+        prompts = [prompt(n) for n in RES_PROMPTS]
+        tasks = [asyncio.ensure_future(_http(port, "POST", "/v1/completions",
+                                             body(p, RES_OUT)))
+                 for p in prompts]
+        await until(lambda: len(served) - first >= 4, f"{what}: 4 arrivals")
+        mine = served[first:first + 4]
+        on_b = [r["rid"] for r in mine if r["worker"] == 1]
+        check(sorted(r["worker"] for r in mine) == [0, 0, 1, 1],
+              f"{what}: the streams went to {[r['worker'] for r in mine]}")
+        await until(lambda: all(sent(r["rid"]) >= RES_CUT for r in mine),
+                    f"{what}: {RES_CUT} tokens on every stream")
+        t_cut = time.perf_counter()
+        await trigger()
+        answers = await asyncio.gather(*tasks)
+        t_done = time.perf_counter()
+        outs = []
+        for p, res in zip(prompts, answers):
+            o = _sse_outcome(res)
+            o["rid"] = res["headers"].get("x-request-id")
+            o["prompt"] = p
+            outs.append(o)
+        migrated = []
+        for o in outs:
+            check(o["finish"] == "length"
+                  and o["usage"]["completion_tokens"] == RES_OUT
+                  and o["usage"]["prompt_tokens"] == len(o["prompt"]),
+                  f"{what}: {o['finish']} {o['usage']} (prompt "
+                  f"{len(o['prompt'])})")
+            legs = [r for r in served[first:] if r["rid"] == o["rid"]]
+            if o["rid"] not in on_b:
+                check(len(legs) == 1 and tok.decode(legs[0]["tokens"])
+                      == o["text"], f"{what}: a stream on A was disturbed")
+                continue
+            check(len(legs) >= 2 and legs[0]["worker"] == 1
+                  and legs[-1]["worker"] == 0,
+                  f"{what}: stream {o['rid']} legs "
+                  f"{[(r['worker'], len(r['prior'])) for r in legs]}")
+            replay = legs[-1]
+            cut = replay["prior"]
+            # no token repeated or lost at the cut: what the client got
+            # before it is a prefix of what B sent, and the text is those
+            # tokens then the replay's
+            check(len(cut) >= RES_CUT and legs[0]["tokens"][:len(cut)] == cut
+                  and replay["prompt"] == o["prompt"] + cut
+                  and len(cut) + len(replay["tokens"]) == RES_OUT
+                  and tok.decode(cut + replay["tokens"]) == o["text"],
+                  f"{what}: stream {o['rid']}: {len(cut)} tokens before the "
+                  f"cut, {len(replay['tokens'])} after")
+            migrated.append({"rid": o["rid"], "prompt": o["prompt"],
+                             "cut": cut, "replay": replay["tokens"],
+                             # the cut to A sending the replay's first token
+                             "stall_ms": (replay["t_first"] - t_cut) * 1e3,
+                             "replay_prompt": len(replay["prompt"])})
+        check(len(migrated) == 2, f"{what}: {len(migrated)} migrated")
+        own_a = sum(len(r["prompt"]) for r in served[first:]
+                    if r["worker"] == 0 and not r["prior"])
+        return {"migrated": migrated, "t_cut": t_cut, "own_a": own_a,
+                "wall_s": t_done - t_cut}
+
+    async def check_continuations(round_: dict, what: str) -> None:
+        """Each replay against a direct continuation on A. The decode
+        kernel's split plan follows the batch's table width, so a replay
+        beside other streams and the same request alone round differently:
+        the two greedy streams may part only at a near-tie, a top-2 gap
+        within NEAR_TIE_NATS of an eager forward's logits there."""
+        for m in round_["migrated"]:
+            context = m["prompt"] + m["cut"]
+            want = await direct(context, RES_OUT - len(m["cut"]))
+            d = _first_divergence(want, m["replay"])
+            m["diverged_at"], m["gap_nats"] = None, None
+            if d < len(want):
+                fresh(0)  # the eager forward below writes pages 1..n
+                tokens = context + want[:d]
+                ps = worker_a.runner.config.page_size
+                table = np.arange(1, -(-len(tokens) // ps) + 1,
+                                  dtype=np.int32)
+                logits, _ = _unpadded_prefill(worker_a.runner, tokens, 0,
+                                              table, len(tokens))
+                eager_forwards.append(len(tokens))
+                row = logits.float().cpu().numpy()
+                gap = float(row.max() - min(row[want[d]],
+                                            row[m["replay"][d]]))
+                m["diverged_at"], m["gap_nats"] = d, gap
+                check(gap <= NEAR_TIE_NATS,
+                      f"{what}: stream {m['rid']}'s replay parts from the "
+                      f"direct continuation at token {d} of "
+                      f"{len(want)}, {gap:.3f} nats below the top (not a "
+                      f"near-tie, <= {NEAR_TIE_NATS})")
+                fresh(0)
+
+    async def serve() -> dict:
+        root = tempfile.mkdtemp(prefix="chip_smoke_res_")
+        cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
+                            tcp_host="127.0.0.1", system_enabled=False)
+        rt_a = await DistributedRuntime(dataclasses.replace(cfg)).start()
+        rt_fe = await DistributedRuntime(dataclasses.replace(cfg)).start()
+        rts = {"a": rt_a, "fe": rt_fe}
+        dead = []  # B's runtimes after a kill, shut down at the end
+        health = {}
+        fe = Frontend(rt_fe, host="127.0.0.1", port=0,
+                      router_mode="round_robin")
+        freeze, thaw = threading.Event(), threading.Event()
+        out = {}
+
+        def health_manager(rt) -> HealthCheckManager:
+            hm = HealthCheckManager(rt, **RES_HEALTH)
+            hm.start()
+            return hm
+
+        async def off_health(run_checks) -> None:
+            """Run the direct checks with the canaries off: they replace
+            A's scheduler under its live endpoint, which would drop a
+            canary in flight."""
+            names = list(health)
+            for name in names:
+                await health.pop(name).close()
+            await run_checks
+            for name in names:
+                health[name] = health_manager(rts[name])
+
+        async def start_b() -> None:
+            rt_b = await DistributedRuntime(dataclasses.replace(
+                cfg, system_enabled=True)).start()
+            rts["b"] = rt_b
+            worker_b._served, worker_b._tasks = [], []
+            fresh(1)
+            await worker_b.serve(rt_b)
+            health["b"] = health_manager(rt_b)
+
+        async def kill_b() -> None:
+            """B dies: its server drops every connection without a final
+            frame, its lease is revoked, its scheduler stops."""
+            rt_b = rts.pop("b")
+            dead.append(rt_b)
+            await health.pop("b").close()
+            for task in (rt_b._keepalive_task, *worker_b._tasks):
+                task.cancel()
+            await asyncio.gather(rt_b._keepalive_task, *worker_b._tasks,
+                                 return_exceptions=True)
+            await rt_b.request_server.close()
+            await rt_b.discovery.revoke_lease(rt_b.lease)
+            worker_b.scheduler.stop()
+
+        try:
+            fresh(0)
+            await worker_a.serve(rt_a)
+            health["a"] = health_manager(rt_a)
+            await start_b()
+            await fe.start()
+            ids = {w.instance_id for w in workers}
+            await until(lambda: fe.manager.get(model) is not None
+                        and ids <= set(fe.manager.get(model).worker_usage)
+                        and ids <= set(fe.manager.get(model).router.client
+                                       .instance_ids()),
+                        "both workers listed with their LoadMetrics")
+            entry = fe.manager.get(model)
+            subject = entry.router.client.endpoint.subject
+            b_hex = f"{worker_b.instance_id:x}"
+            # counts to zero just before the main path
+            reset_counts()
+            for r in runners:
+                reset_runner_counts(r)
+            retries0 = rt_metrics.RETRIES_TOTAL.labels(
+                endpoint=subject, outcome="allowed").get()
+            opens0 = rt_metrics.BREAKER_TRANSITIONS.labels(
+                endpoint=subject, state="open").get()
+            canaries0 = list(canaries)
+
+            # 1. a hard failure
+            pre, canaries_pre = prefill_tokens(), list(canaries)
+            hard = await migrate_round(fe.port, entry, kill_b, "hard")
+            # every prompt is random: nothing of it is in A's cache, and a
+            # canary prefills its one token
+            hard["prefill_tokens_a_replays"] = (
+                prefill_tokens()[0] - pre[0] - hard["own_a"]
+                - (canaries[0] - canaries_pre[0]))
+            hard["retries_allowed"] = rt_metrics.RETRIES_TOTAL.labels(
+                endpoint=subject, outcome="allowed").get() - retries0
+            hard["breaker_opened_b"] = rt_metrics.BREAKER_TRANSITIONS.labels(
+                endpoint=subject, state="open").get() - opens0
+            hard["breaker_b"] = (entry.router.breakers._breakers[
+                worker_b.instance_id].state
+                if worker_b.instance_id in entry.router.breakers._breakers
+                else "dropped (deregistered)")
+            check(hard["breaker_opened_b"] >= 1,
+                  "hard: B's breaker never opened")
+            await off_health(check_continuations(hard, "hard"))
+            out["hard"] = hard
+
+            # 2. a wedged worker
+            await start_b()
+            await until(lambda: worker_b.instance_id in
+                        entry.router.client.instance_ids(), "B back")
+            orig_step = worker_b.scheduler._step
+
+            def step():
+                if freeze.is_set():
+                    thaw.wait()
+                return orig_step()
+
+            worker_b.scheduler._step = step
+            marks = {}
+
+            async def wedge() -> None:
+                freeze.set()
+                marks["freeze"] = time.perf_counter()
+
+            with knobs(DYNT_STREAM_IDLE_TIMEOUT_SECS=RES_IDLE_S):
+                wedged = await migrate_round(fe.port, entry, wedge,
+                                             "wedged")
+            await until(lambda: worker_b.instance_id not in
+                        entry.router.client.instance_ids(),
+                        "the canaries did not deregister B")
+            wedged["freeze_to_deregistered_s"] = (time.perf_counter()
+                                                  - marks["freeze"])
+            res = await _http(rts["b"].status_server.port, "GET", "/health")
+            wedged["health_status"] = res["status"]
+            check(res["status"] == 503 and "unhealthy" in res["text"],
+                  f"wedged: B's /health answered {res['status']} "
+                  f"{res['text']}")
+            thaw.set()
+            t_thaw = time.perf_counter()
+            await until(lambda: worker_b.instance_id in
+                        entry.router.client.instance_ids(),
+                        "B's canaries did not re-register it")
+            wedged["thaw_to_reregistered_s"] = time.perf_counter() - t_thaw
+            res = await _http(rts["b"].status_server.port, "GET", "/health")
+            check(res["status"] == 200, f"wedged: B's /health after the "
+                  f"thaw answered {res['status']}")
+            worker_b.scheduler._step = orig_step
+            out["wedged"] = wedged
+            # the canaries have shown both ways; they stop here, so the
+            # prefill and page counts below are the requests' own
+            for hm in health.values():
+                await hm.close()
+            await check_continuations(wedged, "wedged")
+            fresh(0)
+            await until(lambda: all(all_reclaimable(k) for k in range(2)),
+                        "idle before the deadlines")
+
+            # 3. deadlines
+            first = len(served)
+            budget_ms = 1000
+            res = await _http(fe.port, "POST", "/v1/completions",
+                              body(prompt(512), 1024),
+                              headers={"x-dynt-deadline-ms": str(budget_ms)})
+            t_end = res["t_end"]
+            check(len(served) == first + 1, "deadline: no arrival")
+            k = served[first]["worker"]
+            steps0 = workers[k].scheduler.stats.steps
+            events = [json.loads(e) for _, e in res["events"]
+                      if e != "[DONE]"]
+            errors = [e["error"] for e in events if "error" in e]
+            check(len(errors) == 1 and errors[0]["code"] == 504
+                  and errors[0]["type"] == "deadline_exceeded",
+                  f"deadline: the stream ended with {errors}")
+            await until(lambda: all_reclaimable(k),
+                        "deadline: the pages did not come back", 10.0)
+            deadline = {
+                "worker": k, "tokens_before_expiry": len(
+                    served[first]["tokens"]),
+                "expiry_to_stream_end_ms": (t_end - (res["t0"] + budget_ms
+                                                     / 1e3)) * 1e3,
+                "iterations_to_pages_back": (workers[k].scheduler.stats.steps
+                                             - steps0)}
+            check(deadline["iterations_to_pages_back"] <= 1,
+                  f"deadline: pages back after "
+                  f"{deadline['iterations_to_pages_back']} iterations")
+            pre = prefill_tokens()
+            res = await _http(fe.port, "POST", "/v1/completions",
+                              body(prompt(512), 64),
+                              headers={"x-dynt-deadline-ms": "0"})
+            check(res["status"] == 503 and "retry-after" in res["headers"]
+                  and "deadline already spent" in res["text"]
+                  and len(served) == first + 1 and prefill_tokens() == pre,
+                  f"deadline: a spent budget answered {res['status']} "
+                  f"{res['text']}")
+            deadline["spent_status"] = res["status"]
+            deadline["spent_retry_after"] = res["headers"]["retry-after"]
+            out["deadline"] = deadline
+
+            # 4. admission under a saturating backlog
+            with knobs(DYNT_ADMISSION_ENABLE="1",
+                       DYNT_TENANT_RATE_LIMIT=RES_TENANT_LIMIT):
+                adm.reset_tenant_ledger()
+                out["admission"] = await admission(fe.port, entry)
+            adm.reset_tenant_ledger()
+            await until(lambda: all(w.scheduler.queue_depth() == (0, 0)
+                                    for w in workers), "idle at the end")
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["launches"] = read_counts()
+            out["canaries"] = [c - c0 for c, c0 in zip(canaries, canaries0)]
+            out["runner_counts"] = [launched_forwards(r) | {
+                "prefill": r.prefill_steps, "decode_steps": r.decode_steps,
+                "warm": dict(r.graph_warm_forwards),
+                "captures": r.graph_captures} for r in runners]
+            out["want"] = {}
+            for r in runners:
+                for name, n in expected_counts(
+                        r, dev, decode=r.decode_steps,
+                        prefill=r.prefill_steps,
+                        warm=r.graph_warm_forwards).items():
+                    out["want"][name] = out["want"].get(name, 0) + n
+            for name, n in expected_counts(
+                    runners[0], dev, prefill=len(eager_forwards)).items():
+                out["want"][name] += n
+            out["eager_check_forwards"] = list(eager_forwards)
+        finally:
+            thaw.set()
+            await fe.close()
+            for hm in health.values():
+                await hm.close()
+            for w in workers:
+                await w.shutdown()
+                del w.generate
+            for rt in [*rts.values(), *dead]:
+                await rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        return out
+
+    async def admission(port: int, entry) -> dict:
+        """The backlog, the doomed and the generous request, the tenants."""
+        est = entry.wait_estimator
+        first = len(served)
+        backlog = [asyncio.ensure_future(_http(
+            port, "POST", "/v1/completions", body(prompt(64), RES_OUT)))
+            for _ in range(RES_BACKLOG)]
+        # the estimate once the workers published their queues and the
+        # frontend saw the first wave's first tokens (its drain rate)
+        slots = sum(w.runner_config.max_batch for w in workers)
+        await until(lambda: est.depth() >= RES_BACKLOG - slots - 2
+                    and sum(r["t_first"] is not None
+                            for r in served[first:]) >= slots
+                    and est.estimate_wait_ms() > 100.0,
+                    f"admission: depth {est.depth()}, estimate "
+                    f"{est.estimate_wait_ms()} ms")
+        await asyncio.sleep(0.05)  # the last first tokens reach the frontend
+        arrivals, pre = len(served), prefill_tokens()
+        wait_ms = est.estimate_wait_ms()
+        doomed_ms = max(20, int(wait_ms / 4))
+        res = await _http(port, "POST", "/v1/completions",
+                          body(prompt(64), 64),
+                          headers={"x-dynt-deadline-ms": str(doomed_ms)})
+        check(res["status"] == 503 and "estimated queue wait" in res["text"],
+              f"admission: a {doomed_ms} ms budget behind {wait_ms:.0f} ms "
+              f"answered {res['status']} {res.get('text')}")
+        # the estimate the refusal used, as check_admission published it
+        refused_est = rt_metrics.ADMISSION_WAIT_MS.labels(
+            pool=est.pool).get()
+        want_after = str(max(1, math.ceil(adm.clamp_retry_after_s(
+            refused_est))))
+        check(res["headers"]["retry-after"] == want_after
+              and len(served) == arrivals and prefill_tokens() == pre,
+              f"admission: Retry-After {res['headers'].get('retry-after')} "
+              f"(want {want_after}); arrivals {len(served) - arrivals}")
+        out = {"depth": est.depth(), "estimate_ms": wait_ms,
+               "doomed_budget_ms": doomed_ms,
+               "refused_estimate_ms": refused_est,
+               "retry_after": res["headers"]["retry-after"]}
+        # a generous deadline (ten times the estimate, at least 600 s) is
+        # admitted
+        pool = est.pool
+        generous_ms = max(600_000, int(est.estimate_wait_ms() * 10))
+        admitted = asyncio.ensure_future(_http(
+            port, "POST", "/v1/completions", body(prompt(64), 16),
+            headers={"x-dynt-deadline-ms": str(generous_ms)}))
+        await until(lambda: len(served) > arrivals or admitted.done(),
+                    "admission: the generous request hung")
+        if len(served) == arrivals:
+            check(False, f"admission: a {generous_ms} ms budget was "
+                  f"refused: {admitted.result().get('text')}")
+        out["admitted_estimate_ms"] = rt_metrics.ADMISSION_WAIT_MS.labels(
+            pool=pool).get()
+        # the tenants, with generous deadlines: only the quota may refuse
+        ledger = adm.get_tenant_ledger()
+        flood = []
+        for i in range(8):
+            before = len(served)
+            t = asyncio.ensure_future(_http(
+                port, "POST", "/v1/completions", body(prompt(64), 64),
+                headers={"x-dynt-tenant-id": "flood",
+                         "x-dynt-deadline-ms": str(generous_ms)}))
+            await until(lambda: t.done() or len(served) > before,
+                        "admission: a flood request hung")
+            if t.done():
+                res = t.result()
+                check(res["status"] == 503 and "fair share" in res["text"]
+                      and "retry-after" in res["headers"]
+                      and len(served) == before,
+                      f"admission: flood request {i} answered "
+                      f"{res['status']} {res.get('text')}")
+                out["flood_refused_at"] = i
+                out["flood_rate_tps"] = ledger.rate("flood")
+                out["flood_retry_after"] = res["headers"]["retry-after"]
+                break
+            flood.append(t)
+        check("flood_refused_at" in out,
+              "admission: the flooding tenant was never refused")
+        calm = await _http(port, "POST", "/v1/completions",
+                           body(prompt(64), 64),
+                           headers={"x-dynt-tenant-id": "calm",
+                                    "x-dynt-deadline-ms": str(generous_ms)})
+        o = _sse_outcome(calm)
+        check(calm["status"] == 200 and o["finish"] == "length",
+              f"admission: the calm tenant got {calm['status']}")
+        for t in [admitted, *flood, *backlog]:
+            o = _sse_outcome(await t)
+            check(o["finish"] == "length", f"admission: {o['finish']}")
+        o = _sse_outcome(admitted.result())
+        out["admitted_wait_ms"] = (o["stamps"][0] - o["t0"]) * 1e3
+        return out
+
+    out = asyncio.run(serve())
+    for r, rc in zip(runners, out["runner_counts"]):
+        check(rc["captures"] == 0, f"{label}: {rc['captures']} captures")
+        check_graphed(r, label)
+    check(out["launches"] == out["want"] and (dev.type != "cuda" or (
+        out["launches"]["q4_matmul_v2"] > 0
+        and out["launches"]["paged_decode_attention_pool_int8"] > 0)),
+          f"{label}: kernel launches {out['launches']} != expected "
+          f"{out['want']}")
+    check(sum(out["canaries"]) > 0, f"{label}: no canary was served")
+    stalls = {name: [m["stall_ms"] for m in out[name]["migrated"]]
+              for name in ("hard", "wedged")}
+    emit(label, model=model,
+         nvidia_smi=nvidia_smi() if dev.type == "cuda" else None,
+         weight_dtype=worker_a.runner_config.weight_dtype,
+         kv_dtype=worker_a.runner_config.kv_dtype, workers=2,
+         prewarm_b_s=prewarm_b_s,
+         hard={"stall_ms": stalls["hard"],
+               "stall_ms_mean": float(np.mean(stalls["hard"])),
+               "stall_ms_max": float(np.max(stalls["hard"])),
+               "tokens_before_cut": [len(m["cut"]) for m in
+                                     out["hard"]["migrated"]],
+               "replay_prompt_tokens": [m["replay_prompt"] for m in
+                                        out["hard"]["migrated"]],
+               "prefill_tokens_a_replays": out["hard"][
+                   "prefill_tokens_a_replays"],
+               "retries_allowed": out["hard"]["retries_allowed"],
+               "breaker_opened_b": out["hard"]["breaker_opened_b"],
+               "breaker_b": out["hard"]["breaker_b"],
+               "wall_s": out["hard"]["wall_s"]},
+         wedged={"idle_timeout_s": float(RES_IDLE_S),
+                 "stall_ms": stalls["wedged"],
+                 "stall_ms_mean": float(np.mean(stalls["wedged"])),
+                 "stall_ms_max": float(np.max(stalls["wedged"])),
+                 "freeze_to_deregistered_s": out["wedged"][
+                     "freeze_to_deregistered_s"],
+                 "thaw_to_reregistered_s": out["wedged"][
+                     "thaw_to_reregistered_s"],
+                 "health_status": out["wedged"]["health_status"]},
+         continuations={name: [(m["diverged_at"], m["gap_nats"])
+                               for m in out[name]["migrated"]]
+                        for name in ("hard", "wedged")},
+         deadline=out["deadline"],
+         admission=out["admission"], canaries=out["canaries"],
+         kernel_launches=out["launches"], forwards=out["runner_counts"],
+         eager_check_forwards=out["eager_check_forwards"],
+         seconds=time.perf_counter() - t_phase)
+    worker_b.close()
+    return out["launches"]
+
+
 def _kv_body(rid: str, prompt) -> dict:
     from dynamo_tpu_torch.llm.protocols import (
         PreprocessedRequest,
@@ -3940,6 +4611,8 @@ def main() -> None:
         for run in range(KV_RUNS):
             for name, n in phase_serve_kv(dev, worker, run).items():
                 launches[name] = launches.get(name, 0) + n
+        for name, n in phase_resilience(dev, worker).items():
+            launches[name] = launches.get(name, 0) + n
     finally:
         worker.close()
     del worker

@@ -158,6 +158,76 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
         "decode-ready: speculation trades FLOPs for latency, and at high "
         "batch the verification FLOPs stop being free. 0 disables the "
         "cutoff (speculate at any batch)"),
+    # Resilience: deadlines, retries, breakers, migration, canaries
+    # (runtime/resilience.py, runtime/health_check.py, llm/engine.py)
+    "DYNT_STREAM_IDLE_TIMEOUT_SECS": (
+        120.0, float,
+        "Max gap between response frames on a streaming request (and the "
+        "wait for the first frame) before the client declares the worker "
+        "black-holed and raises ConnectionLost; 0 disables"),
+    "DYNT_DEADLINE_SECS": (
+        600.0, float,
+        "Default end-to-end request deadline the frontend stamps when the "
+        "caller sends no x-dynt-deadline-ms header (0 disables)"),
+    "DYNT_RETRY_BUDGET_RATIO": (
+        0.2, float,
+        "Retry-budget deposit per completed first attempt: retries are "
+        "capped at ~this fraction of live traffic"),
+    "DYNT_RETRY_BUDGET_MIN": (
+        3.0, float,
+        "Retry-budget seed tokens so a cold client can still retry"),
+    "DYNT_RETRY_BACKOFF_BASE_MS": (
+        50.0, float, "Decorrelated-jitter backoff floor between retries"),
+    "DYNT_RETRY_BACKOFF_CAP_MS": (
+        2000.0, float, "Decorrelated-jitter backoff ceiling between retries"),
+    "DYNT_RETRY_MAX_ATTEMPTS": (
+        3, int,
+        "Router retry attempt cap per request (raised to live instance "
+        "count + 1 when more candidates exist)"),
+    "DYNT_BREAKER_FAILURES": (
+        1, int,
+        "Consecutive transport failures that open an instance's circuit "
+        "breaker"),
+    "DYNT_BREAKER_RESET_SECS": (
+        5.0, float,
+        "Open -> half-open delay before an open breaker admits its single "
+        "recovery probe"),
+    "DYNT_MIGRATION_LIMIT": (
+        3, int,
+        "Failure migrations (stream replays on another worker) per request"),
+    "DYNT_PREEMPT_MIGRATION_LIMIT": (
+        3, int,
+        "Cooperative migrations (worker-emitted finish_reason=migrate) per "
+        "request, bounded apart from DYNT_MIGRATION_LIMIT"),
+    "DYNT_CANARY_WAIT_SECS": (
+        30.0, float, "Idle time before canary health-check probes"),
+    # Deadline-aware admission and tenant quotas (runtime/admission.py)
+    "DYNT_ADMISSION_ENABLE": (
+        True, is_truthy,
+        "Refuse work whose deadline cannot survive the estimated queue "
+        "wait (503 + Retry-After); off restores pure FCFS admission"),
+    "DYNT_ADMISSION_HALFLIFE_SECS": (
+        5.0, float, "Half-life of the per-pool drain-rate EWMA"),
+    "DYNT_ADMISSION_MARGIN": (
+        1.2, float,
+        "Refuse when estimated wait * margin > remaining deadline budget"),
+    "DYNT_RETRY_AFTER_MIN_SECS": (
+        1.0, float, "Floor on the Retry-After seconds of a 503 shed"),
+    "DYNT_RETRY_AFTER_MAX_SECS": (
+        30.0, float,
+        "Cap on the Retry-After seconds of a 503 shed (and what a stalled "
+        "pool advertises)"),
+    "DYNT_TENANT_RATE_LIMIT": (
+        0.0, float,
+        "Capacity (tokens/s: prompt + max_tokens of admitted requests) the "
+        "weighted fair-share quota divides among tenants; 0 disables"),
+    "DYNT_TENANT_WINDOW_SECS": (
+        10.0, float, "Sliding window of the per-tenant token-rate ledger"),
+    "DYNT_TENANT_WEIGHTS": (
+        "", str, "Per-tenant fair-share weights as 'tenantA=4,tenantB=1'"),
+    "DYNT_TENANT_DEFAULT_WEIGHT": (
+        1.0, float,
+        "Fair-share weight of tenants not named in DYNT_TENANT_WEIGHTS"),
 }
 
 

@@ -230,7 +230,7 @@ class InferenceScheduler:
 
     def submit(self, request: PreprocessedRequest,
                emit: Callable[[EngineOutput], None]) -> "_SubmitHandle":
-        handle = _SubmitHandle()
+        handle = _SubmitHandle(self._wake.set)
         self._incoming.put((request, emit, handle))
         self._wake.set()
         return handle
@@ -1024,13 +1024,18 @@ class InferenceScheduler:
 
 
 class _SubmitHandle:
-    """Cancellation handle bridging asyncio-side aborts into the thread."""
+    """Cancellation handle bridging asyncio-side aborts (a client cancel, a
+    deadline watchdog) into the thread; `wake` rouses an idle loop so the
+    sequence's pages return within one iteration."""
 
-    def __init__(self) -> None:
+    def __init__(self, wake: Optional[Callable[[], None]] = None) -> None:
         self.seq: Optional[_Seq] = None
         self._cancelled = False
+        self._wake = wake
 
     def cancel(self) -> None:
         self._cancelled = True
         if self.seq is not None:
             self.seq.cancelled = True
+        if self._wake is not None:
+            self._wake()

@@ -18,6 +18,15 @@ the device leaf by leaf; a load error is fatal, never random weights), and
 the card advertises an `hf` tokenizer when the directory holds a
 `tokenizer.json`.
 
+`generate` is served with the reference's canary payload (a one-token
+greedy request annotated `canary`), and `main` starts a HealthCheckManager
+(DYNT_CANARY_WAIT_SECS) that probes it when idle and deregisters a worker
+whose canaries keep failing. A deadline watchdog's cancel closes the
+`generate` stream, which cancels the sequence: its pages return to the pool
+within one scheduler iteration. A replayed request (`prior_output_tokens`
+set by the frontend's Migration) is served as the reference serves it: as
+a longer prompt.
+
 LoadMetrics' `device_ms_in_step` and `host_ms_in_step` stay 0: the
 reference fills them from its steptrace, which is not ported. Not ported
 yet: the weights, kv_pull and drain endpoints, LoRA and disaggregated modes.
@@ -54,7 +63,12 @@ from ..llm.model_card import (
     publish_card,
     unpublish_card,
 )
-from ..llm.protocols import EngineOutput, PreprocessedRequest
+from ..llm.protocols import (
+    EngineOutput,
+    PreprocessedRequest,
+    SamplingOptions,
+    StopConditions,
+)
 from ..llm.tokenizer import load_tokenizer
 from ..models import ModelConfig, Transformer, get_config
 from ..models.checkpoint import config_from_checkpoint, load_params
@@ -217,11 +231,17 @@ class TorchWorker:
         self.runtime = runtime
         component = (self.runtime.namespace(self.card.namespace)
                      .component(self.card.component))
-        for name, handler in (("generate", self.generate),
-                              ("clear_kv_blocks", self._clear_kv),
-                              ("kv_blocks", self._kv_blocks)):
+        canary = PreprocessedRequest(
+            request_id="_canary", token_ids=[0],
+            sampling=SamplingOptions(max_tokens=1, temperature=0.0),
+            stop=StopConditions(), annotations={"canary": True}).to_wire()
+        for name, handler, payload in (
+                ("generate", self.generate, canary),
+                ("clear_kv_blocks", self._clear_kv, None),
+                ("kv_blocks", self._kv_blocks, None)):
             self._served.append(await component.endpoint(name).serve_endpoint(
-                handler, instance_id=self.instance_id))
+                handler, instance_id=self.instance_id,
+                health_check_payload=payload))
         await publish_card(self.runtime, self.card, self.instance_id)
         publisher = self.runtime.event_publisher(self.card.namespace)
         if hasattr(publisher, "set_snapshot_fn"):
@@ -353,13 +373,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 async def main(argv: Optional[list[str]] = None) -> None:
-    from ..runtime import DistributedRuntime, RuntimeConfig
+    from ..runtime import DistributedRuntime, HealthCheckManager, RuntimeConfig
     from ..runtime.signals import wait_for_shutdown_signal
 
     args = build_arg_parser().parse_args(argv)
     device = resolve_device(args.device)  # no card: raise before building
     runtime = await DistributedRuntime(RuntimeConfig.from_env()).start()
     worker: Optional[TorchWorker] = None
+    health: Optional[HealthCheckManager] = None
     try:
         # in a thread: loading a checkpoint takes seconds
         worker = await asyncio.to_thread(
@@ -377,8 +398,13 @@ async def main(argv: Optional[list[str]] = None) -> None:
                                 else worker.runner.warmup)
         worker.scheduler.start()
         await worker.serve(runtime)
+        health = HealthCheckManager(
+            runtime, canary_wait_time=env("DYNT_CANARY_WAIT_SECS"))
+        health.start()
         await wait_for_shutdown_signal()
     finally:
+        if health is not None:
+            await health.close()
         if worker is not None:
             await worker.shutdown()
         await runtime.shutdown()

@@ -28,9 +28,11 @@ priority order while capacity lasts — each drained request books its load
 via add_request so the next busy check sees fresh state.
 
 Port of `dynamo_tpu/kv_router/queue.py` with the same policies, keys and
-drain order. Not ported: the deadline and tenant-quota checks the
-reference makes before parking a request (its `runtime/admission.py`), so
-a parked request waits rather than being refused.
+drain order. A request about to park is first checked as the reference
+checks it (runtime/admission.py): a tenant over its weighted fair share is
+refused, then a deadline that cannot survive the backlog ahead of it at the
+measured drain rate (the entries this queue dequeues). Both raise
+AdmissionRefused, which the frontend answers with 503 and Retry-After.
 """
 
 from __future__ import annotations
@@ -44,6 +46,13 @@ import time
 from typing import Callable, Optional, Sequence
 
 from ..llm.protocols import class_rank
+from ..runtime.admission import (
+    QueueWaitEstimator,
+    check_admission,
+    check_tenant_admission,
+    get_tenant_ledger,
+)
+from ..runtime.resilience import Deadline
 from .protocols import OverlapScores, WorkerWithDpRank
 from .scheduler import KvScheduler, SelectionResult
 
@@ -71,14 +80,20 @@ class QueuedRequest:
     pinned: bool = False  # caller fixed the worker set: bypass the gate
     overlaps: Optional[OverlapScores] = None
     request_id: Optional[str] = None
+    # End-to-end deadline budget (runtime/resilience.py): a request about to
+    # park is refused (AdmissionRefused -> 503 + Retry-After) when it cannot
+    # survive the backlog, instead of parking to a late 504.
+    deadline: Optional[Deadline] = None
     # Session-affinity residency (dynamo_tpu/session): the worker id a
     # live session last landed on; the selector biases toward it.
     affinity_worker: Optional[int] = None
     # Multi-tenant QoS (docs/multi-tenancy.md): class is STRICT in the
     # parking heap — every interactive entry drains before any standard
     # entry, which drains before any batch entry; the policy key only
-    # orders WITHIN a class.
+    # orders WITHIN a class. tenant keys the fair-share quota check when
+    # the request is about to park.
     priority_class: str = "standard"
+    tenant: str = ""
 
 
 def fcfs_key(arrival_offset: float, req: QueuedRequest,
@@ -151,6 +166,10 @@ class SchedulerQueue:
         # prefill-complete/free event. A periodic drain tick while anything
         # is parked covers that path.
         self.tick_interval = 0.25
+        # Deadline-aware admission over the parking heap: drains are the
+        # entries update() dequeues; the depth a new arrival waits behind
+        # is the heap itself (passed as `extra` at check time).
+        self.wait_estimator = QueueWaitEstimator(pool="router_queue")
 
     # -- introspection ------------------------------------------------------
 
@@ -200,7 +219,17 @@ class SchedulerQueue:
                 not self._heap
                 and not self._all_busy(req.candidates, threshold)):
             return self._select(req)
+        # About to park: a tenant over its fair share is refused first
+        # (parking is contention), then a budget that cannot survive the
+        # backlog ahead of it. tokens=0: the entry edge already deposited
+        # this request's cost. Only entries of its class or better are
+        # ahead of it; an empty heap estimates no wait.
+        check_tenant_admission(get_tenant_ledger(), req.tenant, 0,
+                               contended=True)
         rank = class_rank(req.priority_class)
+        ahead = sum(1 for neg_rank, *_ in self._heap if -neg_rank >= rank)
+        check_admission(self.wait_estimator, req.deadline, extra=ahead,
+                        tenant=req.tenant)
         arrival = time.monotonic() - self._start
         key = self._key_fn(arrival, req, self.scheduler.config.block_size)
         future: asyncio.Future = asyncio.get_running_loop().create_future()
@@ -268,6 +297,9 @@ class SchedulerQueue:
             if self._all_busy(req.candidates, threshold):
                 return
             heapq.heappop(self._heap)
+            # One parked entry drained into service: the rate the admission
+            # check divides the backlog by.
+            self.wait_estimator.observe_drained(1)
             try:
                 # Re-score overlaps at DRAIN time: KV events kept flowing
                 # while the request was parked, and routing on the arrival

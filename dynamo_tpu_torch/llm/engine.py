@@ -1,24 +1,37 @@
 """Token-level engine pipeline operators.
 
-Port of `TokenEngine`, `RouterEngine` and `KvRouterEngine` in
-`dynamo_tpu/llm/engine.py`: every hop implements `generate(request) -> async
-stream` (ref: lib/runtime/src/engine.rs:201-213), speaking
-PreprocessedRequest / EngineOutput. Not ported yet: migration, the prefill
-router, multimodal encoding, the session tier, the LoRA instance filter and
-the otel spans.
+Port of `TokenEngine`, `RouterEngine`, `KvRouterEngine`,
+`CooperativeMigration` and `Migration` in `dynamo_tpu/llm/engine.py`: every
+hop implements `generate(request) -> async stream` (ref: lib/runtime/src/
+engine.rs:201-213), speaking PreprocessedRequest / EngineOutput. The
+frontend's pipeline is
+
+    Preprocessor -> Migration -> [KvRouterEngine | RouterEngine] -> worker
+
+and the request's end-to-end deadline travels down it to the request plane.
+Not ported yet: the prefill router, multimodal encoding, the session tier,
+the LoRA instance filter, the gateway's instance pin and the otel spans.
 """
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
+import dataclasses
+import logging
 from typing import AsyncIterator, Optional
 
 from ..config import env
 from ..kv_router import KvScheduler, WorkerWithDpRank
 from ..kv_router.queue import QueuedRequest, SchedulerQueue
+from ..runtime.metrics import DEADLINE_EXCEEDED
 from ..runtime.push_router import NoInstancesAvailable, PushRouter
+from ..runtime.request_plane import ConnectionLost
+from ..runtime.resilience import RetryPolicy
 from ..tokens import compute_block_hashes
 from .protocols import EngineOutput, PreprocessedRequest
+
+log = logging.getLogger("dynamo_tpu_torch.llm.engine")
 
 
 class TokenEngine:
@@ -39,8 +52,8 @@ class RouterEngine(TokenEngine):
     async def generate(
         self, request: PreprocessedRequest
     ) -> AsyncIterator[EngineOutput]:
-        async with contextlib.aclosing(
-                self.router.generate(request.to_wire())) as stream:
+        async with contextlib.aclosing(self.router.generate(
+                request.to_wire(), deadline=request.deadline)) as stream:
             async for item in stream:
                 yield EngineOutput.from_wire(item)
 
@@ -97,13 +110,15 @@ class KvRouterEngine(TokenEngine):
             isl_tokens=len(request.token_ids),
             priority_jump=_priority_of(request),
             request_id=request_id,
+            deadline=request.deadline,
             priority_class=request.priority,
+            tenant=request.tenant,
         ))
         first = True
         try:
             async with contextlib.aclosing(self.router.generate(
-                    request.to_wire(),
-                    instance_id=result.worker.worker_id)) as stream:
+                    request.to_wire(), instance_id=result.worker.worker_id,
+                    deadline=request.deadline)) as stream:
                 async for item in stream:
                     if first:
                         self.scheduler.mark_prefill_completed(request_id)
@@ -113,3 +128,162 @@ class KvRouterEngine(TokenEngine):
         finally:
             self.scheduler.free(request_id)
             self.queue.update()
+
+
+class CooperativeMigration(ConnectionLost):
+    """In-band `finish_reason="migrate"` from a worker: a planned hand-off
+    (QoS preemption, graceful drain), not a failure. Bounded apart from
+    failure migrations (DYNT_PREEMPT_MIGRATION_LIMIT against
+    migration_limit) and replayed without backoff.
+
+    A drain handoff frame also carries `kv_transfer_params` with the pull
+    route and resume state: the replay dispatches with them as
+    `disaggregated_params`, so the destination pulls the computed KV
+    instead of re-prefilling. Clean handoff hops do not consume the
+    cooperative bound; a failed hop comes back as a plain migrate, which
+    does."""
+
+    def __init__(self, reason: str,
+                 kv_transfer_params: Optional[dict] = None) -> None:
+        super().__init__(reason)
+        self.kv_transfer_params = kv_transfer_params
+
+
+class Migration(TokenEngine):
+    """Retry a broken stream on another worker, keeping the tokens already
+    generated (ref: lib/llm/src/migration.rs:36): the replay's prompt is
+    the original prompt plus those tokens (`prior_output_tokens` set), its
+    `max_tokens` what is left, and usage reports the original prompt
+    length. Bounded by `migration_limit` and by the request's end-to-end
+    deadline, which is checked before each replay and bounds the jittered
+    backoff between replays. Worker-initiated cooperative migrations carry
+    their own bound (`cooperative_limit`) and skip the backoff."""
+
+    def __init__(self, inner: TokenEngine, migration_limit: int = 3,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 cooperative_limit: Optional[int] = None) -> None:
+        self.inner = inner
+        self.migration_limit = migration_limit
+        self.cooperative_limit = (env("DYNT_PREEMPT_MIGRATION_LIMIT")
+                                  if cooperative_limit is None
+                                  else cooperative_limit)
+        self.policy = retry_policy or RetryPolicy.from_env()
+
+    async def generate(
+        self, request: PreprocessedRequest
+    ) -> AsyncIterator[EngineOutput]:
+        generated: list[int] = []
+        attempts = 0
+        coop_attempts = 0
+        handoff_hops = 0
+        prev_delay: Optional[float] = None
+        current = request
+        while True:
+            try:
+                async with contextlib.aclosing(
+                        self.inner.generate(current)) as stream:
+                    async for output in stream:
+                        if output.finish_reason == "migrate":
+                            # In-band request to move: replayed like a
+                            # broken stream, on the cooperative bound; never
+                            # reaches the client.
+                            raise CooperativeMigration(
+                                output.error or "worker requested migration",
+                                kv_transfer_params=output.kv_transfer_params)
+                        if (current.prior_output_tokens
+                                and output.prompt_tokens is not None):
+                            # The replayed prompt embeds tokens already
+                            # billed as completion: report the original
+                            # prompt length.
+                            output.prompt_tokens = max(
+                                0, output.prompt_tokens
+                                - len(current.prior_output_tokens))
+                        generated.extend(output.token_ids)
+                        yield output
+                return
+            except (ConnectionLost, NoInstancesAvailable,
+                    asyncio.TimeoutError) as exc:
+                cooperative = isinstance(exc, CooperativeMigration)
+                handoff = (exc.kv_transfer_params
+                           if cooperative
+                           and exc.kv_transfer_params is not None
+                           and exc.kv_transfer_params.get("handoff")
+                           is not None else None)
+                if handoff is not None:
+                    # A clean drain handoff is driven by a real departure
+                    # and does not consume the cooperative bound; the cap
+                    # only guards a livelock.
+                    handoff_hops += 1
+                    if handoff_hops > 64:
+                        log.warning("handoff hop cap reached for %s: %r",
+                                    request.request_id, exc)
+                        yield EngineOutput(
+                            finish_reason="error",
+                            error=f"migration limit exceeded: {exc}")
+                        return
+                elif cooperative:
+                    coop_attempts += 1
+                else:
+                    attempts += 1
+                if handoff is None and (
+                        coop_attempts > self.cooperative_limit
+                        if cooperative else
+                        attempts > self.migration_limit):
+                    log.warning("%smigration limit reached for %s: %r",
+                                "cooperative " if cooperative else "",
+                                request.request_id, exc)
+                    yield EngineOutput(
+                        finish_reason="error",
+                        error=f"migration limit exceeded: {exc}")
+                    return
+                if (request.deadline is not None
+                        and request.deadline.expired()):
+                    # No budget left to replay into.
+                    DEADLINE_EXCEEDED.labels(component="migration").inc()
+                    log.warning("deadline exceeded migrating %s: %r",
+                                request.request_id, exc)
+                    yield EngineOutput(
+                        finish_reason="error",
+                        error=f"deadline exceeded during migration: {exc}")
+                    return
+                if handoff is not None:
+                    # Re-dispatch the same request with the pull route as
+                    # disaggregated_params: the destination pulls the
+                    # source's pages and resumes, nothing re-prefilled.
+                    log.info("drain handoff for %s (hop %d, %d tokens "
+                             "preserved, no re-prefill)", request.request_id,
+                             handoff_hops, len(generated))
+                    current = dataclasses.replace(
+                        current, disaggregated_params=exc.kv_transfer_params)
+                    await asyncio.sleep(0)  # a planned move: no backoff
+                    continue
+                remaining = request.sampling.max_tokens - len(generated)
+                if remaining <= 0:
+                    yield EngineOutput(finish_reason="length")
+                    return
+                log.info("migrating %s (%sattempt %d, %d tokens preserved)",
+                         request.request_id,
+                         "cooperative " if cooperative else "",
+                         coop_attempts if cooperative else attempts,
+                         len(generated))
+                sampling = type(request.sampling)(**{
+                    **request.sampling.to_wire(), "max_tokens": remaining})
+                # replace keeps every other field (guided processors,
+                # deadline, priority, tenant); a stale handoff pull route
+                # does not survive onto the replay.
+                current = dataclasses.replace(
+                    request,
+                    token_ids=list(request.token_ids) + generated,
+                    sampling=sampling,
+                    prior_output_tokens=list(generated),
+                    disaggregated_params=None)
+                if cooperative:
+                    # Nothing is failing: replay at once (yield once so the
+                    # loop stays fair).
+                    await asyncio.sleep(0)
+                    continue
+                delay = self.policy.next_delay(prev_delay)
+                prev_delay = delay
+                if request.deadline is not None:
+                    delay = request.deadline.bound(delay)
+                await asyncio.sleep(delay)

@@ -690,9 +690,24 @@ def _build_model(spec: dict):
 # -- added tokens -----------------------------------------------------------------
 
 
+# Other_Alphabetic code points outside the marks (Unicode 15.0 PropList.txt):
+# the circled and squared Latin letters, general category So. With them the
+# categories below make up Unicode `\w` as regex-syntax defines it, which is
+# what the tokenizers library tests single_word boundaries with.
+_ALPHABETIC_SYMBOLS = ((0x24B6, 0x24E9), (0x1F130, 0x1F149), (0x1F150, 0x1F169),
+                       (0x1F170, 0x1F189))
+_WORD_CATEGORIES = frozenset({"Nl", "Nd", "Pc"})
+
+
 def _is_word_char(c: str) -> bool:
-    """A word character for single_word tokens: alphanumeric or "_"."""
-    return c.isalpha() or _is_numeric(c) or c == "_"
+    r"""A word character for single_word tokens: Unicode `\w`, that is
+    Alphabetic (L*, Nl, Other_Alphabetic), every mark, Nd, Pc and
+    Join_Control. No (superscripts, fractions) is not a word character."""
+    cat = unicodedata.category(c)
+    if cat[0] in "LM" or cat in _WORD_CATEGORIES or c in "\u200c\u200d":
+        return True
+    cp = ord(c)
+    return any(lo <= cp <= hi for lo, hi in _ALPHABETIC_SYMBOLS)
 
 
 class _AddedVocab:

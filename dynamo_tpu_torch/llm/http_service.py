@@ -10,15 +10,23 @@ openai.rs:1811-2191):
 Status codes and error bodies are the reference's: 400 for a bad request,
 404 for an unknown model, 503 when no instance serves it or when every
 worker's published KV usage is at or above the busy threshold (ref:
-busy_threshold.rs), 502 for an engine error, and for a chat template that
-fails while it renders the 500 the reference's aiohttp server gives an
-uncaught exception. A client disconnect cancels
-the handler, and the cancellation travels down the request plane to the
-worker (ref: http/service/disconnect.rs). Any other route answers 404.
+busy_threshold.rs), 502 for an engine error (an in-band migration-limit or
+deadline error included), 504 when the deadline runs out on the way, and
+for a chat template that fails while it renders the 500 the reference's
+aiohttp server gives an uncaught exception. A client disconnect cancels the
+handler, and the cancellation travels down the request plane to the worker
+(ref: http/service/disconnect.rs). Any other route answers 404.
+
+Every request gets an end-to-end deadline: the `x-dynt-deadline-ms` header,
+else DYNT_DEADLINE_SECS. Before any work the frontend sheds with 503 and a
+`Retry-After` from the model's queue-wait estimate (runtime/admission.py) a
+request whose budget is already spent, one whose budget cannot survive the
+estimated queue wait, and a tenant (`tenant` body field or
+`x-dynt-tenant-id` header) over its weighted fair share under contention.
 
 Not ported yet: embeddings, messages, responses, images and videos; the
-per-model busy-threshold routes, deadlines, admission and tenant quotas;
-sessions; tracing, the flight recorder and audit.
+per-model busy-threshold routes; sessions; tracing, the flight recorder and
+audit.
 """
 
 from __future__ import annotations
@@ -27,10 +35,19 @@ import asyncio
 import contextlib
 import json
 import logging
+import math
 import time
 from typing import Optional
 
+from ..config import env
 from ..runtime import metrics as rt_metrics
+from ..runtime.admission import (
+    AdmissionRefused,
+    QueueWaitEstimator,
+    check_admission,
+    check_tenant_admission,
+    get_tenant_ledger,
+)
 from ..runtime.http import (
     HTTPError,
     HttpServer,
@@ -41,6 +58,7 @@ from ..runtime.http import (
 )
 from ..runtime.push_router import NoInstancesAvailable
 from ..runtime.request_plane import RemoteError
+from ..runtime.resilience import Deadline, DeadlineExceeded
 from ..runtime.status import metrics_response
 from .chat_template import TemplateError
 from .manager import ModelEntry, ModelManager
@@ -64,12 +82,21 @@ def _sse(data) -> bytes:
     return f"data: {json.dumps(data)}\n\n".encode()
 
 
+def _retry_after_header(secs: float) -> dict:
+    """An integer Retry-After (RFC 9110), rounded up so a client never
+    retries a hair early."""
+    return {"Retry-After": str(max(1, math.ceil(secs)))}
+
+
 class _LatencyObserver:
     """Per-request TTFT / ITL histograms, shared by the streaming and
-    aggregate paths."""
+    aggregate paths. A first token is one request drained from the model's
+    queue: the rate its wait estimate divides the backlog by."""
 
-    def __init__(self, model: str) -> None:
+    def __init__(self, model: str,
+                 wait_estimator: QueueWaitEstimator) -> None:
         self.model = model
+        self.wait_estimator = wait_estimator
         self.start = time.monotonic()
         self.first_at: Optional[float] = None
         self.last_at: Optional[float] = None
@@ -82,6 +109,7 @@ class _LatencyObserver:
             self.first_at = now
             rt_metrics.TTFT_SECONDS.labels(model=self.model).observe(
                 now - self.start)
+            self.wait_estimator.observe_drained(1)
         elif self.last_at is not None:
             rt_metrics.ITL_SECONDS.labels(model=self.model).observe(
                 (now - self.last_at) / max(1, len(output.token_ids)))
@@ -108,6 +136,14 @@ class HttpService:
                             "model_not_found"), status=404))
         return entry
 
+    @staticmethod
+    def _retry_after(entry: ModelEntry) -> dict:
+        """Retry-After of a 503 shed: the estimated drain time of the
+        model's queue, clamped by DYNT_RETRY_AFTER_MIN/MAX_SECS."""
+        est = entry.wait_estimator
+        return _retry_after_header(
+            est.retry_after_s(est.estimate_wait_ms(extra=1)))
+
     def _check_busy(self, entry: ModelEntry) -> None:
         """Shed load when every live worker is past the KV busy threshold
         (ref: busy_threshold.rs + KvWorkerMonitor), by the usage its
@@ -121,7 +157,80 @@ class HttpService:
             rt_metrics.REQUESTS_SHED.labels(reason="busy").inc()
             raise HTTPError(json_response(
                 _error_body(503, "service busy", "overloaded"), status=503,
-                headers={"Retry-After": "1"}))
+                headers=self._retry_after(entry)))
+
+    def _admit_deadline(self, request: Request,
+                        entry: ModelEntry) -> Optional[Deadline]:
+        """The request's end-to-end Deadline: an x-dynt-deadline-ms header
+        wins, else DYNT_DEADLINE_SECS (0 disables). A budget already spent
+        on arrival is shed with 503 before any work."""
+        deadline = Deadline.from_wire(request.headers)
+        if deadline is None:
+            budget = env("DYNT_DEADLINE_SECS")
+            if budget and budget > 0:
+                deadline = Deadline(budget)
+        if deadline is not None and deadline.expired():
+            rt_metrics.REQUESTS_SHED.labels(reason="deadline").inc()
+            raise HTTPError(json_response(
+                _error_body(503, "request deadline already spent",
+                            "overloaded"),
+                status=503, headers=self._retry_after(entry)))
+        return deadline
+
+    @staticmethod
+    def _refused_503(exc: AdmissionRefused) -> HTTPError:
+        """The one AdmissionRefused -> 503 translation (body and integer
+        Retry-After) every admission edge before dispatch raises."""
+        return HTTPError(json_response(
+            _error_body(503, str(exc), "overloaded"), status=503,
+            headers=_retry_after_header(exc.retry_after_s)))
+
+    def _check_queue_admission(self, entry: ModelEntry,
+                               deadline: Optional[Deadline],
+                               tenant: str = "") -> None:
+        """Refuse a request whose budget cannot survive the estimated queue
+        wait of the model's pool, before preprocessing or dispatch. The
+        wait is the backlog ahead of this arrival (extra=0)."""
+        try:
+            check_admission(entry.wait_estimator, deadline, tenant=tenant)
+        except AdmissionRefused as exc:
+            raise self._refused_503(exc)
+
+    @staticmethod
+    def _tenant_of(request: Request, body: dict) -> str:
+        """The tenant for shed attribution before preprocessing: the body
+        field wins over the header, bounded as the preprocessor bounds
+        it."""
+        raw = body.get("tenant") or request.headers.get(
+            "x-dynt-tenant-id") or ""
+        return str(raw).strip()[:64]
+
+    @staticmethod
+    def _fold_qos_headers(request: Request, body: dict) -> dict:
+        """The x-dynt-priority / x-dynt-tenant-id headers fold into the body
+        fields the preprocessor normalizes; body fields win."""
+        priority = request.headers.get("x-dynt-priority")
+        if priority and not body.get("priority"):
+            body["priority"] = priority
+        tenant = request.headers.get("x-dynt-tenant-id")
+        if tenant and not body.get("tenant"):
+            body["tenant"] = tenant
+        return body
+
+    def _check_tenant_quota(self, entry: ModelEntry,
+                            preprocessed: PreprocessedRequest) -> None:
+        """Weighted fair-share admission: refuse an over-share tenant under
+        contention (the model's estimated queue wait is non-zero). The
+        entry edge deposits admitted token costs into the shared ledger the
+        router queue reads."""
+        tokens = (len(preprocessed.token_ids)
+                  + preprocessed.sampling.max_tokens)
+        contended = entry.wait_estimator.estimate_wait_ms() > 0
+        try:
+            check_tenant_admission(get_tenant_ledger(), preprocessed.tenant,
+                                   tokens, contended=contended, observe=True)
+        except AdmissionRefused as exc:
+            raise self._refused_503(exc)
 
     # -- handlers ----------------------------------------------------------
 
@@ -159,6 +268,10 @@ class HttpService:
         model = body.get("model", "")
         entry = self._lookup(model)
         self._check_busy(entry)
+        deadline = self._admit_deadline(request, entry)
+        self._check_queue_admission(entry, deadline,
+                                    tenant=self._tenant_of(request, body))
+        body = self._fold_qos_headers(request, body)
         try:
             if kind == "chat":
                 preprocessed = entry.preprocessor.preprocess_chat(body)
@@ -169,6 +282,9 @@ class HttpService:
         except TemplateError:
             log.exception("chat template failed for model %s", model)
             return Response(TEMPLATE_ERROR_BODY, 500)
+        # after preprocessing (the token cost is known), before dispatch
+        self._check_tenant_quota(entry, preprocessed)
+        preprocessed.deadline = deadline
         # Tool parsing activates only when the request declares tools (the
         # reference gates on request.tools the same way); reasoning parsing
         # follows the model card.
@@ -197,7 +313,7 @@ class HttpService:
                        delta_gen: DeltaGenerator) -> Optional[Response]:
         """Drive the engine stream to completion through `delta_gen`.
         Returns an error Response, or None on success."""
-        obs = _LatencyObserver(preprocessed.model)
+        obs = _LatencyObserver(preprocessed.model, entry.wait_estimator)
         try:
             async with contextlib.aclosing(
                     entry.engine.generate(preprocessed)) as stream:
@@ -212,6 +328,16 @@ class HttpService:
             return json_response(
                 _error_body(503, "no workers available", "overloaded"),
                 status=503, headers={"Retry-After": "1"})
+        except AdmissionRefused as exc:
+            # A refusal from a downstream edge (the router queue), counted
+            # where it was decided.
+            return json_response(
+                _error_body(503, str(exc), "overloaded"), status=503,
+                headers=_retry_after_header(exc.retry_after_s))
+        except DeadlineExceeded as exc:
+            rt_metrics.DEADLINE_EXCEEDED.labels(component="frontend").inc()
+            return json_response(
+                _error_body(504, str(exc), "deadline_exceeded"), status=504)
         except RemoteError as exc:
             return json_response(
                 _error_body(502, str(exc), "engine_error"), status=502)
@@ -246,7 +372,7 @@ class HttpService:
         })
         await response.prepare(request)
         start = time.monotonic()
-        obs = _LatencyObserver(model)
+        obs = _LatencyObserver(model, entry.wait_estimator)
         include_usage = bool(
             (body.get("stream_options") or {}).get("include_usage", False))
         try:
@@ -273,6 +399,16 @@ class HttpService:
         except NoInstancesAvailable:
             await response.write(
                 _sse(_error_body(503, "no workers available")))
+            await response.write(b"data: [DONE]\n\n")
+        except AdmissionRefused as exc:
+            # A refusal after the stream's headers went out: in-band.
+            await response.write(
+                _sse(_error_body(503, str(exc), "overloaded")))
+            await response.write(b"data: [DONE]\n\n")
+        except DeadlineExceeded as exc:
+            rt_metrics.DEADLINE_EXCEEDED.labels(component="frontend").inc()
+            await response.write(
+                _sse(_error_body(504, str(exc), "deadline_exceeded")))
             await response.write(b"data: [DONE]\n\n")
         except RemoteError as exc:
             # An OpenAI-shaped error event, then a clean end of stream, so

@@ -16,9 +16,12 @@ buffered and replayed after the dump) or when the journal skipped corrupt
 frames. A worker that announces its departure, by the `draining` flag of
 its card or of its load metrics, leaves routing at once: its router stops
 selecting it, its radix state is dropped and its later KV events are
-ignored, until its discovery record goes. Not ported yet: prefill, encoder
-and image pools, LoRA adapters, the session tier and the admission wait
-estimator.
+ignored, until its discovery record goes. Every model's engine is wrapped
+in `Migration` (DYNT_MIGRATION_LIMIT), so a stream whose worker dies is
+replayed on another, and every model keeps a queue-wait estimator fed by
+its workers' published `waiting_requests` for deadline-aware admission.
+Not ported yet: prefill, encoder and image pools, LoRA adapters and the
+session tier.
 """
 
 from __future__ import annotations
@@ -40,11 +43,13 @@ from ..kv_router import (
     RouterEvent,
     WorkerWithDpRank,
 )
+from ..config import env
 from ..kv_router.indexer import sweep_tree
+from ..runtime.admission import QueueWaitEstimator
 from ..runtime.discovery import MODEL_CARD_PREFIX
 from ..runtime.events import JOURNAL_RESYNC_TOPIC
 from ..runtime.push_router import PushRouter
-from .engine import KvRouterEngine, RouterEngine, TokenEngine
+from .engine import KvRouterEngine, Migration, RouterEngine, TokenEngine
 from .model_card import CHAT, COMPLETIONS, ModelDeploymentCard
 from .preprocessor import OpenAIPreprocessor
 
@@ -65,6 +70,14 @@ class ModelEntry:
     # instance ids that announced their departure (card flag or
     # LoadMetrics.draining); cleared when the instance's record goes
     draining: set[int] = dataclasses.field(default_factory=set)
+    # Deadline-aware admission (runtime/admission.py): depth from the
+    # workers' published waiting_requests, drain rate from the frontend's
+    # first tokens.
+    wait_estimator: QueueWaitEstimator = dataclasses.field(
+        default_factory=QueueWaitEstimator)
+
+    def __post_init__(self) -> None:
+        self.wait_estimator.pool = f"decode:{self.card.name}"
 
 
 class ModelManager:
@@ -199,6 +212,8 @@ class ModelWatcher:
             # same id starts clean (the router's mark clears on the same
             # delete).
             entry.draining.discard(instance_id)
+            # Its backlog is gone with it (or migrating to the others).
+            entry.wait_estimator.forget_worker(instance_id)
             if entry.scheduler is not None:
                 entry.scheduler.remove_worker_id(instance_id)
             if not entry.instances:
@@ -213,12 +228,15 @@ class ModelWatcher:
     def _mark_draining(self, entry: ModelEntry, instance_id: int) -> None:
         """One-shot draining transition, from the card flag or the load
         metrics (`set_draining` dedups): exclude the instance from
-        selection and drop its radix state."""
+        selection, drop its radix state and zero its admission depth."""
         if not entry.router.set_draining(instance_id, True):
             return
         entry.draining.add(instance_id)
         if entry.scheduler is not None:
             entry.scheduler.remove_worker_id(instance_id)
+        # Its backlog is migrating out, not queue depth new arrivals wait
+        # behind.
+        entry.wait_estimator.update_worker(instance_id, 0)
         log.info("worker %x draining: removed from selection for %s",
                  instance_id, entry.card.name)
 
@@ -299,6 +317,7 @@ class ModelWatcher:
         else:
             router = PushRouter(client, mode=self.router_mode)
             engine = RouterEngine(router)
+        engine = Migration(engine, migration_limit=env("DYNT_MIGRATION_LIMIT"))
         return ModelEntry(card=card, preprocessor=OpenAIPreprocessor(card),
                           engine=engine, router=router, scheduler=scheduler)
 
@@ -403,3 +422,7 @@ class ModelWatcher:
                     continue
                 if entry.scheduler is not None:
                     entry.scheduler.sequences.update_published(metrics)
+                if metrics.worker_id in entry.instances:
+                    # The admission depth: the scheduler's own queue.
+                    entry.wait_estimator.update_worker(
+                        metrics.worker_id, metrics.waiting_requests)

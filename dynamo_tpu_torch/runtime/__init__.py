@@ -4,5 +4,6 @@ the standard library alone."""
 
 from .config import RuntimeConfig
 from .distributed import DistributedRuntime
+from .health_check import HealthCheckManager
 
-__all__ = ["DistributedRuntime", "RuntimeConfig"]
+__all__ = ["DistributedRuntime", "HealthCheckManager", "RuntimeConfig"]

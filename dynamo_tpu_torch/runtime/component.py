@@ -7,7 +7,10 @@ lease — the reference's record, field for field, so either package's
 clients route to either package's instances; clients watch the instance
 prefix and route to live instances (ref: component/client.rs:28).
 
-Not ported yet: health canaries (the record carries no canary payload).
+An endpoint served with a `health_check_payload` is probed with it by the
+runtime's HealthCheckManager (runtime/health_check.py) once it has been
+idle; a request carrying the `x-dynt-canary` header is such a probe and
+does not count as traffic for the idle clock.
 """
 
 from __future__ import annotations
@@ -79,12 +82,15 @@ class Endpoint:
 
     async def serve_endpoint(self, handler: Handler,
                              instance_id: Optional[int] = None,
+                             health_check_payload: Optional[Any] = None,
                              ) -> "ServedEndpoint":
         """Register `handler` on the request plane and advertise the instance
-        (ref: bindings rust/lib.rs:815 serve_endpoint -> PushEndpoint.start)."""
+        (ref: bindings rust/lib.rs:815 serve_endpoint -> PushEndpoint.start).
+        `health_check_payload` opts into canary probing."""
         instance_id = (instance_id if instance_id is not None
                        else new_instance_id())
-        served = ServedEndpoint(self, instance_id, handler)
+        served = ServedEndpoint(self, instance_id, handler,
+                                health_check_payload=health_check_payload)
         await served.start()
         return served
 
@@ -97,12 +103,16 @@ class ServedEndpoint:
     in-flight tracking for graceful drain, and its discovery record."""
 
     def __init__(self, endpoint: Endpoint, instance_id: int,
-                 handler: Handler) -> None:
+                 handler: Handler,
+                 health_check_payload: Optional[Any] = None) -> None:
         self.endpoint = endpoint
         self.instance_id = instance_id
         self._handler = handler
         self._shutting_down = False
         self._inflight = 0
+        self.health_check_payload = health_check_payload
+        self.health_ok = True
+        self.last_activity = time.monotonic()
         self._drained = asyncio.Event()
         self._drained.set()
         self._metrics = EndpointMetrics(endpoint.component.namespace.name,
@@ -117,8 +127,9 @@ class ServedEndpoint:
         return f"{self.endpoint.instance_prefix}{self.instance_id}"
 
     def healthy(self) -> bool:
-        """Liveness for /health: serving and not deregistered."""
-        return not self._shutting_down
+        """Liveness for /health: serving, not deregistered, and passing
+        canaries (ref: health_check.rs HealthCheckManager)."""
+        return not self._shutting_down and self.health_ok
 
     async def start(self) -> None:
         runtime = self.endpoint.runtime
@@ -143,6 +154,11 @@ class ServedEndpoint:
         self._inflight += 1
         self._drained.clear()
         start = time.monotonic()
+        canary = "x-dynt-canary" in ctx.headers
+        if not canary:
+            # A canary is not traffic: a wedged handler must not reset its
+            # own idle clock and dodge the failures that deregister it.
+            self.last_activity = start
         status = "ok"
         try:
             # aclosing: a close of this generator (the request plane's
@@ -160,6 +176,10 @@ class ServedEndpoint:
             self._inflight -= 1
             if self._inflight == 0:
                 self._drained.set()
+            if not canary:
+                # A worker grinding through long decodes is active, not
+                # idle: canaries queued behind its batch could time out.
+                self.last_activity = time.monotonic()
             self._metrics.observe_request(start, status)
 
     async def shutdown(self, drain_timeout: float = 30.0) -> None:

@@ -70,6 +70,12 @@ class _Family:
                 child = self._children[key] = self._new_child()
             return child
 
+    def remove(self, *values: str) -> None:
+        """Drop one labelled series (KeyError when it does not exist)."""
+        key = tuple(str(v) for v in values)
+        with self._lock:
+            del self._children[key]
+
     def _items(self) -> list:
         with self._lock:
             return sorted(self._children.items())
@@ -209,6 +215,39 @@ INFLIGHT = Gauge("dynamo_inflight_requests", "In-flight requests", _HIER)
 REQUESTS_SHED = Counter(
     "dynamo_requests_shed_total",
     "Requests shed at admission with 503, by reason", ["reason"])
+# Resilience (runtime/resilience.py, runtime/push_router.py)
+RETRIES_TOTAL = Counter(
+    "dynamo_retries_total", "Request-plane retry attempts by outcome "
+    "(allowed = dispatched, denied = retry budget exhausted)",
+    ["endpoint", "outcome"])
+RETRY_BUDGET_BALANCE = Gauge(
+    "dynamo_retry_budget_balance", "Retry-budget tokens currently available",
+    ["endpoint"])
+BREAKER_STATE = Gauge(
+    "dynamo_circuit_breaker_state",
+    "Circuit breaker state per instance (0=closed 1=open 2=half_open)",
+    ["endpoint", "instance"])
+BREAKER_TRANSITIONS = Counter(
+    "dynamo_circuit_breaker_transitions_total",
+    "Circuit breaker state transitions, by state entered",
+    ["endpoint", "state"])
+DEADLINE_EXCEEDED = Counter(
+    "dynamo_deadline_exceeded_total",
+    "Requests whose end-to-end deadline budget expired, by component",
+    ["component"])
+# Deadline-aware admission (runtime/admission.py)
+ADMISSION_WAIT_MS = Gauge(
+    "dynamo_admission_queue_wait_ms",
+    "Estimated queue wait (ms) at an admission edge's last decision, "
+    "per pool (inf collapses to the Retry-After cap)",
+    ["pool"])
+TENANT_SHED = Counter(
+    "dynamo_tenant_shed_total",
+    "Requests shed at an admission edge attributed to a tenant, by "
+    "reason: quota (over weighted fair share under contention) or "
+    "queue (deadline-aware admission). Untagged requests count under "
+    "tenant=untagged only when quota-shed",
+    ["tenant", "reason"])
 # Frontend service metrics that feed the Planner (ref: http/service/metrics.rs
 # TTFT/ITL histograms)
 TTFT_SECONDS = Histogram(
@@ -240,3 +279,25 @@ class EndpointMetrics:
         REQUESTS_TOTAL.labels(status=status, **self._labels).inc()
         REQUEST_DURATION.labels(**self._labels).observe(
             max(0.0, time.monotonic() - start_monotonic))
+
+
+# Request-derived label values (tenant ids) are unbounded: the first
+# _MAX_LABELS distinct values of a namespace keep their own series and the
+# rest fold into "other" (the reference's metric_labels.bounded_label at its
+# DYNT_METRIC_MAX_LABELS default).
+_MAX_LABELS = 64
+_admitted_labels: dict[str, set] = {}
+_labels_lock = threading.Lock()
+
+
+def bounded_label(namespace: str, value: str) -> str:
+    if not value:
+        return value
+    with _labels_lock:
+        seen = _admitted_labels.setdefault(namespace, set())
+        if value in seen:
+            return value
+        if len(seen) < _MAX_LABELS:
+            seen.add(value)
+            return value
+    return "other"

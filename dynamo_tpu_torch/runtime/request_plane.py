@@ -13,8 +13,16 @@ one listener (ref: ingress/shared_tcp_endpoint.rs, push_endpoint.rs:21).
 
 Handlers are async generators:  async def handler(body, ctx) -> yields bodies.
 
-Not ported yet: the HTTP request plane, and the reference's resilience hooks
-(deadline headers and watchdogs, the stream idle timeout).
+Every request frame carries the caller's end-to-end deadline as remaining
+milliseconds (`x-dynt-deadline-ms`, runtime/resilience.py). The server
+refuses a request whose budget is spent before it dispatches it, and arms a
+`DeadlineWatchdog` that cancels the handler at expiry (an in-band
+`deadline_exceeded` error frame). The client bounds the wait for the first
+frame and for every later one by DYNT_STREAM_IDLE_TIMEOUT_SECS, clamped to
+the deadline: a black-holed peer (open connection, nothing flowing) raises
+ConnectionLost, an exhausted budget DeadlineExceeded.
+
+Not ported yet: the HTTP request plane.
 """
 
 from __future__ import annotations
@@ -27,7 +35,15 @@ import threading
 import time
 from typing import Any, AsyncIterator, Callable, Optional
 
+from ..config import env
 from . import codec
+from .metrics import DEADLINE_EXCEEDED
+from .resilience import (
+    Deadline,
+    DeadlineExceeded,
+    DeadlineWatchdog,
+    bounded_wait,
+)
 
 log = logging.getLogger("dynamo_tpu_torch.request_plane")
 
@@ -59,6 +75,9 @@ class RequestContext:
         self.request_id = request_id
         self.headers = headers or {}
         self.subject = subject
+        # End-to-end budget propagated by the caller; handlers size their
+        # own downstream waits from remaining().
+        self.deadline: Optional[Deadline] = Deadline.from_wire(self.headers)
         self._stopped = asyncio.Event()
 
     def stop(self) -> None:
@@ -66,6 +85,13 @@ class RequestContext:
 
     def is_stopped(self) -> bool:
         return self._stopped.is_set()
+
+    def remaining(self, default: Optional[float] = None) -> Optional[float]:
+        """Seconds of budget left (floored at 0), or `default` when the
+        caller propagated no deadline."""
+        if self.deadline is None:
+            return default
+        return max(0.0, self.deadline.remaining())
 
 
 class _Registry:
@@ -186,6 +212,17 @@ class TcpRequestServer:
                 "t": "err", "i": rid, "e": f"endpoint not found: {subject}",
                 "c": "not_found"})
             return
+        if ctx.deadline is not None and ctx.deadline.expired():
+            # The budget was spent in transit: refuse before dispatch, so
+            # an already-late request never occupies a worker slot.
+            DEADLINE_EXCEEDED.labels(component="server").inc()
+            await self._send(writer, send_lock, {
+                "t": "err", "i": rid,
+                "e": f"deadline expired before dispatch: {subject}",
+                "c": "deadline_exceeded"})
+            return
+        # A dispatched handler is cancelled the moment its budget runs out.
+        watchdog = DeadlineWatchdog().arm(ctx.deadline)
         gen = handler(body, ctx)
         try:
             async for item in gen:
@@ -193,8 +230,20 @@ class TcpRequestServer:
                                  codec.pack_body(item))
             await self._send(writer, send_lock, {"t": "end", "i": rid})
         except asyncio.CancelledError:
-            # Client went away or cancelled; nothing to send.
             ctx.stop()
+            if watchdog.fired:
+                # Our own watchdog, not a client cancel: report the overrun
+                # on the wire.
+                DEADLINE_EXCEEDED.labels(component="server").inc()
+                try:
+                    await self._send(writer, send_lock, {
+                        "t": "err", "i": rid,
+                        "e": f"deadline exceeded in {subject}",
+                        "c": "deadline_exceeded"})
+                except (ConnectionResetError, BrokenPipeError):
+                    pass
+                return
+            # Client went away or cancelled; nothing to send.
             raise
         except Exception as exc:  # noqa: BLE001 — handler errors cross the wire
             log.warning("handler %s failed: %r", subject, exc)
@@ -205,6 +254,7 @@ class TcpRequestServer:
             except (ConnectionResetError, BrokenPipeError):
                 pass
         finally:
+            watchdog.disarm()
             # Close the handler generator deterministically: a cancel that
             # lands while this task waits in _send leaves the generator
             # parked at a yield, and its finally blocks (the sequence's
@@ -308,11 +358,22 @@ class TcpRequestClient:
         queue: asyncio.Queue = asyncio.Queue()
         conn.streams[rid] = queue
         ended = False
+        deadline = Deadline.from_wire(headers)
+        # A black-holed peer keeps the connection open while nothing flows:
+        # the idle timeout bounds the first frame and every later one, and
+        # each wait is clamped to the deadline.
+        idle = env("DYNT_STREAM_IDLE_TIMEOUT_SECS") or None
         try:
             await conn.send({"t": "req", "i": rid, "s": subject,
                              "h": headers or {}}, codec.pack_body(body))
             while True:
-                header, payload = await queue.get()
+                try:
+                    header, payload = await bounded_wait(
+                        queue.get(), idle, deadline, subject)
+                except asyncio.TimeoutError:
+                    raise ConnectionLost(
+                        f"no frame from {address} in {idle}s "
+                        f"({subject})") from None
                 ftype = header.get("t")
                 if ftype == "data":
                     yield codec.unpack_body(payload)
@@ -327,12 +388,15 @@ class TcpRequestClient:
                             header.get("e", "connection lost"))
                     if code == "not_found":
                         raise EndpointNotFound(header.get("e", subject))
+                    if code == "deadline_exceeded":
+                        raise DeadlineExceeded(header.get("e", subject))
                     raise RemoteError(header.get("e", "remote error"), code)
         finally:
             conn.streams.pop(rid, None)
             # Propagate cancellation to the server only if the stream did
-            # not finish cleanly. Bounded: a peer with a full socket buffer
-            # must not hold every sender queued on this connection's lock.
+            # not finish cleanly. Bounded: a black-holed peer has a full
+            # socket buffer, and an unbounded drain() would hold every
+            # sender queued on this connection's lock.
             if not ended and not conn.closed:
                 try:
                     await asyncio.wait_for(
@@ -403,6 +467,11 @@ class MemRequestPlane:
             raise ConnectionLost(f"no mem server at {address}")
         handler = registry.get(subject)
         ctx = RequestContext(0, headers or {}, subject)
+        if ctx.deadline is not None and ctx.deadline.expired():
+            # The TCP server's refuse-before-dispatch contract.
+            DEADLINE_EXCEEDED.labels(component="server").inc()
+            raise DeadlineExceeded(
+                f"deadline expired before dispatch: {subject}")
         try:
             async with contextlib.aclosing(handler(body, ctx)) as gen:
                 async for item in gen:

@@ -3,7 +3,9 @@
 Port of `SystemStatusServer` in `dynamo_tpu/runtime/status.py` (ref:
 lib/runtime/src/system_status_server.rs:131-178), on this package's HTTP
 server (runtime/http.py). Every runtime process exposes liveness, endpoint
-health and its Prometheus metrics here. Not ported yet: /drain, /debug/*,
+health and its Prometheus metrics here. /health answers 503 when any served
+endpoint is unhealthy: shutting down, or failing its canaries
+(runtime/health_check.py). Not ported yet: /drain, /debug/*,
 /fleet and OpenMetrics negotiation.
 """
 

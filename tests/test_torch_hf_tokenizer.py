@@ -21,6 +21,7 @@ older tables, and the two disagree on code points assigned in between.
 
 import json
 import os
+import unicodedata
 
 import pytest
 from hypothesis import HealthCheck, given, settings
@@ -43,6 +44,7 @@ from dynamo_tpu_torch.llm import guided
 from dynamo_tpu_torch.llm.hf_tokenizer import (
     HfTokenizer,
     UnsupportedTokenizer,
+    _is_word_char,
     translate_regex,
 )
 from dynamo_tpu_torch.llm.tokenizer import IncrementalDetokenizer, load_tokenizer
@@ -266,6 +268,39 @@ def test_added_token_options():
         assert hello in port.encode("say hello!")
         assert hello not in port.encode("hellos")
         assert port.encode("a  xyz  b").count(xyz) == 1
+
+
+# word characters by the tokenizers library's Unicode \w: marks (Mn, Mc, Me),
+# an Other_Alphabetic symbol (So), Pc and Join_Control; No is not one
+@pytest.mark.parametrize("char,word", [
+    ("\u0300", True), ("\u0903", True), ("\u20dd", True), ("\u24b6", True),
+    ("\u203f", True), ("\u200c", True), ("\u200d", True),
+    ("\u00b2", False), ("\u00bd", False)])
+def test_single_word_boundary_is_unicode_word(pairs, char, word):
+    ref, port = pairs["llama3"]
+    hello = port.token_to_id("hello")
+    for text in (char + "hello", "hello" + char):
+        assert port.encode(text) == ref.encode(text), text
+        assert (hello in port.encode(text)) is not word, text
+    assert _is_word_char(char) is word
+
+
+def test_word_chars_match_tokenizers_over_every_code_point():
+    """One encode of c + "hello " for every assigned code point: the
+    single_word token matches exactly where c is not a word character."""
+    tok = Tokenizer(models.WordLevel({"[UNK]": 0}, unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tok.add_tokens([AddedToken("hello", single_word=True, normalized=False)])
+    hello = tok.token_to_id("hello")
+    chars = [chr(cp) for cp in range(0x110000)
+             if unicodedata.category(chr(cp)) not in ("Cs", "Cn")]
+    enc = tok.encode("".join(c + "hello " for c in chars),
+                     add_special_tokens=False)
+    matched = {start for tid, (start, _) in zip(enc.ids, enc.offsets)
+               if tid == hello}
+    differ = [hex(ord(c)) for i, c in enumerate(chars)
+              if (7 * i + 1 not in matched) != _is_word_char(c)]
+    assert not differ, differ[:20]
 
 
 def test_load_tokenizer_builds_the_hf_kind(tokenizers_dir):

@@ -55,6 +55,12 @@ LOGITS_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
     "parsers.reasoning"))
 
 
+# Modules of the resilience and admission slice: each must be among the
+# checked sources and import cleanly on its own.
+RESILIENCE_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
+    "runtime.resilience", "runtime.admission", "runtime.health_check"))
+
+
 # Modules of the checkpoint slice (and the sampler's noise): each must be
 # among the checked sources and import cleanly on its own.
 CHECKPOINT_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
@@ -99,6 +105,12 @@ def test_sources_cover_the_checkpoint_modules():
     assert PORT / "ops" / "gumbel_triton.py" in files
 
 
+def test_sources_cover_the_resilience_modules():
+    files = set(_sources())
+    for module in RESILIENCE_MODULES:
+        assert ROOT / (module.replace(".", "/") + ".py") in files
+
+
 def test_sources_cover_the_logits_modules():
     files = set(_sources())
     for module in LOGITS_MODULES:
@@ -108,7 +120,8 @@ def test_sources_cover_the_logits_modules():
 
 
 @pytest.mark.parametrize("module", SERVING_MODULES + KV_ROUTING_MODULES
-                         + LOGITS_MODULES + CHECKPOINT_MODULES)
+                         + LOGITS_MODULES + CHECKPOINT_MODULES
+                         + RESILIENCE_MODULES)
 def test_serving_module_imports_on_its_own(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -38,6 +38,7 @@ from dynamo_tpu.engine import RunnerConfig as JRunnerConfig
 from dynamo_tpu.engine.worker import KvEventBuffer as RefEventBuffer
 from dynamo_tpu.engine.worker import TpuWorker
 from dynamo_tpu.frontend import Frontend as RefFrontend
+from dynamo_tpu.llm.http_service import HttpService as RefHttpService
 from dynamo_tpu.llm.protocols import PreprocessedRequest as JRequest
 from dynamo_tpu.llm.protocols import SamplingOptions as JSampling
 from dynamo_tpu.llm.protocols import StopConditions as JStop
@@ -62,6 +63,7 @@ from dynamo_tpu_torch.llm.protocols import (
 )
 from dynamo_tpu_torch.models import params_from_numpy
 from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+from dynamo_tpu_torch.runtime.admission import QueueWaitEstimator
 from dynamo_tpu_torch.tokens import compute_block_hashes
 
 CFG = dataclasses.replace(get_config("tiny-test"), dtype="float32")
@@ -434,10 +436,18 @@ def test_p2c_routes(fleet):
 
 
 def test_busy_threshold_answers_503(fleet):
+    """The busy 503's Retry-After is the model's estimated drain time, as
+    the reference's `_retry_after` computes it: here one request behind an
+    idle fleet at the cold drain rate (one request a half-life, 5 s)."""
+    entry = fleet["frontends"]["busy"].manager.get(MODEL)
+    estimator = QueueWaitEstimator(pool=entry.wait_estimator.pool)
+    estimator.observe_drained(1)
+    entry.wait_estimator = estimator
     status, text, headers = _request(fleet["ports"]["busy"], {
         "model": MODEL, "prompt": [5, 6, 7], "max_tokens": 2}, headers=True)
     assert status == 503
-    assert headers["Retry-After"] == "1"
+    assert headers["Retry-After"] == RefHttpService._retry_after(
+        None, entry) == "5"
     assert json.loads(text) == {"error": {
         "message": "service busy", "type": "overloaded", "code": 503}}
     fleet["frontends"]["busy"].http.busy_threshold = 1.5

@@ -24,6 +24,7 @@ unknown processor refused in-band.
 import contextlib
 import dataclasses
 import threading
+import time
 
 import jax
 import numpy as np
@@ -212,8 +213,11 @@ def _make(make_req, make_samp, make_stop, rid, kind):
 
 
 def _serve(scheduler, requests, timeout=60.0):
-    """Submit every request, wait for every stream: {rid: (tokens,
-    finish_reason, error)}."""
+    """Submit every request, wait for every stream and for the scheduler
+    to release every sequence: {rid: (tokens, finish_reason, error)}. Both
+    engines emit a stream's last token before the end of the step that
+    releases its pages into the prefix cache."""
+    deadline = time.monotonic() + timeout
     out = {r.request_id: [] for r in requests}
     ends = {}
     done = threading.Event()
@@ -232,6 +236,9 @@ def _serve(scheduler, requests, timeout=60.0):
     for r in requests:
         scheduler.submit(r, emitter(r.request_id))
     assert done.wait(timeout), "streams did not finish"
+    while scheduler._waiting or any(s is not None for s in scheduler._slots):
+        assert time.monotonic() < deadline, "sequences were not released"
+        time.sleep(0.001)
     return {rid: (out[rid], *ends[rid]) for rid in out}
 
 

@@ -325,7 +325,6 @@ IDS = [0x51, 0x12, 0x7FFF, 0x3]
 
 def _routers(mode, monkeypatch):
     monkeypatch.setenv("DYNT_BREAKER_RESET_SECS", "0.2")
-    monkeypatch.setattr(push_router, "DOWN_COOLDOWN_SECS", 0.2)
     return (push_router.PushRouter(_StubClient(IDS), mode=mode),
             ref_push_router.PushRouter(_StubClient(IDS), mode=mode))
 
@@ -336,7 +335,7 @@ def test_round_robin_and_random_pick_as_the_reference(run, monkeypatch):
         for mode in ("round_robin", "random"):
             port, ref = _routers(mode, monkeypatch)
             random.seed(11)
-            mine = [port._pick(None) for _ in range(13)]
+            mine = [await port._pick(None, None) for _ in range(13)]
             random.seed(11)
             theirs = [await ref._pick(None, None) for _ in range(13)]
             out[mode] = (mine, theirs)
@@ -352,14 +351,15 @@ def test_round_robin_and_random_pick_as_the_reference(run, monkeypatch):
 def test_direct_and_explicit_targets(run, monkeypatch):
     async def go():
         port, ref = _routers("direct", monkeypatch)
-        assert port._pick(0x12) == await ref._pick(None, 0x12) == 0x12
+        assert await port._pick(None, 0x12) == await ref._pick(None, 0x12) \
+            == 0x12
         with pytest.raises(ValueError):
-            port._pick(None)
+            await port._pick(None, None)
         rr, ref_rr = _routers("round_robin", monkeypatch)
         rr.mark_down(0x12)
         ref_rr.mark_down(0x12)
         with pytest.raises(push_router.NoInstancesAvailable):
-            rr._pick(0x12)
+            await rr._pick(None, 0x12)
         with pytest.raises(ref_push_router.NoInstancesAvailable):
             await ref_rr._pick(None, 0x12)
 
@@ -386,7 +386,7 @@ def test_mark_down_as_the_reference(run, monkeypatch):
             for iid in IDS:
                 router.mark_down(iid)
         with pytest.raises(push_router.NoInstancesAvailable):
-            port._pick(None)
+            await port._pick(None, None)
         with pytest.raises(ref_push_router.NoInstancesAvailable):
             await ref._pick(None, None)
 
@@ -417,10 +417,10 @@ def test_p2c_and_kv_modes_pick_as_the_reference(run, monkeypatch, mode):
         port.mark_down(0x7FFF)
         ref.mark_down(0x7FFF)
         random.seed(5)
-        mine = [await port._select(i, None) for i in range(17)]
+        mine = [await port._pick(i, None) for i in range(17)]
         random.seed(5)
         theirs = [await ref._pick(i, None) for i in range(17)]
-        explicit = (await port._select(3, 0x3), await ref._pick(3, 0x3))
+        explicit = (await port._pick(3, 0x3), await ref._pick(3, 0x3))
         return mine, theirs, explicit
 
     mine, theirs, explicit = run(go())

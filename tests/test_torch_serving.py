@@ -293,13 +293,19 @@ def test_error_bodies_match_the_reference(stacks, name):
 
 
 def test_no_instance_answers_503(stacks, run, tmp_path):
-    """A model whose card is listed but whose instances are all gone
-    answers 503 with the reference's NoInstancesAvailable body (the
-    reference's migration layer, not ported, first retries it)."""
+    """A model whose card is listed but whose instances are all gone gets
+    the reference's migration outcome from both frontends: Migration
+    retries NoInstancesAvailable DYNT_MIGRATION_LIMIT times, then the
+    in-band "migration limit exceeded" error answers 502."""
 
-    async def go():
-        rt = await DistributedRuntime(_port_config(tmp_path)).start()
-        fe = Frontend(rt, host="127.0.0.1", port=0)
+    async def go(port_side: bool):
+        root = tmp_path / ("port" if port_side else "ref")
+        if port_side:
+            rt = await DistributedRuntime(_port_config(root)).start()
+            fe = Frontend(rt, host="127.0.0.1", port=0)
+        else:
+            rt = await RefRuntime(_ref_config(root)).start()
+            fe = RefFrontend(rt, host="127.0.0.1", port=0)
         try:
             await fe.start()
             card = ModelDeploymentCard(name="ghost")
@@ -312,10 +318,50 @@ def test_no_instance_answers_503(stacks, run, tmp_path):
             await fe.close()
             await rt.shutdown()
 
-    status, headers, text = run(go())
-    assert status == 503 and headers["Retry-After"] == "1"
-    assert json.loads(text) == ref_error_body(503, "no workers available",
-                                              "overloaded")
+    port_status, _, port_text = run(go(True))
+    ref_status, _, ref_text = run(go(False))
+    assert port_status == ref_status == 502
+    assert json.loads(port_text) == json.loads(ref_text) == ref_error_body(
+        502, "migration limit exceeded: dynamo/backend/generate",
+        "engine_error")
+
+
+def test_no_instance_streams_the_migration_error(stacks, run, tmp_path):
+    """Streamed, the same outcome is in-band: both frontends answer 200
+    and end the stream with a finish_reason "error" chunk, then [DONE]."""
+
+    async def go(port_side: bool):
+        root = tmp_path / ("port" if port_side else "ref")
+        if port_side:
+            rt = await DistributedRuntime(_port_config(root)).start()
+            fe = Frontend(rt, host="127.0.0.1", port=0)
+        else:
+            rt = await RefRuntime(_ref_config(root)).start()
+            fe = RefFrontend(rt, host="127.0.0.1", port=0)
+        try:
+            await fe.start()
+            card = ModelDeploymentCard(name="ghost")
+            await rt.put_leased(card.card_key(1), card.to_wire())
+            await asyncio.wait_for(_wait_for(fe.manager, "ghost"), STEP)
+            return await asyncio.wait_for(asyncio.to_thread(
+                _request, fe.port, "POST", "/v1/completions",
+                {"model": "ghost", "prompt": "x", "max_tokens": 2,
+                 "stream": True}), STEP)
+        finally:
+            await fe.close()
+            await rt.shutdown()
+
+    def events(text):
+        return [json.loads(line[6:]) for line in text.splitlines()
+                if line.startswith("data: ") and line != "data: [DONE]"]
+
+    port_status, _, port_text = run(go(True))
+    ref_status, _, ref_text = run(go(False))
+    assert port_status == ref_status == 200
+    assert port_text.rstrip().endswith("data: [DONE]")
+    mine, theirs = events(port_text), events(ref_text)
+    assert [c["choices"][0]["finish_reason"] for c in mine] == [
+        c["choices"][0]["finish_reason"] for c in theirs] == ["error"]
 
 
 async def _wait_for(manager, name: str) -> None:
