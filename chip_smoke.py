@@ -83,6 +83,19 @@ Phases, each printing one JSON line:
               worker receives = encode(render(messages)), each text = the
               decode of the worker's ids) and a json_schema request guided
               over the 128,256 ids; the directory is deleted after
+  disagg    - disaggregated prefill/decode on that worker: it decodes, and
+              a second TorchWorker in mode "prefill" on the same weight
+              tensors prefills (its prefill keys captured first); both
+              behind a port Frontend whose prefill pool is active. The 8
+              requests as streamed /v1/completions over empty caches, once
+              with the streamed handoff (DYNT_DISAGG_PIPELINE=1) and once
+              serial (0): per request the prefill leg's wall and its first
+              kv_transfer_params, the pull's ms, bytes and GB/s, the onboard
+              (staged upload) ms, TTFT and ITL. The decode worker prefills 0
+              tokens; req-0's pulled pages equal the prefill worker's byte
+              for byte; greedy streams equal the aggregated run's or part
+              only at a near-tie; every transfer is claimed and the prefill
+              pool returns to its free count; row 1 = 32 x decode forwards
   unified   - the same traffic through TorchWorker(attention_fn=
               paged_attention), the reference's unified path: row 3 = 32 x
               decode forwards, row 1 = 0; then greedy parity against the
@@ -165,6 +178,18 @@ Phases, each printing one JSON line:
               admitted, a tenant over DYNT_TENANT_RATE_LIMIT is refused
               while another is served; stall, deregistration and estimate
               against actual wait; rows 2 and 6 counted, no graph captured
+  drain     - the drain ladder on the resilience phase's two workers (B
+              listed alone while the traffic arrives): 4 streams of
+              256-1,024 prompt tokens and 256 out (greedy and seeded) and a
+              repetition-penalty request on B, then A serves and, once every
+              stream has 64 tokens, POST /drain on B: 4 handoffs (A pulls
+              B's packed int8 pages and resumes with 0 prompt tokens
+              recomputed) and 1 replay (A prefills its prompt plus its
+              generated tokens), every stream 256 tokens, B empty and then
+              deregistered, dynamo_drain_state 0 -> 1 -> 2; each handoff's
+              stall and bytes, and each stream against the same request
+              served undrained on A (greedy ones part only at a near-tie);
+              rows 2 and 6 counted
   spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
               KV: a runner of 8 slots, all live, 5 positions each (the int8
               pool kernel folded, the q4 v2 kernel at M = 8 x 5 = 40),
@@ -186,7 +211,8 @@ graph key holds the step functions, so those runs capture their own graphs.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
-then non-zero and the last line is not printed. Without a CUDA card, or
+then non-zero and the last line is not printed; a run past 1,100 s (a
+hang) prints every thread's stack and exits non-zero. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero.
 """
 
@@ -195,6 +221,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
@@ -210,6 +237,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+HANG_S = 1100  # the whole run's watchdog (it takes 550-600 s)
 MODEL = "llama3-8b"
 QMODEL = "mistral-7b"
 SEED = 0
@@ -2530,6 +2558,324 @@ def phase_serve(dev: torch.device, worker, label: str) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
+DISAGG_RUNS = (("streamed", 1), ("serial", 0))  # DYNT_DISAGG_PIPELINE
+
+
+def _fresh_scheduler(worker) -> None:
+    """A new, started scheduler (an empty page pool and prefix cache) on a
+    worker, wired to its KV events as the worker wires its own."""
+    from dynamo_tpu_torch.engine import InferenceScheduler
+
+    worker.scheduler.stop()
+    old = worker.scheduler
+    worker.scheduler = InferenceScheduler(
+        worker.runner, on_stored=worker.events.on_stored,
+        on_removed=worker.events.on_removed)
+    worker.scheduler.logits_tokenizer = old.logits_tokenizer
+    worker.events.on_cleared()
+    worker.scheduler.start()
+
+
+def _near_tie_gap(worker, context: list, a: int, b: int) -> float:
+    """How far below the top logit the lower of tokens a and b sits after
+    `context`: one eager unpadded forward on the worker's runner, into
+    pages 1.. of a fresh scheduler's pool (fresh again after)."""
+    _fresh_scheduler(worker)
+    ps = worker.runner.config.page_size
+    table = np.arange(1, -(-len(context) // ps) + 1, dtype=np.int32)
+    logits, _ = _unpadded_prefill(worker.runner, context, 0, table,
+                                  len(context))
+    row = logits.float().cpu().numpy()
+    _fresh_scheduler(worker)
+    return float(row.max() - min(row[a], row[b]))
+
+
+def phase_disagg(dev: torch.device, worker) -> dict:
+    """Disaggregated prefill/decode at full width: `worker` (llama3-8b bf16)
+    is the decode worker, and a second TorchWorker in mode "prefill" shares
+    its weight tensors (a [PREFILL] card under the `prefill` component; its
+    prefill keys captured up front, it never decodes). Both on one port
+    DistributedRuntime (file discovery, the TCP request plane), a port
+    Frontend in front with the prefill pool active. The standard 8 requests
+    (32-1,500 prompt tokens, 64 out, half greedy) as streamed
+    /v1/completions, each over an empty prefix cache on both workers, once
+    with the streamed handoff (DYNT_DISAGG_PIPELINE=1: kv_transfer_params
+    after the first chunk) and once serial (0).
+
+    Per request: the prefill leg's wall at the prefill worker and when its
+    first kv_transfer_params left it, the decode worker's pull (ms, bytes,
+    GB/s) and onboard (the staged upload, ms), TTFT and ITL at the client.
+    Checks: the decode worker prefills 0 tokens; one request's pulled pages
+    equal the prefill worker's pages byte for byte (gathered before their
+    release); greedy streams equal the same requests served aggregated on
+    the decode worker, or part only at a near-tie (the split plan follows
+    the batch's table width); every transfer is claimed and the prefill
+    pool returns to its free count; the streamed run parks pages
+    mid-prefill and the serial one none; row 1 launches once per layer of
+    each decode forward. Returns the phase's launches."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import TorchWorker
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    label = "disagg"
+    t_phase = time.perf_counter()
+    runner = worker.runner
+    model = worker.card.name
+    tok = ByteTokenizer()
+    _, prompts = standard_traffic(worker.model_config.vocab_size)
+    bodies = _bodies(prompts, "req")
+    # the same requests served aggregated on the decode worker
+    aggregated = _held_streams(dev, worker, f"{label}_aggregated")["streams"]
+    t0 = time.perf_counter()
+    prefill = TorchWorker(worker.model_config, worker.runner_config,
+                          device=dev, params=runner.model, mode="prefill",
+                          component="prefill")
+    pcfg = prefill.runner.config
+    for rows, bucket in prefill.runner.prefill_keys():
+        row = (np.zeros(bucket, np.int32), 0,
+               np.zeros(pcfg.max_pages_per_seq, np.int32),
+               min(bucket, pcfg.max_context), (0.0, 1.0, 0, 0))
+        prefill.runner.prefill_chunk_batch([row] * rows)
+    prefill_setup_s = time.perf_counter() - t0
+    workers = {"prefill": prefill, "decode": worker}
+    originals = {k: w.generate for k, w in workers.items()}
+    legs: dict = {}  # (kind, request id) -> what the worker saw
+    check_pages = 600  # req-0's prompt: its pages are held byte for byte
+    seen: dict = {}
+
+    def recording(kind: str):
+        async def gen(body, ctx=None):
+            rec = {"t_arrive": time.perf_counter(), "t_params": None,
+                   "t_end": None, "tokens": [],
+                   "disagg": bool(body.get("disaggregated_params"))}
+            legs[(kind, body["request_id"])] = rec
+            async with contextlib.aclosing(
+                    originals[kind](body, ctx)) as stream:
+                async for item in stream:
+                    if item.get("kv") is not None and rec["t_params"] is None:
+                        rec["t_params"] = time.perf_counter()
+                    rec["tokens"] += item.get("t") or []
+                    if "f" in item:
+                        rec["t_end"] = time.perf_counter()
+                    yield item
+        return gen
+
+    for kind, w in workers.items():
+        w.generate = recording(kind)
+
+    def hook_pages() -> None:
+        """Hold one request's pages on both sides: the prefill worker's,
+        gathered as their transfer releases them, and the decode worker's
+        assembled bundle, as it stages it."""
+        release = prefill.scheduler.release_transfer_pages
+        stage = worker.runner.stage_bundle
+
+        def gather_then_release(seq):
+            if seq.prompt_len == check_pages and "src" not in seen:
+                n = -(-seq.prompt_len // pcfg.page_size)
+                seen["src"] = prefill.runner.gather_pages(
+                    [int(p) for p in seq.block_table[:n]])
+            release(seq)
+
+        def keep(blocks):
+            if (blocks.shape[0] == -(-check_pages // pcfg.page_size)
+                    and "pulled" not in seen):
+                seen["pulled"] = blocks.clone()
+            return stage(blocks)
+
+        prefill.scheduler.release_transfer_pages = gather_then_release
+        worker.runner.stage_bundle = keep
+
+    def http_body(i: int) -> dict:
+        s = bodies[i]["sampling"]
+        return {"model": model, "prompt": bodies[i]["token_ids"],
+                "max_tokens": s["max_tokens"],
+                "temperature": s["temperature"], "top_p": s["top_p"],
+                "seed": s["seed"], "ignore_eos": True, "stream": True,
+                "stream_options": {"include_usage": True}}
+
+    async def until(pred, what: str, timeout: float = 60.0) -> None:
+        t = time.perf_counter()
+        while not pred():
+            check(time.perf_counter() - t < timeout, f"{label}: {what}")
+            await asyncio.sleep(0.002)
+
+    async def one_run(port: int, name: str, pipeline: int) -> dict:
+        prefill.disagg_pipeline = pipeline
+        _fresh_scheduler(prefill)
+        _fresh_scheduler(worker)
+        if name == "streamed":
+            hook_pages()
+        streamed0 = prefill.scheduler.stats.disagg_streamed_pages
+        pulls0 = len(worker.pulls)
+        start = time.perf_counter()
+        answers = await asyncio.wait_for(asyncio.gather(*[
+            _http(port, "POST", "/v1/completions", http_body(i))
+            for i in range(len(bodies))]), 600)
+        wall = time.perf_counter() - start
+        pool = prefill.scheduler.pool
+        await until(lambda: len(prefill.transfers) == 0
+                    and _reclaimable_pages(pool) == pool.num_pages - 1,
+                    f"{name}: transfers unclaimed or pages held")
+        if name == "streamed":
+            del prefill.scheduler.release_transfer_pages
+            del worker.runner.stage_bundle
+        pulls = {p["request_id"]: p
+                 for p in list(worker.pulls)[pulls0:]}
+        rows = []
+        for i, res in enumerate(answers):
+            o = _sse_outcome(res)
+            rid = res["headers"]["x-request-id"]
+            check(o["finish"] == "length"
+                  and o["usage"]["completion_tokens"] == 64
+                  and o["usage"]["prompt_tokens"] == len(prompts[i]),
+                  f"{name}: req-{i} {o['finish']} {o['usage']}")
+            leg_p, leg_d = legs[("prefill", rid)], legs[("decode", rid)]
+            check(leg_d["disagg"] and rid in pulls,
+                  f"{name}: req-{i} was not pulled")
+            check(tok.decode(leg_d["tokens"]) == o["text"],
+                  f"{name}: req-{i} text differs from the decode worker's")
+            pull = pulls[rid]
+            rows.append({
+                "rid": f"req-{i}", "prompt": len(prompts[i]),
+                "tokens": leg_d["tokens"],
+                "prefill_leg_ms": (leg_p["t_end"] - leg_p["t_arrive"]) * 1e3,
+                "params_ms": (leg_p["t_params"] - leg_p["t_arrive"]) * 1e3,
+                "pull_ms": pull["pull_ms"], "pull_bytes": pull["bytes"],
+                "pull_pages": pull["pages"],
+                "pull_GB_per_s": pull["bytes"] / pull["pull_ms"] / 1e6,
+                "pull_wait_ms": pull["wait_ms"],
+                "pull_assemble_ms": pull["assemble_ms"],
+                "onboard_ms": pull["stage_ms"],
+                "ttft_ms": (o["stamps"][0] - o["t0"]) * 1e3,
+                "itl_ms": (o["stamps"][-1] - o["stamps"][0]) * 1e3 / 63})
+        return {"wall_s": wall, "rows": rows,
+                "streamed_pages": (prefill.scheduler.stats
+                                   .disagg_streamed_pages - streamed0),
+                "decode_prefill_tokens": worker.scheduler.stats.prefill_tokens,
+                "prefill_prefill_tokens": (prefill.scheduler.stats
+                                           .prefill_tokens)}
+
+    async def serve() -> dict:
+        root = tempfile.mkdtemp(prefix="chip_smoke_disagg_")
+        cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
+                            tcp_host="127.0.0.1", system_enabled=False)
+        rt_w = await DistributedRuntime(dataclasses.replace(cfg)).start()
+        rt_fe = await DistributedRuntime(dataclasses.replace(cfg)).start()
+        fe = Frontend(rt_fe, host="127.0.0.1", port=0)
+        out = {}
+        try:
+            for w in workers.values():
+                w._served, w._tasks = [], []
+                await w.serve(rt_w)
+            await fe.start()
+            await until(lambda: fe.manager.get(model) is not None
+                        and (fe.watcher._prefill_pools.get(model) is not None)
+                        and fe.watcher._prefill_pools[model].active(),
+                        "the model and its prefill pool listed")
+            # counts to zero just before the main path
+            reset_counts()
+            for w in workers.values():
+                reset_runner_counts(w.runner)
+            for name, pipeline in DISAGG_RUNS:
+                out[name] = await one_run(fe.port, name, pipeline)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["launches"] = read_counts()
+            out["want"] = {}
+            for w in workers.values():
+                r = w.runner
+                for name, n in expected_counts(
+                        r, dev, decode=r.decode_steps,
+                        prefill=r.prefill_steps,
+                        warm=r.graph_warm_forwards).items():
+                    out["want"][name] = out["want"].get(name, 0) + n
+            out["forwards"] = {k: launched_forwards(w.runner) | {
+                "prefill": w.runner.prefill_steps}
+                for k, w in workers.items()}
+        finally:
+            await fe.close()
+            for w in workers.values():
+                await w.shutdown()
+                del w.generate
+            await rt_fe.shutdown()
+            await rt_w.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        return out
+
+    out = asyncio.run(serve())
+    for name, _ in DISAGG_RUNS:
+        run = out[name]
+        check(run["decode_prefill_tokens"] == 0,
+              f"{label}: {name}: the decode worker prefilled "
+              f"{run['decode_prefill_tokens']} tokens")
+        # req-1 hits req-0's 512-token prefix only if req-0's transfer
+        # released its pages into the cache before req-1 was admitted
+        total = sum(len(p) for p in prompts)
+        check(total - 512 <= run["prefill_prefill_tokens"] <= total,
+              f"{label}: {name}: the prefill worker prefilled "
+              f"{run['prefill_prefill_tokens']} tokens of {total}")
+        check((run["streamed_pages"] > 0) == (name == "streamed"),
+              f"{label}: {name}: {run['streamed_pages']} pages streamed")
+    check("src" in seen and "pulled" in seen
+          and seen["src"].shape == seen["pulled"].shape
+          and torch.equal(seen["src"].view(torch.uint8),
+                          seen["pulled"].view(torch.uint8)),
+          f"{label}: the pulled pages differ from the prefill worker's")
+    # greedy streams against the aggregated run, parting only at a near-tie
+    continuations = {}
+    for name, _ in DISAGG_RUNS:
+        for i, row in enumerate(out[name]["rows"]):
+            rid = row["rid"]
+            if not _greedy(rid):
+                continue
+            want, got = aggregated[rid], row["tokens"]
+            d = _first_divergence(want, got)
+            gap = None
+            if d < len(want):
+                gap = _near_tie_gap(worker, list(bodies[i]["token_ids"])
+                                    + want[:d], want[d], got[d])
+                check(gap <= NEAR_TIE_NATS,
+                      f"{label}: {name}: {rid} parts from the aggregated "
+                      f"stream at token {d}, {gap:.3f} nats below the top "
+                      f"(not a near-tie, <= {NEAR_TIE_NATS})")
+            continuations[f"{name}/{rid}"] = (d if d < len(want) else None,
+                                              gap)
+    check(out["launches"] == out["want"] and (dev.type != "cuda" or out[
+        "launches"]["paged_decode_attention_pool"] > 0),
+          f"{label}: kernel launches {out['launches']} != expected "
+          f"{out['want']}")
+    for w in workers.values():
+        check_graphed(w.runner, label)
+
+    def means(rows) -> dict:
+        keys = ("prefill_leg_ms", "params_ms", "pull_ms", "pull_wait_ms",
+                "pull_assemble_ms", "pull_GB_per_s", "onboard_ms", "ttft_ms",
+                "itl_ms")
+        return {k: float(np.mean([r[k] for r in rows])) for k in keys}
+
+    runs = {name: {"wall_s": out[name]["wall_s"],
+                   "streamed_pages": out[name]["streamed_pages"],
+                   "pulled_bytes": sum(r["pull_bytes"]
+                                       for r in out[name]["rows"]),
+                   "mean": means(out[name]["rows"]),
+                   "requests": [{k: v for k, v in r.items() if k != "tokens"}
+                                for r in out[name]["rows"]]}
+            for name, _ in DISAGG_RUNS}
+    emit(label, model=model,
+         nvidia_smi=nvidia_smi() if dev.type == "cuda" else None,
+         kv_dtype=runner.config.kv_dtype, prefill_setup_s=prefill_setup_s,
+         prefill_keys=len(prefill.runner.prefill_keys()), runs=runs,
+         pulled_pages_byte_equal=True, greedy_vs_aggregated=continuations,
+         forwards=out["forwards"], kernel_launches=out["launches"],
+         seconds=time.perf_counter() - t_phase)
+    prefill.close()
+    return out["launches"]
+
+
 # An HF checkpoint directory: written by the port, served from disk
 
 CKPT_SHARD_BYTES = 5 * 10**9  # the HF writers' default shard size ("5GB")
@@ -3941,11 +4287,12 @@ def phase_resilience(dev: torch.device, worker_a) -> dict:
     Throughout: no graph is captured and no graphable forward runs eagerly,
     and rows 2 and 6 are launched once per layer (projection) of every
     forward of both runners, the canaries' and the direct checks' included.
-    Returns the phase's launches."""
+    Returns the phase's launches and worker B (its scheduler stopped; the
+    drain phase serves it again)."""
     import tempfile
     import threading
 
-    from dynamo_tpu_torch.engine import InferenceScheduler, TorchWorker
+    from dynamo_tpu_torch.engine import TorchWorker
     from dynamo_tpu_torch.frontend import Frontend
     from dynamo_tpu_torch.llm.protocols import (
         PreprocessedRequest,
@@ -4010,16 +4357,7 @@ def phase_resilience(dev: torch.device, worker_a) -> dict:
         w.generate = recording(k)
 
     def fresh(k: int) -> None:
-        """A new, started scheduler (an empty page pool) on worker k."""
-        w = workers[k]
-        w.scheduler.stop()
-        old = w.scheduler
-        w.scheduler = InferenceScheduler(w.runner,
-                                         on_stored=w.events.on_stored,
-                                         on_removed=w.events.on_removed)
-        w.scheduler.logits_tokenizer = old.logits_tokenizer
-        w.events.on_cleared()
-        w.scheduler.start()
+        _fresh_scheduler(workers[k])
 
     def prompt(n: int) -> list:
         return rng.integers(1, vocab, n).tolist()
@@ -4138,24 +4476,15 @@ def phase_resilience(dev: torch.device, worker_a) -> dict:
             d = _first_divergence(want, m["replay"])
             m["diverged_at"], m["gap_nats"] = None, None
             if d < len(want):
-                fresh(0)  # the eager forward below writes pages 1..n
-                tokens = context + want[:d]
-                ps = worker_a.runner.config.page_size
-                table = np.arange(1, -(-len(tokens) // ps) + 1,
-                                  dtype=np.int32)
-                logits, _ = _unpadded_prefill(worker_a.runner, tokens, 0,
-                                              table, len(tokens))
-                eager_forwards.append(len(tokens))
-                row = logits.float().cpu().numpy()
-                gap = float(row.max() - min(row[want[d]],
-                                            row[m["replay"][d]]))
+                gap = _near_tie_gap(worker_a, context + want[:d], want[d],
+                                    m["replay"][d])
+                eager_forwards.append(len(context) + d)
                 m["diverged_at"], m["gap_nats"] = d, gap
                 check(gap <= NEAR_TIE_NATS,
                       f"{what}: stream {m['rid']}'s replay parts from the "
                       f"direct continuation at token {d} of "
                       f"{len(want)}, {gap:.3f} nats below the top (not a "
                       f"near-tie, <= {NEAR_TIE_NATS})")
-                fresh(0)
 
     async def serve() -> dict:
         root = tempfile.mkdtemp(prefix="chip_smoke_res_")
@@ -4527,7 +4856,326 @@ def phase_resilience(dev: torch.device, worker_a) -> dict:
          kernel_launches=out["launches"], forwards=out["runner_counts"],
          eager_check_forwards=out["eager_check_forwards"],
          seconds=time.perf_counter() - t_phase)
-    worker_b.close()
+    return out["launches"], worker_b
+
+
+DRAIN_PROMPTS = (256, 512, 768, 1024)  # the handed-off streams' prompts
+DRAIN_OUT = 256  # every stream's max_tokens
+DRAIN_CUT = 64  # tokens every stream has before POST /drain
+DRAIN_PENALTY_PROMPT = 640  # the repetition-penalty (replay) request's
+
+
+def phase_drain(dev: torch.device, worker_a, worker_b) -> dict:
+    """The drain ladder at full width on the resilience phase's two
+    mistral-7b W4A16 + int8 KV workers, each on its own port runtime (B's
+    status server on), a port Frontend in round_robin in front. Only B is
+    listed when the traffic arrives: 4 streams of 256-1,024 prompt tokens
+    and 256 out (greedy and seeded in turn) and one greedy request with a
+    repetition penalty; then A serves, and once every stream has >= 64
+    tokens, POST /drain on B.
+
+    Checks: B's report lists 4 handoffs and 1 replay (the processor
+    sequence) and no error; A computes 0 prompt tokens for the 4 handoffs
+    (each leg pulls B's packed int8 pages: value bytes, then the scale rows
+    over 128 lanes) and exactly the replay's prompt plus its generated
+    tokens for the replay; every stream ends with 256 tokens and its
+    original prompt length; B is empty when the drain returns and
+    deregisters once shut down; B's dynamo_drain_state reads 0, 1, 2 in
+    that order. Each handoff's stall (B's last token to A's first, at the
+    workers) and bytes pulled are printed; each stream is compared with the
+    same request served undrained on A (greedy ones may part only at a
+    near-tie). Rows 2 and 6 launch once per layer (projection) of every
+    forward of both runners. Returns the phase's launches."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import InferenceScheduler
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.llm.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+    from dynamo_tpu_torch.runtime import metrics as rt_metrics
+
+    label = "drain"
+    t_phase = time.perf_counter()
+    workers = [worker_a, worker_b]
+    runners = [w.runner for w in workers]
+    model = worker_a.card.name
+    vocab = worker_a.model_config.vocab_size
+    rng = np.random.default_rng(SEED + 17)
+    prompts = [rng.integers(1, vocab, n).tolist()
+               for n in DRAIN_PROMPTS + (DRAIN_PENALTY_PROMPT,)]
+    # (temperature, seed, repetition_penalty) per request: greedy and
+    # seeded in turn, then the processor request
+    sampling = [(0.0, 0, 1.0), (0.8, 1, 1.0), (0.0, 2, 1.0), (0.8, 3, 1.0),
+                (0.0, 4, 1.3)]
+    originals = [w.generate for w in workers]
+    legs: list = []  # every request each worker served, in arrival order
+
+    def recording(k: int):
+        async def gen(body, ctx=None):
+            dp = body.get("disaggregated_params") or {}
+            rec = {"worker": k, "rid": body["request_id"],
+                   "prompt": list(body["token_ids"]),
+                   "prior": list(body.get("prior_output_tokens") or []),
+                   "handoff": dp.get("handoff") is not None, "tokens": [],
+                   "t_first": None, "t_last": None}
+            legs.append(rec)
+            async with contextlib.aclosing(originals[k](body, ctx)) as stream:
+                async for item in stream:
+                    if item.get("t"):
+                        now = time.perf_counter()
+                        rec["t_first"] = rec["t_first"] or now
+                        rec["t_last"] = now
+                        rec["tokens"] += item["t"]
+                    yield item
+        return gen
+
+    for k, w in enumerate(workers):
+        w.generate = recording(k)
+
+    def http_body(i: int) -> dict:
+        temperature, seed, penalty = sampling[i]
+        body = {"model": model, "prompt": prompts[i],
+                "max_tokens": DRAIN_OUT, "temperature": temperature,
+                "seed": seed, "ignore_eos": True, "stream": True,
+                "stream_options": {"include_usage": True}}
+        if penalty != 1.0:
+            body["repetition_penalty"] = penalty
+        return body
+
+    async def until(pred, what: str, timeout: float = 60.0) -> None:
+        t = time.perf_counter()
+        while not pred():
+            check(time.perf_counter() - t < timeout, f"{label}: {what}")
+            await asyncio.sleep(0.002)
+
+    def sent(rid: str) -> int:
+        return sum(len(r["tokens"]) for r in legs if r["rid"] == rid)
+
+    async def serve() -> dict:
+        root = tempfile.mkdtemp(prefix="chip_smoke_drain_")
+        cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
+                            tcp_host="127.0.0.1", system_enabled=False)
+        rt_a = await DistributedRuntime(dataclasses.replace(cfg)).start()
+        rt_b = await DistributedRuntime(dataclasses.replace(
+            cfg, system_enabled=True)).start()
+        rt_fe = await DistributedRuntime(dataclasses.replace(cfg)).start()
+        fe = Frontend(rt_fe, host="127.0.0.1", port=0)
+        out = {}
+        b_label = f"{worker_b.instance_id:x}"
+        states: list = []
+        try:
+            for w in workers:
+                _fresh_scheduler(w)
+                w._served, w._tasks = [], []
+            await worker_b.serve(rt_b)
+            await fe.start()
+            await until(lambda: fe.manager.get(model) is not None
+                        and worker_b.instance_id in fe.manager.get(
+                            model).router.client.instance_ids(),
+                        "B listed")
+            entry = fe.manager.get(model)
+            # counts to zero just before the main path
+            reset_counts()
+            for r in runners:
+                reset_runner_counts(r)
+            tasks = [asyncio.ensure_future(_http(
+                fe.port, "POST", "/v1/completions", http_body(i)))
+                for i in range(len(prompts))]
+            await until(lambda: len(legs) >= len(prompts), "5 arrivals")
+            check(all(r["worker"] == 1 for r in legs),
+                  "the traffic reached A before it served")
+            rids = [r["rid"] for r in legs]
+            await worker_a.serve(rt_a)
+            await until(lambda: worker_a.instance_id in
+                        entry.router.client.instance_ids(), "A listed")
+            await until(lambda: all(sent(rid) >= DRAIN_CUT for rid in rids),
+                        f"{DRAIN_CUT} tokens on every stream")
+            check(all(sent(rid) < DRAIN_OUT for rid in rids),
+                  "a stream finished before the drain")
+            prefill_a0 = worker_a.scheduler.stats.prefill_tokens
+            pulls0 = len(worker_a.pulls)
+            gauge = rt_metrics.DRAIN_STATE.labels(worker=b_label)
+            states.append(gauge.get())
+            sampling_on = True
+
+            async def sample_state():
+                while sampling_on:
+                    if gauge.get() != states[-1]:
+                        states.append(gauge.get())
+                    await asyncio.sleep(0.001)
+
+            sampler = asyncio.ensure_future(sample_state())
+            t_drain = time.perf_counter()
+            res = await _http(rt_b.status_server.port, "POST", "/drain")
+            out["drain_http_s"] = time.perf_counter() - t_drain
+            check(res["status"] == 200,
+                  f"POST /drain answered {res['status']} {res.get('text')}")
+            out["report"] = json.loads(res["text"])
+            out["b_empty"] = (worker_b.scheduler.queue_depth() == (0, 0)
+                              and len(worker_b.transfers) == 0)
+            answers = await asyncio.wait_for(asyncio.gather(*tasks), 300)
+            sampling_on = False
+            await sampler
+            if gauge.get() != states[-1]:
+                states.append(gauge.get())
+            out["states"] = states
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["launches"] = read_counts()
+            out["prefill_a"] = (worker_a.scheduler.stats.prefill_tokens
+                                - prefill_a0)
+            out["resumed_a"] = worker_a.scheduler.stats.drain_resumed
+            out["pulls"] = list(worker_a.pulls)[pulls0:]
+            out["outcomes"] = []
+            for res in answers:
+                o = _sse_outcome(res)
+                o["rid"] = res["headers"]["x-request-id"]
+                out["outcomes"].append(o)
+            out["want"] = {}
+            for r in runners:
+                for name, n in expected_counts(
+                        r, dev, decode=r.decode_steps,
+                        prefill=r.prefill_steps,
+                        warm=r.graph_warm_forwards).items():
+                    out["want"][name] = out["want"].get(name, 0) + n
+            out["forwards"] = [launched_forwards(r) | {
+                "prefill": r.prefill_steps} for r in runners]
+            # B deregisters once shut down
+            await worker_b.shutdown()
+            t_dereg = time.perf_counter()
+            await until(lambda: worker_b.instance_id not in
+                        entry.router.client.instance_ids(),
+                        "B never deregistered")
+            out["deregister_s"] = time.perf_counter() - t_dereg
+        finally:
+            await fe.close()
+            for w in workers:
+                await w.shutdown()
+                del w.generate
+            for rt in (rt_fe, rt_a, rt_b):
+                await rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        return out
+
+    out = asyncio.run(serve())
+    report = out["report"]
+    check(len(report["handoff"]) == 4 and len(report["replay"]) == 1
+          and report["errored"] == 0 and report["completed"] is True
+          and out["b_empty"],
+          f"{label}: drain report {report} (B empty: {out['b_empty']})")
+    check(out["states"] == [0.0, 1.0, 2.0],
+          f"{label}: dynamo_drain_state went {out['states']}")
+    by_rid = {}
+    for o, p in zip(out["outcomes"], prompts):
+        check(o["finish"] == "length"
+              and o["usage"]["completion_tokens"] == DRAIN_OUT
+              and o["usage"]["prompt_tokens"] == len(p),
+              f"{label}: {o['finish']} {o['usage']} (prompt {len(p)})")
+        by_rid[o["rid"]] = o
+    handoffs, replays = [], []
+    for i, p in enumerate(prompts):
+        rid = out["outcomes"][i]["rid"]
+        mine = [r for r in legs if r["rid"] == rid]
+        check(len(mine) == 2 and mine[0]["worker"] == 1
+              and mine[1]["worker"] == 0,
+              f"{label}: {rid} legs {[(r['worker'], r['handoff']) for r in mine]}")
+        src, dst = mine
+        stream = src["tokens"] + dst["tokens"]
+        check(len(stream) == DRAIN_OUT, f"{label}: {rid} {len(stream)} tokens")
+        row = {"rid": rid, "i": i, "prompt": len(p), "tokens": stream,
+               "tokens_on_b": len(src["tokens"]),
+               "stall_ms": (dst["t_first"] - src["t_last"]) * 1e3}
+        if dst["handoff"]:
+            check(dst["prompt"] == p and not dst["prior"],
+                  f"{label}: {rid}'s handoff leg carried another prompt")
+            handoffs.append(row)
+        else:
+            check(dst["prior"] == src["tokens"]
+                  and dst["prompt"] == p + src["tokens"],
+                  f"{label}: {rid}'s replay leg is not prompt + generated")
+            row["replay_prompt"] = len(dst["prompt"])
+            replays.append(row)
+    check(len(handoffs) == 4 and len(replays) == 1
+          and replays[0]["i"] == len(prompts) - 1,
+          f"{label}: {len(handoffs)} handoffs, {len(replays)} replays")
+    check(out["resumed_a"] == 4, f"{label}: A resumed {out['resumed_a']}")
+    check(out["prefill_a"] == replays[0]["replay_prompt"],
+          f"{label}: A prefilled {out['prefill_a']} tokens; the replay "
+          f"needs {replays[0]['replay_prompt']} and the handoffs 0")
+    pulls = {p_["request_id"]: p_ for p_ in out["pulls"]}
+    for row in handoffs:
+        pull = pulls[row["rid"]]
+        row.update(pull_bytes=pull["bytes"], pull_pages=pull["pages"],
+                   bytes_per_page=pull["bytes"] / pull["pages"],
+                   pull_ms=pull["pull_ms"], pull_wait_ms=pull["wait_ms"],
+                   pull_assemble_ms=pull["assemble_ms"],
+                   onboard_ms=pull["stage_ms"],
+                   pull_GB_per_s=pull["bytes"] / pull["pull_ms"] / 1e6)
+        computed = row["prompt"] + row["tokens_on_b"] - 1
+        ps = worker_a.runner.config.page_size
+        check(pull["pages"] == -(-computed // ps),
+              f"{label}: {row['rid']} pulled {pull['pages']} pages for "
+              f"{computed} computed tokens")
+    check(out["launches"] == out["want"] and (dev.type != "cuda" or (
+        out["launches"]["q4_matmul_v2"] > 0
+        and out["launches"]["paged_decode_attention_pool_int8"] > 0)),
+          f"{label}: kernel launches {out['launches']} != expected "
+          f"{out['want']}")
+    for r in runners:
+        check_graphed(r, label)
+    # every stream against the same request served undrained on A, all
+    # five in one wave on an empty cache
+    bodies = [PreprocessedRequest(
+        request_id=f"undrained-{i}", token_ids=list(p),
+        sampling=SamplingOptions(max_tokens=DRAIN_OUT, temperature=t,
+                                 seed=seed, repetition_penalty=penalty),
+        stop=StopConditions(ignore_eos=True)).to_wire()
+        for i, (p, (t, seed, penalty)) in enumerate(zip(prompts, sampling))]
+    worker_a.scheduler.stop()
+    worker_a.scheduler = InferenceScheduler(worker_a.runner)
+    undrained = asyncio.run(_serve_wave(worker_a, bodies, hold=True))
+    worker_a.scheduler.stop()
+    continuations = {}
+    for row in handoffs + replays:
+        i = row["i"]
+        want, got = undrained[i]["tokens"], row["tokens"]
+        d = _first_divergence(want, got)
+        gap = None
+        if d < len(want) and sampling[i][0] == 0.0 and sampling[i][2] == 1.0:
+            gap = _near_tie_gap(worker_a, prompts[i] + want[:d], want[d],
+                                got[d])
+            check(gap <= NEAR_TIE_NATS,
+                  f"{label}: {row['rid']} parts from the undrained stream at "
+                  f"token {d}, {gap:.3f} nats below the top (not a "
+                  f"near-tie, <= {NEAR_TIE_NATS})")
+        continuations[f"req-{i}"] = {
+            "rung": "replay" if "replay_prompt" in row else "handoff",
+            "temperature": sampling[i][0], "diverged_at": (
+                d if d < len(want) else None), "gap_nats": gap}
+    stalls = [r["stall_ms"] for r in handoffs]
+    emit(label, model=model,
+         nvidia_smi=nvidia_smi() if dev.type == "cuda" else None,
+         weight_dtype=worker_a.runner_config.weight_dtype,
+         kv_dtype=worker_a.runner_config.kv_dtype,
+         report={k: (len(v) if isinstance(v, list) else v)
+                 for k, v in report.items()},
+         drain_http_s=out["drain_http_s"],
+         drain_state=out["states"], deregister_s=out["deregister_s"],
+         handoff_stall_ms=stalls,
+         handoff_stall_ms_mean=float(np.mean(stalls)),
+         handoff_stall_ms_max=float(np.max(stalls)),
+         replay_stall_ms=replays[0]["stall_ms"],
+         replay_prompt_tokens=replays[0]["replay_prompt"],
+         prefill_tokens_a=out["prefill_a"],
+         handoffs=[{k: v for k, v in r.items() if k != "tokens"}
+                   for r in handoffs],
+         continuations=continuations, forwards=out["forwards"],
+         kernel_launches=out["launches"],
+         seconds=time.perf_counter() - t_phase)
     return out["launches"]
 
 
@@ -4557,6 +5205,9 @@ def main() -> None:
     from dynamo_tpu_torch.engine import RunnerConfig
 
     t_start = time.perf_counter()
+    # A phase that hangs prints every thread's stack and fails the run
+    # before a 1,200 s limit cuts it silently.
+    faulthandler.dump_traceback_later(HANG_S, exit=True)
     dev = resolve_device("cuda")
     smi = nvidia_smi()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
@@ -4577,6 +5228,8 @@ def main() -> None:
         phase_graphs(dev, worker, "graphs_bf16")
         phase_serve(dev, worker, "serve_bf16")
         for name, n in phase_checkpoint(dev, worker).items():
+            launches[name] = launches.get(name, 0) + n
+        for name, n in phase_disagg(dev, worker).items():
             launches[name] = launches.get(name, 0) + n
     finally:
         worker.close()
@@ -4611,8 +5264,15 @@ def main() -> None:
         for run in range(KV_RUNS):
             for name, n in phase_serve_kv(dev, worker, run).items():
                 launches[name] = launches.get(name, 0) + n
-        for name, n in phase_resilience(dev, worker).items():
+        res_launches, worker_b = phase_resilience(dev, worker)
+        for name, n in res_launches.items():
             launches[name] = launches.get(name, 0) + n
+        try:
+            for name, n in phase_drain(dev, worker, worker_b).items():
+                launches[name] = launches.get(name, 0) + n
+        finally:
+            worker_b.close()
+        del worker_b
     finally:
         worker.close()
     del worker
@@ -4635,6 +5295,7 @@ def main() -> None:
     # launches on its path
     kernels = [{**e, "launches": launches[e["name"].split("[")[0]]}
                for e in entries]
+    faulthandler.cancel_dump_traceback_later()
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -158,6 +158,46 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
         "decode-ready: speculation trades FLOPs for latency, and at high "
         "batch the verification FLOPs stop being free. 0 disables the "
         "cutoff (speculate at any batch)"),
+    # Disaggregated prefill/decode (engine/scheduler.py, engine/worker.py,
+    # llm/prefill_router.py)
+    "DYNT_DISAGG_PIPELINE": (
+        1, int,
+        "Chunked streaming handoff for disaggregated prefill: any non-zero "
+        "value makes the prefill worker stream kv_transfer_params after its "
+        "FIRST chunk and park pages per chunk, so the decode worker pulls "
+        "chunk i while chunk i+1 computes. 0 disables streaming: the "
+        "prefill leg returns transfer params only after the whole prompt"),
+    "DYNT_DISAGG_CHUNK": (
+        0, int,
+        "Prefill tokens per streamed chunk for prefill-only sequences (the "
+        "disagg handoff granularity). 0 uses the engine's max prefill "
+        "chunk; smaller chunks start the KV handoff earlier"),
+    # Graceful drain (engine/drain.py): the departure ladder
+    "DYNT_DRAIN_ENABLE": (
+        True, is_truthy,
+        "Graceful drain on SIGTERM / POST /drain / the drain verb: flip the "
+        "worker to draining (routers stop selecting it), hand live decode "
+        "sequences to peers via KV handoff, and deregister only when empty "
+        "or the deadline expires"),
+    "DYNT_DRAIN_DEADLINE_SECS": (
+        20.0, float,
+        "Budget for a graceful drain, end to end: KV-state handoff -> "
+        "cooperative replay-migrate -> honest in-band error at expiry; "
+        "handoff transfers not pulled by then are expired"),
+    "DYNT_DRAIN_ANNOUNCE_SETTLE_SECS": (
+        0.25, float,
+        "Pause between announcing `draining` (card + LoadMetrics) and "
+        "sweeping live sequences, so routers stop selecting this worker "
+        "before handoff frames ask them to re-dispatch"),
+    "DYNT_DRAIN_HANDOFF": (
+        True, is_truthy,
+        "Live KV-state handoff during drain; off sends every drained "
+        "sequence down the cooperative replay rung"),
+    "DYNT_DRAIN_HTTP": (
+        True, is_truthy,
+        "Serve POST /drain on the status server (unauthenticated and "
+        "terminal; turn off where the status port is reachable beyond the "
+        "operators)"),
     # Resilience: deadlines, retries, breakers, migration, canaries
     # (runtime/resilience.py, runtime/health_check.py, llm/engine.py)
     "DYNT_STREAM_IDLE_TIMEOUT_SECS": (

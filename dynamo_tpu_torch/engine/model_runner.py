@@ -56,6 +56,14 @@ their own ("decode_logits", "decode_spec_logits") with the raw [B, V] /
 caller names are indexed out on the device and copied to the host, through
 pinned memory. With `cuda_graphs` off every step runs the same function op
 by op.
+
+Page I/O for KV transfers (disaggregated prefill and drain handoffs,
+`llm/kv_transfer.py`): `gather_pages_device` gathers pages into a fresh
+bundle on the scheduler thread, on the stream the graphs replay on, and
+`bundle_to_host` copies it out on a side stream behind its event, off that
+thread; `stage_bundle` uploads a pulled bundle the same way, and
+`scatter_pages` waits on it and writes in place (the graphs captured the
+pool's storage); `kv_layout` is the reference's wire descriptor.
 """
 
 from __future__ import annotations
@@ -92,6 +100,12 @@ from ..models.transformer import (
     paged_attention_xla,
     quant_matmul,
 )
+from ..ops.block_copy import (
+    gather_kv_blocks,
+    gather_kv_blocks_q8,
+    scatter_from_host,
+    scatter_from_host_q8,
+)
 from ..ops.paged_attention import (
     paged_attention_decode_pool,
     paged_attention_spec_pool,
@@ -126,6 +140,15 @@ STEP_INPUTS = {
     "steps": torch.int64, "drafts": torch.int64, "valid": torch.bool,
     "last_idx": torch.int64,
 }
+
+
+@dataclasses.dataclass
+class DeviceBundle:
+    """Pages in the universal layout on the runner's device, and the event
+    that marks the end of the work that produced them (None on the CPU)."""
+
+    tensor: torch.Tensor
+    ready: Optional["torch.cuda.Event"] = None
 
 
 def _pow2(n: int) -> int:
@@ -214,6 +237,9 @@ class ModelRunner:
         elif kind == "int4":
             repack_params_q4(params)  # transparent v1 <-> v2 migration
         self.model = params
+        self._kv_quantized = kv_quantized
+        # The side stream of the page I/O's copies (created at first use)
+        self._copy_stream = None
         if kv_quantized:
             self.kv_cache = make_kv_cache_int8(
                 model_config, runner_config.num_pages,
@@ -718,6 +744,111 @@ class ModelRunner:
         if want_logits:
             self.last_spec_logits = self.last_spec_logits.numpy()
         return targets, n_accept
+
+    # -- page I/O: KV transfers (llm/kv_transfer.py) --------------------------
+
+    def _ready_event(self) -> Optional[torch.cuda.Event]:
+        """On the card, an event recorded on the current stream after the
+        work queued so far (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return self._copy_stream
+
+    @torch.inference_mode()
+    def gather_pages_device(self, page_ids) -> DeviceBundle:
+        """Gather pages into a FRESH bundle on the device: [n, L, 2, ps, kh,
+        hd], or packed uint8 [n, bytes] for an int8 pool
+        (`ops/block_copy.py`). Runs on the scheduler thread, queued on the
+        stream the step graphs replay on, so it reads what every earlier
+        step wrote; the returned event marks its end. The copy to the host
+        (`bundle_to_host`) then runs off that thread."""
+        if self._kv_quantized:
+            values, scales = self.kv_cache
+            tensor = gather_kv_blocks_q8(values, scales, page_ids)
+        else:
+            tensor = gather_kv_blocks(self.kv_cache, page_ids)
+        return DeviceBundle(tensor, self._ready_event())
+
+    def bundle_to_host(self, bundle: DeviceBundle) -> torch.Tensor:
+        """A device bundle's bytes on the host (pinned memory on the card):
+        the copy runs on a side stream behind the bundle's event, so the
+        thread that calls this (not the scheduler's) waits, and the step
+        stream does not."""
+        tensor = bundle.tensor
+        if tensor.device.type != "cuda":
+            return tensor
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        stream = self._side_stream()
+        with torch.cuda.stream(stream):
+            if bundle.ready is not None:
+                stream.wait_event(bundle.ready)
+            host.copy_(tensor, non_blocking=True)
+        stream.synchronize()
+        return host
+
+    def gather_pages(self, page_ids) -> torch.Tensor:
+        """Pages to the host, synchronously (scheduler thread only)."""
+        return self.bundle_to_host(self.gather_pages_device(page_ids))
+
+    def stage_bundle(self, blocks: torch.Tensor) -> DeviceBundle:
+        """Upload a host bundle (a CPU tensor) to the device on a side
+        stream, off the scheduler thread; `scatter_pages` waits on the
+        returned event and does only the indexed write. On the CPU the
+        bundle comes back as it is."""
+        if self.device.type != "cuda":
+            return DeviceBundle(blocks, None)
+        stream = self._side_stream()
+        with torch.cuda.stream(stream):
+            tensor = blocks.pin_memory().to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        # the scatter reads the tensor on the step stream
+        tensor.record_stream(torch.cuda.default_stream(self.device))
+        return DeviceBundle(tensor, event)
+
+    @torch.inference_mode()
+    def scatter_pages(self, page_ids, blocks) -> None:
+        """Write a bundle into pool pages, in place (scheduler thread only):
+        the step graphs captured the pool's storage, so the pool's tensors
+        are never rebound. `blocks` is a staged DeviceBundle (the write
+        waits on its upload) or a host bundle, a CPU tensor (uploaded
+        here)."""
+        if isinstance(blocks, DeviceBundle):
+            if blocks.ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(
+                    blocks.ready)
+            blocks = blocks.tensor
+        if self._kv_quantized:
+            values, scales = self.kv_cache
+            scatter_from_host_q8(values, scales, page_ids, blocks)
+        else:
+            scatter_from_host(self.kv_cache, page_ids, blocks)
+
+    def kv_layout(self) -> dict:
+        """The wire-layout descriptor of this runner's pool, as the
+        reference's `kv_layout` writes it: an int8 pool travels packed
+        (`kv_dtype` "int8", `scale_lanes` 128), so the two packages'
+        descriptors compare equal."""
+        cfg = self.model_config
+        layout = {
+            "n_layers": cfg.n_layers,
+            "kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim,
+            "kv_dims": 2,
+            "page_size": self.config.page_size,
+            "dtype": cfg.dtype,
+        }
+        if self._kv_quantized:
+            layout["kv_dtype"] = "int8"
+            layout["scale_lanes"] = KV_SCALE_LANES
+        return layout
 
     def warmup(self) -> None:
         """One decode step and one tiny prefill (on the card this builds the

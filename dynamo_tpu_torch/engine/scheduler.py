@@ -24,7 +24,8 @@ Scheduling per iteration, as in the JAX package:
   3. advance at most one prefill-chunk budget of prompt tokens: one chunk
      per prefilling sequence, several sequences' chunks in one batched
      dispatch (`ModelRunner.prefill_chunk_batch`)
-  4. admit again (arrivals that landed during dispatch)
+  4. admit again (arrivals that landed during dispatch), then run the gap
+     callbacks (`run_in_gap`: a streamed transfer's page gather)
   5. drain the decode block: the loop's one blocking device-to-host copy
 
 Each sequence's page allocation carries block * depth tokens of slack (at
@@ -32,10 +33,20 @@ least spec_k + 1 with speculation on), so a sequence that stops inside a
 block, or past rejected drafts, writes its surplus KV into its own pages;
 the surplus tokens are discarded at drain.
 
-Not ported yet (each is a later slice): KVBM tiers, preemption/park,
-drain/handoff, prefill-only/disaggregated serving, LoRA, multimodal,
-steptrace and the flight recorder. Requests that need one of them finish
-with an error.
+Disaggregated serving and the drain ladder ride the worker's transfer
+table (`engine/worker.py`, `llm/kv_transfer.py`): a prefill-only sequence
+stops after its prompt pass and parks its pages (`_finish_prefill_only`,
+streamed chunk by chunk through `_stream_prefill_chunk`); a sequence
+submitted with pulled KV (`onboard_blocks`) skips prefill (`_onboard`), or
+resumes a drained peer's stream (`_onboard_resume`); `drain_sweep` and
+`drain_expire` are the departure ladder's rungs, and a draining scheduler
+bounces new arrivals with an in-band migrate. Page gathers, scatters and
+releases run on this thread, between steps (`run_in_step`) or in a step's
+dispatch/drain gap (`run_in_gap`).
+
+Not ported yet (each is a later slice): KVBM tiers, preemption/park, LoRA,
+multimodal, steptrace and the flight recorder. Requests that need one of
+them finish with an error.
 """
 
 from __future__ import annotations
@@ -61,7 +72,7 @@ from ..llm.logits_processing import (
 )
 from ..llm.protocols import EngineOutput, PreprocessedRequest
 from ..tokens import TokenBlockSequence, compute_block_hashes
-from .model_runner import ModelRunner, bucket_table_width
+from .model_runner import DeviceBundle, ModelRunner, bucket_table_width
 from .pages import PageAllocation, PagePool
 from .sampler import TOP_LOGPROBS_K
 from .spec import BlockLookahead, NGramProposer, SlotSpec, propose_for
@@ -100,6 +111,32 @@ class _Seq:
     # re-runs the last prompt token at prompt_len - 1 (a KV rewrite of the
     # same values, up to rounding) and the host path picks the token.
     first_deferred: bool = False
+    # Disaggregated prefill side: a prefill-only sequence stops after its
+    # first sampled token and hands its pages to the worker's transfer table
+    # (on_prefill_done) instead of releasing them. keep_pages: the reap
+    # skips the release (the transfer's claim or expiry releases once).
+    prefill_only: bool = False
+    on_prefill_done: Optional[Callable[["_Seq", int, list[int]], dict]] = None
+    keep_pages: bool = False
+    # Streamed handoff: called on the scheduler thread after each NON-final
+    # prefill chunk with the newly completed page ids; its first call
+    # returns the kv_transfer_params emitted mid-stream, so the decode
+    # worker pulls while later chunks compute. Called with None on an abort
+    # (cancel or error before on_prefill_done).
+    on_prefill_chunk: Optional[Callable[["_Seq", Optional[list[int]]],
+                                        Optional[dict]]] = None
+    streamed_pages: int = 0  # full pages already parked with the transfer
+    stream_started: bool = False  # transfer registered (pages parked)
+    stream_done: bool = False  # on_prefill_done ran (a clean finish)
+    # Disaggregated decode side: pulled KV (a host bundle or a staged
+    # DeviceBundle) and the prefill side's first token; admission scatters
+    # instead of prefilling.
+    onboard_blocks: Optional[object] = None
+    onboard_first_token: Optional[int] = None
+    # Drain-handoff destination: the source's seed, generated tokens and
+    # prompt length, shipped with onboard_blocks, so decode continues the
+    # committed stream instead of re-prefilling.
+    resume_state: Optional[dict] = None
 
     @property
     def decode_ready(self) -> bool:
@@ -138,6 +175,30 @@ class SchedulerStats:
     host_ms: dict = dataclasses.field(default_factory=dict)
     # Verification steps that carried a processor slot (_commit_spec_host)
     spec_logits_steps: int = 0
+    # KV pages parked with the transfer table before their prompt finished
+    # prefilling (the streamed disaggregated handoff)
+    disagg_streamed_pages: int = 0
+    # The drain ladder (engine/drain.py): sequences vacated per rung on the
+    # source (handoff / replay / error), handoffs resumed on the
+    # destination, and arrivals bounced while draining
+    drain_handoff: int = 0
+    drain_replayed: int = 0
+    drain_errored: int = 0
+    drain_resumed: int = 0
+    drain_bounced: int = 0
+
+
+def _bundle_pages(blocks) -> int:
+    """Pages in a pulled bundle (a staged DeviceBundle or a host tensor)."""
+    if isinstance(blocks, DeviceBundle):
+        blocks = blocks.tensor
+    return int(blocks.shape[0])
+
+
+def _bundle_slice(blocks, lo: int, hi: int):
+    if isinstance(blocks, DeviceBundle):
+        return DeviceBundle(blocks.tensor[lo:hi], blocks.ready)
+    return blocks[lo:hi]
 
 
 def _unsupported(request: PreprocessedRequest) -> Optional[str]:
@@ -146,8 +207,6 @@ def _unsupported(request: PreprocessedRequest) -> Optional[str]:
         return "LoRA adapters are not ported yet"
     if request.media_hashes or request.media_embeddings is not None:
         return "multimodal requests are not ported yet"
-    if request.disaggregated_params or request.annotations.get("prefill_only"):
-        return "disaggregated serving is not ported yet"
     if request.annotations.get("embed"):
         return "embedding requests are not ported yet"
     return None
@@ -182,12 +241,23 @@ class InferenceScheduler:
         # prefix cache registers.
         self.spec_lookahead = (BlockLookahead(cfg.page_size)
                                if self.spec_enabled else None)
+        # Streamed-chunk token budget of prefill-only sequences
+        # (DYNT_DISAGG_CHUNK; 0 = the engine's prefill chunk)
+        self.disagg_chunk = max(0, int(env("DYNT_DISAGG_CHUNK") or 0))
+        # Graceful drain (engine/drain.py): while draining, new arrivals
+        # bounce with an in-band migrate the frontend replays on a peer.
+        self.draining = False
         self.pool = PagePool(cfg.num_pages, on_stored=on_stored,
                              on_removed=on_removed)
         self.max_batch = cfg.max_batch
         self._slots: list[Optional[_Seq]] = [None] * cfg.max_batch
         self._waiting: list[_Seq] = []
         self._incoming: thread_queue.Queue = thread_queue.Queue()
+        # Callbacks run on this thread between steps (run_in_step), and in
+        # the gap between a decode block's dispatch and its drain
+        # (run_in_gap)
+        self._control: thread_queue.Queue = thread_queue.Queue()
+        self._gap_control: thread_queue.Queue = thread_queue.Queue()
         # Final-chunk prefill tokens whose host readback is deferred one
         # iteration: (seq, device token). The copy then sits behind the
         # next decode block, so prefill never blocks the serving loop.
@@ -228,12 +298,62 @@ class InferenceScheduler:
         if self._thread is not None:
             self._thread.join(timeout=30.0)
 
-    def submit(self, request: PreprocessedRequest,
-               emit: Callable[[EngineOutput], None]) -> "_SubmitHandle":
+    def submit(
+        self,
+        request: PreprocessedRequest,
+        emit: Callable[[EngineOutput], None],
+        *,
+        prefill_only: bool = False,
+        on_prefill_done: Optional[Callable] = None,
+        on_prefill_chunk: Optional[Callable] = None,
+        onboard_blocks=None,
+        onboard_first_token: Optional[int] = None,
+        resume_state: Optional[dict] = None,
+    ) -> "_SubmitHandle":
+        """Queue a request. A prefill-only one (disaggregated prefill) stops
+        after its prompt pass and parks its pages through `on_prefill_done`
+        (and, streamed, `on_prefill_chunk`); one with `onboard_blocks`
+        (pulled KV) skips prefill: with `onboard_first_token` it continues a
+        remote prefill, with `resume_state` a drained peer's stream."""
         handle = _SubmitHandle(self._wake.set)
-        self._incoming.put((request, emit, handle))
+        self._incoming.put((request, emit, handle, {
+            "prefill_only": prefill_only,
+            "on_prefill_done": on_prefill_done,
+            "on_prefill_chunk": on_prefill_chunk,
+            "onboard_blocks": onboard_blocks,
+            "onboard_first_token": onboard_first_token,
+            "resume_state": resume_state,
+        }))
         self._wake.set()
         return handle
+
+    def _queue_callback(self, q: thread_queue.Queue,
+                        fn: Callable[[], object]) -> thread_queue.Queue:
+        out: thread_queue.Queue = thread_queue.Queue(1)
+
+        def wrapped() -> None:
+            try:
+                out.put((fn(), None))
+            except Exception as exc:  # noqa: BLE001 — delivered to caller
+                out.put((None, exc))
+
+        q.put(wrapped)
+        self._wake.set()
+        return out
+
+    def run_in_step(self, fn: Callable[[], object]) -> thread_queue.Queue:
+        """Run `fn` on the scheduler thread between steps (page gathers,
+        scatters and releases must not interleave with a step). Returns a
+        1-item queue that receives (result, exception)."""
+        return self._queue_callback(self._control, fn)
+
+    def run_in_gap(self, fn: Callable[[], object]) -> thread_queue.Queue:
+        """Like run_in_step, but `fn` runs inside a step's dispatch/drain
+        gap, after the decode block is issued and before its readback, so
+        its device work (a streamed transfer's gather) queues behind the
+        block instead of delaying the next dispatch. An idle loop runs it
+        at once."""
+        return self._queue_callback(self._gap_control, fn)
 
     # -- scheduler thread --------------------------------------------------
 
@@ -242,8 +362,11 @@ class InferenceScheduler:
                  self.max_batch, self.pool.num_pages)
         try:
             while not self._stop:
+                self._drain_control()
                 self._drain_incoming()
                 if not self._step():
+                    # idle: gap work has no dispatch/drain window to ride
+                    self._drain_gap()
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
         except BaseException as exc:
@@ -253,6 +376,29 @@ class InferenceScheduler:
             self.error = exc
             self._fail_all(f"engine failed: {exc!r}")
             raise
+        finally:
+            # run_in_step / run_in_gap callers block on their result queue:
+            # callbacks queued during shutdown still run.
+            self._drain_control()
+            self._drain_gap()
+
+    def _run_callbacks(self, q: thread_queue.Queue) -> None:
+        while True:
+            try:
+                fn = q.get_nowait()
+            except thread_queue.Empty:
+                return
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — a bad callback (a deferred
+                # page release) must not kill the engine loop
+                log.exception("scheduler callback failed")
+
+    def _drain_control(self) -> None:
+        self._run_callbacks(self._control)
+
+    def _drain_gap(self) -> None:
+        self._run_callbacks(self._gap_control)
 
     def _fail_all(self, reason: str) -> None:
         self._drain_incoming()
@@ -265,15 +411,25 @@ class InferenceScheduler:
     def _drain_incoming(self) -> None:
         while True:
             try:
-                request, emit, handle = self._incoming.get_nowait()
+                request, emit, handle, extra = self._incoming.get_nowait()
             except thread_queue.Empty:
                 return
             if self.error is not None:
                 emit(EngineOutput(finish_reason="error",
                                   error=f"engine failed: {self.error!r}"))
                 continue
+            if self.draining:
+                # Vacating: an arrival that raced the routers' draining flip
+                # bounces with an in-band migrate; the frontend's Migration
+                # replays it on a peer.
+                self.stats.drain_bounced += 1
+                emit(EngineOutput(finish_reason="migrate",
+                                  error="worker draining; replay on a peer"))
+                continue
             seq = self._prepare(request, emit)
             if seq is not None:
+                for name, value in extra.items():
+                    setattr(seq, name, value)
                 handle.seq = seq
                 if handle._cancelled:  # cancelled before the seq existed
                     seq.cancelled = True
@@ -410,7 +566,67 @@ class InferenceScheduler:
             self._slots[seq.slot] = seq
             self._waiting.pop(0)
             admitted += 1
+            if seq.onboard_blocks is not None:
+                if seq.resume_state is not None:
+                    self._onboard_resume(seq)
+                else:
+                    self._onboard(seq)
         return admitted
+
+    def _onboard(self, seq: _Seq) -> None:
+        """Disaggregated decode side: write the pulled prompt KV into this
+        pool and enter decode directly (no prefill pass). Cached prefix
+        pages already hold the same KV (same hash chain, same tokens): only
+        the rest is written."""
+        n_prompt_pages = -(-seq.prompt_len // self.page_size)
+        cached_n = min(seq.alloc.cached_blocks, n_prompt_pages)
+        self._scatter_onboard(seq, cached_n, n_prompt_pages)
+        seq.prefill_pos = seq.prompt_len
+        if seq.processors:
+            # The prefill worker sampled the first token with no processors:
+            # discard it; the first decode step regenerates its logits
+            # through the host path (_defer_first_token's rewrite).
+            self._defer_first_token(seq)
+            return
+        self._append_token(seq, int(seq.onboard_first_token),
+                           prompt_tokens=seq.prompt_len)
+
+    def _onboard_resume(self, seq: _Seq) -> None:
+        """Drain-handoff destination: the pulled bundle covers every
+        computed position, prompt AND generated tokens up to kv_len - 2 (the
+        last generated token's KV is written by its next decode step, as on
+        the source). Write it, restore the seed and the generated history,
+        and continue decoding: the (seed, step) sampler keys pick up where
+        the source stopped. Nothing is emitted here: the delivered tokens
+        stay delivered, and the source reported prompt_tokens on its first
+        frame."""
+        state = seq.resume_state or {}
+        gen = [int(t) for t in (state.get("generated") or [])]
+        n_pages = int(_bundle_pages(seq.onboard_blocks))
+        # the cache can only cover prompt blocks
+        cached_n = min(seq.alloc.cached_blocks, n_pages)
+        self._scatter_onboard(seq, cached_n, n_pages)
+        seq.prefill_pos = seq.prompt_len
+        seq.generated = gen
+        seq.last_token = gen[-1] if gen else int(seq.request.token_ids[-1])
+        if state.get("seed") is not None:
+            seq.seed = int(state["seed"]) & 0xFFFFFFFF
+        if seq.spec is not None and gen:
+            # the proposer's index and the hash chain see the whole history
+            seq.spec.extend(gen)
+        self.stats.drain_resumed += 1
+        log.info("resumed drained %s (%d tokens preserved, %d pages pulled)",
+                 seq.request.request_id, len(gen), n_pages)
+
+    def _scatter_onboard(self, seq: _Seq, lo: int, hi: int) -> None:
+        """Write pages [lo, hi) of the pulled bundle into the sequence's
+        pages [lo, hi), then drop the bundle."""
+        blocks = seq.onboard_blocks
+        seq.onboard_blocks = None  # free its memory
+        if hi <= lo:
+            return
+        self.runner.scatter_pages(np.asarray(seq.block_table[lo:hi], np.int32),
+                                  _bundle_slice(blocks, lo, hi))
 
     def queue_depth(self) -> tuple[int, int]:
         """(live slots, waiting sequences)."""
@@ -430,6 +646,8 @@ class InferenceScheduler:
         prefill_tokens = self._prefill_some()
         self._drain_incoming()
         admitted += self._admit()
+        # gap work (a streamed transfer's gather) queues behind the block
+        self._drain_gap()
         finalized = 0
         for seq, tok_dev in ripe:
             finalized += self._finalize_prefill(seq, tok_dev)
@@ -459,7 +677,13 @@ class InferenceScheduler:
                 continue
             if budget - spent < min(self.page_size, budget):
                 break  # leftover budget too small to be worth a dispatch
-            chunk = min(budget - spent, seq.prompt_len - seq.prefill_pos)
+            per = budget - spent
+            if (seq.prefill_only and seq.on_prefill_chunk is not None
+                    and self.disagg_chunk > 0):
+                # the streamed handoff's granularity: smaller chunks start
+                # the KV stream earlier
+                per = min(per, self.disagg_chunk)
+            chunk = min(per, seq.prompt_len - seq.prefill_pos)
             if chunk <= 0:
                 continue
             work.append((seq, chunk))
@@ -481,10 +705,13 @@ class InferenceScheduler:
             np.int32)
         is_final = seq.prefill_pos + chunk >= seq.prompt_len
         sampling = seq.request.sampling
-        # Only a final chunk that needs logprob data reads back now; plain
-        # final chunks defer the copy one iteration (_pending_prefill), and
-        # a processor sequence discards its token (_defer_first_token).
-        sync = is_final and sampling.logprobs and not seq.processors
+        # Only a final chunk whose token the host needs now reads back: a
+        # prefill-only sequence's (its transfer params carry it) and one
+        # that wants logprob data. Plain final chunks defer the copy one
+        # iteration (_pending_prefill), and a processor sequence discards
+        # its token (_defer_first_token).
+        sync = is_final and (seq.prefill_only or (sampling.logprobs
+                                                  and not seq.processors))
         token = self.runner.prefill_chunk(
             tokens, seq.prefill_pos, seq.block_table,
             kv_len_after=seq.prefill_pos + chunk,
@@ -493,22 +720,26 @@ class InferenceScheduler:
             return_device=not sync,
         )
         seq.prefill_pos += chunk
-        if is_final:
-            if seq.processors:
-                self._defer_first_token(seq)
-            elif sync:
-                self._append_token(seq, token, prompt_tokens=seq.prompt_len,
-                                   sample_info=self.runner.last_prefill_sample)
-            else:
-                self._pending_prefill.append((seq, token))
+        if not is_final:
+            self._stream_prefill_chunk(seq)
+        elif seq.prefill_only:
+            self._finish_prefill_only(seq, int(token))
+        elif seq.processors:
+            self._defer_first_token(seq)
+        elif sync:
+            self._append_token(seq, token, prompt_tokens=seq.prompt_len,
+                               sample_info=self.runner.last_prefill_sample)
+        else:
+            self._pending_prefill.append((seq, token))
         return chunk
 
     def _prefill_batch(self, work: list) -> int:
         """Dispatch several sequences' prefill chunks at once
         (`ModelRunner.prefill_chunk_batch`); final chunks are handled as
         `_prefill_single` handles them: a plain final token is deferred
-        through `_pending_prefill`, a logprobs row reads back at once, and a
-        processor sequence defers its first token to decode."""
+        through `_pending_prefill`, a prefill-only or logprobs row reads back
+        at once, and a processor sequence defers its first token to
+        decode."""
         finals = [seq.prefill_pos + chunk >= seq.prompt_len
                   for seq, chunk in work]
         rows = []
@@ -531,19 +762,90 @@ class InferenceScheduler:
             seq.prefill_pos += chunk
             total += chunk
             if not is_final:
+                self._stream_prefill_chunk(seq)
                 continue
-            if seq.processors:
+            if seq.processors and not seq.prefill_only:
                 self._defer_first_token(seq)
                 continue
-            if not seq.request.sampling.logprobs:
+            if not (seq.prefill_only or seq.request.sampling.logprobs):
                 self._pending_prefill.append((seq, toks_dev[row]))
                 continue
             if host_toks is None:
                 host_toks = toks_dev.cpu().numpy()
+            if seq.prefill_only:
+                self._finish_prefill_only(seq, int(host_toks[row]))
+                continue
             self._append_token(seq, int(host_toks[row]),
                                prompt_tokens=seq.prompt_len,
                                sample_info=samples[row])
         return total
+
+    def _stream_prefill_chunk(self, seq: _Seq) -> None:
+        """Streamed handoff: park this prefill-only sequence's newly
+        completed FULL pages with the transfer table mid-prefill. The first
+        parked chunk also emits kv_transfer_params (no finish_reason), so
+        the router dispatches the decode leg, which starts pulling while
+        later chunks still compute. The pages' gather is queued on the step
+        stream after this chunk's dispatch, so it reads what it wrote."""
+        if not seq.prefill_only or seq.on_prefill_chunk is None:
+            return
+        ready = seq.prefill_pos // self.page_size
+        if ready <= seq.streamed_pages:
+            return
+        new_pages = [int(p)
+                     for p in seq.block_table[seq.streamed_pages:ready]]
+        params = seq.on_prefill_chunk(seq, new_pages)
+        seq.streamed_pages = ready
+        self.stats.disagg_streamed_pages += len(new_pages)
+        if params is not None and not seq.stream_started:
+            seq.stream_started = True
+            # The transfer owns the pages from here: the reap must not
+            # release them even if the sequence dies mid-stream (the abort
+            # hook fails the transfer, which releases exactly once).
+            seq.keep_pages = True
+            seq.emit(EngineOutput(token_ids=[], kv_transfer_params=params))
+
+    def _finish_prefill_only(self, seq: _Seq, first_token: int) -> None:
+        """Disaggregated prefill side: park the prompt pages with the
+        transfer table (on_prefill_done) and answer with kv_transfer_params
+        instead of decoding; the decode worker pulls the pages."""
+        n_prompt_pages = -(-seq.prompt_len // self.page_size)
+        page_ids = [int(p) for p in seq.block_table[:n_prompt_pages]]
+        params: dict = {}
+        if seq.on_prefill_done is not None:
+            params = seq.on_prefill_done(seq, first_token, page_ids)
+            seq.keep_pages = True
+            seq.stream_done = True  # a clean finish: no abort hook at reap
+        seq.finished = True
+        seq.emit(EngineOutput(
+            token_ids=[], finish_reason="stop", prompt_tokens=seq.prompt_len,
+            kv_transfer_params={**params, "first_token": first_token}))
+
+    def release_transfer_pages(self, seq: _Seq) -> None:
+        """Release a parked sequence's pages once its transfer is claimed and
+        served, or expires (thread-safe: it runs as a control callback).
+
+        A STREAMING transfer can be released while its prompt pass still
+        runs (the puller died or timed out): the remaining chunks still
+        write into those pages, so they must not return to the pool yet.
+        The sequence is cancelled instead and the reap releases its pages
+        once it stops stepping."""
+        def release() -> None:
+            if not (seq.finished or seq.cancelled):
+                # The prefill leg's stream is still consumed (the router's
+                # background drain): end it with a terminal frame.
+                seq.cancelled = True
+                seq.keep_pages = False
+                seq.emit(EngineOutput(
+                    finish_reason="cancelled",
+                    error="kv transfer abandoned; prefill cancelled"))
+                return
+            computed = seq.prefill_pos // self.page_size
+            self.pool.release(seq.alloc, seq.block_hashes,
+                              computed_blocks=computed)
+
+        self._control.put(release)
+        self._wake.set()
 
     def _finalize_prefill(self, seq: _Seq, tok_dev) -> int:
         """Copy a deferred final-chunk token to the host and hand the
@@ -1004,16 +1306,117 @@ class InferenceScheduler:
                for p in seq.processors):
             seq.processors = None
 
+    # -- graceful drain (engine/drain.py) -----------------------------------
+
+    def drain_sweep(self, register_handoff=None) -> dict:
+        """Vacate the live sequences for a graceful departure. Scheduler
+        thread only (run_in_step): between steps no decode block is in
+        flight, so pages can change owner.
+
+        Rung 1, KV handoff: an eligible decode sequence parks its computed
+        pages with the worker's transfer table (`register_handoff(seq,
+        page_ids, computed_tokens) -> params`) and emits a migrate frame
+        carrying kv_transfer_params and its resume state; the frontend's
+        Migration re-dispatches it to a peer that pulls the KV and resumes.
+        Eligible: decode-ready with committed tokens and no host-sampler
+        state (logits processors hold live Python state a handoff cannot
+        carry).
+
+        Rung 2, cooperative replay: everything else live (mid-prefill,
+        processor slots, waiting) emits a plain migrate; the peer replays
+        prompt + generated tokens.
+
+        Prefill-only sequences that already handed pages to a transfer keep
+        running (their decode peer is pulling); the drain deadline bounds
+        them. Returns {"handoff", "replay", "pending"} request-id lists."""
+        self.draining = True
+        report: dict = {"handoff": [], "replay": [], "pending": []}
+
+        def replay(seq: _Seq) -> None:
+            self.stats.drain_replayed += 1
+            report["replay"].append(seq.request.request_id)
+            seq.emit(EngineOutput(finish_reason="migrate",
+                                  error="worker draining"))
+
+        for seq in self._waiting:
+            if not seq.cancelled:
+                replay(seq)
+                seq.cancelled = True
+        self._waiting.clear()
+        for seq in self._slots:
+            if seq is None or seq.finished or seq.cancelled:
+                continue
+            rid = seq.request.request_id
+            if seq.prefill_only or seq.keep_pages:
+                report["pending"].append(rid)
+                continue
+            params = None
+            if (register_handoff is not None and seq.decode_ready
+                    and seq.generated and not seq.processors
+                    and not seq.first_deferred):
+                # KV on the device: positions 0 .. kv_len - 2
+                computed = seq.kv_len - 1
+                n_pages = -(-computed // self.page_size)
+                page_ids = [int(p) for p in seq.block_table[:n_pages]]
+                try:
+                    params = register_handoff(seq, page_ids, computed)
+                except Exception:  # noqa: BLE001 — a failed registration
+                    # takes the replay rung
+                    log.exception("handoff registration failed for %s", rid)
+            seq.finished = True
+            if params is None:
+                replay(seq)
+                continue
+            # The transfer owns the pages now: its claim or expiry releases
+            # them, exactly once.
+            seq.keep_pages = True
+            self.stats.drain_handoff += 1
+            report["handoff"].append(rid)
+            seq.emit(EngineOutput(
+                finish_reason="migrate", error="worker draining (kv handoff)",
+                kv_transfer_params=params))
+        self._reap_finished()
+        return report
+
+    def drain_expire(self, reason: str) -> int:
+        """The deadline rung: finish every sequence still live with an
+        honest in-band error (scheduler thread)."""
+        n = 0
+        for seq in self._waiting:
+            if not seq.cancelled:
+                seq.emit(EngineOutput(finish_reason="error", error=reason))
+                seq.cancelled = True
+                n += 1
+        self._waiting.clear()
+        for seq in self._slots:
+            if seq is not None and not seq.finished and not seq.cancelled:
+                seq.emit(EngineOutput(finish_reason="error", error=reason))
+                seq.finished = True
+                n += 1
+        self.stats.drain_errored += n
+        self._reap_finished()
+        return n
+
     def _reap_finished(self) -> None:
         for i, seq in enumerate(self._slots):
             if seq is None or not (seq.finished or seq.cancelled):
                 continue
-            # Only blocks whose KV was actually computed may enter the
-            # prefix cache (a cancel mid-prefill leaves later blocks
-            # unwritten).
-            computed = seq.prefill_pos // self.page_size
-            self.pool.release(seq.alloc, seq.block_hashes,
-                              computed_blocks=computed)
+            if (seq.stream_started and not seq.stream_done
+                    and seq.on_prefill_chunk is not None):
+                # A prefill-only sequence died mid-stream (cancel or error
+                # before on_prefill_done): fail its streaming transfer, so a
+                # waiting puller stops and the parked pages release once.
+                try:
+                    seq.on_prefill_chunk(seq, None)
+                except Exception:  # noqa: BLE001 — the reap must proceed
+                    log.exception("stream abort hook failed")
+            if not seq.keep_pages:
+                # Only blocks whose KV was actually computed may enter the
+                # prefix cache (a cancel mid-prefill leaves later blocks
+                # unwritten).
+                computed = seq.prefill_pos // self.page_size
+                self.pool.release(seq.alloc, seq.block_hashes,
+                                  computed_blocks=computed)
             if (seq.spec is not None and not seq.cancelled
                     and self.spec_lookahead is not None):
                 # Teach the cross-request lookahead this sequence's

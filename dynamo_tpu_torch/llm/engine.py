@@ -6,11 +6,14 @@ hop implements `generate(request) -> async stream` (ref: lib/runtime/src/
 engine.rs:201-213), speaking PreprocessedRequest / EngineOutput. The
 frontend's pipeline is
 
-    Preprocessor -> Migration -> [KvRouterEngine | RouterEngine] -> worker
+    Preprocessor -> Migration -> PrefillRouterEngine
+        -> [KvRouterEngine | RouterEngine] -> worker
 
-and the request's end-to-end deadline travels down it to the request plane.
-Not ported yet: the prefill router, multimodal encoding, the session tier,
-the LoRA instance filter, the gateway's instance pin and the otel spans.
+(`PrefillRouterEngine`, the disaggregated prefill leg, is in
+`llm/prefill_router.py`), and the request's end-to-end deadline travels
+down it to the request plane. Not ported yet: multimodal encoding, the
+session tier, the LoRA instance filter, the gateway's instance pin and the
+otel spans.
 """
 
 from __future__ import annotations

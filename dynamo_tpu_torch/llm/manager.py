@@ -20,8 +20,15 @@ ignored, until its discovery record goes. Every model's engine is wrapped
 in `Migration` (DYNT_MIGRATION_LIMIT), so a stream whose worker dies is
 replayed on another, and every model keeps a queue-wait estimator fed by
 its workers' published `waiting_requests` for deadline-aware admission.
-Not ported yet: prefill, encoder and image pools, LoRA adapters and the
-session tier.
+
+A `[PREFILL]` card joins its model's prefill pool (`PrefillPool`, one per
+model name, bound to the first endpoint subject seen); a card that is both
+prefill and chat also registers as a model. Inside `Migration` each
+model's engine is a `PrefillRouterEngine`, which sends every request to the
+prefill pool first while the pool has a live instance and falls back to
+aggregated serving when the last one goes. A draining prefill worker stops
+getting new legs. Image, encoder and embedding cards are still logged and
+dropped: those pools, LoRA adapters and the session tier are not ported.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ from ..runtime.discovery import MODEL_CARD_PREFIX
 from ..runtime.events import JOURNAL_RESYNC_TOPIC
 from ..runtime.push_router import PushRouter
 from .engine import KvRouterEngine, Migration, RouterEngine, TokenEngine
-from .model_card import CHAT, COMPLETIONS, ModelDeploymentCard
+from .model_card import CHAT, COMPLETIONS, PREFILL, ModelDeploymentCard
+from .prefill_router import PrefillPool, PrefillRouterEngine
 from .preprocessor import OpenAIPreprocessor
 
 log = logging.getLogger("dynamo_tpu_torch.manager")
@@ -132,6 +140,10 @@ class ModelWatcher:
         # list is shared with the running _event_loop so late-registered
         # models start receiving events immediately.
         self._ns_entries: dict[str, list[ModelEntry]] = {}
+        # model name -> its prefill pool; endpoint subject -> model name, so
+        # a lease-expiry delete drains the right pool
+        self._prefill_pools: dict[str, PrefillPool] = {}
+        self._prefill_subjects: dict[str, str] = {}
 
     async def start(self) -> None:
         self._watch = await self.runtime.discovery.watch_prefix(
@@ -146,6 +158,8 @@ class ModelWatcher:
             await self._watch.cancel()
         for entry in self.manager.entries():
             await entry.router.client.close()
+        for pool in self._prefill_pools.values():
+            await pool.router.client.close()
 
     async def _watch_loop(self) -> None:
         async for event in self._watch:
@@ -166,9 +180,13 @@ class ModelWatcher:
     async def _handle_put(self, key: str, value: dict) -> None:
         subject, instance_id = self._parse_key(key)
         card = ModelDeploymentCard.from_wire(value)
+        if PREFILL in card.model_types:
+            await self._handle_prefill_put(card, subject, instance_id)
+            # a dual-role card (prefill and chat) registers as a model too
         if not {CHAT, COMPLETIONS} & set(card.model_types):
-            log.warning("card %s (%s) serves %s: not ported yet; ignored",
-                        card.name, subject, card.model_types)
+            if PREFILL not in card.model_types:
+                log.warning("card %s (%s) serves %s: not ported yet; "
+                            "ignored", card.name, subject, card.model_types)
             return
         entry = self.manager.get(card.name)
         if entry is None:
@@ -202,8 +220,49 @@ class ModelWatcher:
             # state"; also how a restarted router recovers routing state).
             self._schedule_resync(entry, instance_id, reason="discovered")
 
+    async def _handle_prefill_put(self, card: ModelDeploymentCard,
+                                  subject: str, instance_id: int) -> None:
+        """One prefill pool per model name, bound to the first endpoint
+        subject seen (a second subject's instances are ignored: the pool's
+        router cannot reach them and deletes could never drain them)."""
+        pool = self._prefill_pools.get(card.name)
+        if pool is not None and self._prefill_subjects.get(subject) \
+                != card.name:
+            log.warning("prefill pool for %s already bound to another "
+                        "subject; ignoring instance at %s", card.name,
+                        subject)
+            return
+        if pool is None:
+            client = (self.runtime.namespace(card.namespace)
+                      .component(card.component).endpoint(card.endpoint)
+                      .client())
+            pool = PrefillPool(router=PushRouter(client, mode="round_robin"))
+            await pool.router.client.start()
+            self._prefill_pools[card.name] = pool
+            self._prefill_subjects[subject] = card.name
+            log.info("prefill pool up for %s (%s)", card.name, subject)
+        pool.instances.add(instance_id)
+        if card.runtime_config.get("draining"):
+            # a vacating prefill worker stops attracting new legs
+            if pool.router.set_draining(instance_id, True):
+                pool.wait_estimator.update_worker(instance_id, 0)
+                log.info("prefill pool worker %x draining for %s",
+                         instance_id, card.name)
+
     async def _handle_delete(self, key: str) -> None:
         subject, instance_id = self._parse_key(key)
+        name = self._prefill_subjects.get(subject)
+        pool = self._prefill_pools.get(name) if name is not None else None
+        if pool is not None:
+            pool.instances.discard(instance_id)
+            pool.wait_estimator.forget_worker(instance_id)
+            if not pool.instances:
+                # the last prefill worker went: aggregated serving again
+                log.info("prefill pool drained for %s", name)
+                self._prefill_pools.pop(name, None)
+                self._prefill_subjects.pop(subject, None)
+                await pool.router.client.close()
+            # no return: a dual-role card's subject may back a model too
         for entry in self.manager.entries():
             if entry.card.endpoint_subject != subject:
                 continue
@@ -317,6 +376,9 @@ class ModelWatcher:
         else:
             router = PushRouter(client, mode=self.router_mode)
             engine = RouterEngine(router)
+        name = card.name
+        engine = PrefillRouterEngine(
+            engine, pool_lookup=lambda: self._prefill_pools.get(name))
         engine = Migration(engine, migration_limit=env("DYNT_MIGRATION_LIMIT"))
         return ModelEntry(card=card, preprocessor=OpenAIPreprocessor(card),
                           engine=engine, router=router, scheduler=scheduler)
@@ -426,3 +488,16 @@ class ModelWatcher:
                     # The admission depth: the scheduler's own queue.
                     entry.wait_estimator.update_worker(
                         metrics.worker_id, metrics.waiting_requests)
+            for pool in self._prefill_pools.values():
+                if metrics.worker_id not in pool.instances:
+                    continue
+                if metrics.draining:
+                    # a draining prefill worker gets no new legs; the
+                    # transfers its decode peers are pulling finish on
+                    # their own (its drain deadline bounds them)
+                    if pool.router.set_draining(metrics.worker_id, True):
+                        pool.wait_estimator.update_worker(
+                            metrics.worker_id, 0)
+                    continue
+                pool.wait_estimator.update_worker(
+                    metrics.worker_id, metrics.waiting_requests)

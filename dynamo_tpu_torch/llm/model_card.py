@@ -21,6 +21,7 @@ from ..runtime.discovery import MODEL_CARD_PREFIX
 # Model types (ref: ModelType Chat|Completions|Prefill|Embeddings...)
 CHAT = "chat"
 COMPLETIONS = "completions"
+PREFILL = "prefill"  # a disaggregated prefill worker's card
 
 # Model input type (ref: ModelInput::Tokens)
 INPUT_TOKENS = "tokens"

@@ -248,6 +248,29 @@ TENANT_SHED = Counter(
     "queue (deadline-aware admission). Untagged requests count under "
     "tenant=untagged only when quota-shed",
     ["tenant", "reason"])
+# Graceful drain (engine/drain.py): how a departing worker vacated its
+# live streams
+DRAIN_STATE = Gauge(
+    "dynamo_drain_state",
+    "Worker drain state (0=serving 1=draining 2=drained)", ["worker"])
+DRAIN_SEQUENCES = Counter(
+    "dynamo_drain_sequences_total",
+    "Live sequences vacated during graceful drains, by the ladder rung "
+    "that moved them: handoff (KV-state handoff, peer resumes "
+    "bit-identically), replay (cooperative replay-migrate, peer "
+    "re-prefills), error (deadline expired — honest in-band error)",
+    ["outcome"])
+DRAIN_DURATION_MS = Gauge(
+    "dynamo_drain_duration_ms",
+    "Wall time of this worker's last graceful drain, start to "
+    "deregistration-ready", ["worker"])
+# Disaggregated prefill (engine/worker.py): KV pages streamed to the decode
+# pool while the prefill pass was still computing
+DISAGG_STREAMED_PAGES = Counter(
+    "dynamo_disagg_streamed_pages_total",
+    "KV pages parked for transfer before their prompt finished "
+    "prefilling (chunked disagg handoff; serial handoffs count 0 here)",
+    ["worker"])
 # Frontend service metrics that feed the Planner (ref: http/service/metrics.rs
 # TTFT/ITL histograms)
 TTFT_SECONDS = Histogram(

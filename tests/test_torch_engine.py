@@ -185,8 +185,8 @@ def test_worker_generate_wire_stream(params, run, monkeypatch):
 @pytest.mark.parametrize("feature", [
     {"lora_name": "adapter"},
     {"media_hashes": [123]},
-    {"annotations": {"prefill_only": True}},
-], ids=["lora", "multimodal", "prefill_only"])
+    {"annotations": {"embed": True}},
+], ids=["lora", "multimodal", "embed"])
 def test_unported_request_features_error_in_band(params, run, feature):
     worker = TorchWorker(CFG, RunnerConfig(**RUNNER), device="cpu",
                          params=params_from_numpy(params, CFG, device="cpu"))

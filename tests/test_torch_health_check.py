@@ -311,6 +311,7 @@ def test_worker_canary_is_the_reference_payload_and_is_answered(run):
 
     payload, others, headers, outs, healthy = run(body())
     assert payload == ref_canary
-    assert others == [None, None]
+    # clear_kv_blocks, kv_blocks, kv_pull and drain carry no canary
+    assert others == [None, None, None, None]
     assert headers == [{"x-dynt-canary": "1"}]
     assert len(outs[0]["t"]) == 1 and healthy

@@ -68,6 +68,13 @@ CHECKPOINT_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
     "llm.chat_template", "ops.gumbel"))
 
 
+# Modules of the disaggregation and drain slice: each must be among the
+# checked sources and import cleanly on its own.
+DISAGG_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
+    "ops.block_copy", "llm.kv_transfer", "llm.prefill_router",
+    "engine.drain"))
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "scripts" /
@@ -111,6 +118,12 @@ def test_sources_cover_the_resilience_modules():
         assert ROOT / (module.replace(".", "/") + ".py") in files
 
 
+def test_sources_cover_the_disagg_modules():
+    files = set(_sources())
+    for module in DISAGG_MODULES:
+        assert ROOT / (module.replace(".", "/") + ".py") in files
+
+
 def test_sources_cover_the_logits_modules():
     files = set(_sources())
     for module in LOGITS_MODULES:
@@ -121,7 +134,7 @@ def test_sources_cover_the_logits_modules():
 
 @pytest.mark.parametrize("module", SERVING_MODULES + KV_ROUTING_MODULES
                          + LOGITS_MODULES + CHECKPOINT_MODULES
-                         + RESILIENCE_MODULES)
+                         + RESILIENCE_MODULES + DISAGG_MODULES)
 def test_serving_module_imports_on_its_own(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

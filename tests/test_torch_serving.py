@@ -569,7 +569,7 @@ def test_cli_refuses_what_is_not_ported():
                  ["--audit-sinks", "log"], ["--kserve-grpc-port", "1"]):
         with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
             build_arg_parser().parse_args(argv)
-    for argv in (["--mode", "prefill"], ["--max-loras", "2"],
+    for argv in (["--mode", "comesh"], ["--max-loras", "2"],
                  ["--tp", "2"], ["--kv-dtype", "fp8"],
                  ["--model-ref", "ns/model"]):
         with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
