@@ -30,7 +30,11 @@ Phases, each printing one JSON line:
               request, then 8 concurrent requests through `generate`; the
               bf16 decode kernel's launch count must equal 32 x the decode
               forwards run (replays and each capture's eager warm-up
-              forward), and no other kernel may launch
+              forward), and no other kernel may launch; every step the
+              wave committed splits into host + device == wall (decode-only
+              and prefill-carrying steps among them, perf/steptrace.py),
+              and the wave's dynamo_mfu and dynamo_roofline_fraction lie in
+              (0, 1]
   parity    - one greedy prompt through that runner with the kernels and
               with the plain versions: first-step logits and greedy tokens
   prefill_bf16 - prefill as the reference runs it, on a fresh runner that
@@ -95,7 +99,30 @@ Phases, each printing one JSON line:
               tokens; req-0's pulled pages equal the prefill worker's byte
               for byte; greedy streams equal the aggregated run's or part
               only at a near-tie; every transfer is claimed and the prefill
-              pool returns to its free count; row 1 = 32 x decode forwards
+              pool returns to its free count; row 1 = 32 x decode forwards;
+              each request's TTFT split (prefill leg, pull and its frames /
+              assembly / staging, onboard) from the flight-recorder
+              timelines
+  comesh    - co-located disaggregation (`--mode comesh`'s in-process KV
+              bridge, engine/ici_transfer.py) on the disagg phase's two
+              workers, joined by one IciKvBridge: the same two runs, every
+              pull a gather from the prefill pool and an in-place scatter
+              into the decode pool on the card (no host copy); bridge hits
+              == pulls == 8 in each run, 0 prefill tokens on the decode
+              side, req-0's bridged pages byte-equal to the prefill pool's,
+              greedy streams equal the aggregated ones or part at a
+              near-tie, host + device == wall on every committed step of
+              both workers, /debug/requests holding every timeline, and one
+              200 ms /debug/profile capture (torch.profiler, CPU and CUDA)
+              naming the decode scope; the TTFT split (prefill leg, bridge
+              pull: wait / gather / copy, onboard) from the timelines
+  batch_invariance - one greedy sequence decoded at batch 1 and 8, table
+              widths 32 and 128, with the decode kernel's split plan (a
+              128-token span whatever the batch) and with its earlier,
+              batch-following plan: max |delta logits| and the first
+              parting token of each against batch 1 / width 32 (the port's
+              plan must give equal logits in all four); rows 1 and 2 timed
+              with each plan at the engine's shapes
   unified   - the same traffic through TorchWorker(attention_fn=
               paged_attention), the reference's unified path: row 3 = 32 x
               decode forwards, row 1 = 0; then greedy parity against the
@@ -219,6 +246,7 @@ without the rest of the repository beside it, the script exits non-zero.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import faulthandler
@@ -669,13 +697,13 @@ def _attention_case(dev: torch.device, st: dict, name: str, label: str,
     plain_ms = gpu_time_ms(lambda i: plain_call(i % n_layers), 20)
     extra = {}
     if one_split:
-        target = pa.TARGET_BLOCKS
-        pa.TARGET_BLOCKS = 1  # one span covers the whole table
+        span = pa.SPAN
+        pa.SPAN = pa.MAX_SPAN  # one span covers the whole table
         try:
             extra["ms_one_split"] = gpu_time_ms(
                 lambda i: kernel_call(i % n_layers), 200)
         finally:
-            pa.TARGET_BLOCKS = target
+            pa.SPAN = span
 
     # one library call for the same attention: SDPA over the gathered,
     # contiguous (dequantized) K/V (the port never calls it)
@@ -1103,12 +1131,16 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
     async def serve():
         first = await _stream(worker, _body("warm-0", warm, 0.0, 1.0))
         prefilled0 = sched.stats.prefill_tokens
+        # the live gauges' interval starts here (perf/steptrace.py)
+        worker.publish_steptrace_metrics()
         start = time.perf_counter()
         results = await _serve_wave(worker, _bodies(prompts, "req"))
         wall = time.perf_counter() - start
         return first, results, wall, sched.stats.prefill_tokens - prefilled0
 
-    warm_res, results, wall, prefilled = asyncio.run(serve())
+    with _DecodeEvents(worker) as events:
+        warm_res, results, wall, prefilled = asyncio.run(serve())
+    roofline = _roofline_gauges(label, worker, events)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = read_counts()
@@ -1149,9 +1181,63 @@ def phase_engine(dev: torch.device, model=None, runner_config=None,
          **_latency(results),
          output_tokens_per_s=sum(len(r["tokens"]) for r in results) / wall,
          wall_s=wall, prewarm=prewarm, prewarm_captures=prewarm_captures,
-         **graph_report(runner), memory_allocated_before_GB=before_gb)
+         **graph_report(runner), memory_allocated_before_GB=before_gb,
+         steptrace=roofline)
     served = {f"req-{i}": r["tokens"] for i, r in enumerate(results)}
     return worker, launches, served
+
+
+def _gauge(name: str, worker) -> float:
+    """A per-worker gauge's value from the port's metrics registry."""
+    from dynamo_tpu_torch.runtime import metrics
+
+    key = f'{name}{{worker="{worker.instance_id:x}"}} '
+    for line in metrics.render().decode().splitlines():
+        if line.startswith(key):
+            return float(line[len(key):])
+    raise SystemExit(f"chip_smoke: {key.strip()} was never published")
+
+
+def _roofline_gauges(label: str, worker, events: _DecodeEvents) -> dict:
+    """Over the wave just served: every committed step splits into host +
+    device == wall (decode-only and prefill-carrying steps among them); the
+    decode windows agree with the card's CUDA events (`events`,
+    `_check_decode_windows`); dynamo_mfu and dynamo_roofline_fraction of the
+    interval lie in (0, 1] (perf/steptrace.py LiveRoofline against the
+    H100's data sheet), and so does the fraction before the gauge clamps
+    it: the interval's roofline time over its measured device time, at most
+    1.05."""
+    sched = worker.scheduler
+    t = time.perf_counter()
+    while (sched.steptrace.steps != sched.stats.steps
+           or sched.queue_depth() != (0, 0)):  # the last step's commit
+        check(time.perf_counter() - t < 30, f"{label}: steps uncommitted")
+        time.sleep(0.001)
+    samples = sched.steptrace.drain_samples()
+    windows = {kind: _steptrace_windows(label, samples, kind)
+               for kind in ("decode", "prefill")}
+    prev = worker._roof_prev  # the interval's start (phase_engine)
+    worker.publish_steptrace_metrics()
+    cur = worker._roof_prev
+    ideal_s = worker._roofline.ideal_s(
+        prefill_tokens=cur[0] - prev[0], decode_steps=cur[2] - prev[2],
+        active_kv_tokens=sched.active_kv_tokens())
+    out = {"windows": windows,
+           "decode_windows": _check_decode_windows(label, events),
+           "chip": worker._roofline.chip.name,
+           "mfu": _gauge("dynamo_mfu", worker),
+           "roofline_fraction": _gauge("dynamo_roofline_fraction", worker),
+           "roofline_fraction_unclamped": ideal_s / (
+               (cur[3] - prev[3]) / 1e3),
+           "host_bound": _gauge("dynamo_host_bound", worker)}
+    # (on the CPU the gauges compare against the cpu stand-in spec)
+    check(worker.device.type != "cuda" or (
+        0 < out["mfu"] <= 1 and 0 < out["roofline_fraction"] <= 1
+        and 0 < out["roofline_fraction_unclamped"] <= 1.05),
+          f"{label}: dynamo_mfu {out['mfu']}, dynamo_roofline_fraction "
+          f"{out['roofline_fraction']} (unclamped "
+          f"{out['roofline_fraction_unclamped']}) outside (0, 1]")
+    return out
 
 
 def _first_divergence(a: list, b: list) -> int:
@@ -2559,6 +2645,8 @@ def phase_serve(dev: torch.device, worker, label: str) -> None:
 
 
 DISAGG_RUNS = (("streamed", 1), ("serial", 0))  # DYNT_DISAGG_PIPELINE
+PROFILE_MS = 200  # the comesh phase's /debug/profile capture
+PROFILE_TOKENS = 384  # output tokens of the requests it captures
 
 
 def _fresh_scheduler(worker) -> None:
@@ -2590,56 +2678,227 @@ def _near_tie_gap(worker, context: list, a: int, b: int) -> float:
     return float(row.max() - min(row[a], row[b]))
 
 
-def phase_disagg(dev: torch.device, worker) -> dict:
-    """Disaggregated prefill/decode at full width: `worker` (llama3-8b bf16)
-    is the decode worker, and a second TorchWorker in mode "prefill" shares
-    its weight tensors (a [PREFILL] card under the `prefill` component; its
-    prefill keys captured up front, it never decodes). Both on one port
-    DistributedRuntime (file discovery, the TCP request plane), a port
-    Frontend in front with the prefill pool active. The standard 8 requests
-    (32-1,500 prompt tokens, 64 out, half greedy) as streamed
-    /v1/completions, each over an empty prefix cache on both workers, once
-    with the streamed handoff (DYNT_DISAGG_PIPELINE=1: kv_transfer_params
-    after the first chunk) and once serial (0).
-
-    Per request: the prefill leg's wall at the prefill worker and when its
-    first kv_transfer_params left it, the decode worker's pull (ms, bytes,
-    GB/s) and onboard (the staged upload, ms), TTFT and ITL at the client.
-    Checks: the decode worker prefills 0 tokens; one request's pulled pages
-    equal the prefill worker's pages byte for byte (gathered before their
-    release); greedy streams equal the same requests served aggregated on
-    the decode worker, or part only at a near-tie (the split plan follows
-    the batch's table width); every transfer is claimed and the prefill
-    pool returns to its free count; the streamed run parks pages
-    mid-prefill and the serial one none; row 1 launches once per layer of
-    each decode forward. Returns the phase's launches."""
-    import tempfile
-
+def _prefill_worker(dev: torch.device, worker):
+    """A TorchWorker in mode "prefill" on `worker`'s weight tensors, its
+    prefill keys captured up front. Returns it and the seconds it took."""
     from dynamo_tpu_torch.engine import TorchWorker
-    from dynamo_tpu_torch.frontend import Frontend
-    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
-    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
 
-    label = "disagg"
-    t_phase = time.perf_counter()
-    runner = worker.runner
-    model = worker.card.name
-    tok = ByteTokenizer()
-    _, prompts = standard_traffic(worker.model_config.vocab_size)
-    bodies = _bodies(prompts, "req")
-    # the same requests served aggregated on the decode worker
-    aggregated = _held_streams(dev, worker, f"{label}_aggregated")["streams"]
     t0 = time.perf_counter()
     prefill = TorchWorker(worker.model_config, worker.runner_config,
-                          device=dev, params=runner.model, mode="prefill",
-                          component="prefill")
+                          device=dev, params=worker.runner.model,
+                          mode="prefill", component="prefill")
     pcfg = prefill.runner.config
     for rows, bucket in prefill.runner.prefill_keys():
         row = (np.zeros(bucket, np.int32), 0,
                np.zeros(pcfg.max_pages_per_seq, np.int32),
                min(bucket, pcfg.max_context), (0.0, 1.0, 0, 0))
         prefill.runner.prefill_chunk_batch([row] * rows)
-    prefill_setup_s = time.perf_counter() - t0
+    return prefill, time.perf_counter() - t0
+
+
+def _timeline_split(rid: str) -> dict:
+    """A disaggregated request's TTFT split from the flight recorder's
+    timelines: the frontend's (and decode worker's) `rid` and the prefill
+    leg's `rid#prefill`. ttft: received -> the decode side's first token;
+    prefill_leg: the leg's received -> its first token; pull: the kv_pull
+    event's duration (with its split: wait / frames / assemble / stage on
+    the dcn link, wait / gather / copy on the ici link); onboard: the
+    pull's end -> the decode side's first token (admission and the scatter;
+    on dcn the staged upload too)."""
+    from dynamo_tpu_torch.runtime.flight_recorder import get_recorder
+
+    rec = get_recorder()
+    tl, leg = rec.get(rid), rec.get(f"{rid}#prefill")
+    check(tl is not None and leg is not None,
+          f"{rid}: its timelines are not in the flight recorder")
+    pulls = [e for e in tl.events if e["event"] == "kv_pull"]
+    check(len(pulls) == 1, f"{rid}: {len(pulls)} kv_pull events")
+    pull = pulls[0]
+    first = tl.phases["first_token"]
+    split = {k: v for k, v in pull.items()
+             if k.endswith("_ms") and k != "duration_ms"}
+    return {"link": pull["link"],
+            "ttft_ms": (first - tl.phases["received"]) * 1e3,
+            "prefill_leg_ms": (leg.phases["first_token"]
+                               - leg.phases["received"]) * 1e3,
+            "pull_ms": pull["duration_ms"],
+            "onboard_ms": (first - pull["ts"]) * 1e3
+            + split.get("stage_ms", 0.0),
+            "pull_split": split, "phases": sorted(tl.phases),
+            "status": tl.status}
+
+
+def _steptrace_windows(label: str, samples: list, kind: str) -> dict:
+    """Every committed step of `samples` (StepSamples of one scheduler)
+    splits into host + device == wall; at least one is of `kind`
+    (decode-only, or prefill-carrying). Returns counts and means."""
+    bad = [s for s in samples
+           if abs(s.host_ms + s.device_ms - s.wall_ms) > 1e-6 * max(
+               1.0, s.wall_ms)]
+    check(samples and not bad,
+          f"{label}: {len(bad)} of {len(samples)} steps break host + device "
+          "== wall")
+    if kind == "decode":
+        of_kind = [s for s in samples if set(s.device_by_phase) == {"decode"}]
+    else:
+        of_kind = [s for s in samples if "prefill" in s.device_by_phase]
+    check(of_kind, f"{label}: no {kind} step committed")
+    return {"steps": len(samples), f"{kind}_steps": len(of_kind),
+            "device_ms_mean": float(np.mean([s.device_ms for s in of_kind])),
+            "host_ms_mean": float(np.mean([s.host_ms for s in of_kind])),
+            "wall_ms_mean": float(np.mean([s.wall_ms for s in of_kind]))}
+
+
+class _DecodeEvents:
+    """An independent reading of the step trace's decode windows: CUDA
+    events recorded on the step stream around each decode dispatch of a
+    worker's runner (`decode_multi`, `decode`), grouped by the step that
+    dispatched them. Recording adds no sync; the events are read after the
+    traffic. A context manager around the traffic (a no-op on the CPU)."""
+
+    def __init__(self, worker) -> None:
+        self.runner = worker.runner
+        self.trace = worker.scheduler.steptrace
+        self.pending: list = []
+        self.steps: list = []  # (StepSample, [(start, end) events])
+        self._commit = None
+
+    def __enter__(self) -> "_DecodeEvents":
+        if self.runner.device.type != "cuda":
+            return self
+        for name in ("decode_multi", "decode"):
+            def timed(*args, _fn=getattr(self.runner, name), **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*args, **kwargs)
+                end.record()
+                self.pending.append((start, end))
+                return out
+            setattr(self.runner, name, timed)
+        self._commit = self.trace.__dict__.get("commit")
+        commit = self.trace.commit
+
+        def committing(wall_ms):
+            sample = commit(wall_ms)
+            self.steps.append((sample, self.pending))
+            self.pending = []
+            return sample
+
+        self.trace.commit = committing
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.runner.device.type != "cuda":
+            return
+        del self.runner.decode_multi, self.runner.decode
+        if self._commit is None:
+            del self.trace.commit
+        else:
+            self.trace.commit = self._commit
+
+
+def _check_decode_windows(label: str, events: _DecodeEvents) -> dict:
+    """Each decode-only step's device window (perf/steptrace.py: the decode
+    submit's end to its readback's end, host clock) against the card's own
+    clock: its dispatches' CUDA events, the first one's start to the last
+    one's end. The card cannot start that work before the first submit
+    began nor end it after the readback, so in every step gpu <= dispatch +
+    device (+0.5 ms for two clocks): the window misses at most what ran
+    during the submit. In a decode-only step the host runs nothing long
+    between submit and readback, so the window holds little besides the
+    card's time: its median is at most 10% + 1 ms above the card's.
+    Returns the medians and the counts."""
+    if events.runner.device.type != "cuda":
+        return {}
+    torch.cuda.synchronize()
+    rows = [(sample, evs[0][0].elapsed_time(evs[-1][1]))
+            for sample, evs in events.steps
+            if evs and set(sample.device_by_phase) == {"decode"}]
+    check(rows, f"{label}: no decode-only step with its dispatch events")
+    late = [(round(s.dispatch_ms, 3), round(s.device_ms, 3), round(g, 3))
+            for s, g in rows if g > s.dispatch_ms + s.device_ms + 0.5]
+    check(not late, f"{label}: {len(late)} of {len(rows)} decode steps ran "
+                    f"longer on the card than their dispatch + device "
+                    f"window (dispatch, device, card ms): {late[:6]}")
+    device = float(np.median([s.device_ms for s, _ in rows]))
+    card = float(np.median([g for _, g in rows]))
+    check(device <= 1.1 * card + 1.0,
+          f"{label}: the median decode window {device:.3f} ms exceeds the "
+          f"card's {card:.3f} ms (CUDA events)")
+    return {"decode_steps": len(rows), "device_ms_median": device,
+            "card_ms_median": card,
+            "dispatch_ms_median": float(np.median(
+                [s.dispatch_ms for s, _ in rows]))}
+
+
+BRIDGE_PAGES = 94  # a 1,500-token prompt's pages at page size 16
+
+
+def _bridge_device_work(worker, prefill) -> dict:
+    """The device work of one bridged pull of BRIDGE_PAGES pages, alone:
+    the gather from the prefill pool into a fresh bundle and the in-place
+    scatter into the decode pool (on one card the copy between them moves
+    nothing), timed by `perf.steptrace.measure_device` with both schedulers
+    idle, into pages the decode side's fresh scheduler then forgets. The
+    bound: the bundle read and written twice at the H100's 3,350 GB/s."""
+    from dynamo_tpu_torch.perf.steptrace import measure_device
+
+    ids = list(range(1, BRIDGE_PAGES + 1))
+    nbytes = prefill.runner.gather_pages_device(ids).tensor.nbytes
+
+    def pull() -> None:
+        worker.runner.scatter_pages(
+            ids, prefill.runner.gather_pages_device(ids))
+
+    timed = measure_device(pull, steps=8, trials=3, device=worker.device)
+    _fresh_scheduler(worker)
+    out = {"pages": BRIDGE_PAGES, "bundle_bytes": nbytes,
+           "ms": timed["median_s"] * 1e3,
+           "trials_ms": [t * 1e3 for t in timed["trials_s"]],
+           "bound_ms": 4 * nbytes / 3350e9 * 1e3}
+    emit("comesh_bridge_device", **out)
+    return out
+
+
+def _disagg_runs(dev: torch.device, worker, prefill, label: str,
+                 bridge=None) -> dict:
+    """The disaggregated main path at full width: `worker` decodes and
+    `prefill` (a prefill-mode worker on its weight tensors) prefills, both
+    on one port DistributedRuntime (file discovery, the TCP request plane,
+    the status server on), a port Frontend in front with the prefill pool
+    active. The standard 8 requests (32-1,500 prompt tokens, 64 out, half
+    greedy) as streamed /v1/completions, each over an empty prefix cache on
+    both workers, once with the streamed handoff (DYNT_DISAGG_PIPELINE=1)
+    and once serial (0). With `bridge` (an IciKvBridge both workers hold)
+    every pull takes the in-process device link; without, the host relay.
+
+    Per request: the prefill leg's wall and its first kv_transfer_params,
+    the pull (ms, bytes, GB/s, link), TTFT and ITL at the client, and the
+    TTFT split from the flight-recorder timelines. Checks: the decode worker
+    prefills 0 tokens; req-0's pulled pages equal the prefill worker's
+    pages byte for byte; every pull takes the expected link; greedy streams
+    equal the same requests served aggregated, or part only at a near-tie;
+    every transfer is claimed and the prefill pool returns to its free
+    count; the streamed run parks pages mid-prefill and the serial one
+    none. With the bridge, also: hits == pulls == 8 in each run; every
+    committed step of the decode worker (decode-only) and of the prefill
+    worker (prefill-carrying) splits into host + device == wall;
+    /debug/requests returns every request's timeline; one /debug/profile
+    capture writes a trace naming the decode scope. Returns the runs,
+    their launches and expected launches."""
+    import tempfile
+
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    link = "dcn" if bridge is None else "ici"
+    pcfg = prefill.runner.config
+    model = worker.card.name
+    tok = ByteTokenizer()
+    _, prompts = standard_traffic(worker.model_config.vocab_size)
+    bodies = _bodies(prompts, "req")
     workers = {"prefill": prefill, "decode": worker}
     originals = {k: w.generate for k, w in workers.items()}
     legs: dict = {}  # (kind, request id) -> what the worker saw
@@ -2665,29 +2924,48 @@ def phase_disagg(dev: torch.device, worker) -> dict:
 
     for kind, w in workers.items():
         w.generate = recording(kind)
+    n_check = -(-check_pages // pcfg.page_size)
 
     def hook_pages() -> None:
         """Hold one request's pages on both sides: the prefill worker's,
         gathered as their transfer releases them, and the decode worker's
-        assembled bundle, as it stages it."""
+        pulled bundle (the relay's staged upload, or the bridge's)."""
         release = prefill.scheduler.release_transfer_pages
-        stage = worker.runner.stage_bundle
 
         def gather_then_release(seq):
             if seq.prompt_len == check_pages and "src" not in seen:
-                n = -(-seq.prompt_len // pcfg.page_size)
                 seen["src"] = prefill.runner.gather_pages(
-                    [int(p) for p in seq.block_table[:n]])
+                    [int(p) for p in seq.block_table[:n_check]])
             release(seq)
 
-        def keep(blocks):
-            if (blocks.shape[0] == -(-check_pages // pcfg.page_size)
-                    and "pulled" not in seen):
-                seen["pulled"] = blocks.clone()
-            return stage(blocks)
-
         prefill.scheduler.release_transfer_pages = gather_then_release
-        worker.runner.stage_bundle = keep
+        if bridge is None:
+            stage = worker.runner.stage_bundle
+
+            def keep(blocks):
+                if blocks.shape[0] == n_check and "pulled" not in seen:
+                    seen["pulled"] = blocks.clone()
+                return stage(blocks)
+
+            worker.runner.stage_bundle = keep
+            return
+        pull = bridge.pull
+
+        async def keep_bridged(*args, **kwargs):
+            bundle, first = await pull(*args, **kwargs)
+            if (bundle is not None and bundle.tensor.shape[0] == n_check
+                    and "pulled" not in seen):
+                seen["pulled"] = bundle.tensor.cpu()
+            return bundle, first
+
+        bridge.pull = keep_bridged
+
+    def unhook() -> None:
+        del prefill.scheduler.release_transfer_pages
+        if bridge is None:
+            del worker.runner.stage_bundle
+        else:
+            del bridge.pull
 
     def http_body(i: int) -> dict:
         s = bodies[i]["sampling"]
@@ -2703,28 +2981,49 @@ def phase_disagg(dev: torch.device, worker) -> dict:
             check(time.perf_counter() - t < timeout, f"{label}: {what}")
             await asyncio.sleep(0.002)
 
+    def kept_steps(w) -> list:
+        """Every step the worker's scheduler commits from here (a serving
+        worker's metrics tick drains the trace's own buffer)."""
+        trace = w.scheduler.steptrace
+        commit, kept = trace.commit, []
+
+        def keeping(wall_ms):
+            kept.append(commit(wall_ms))
+            return kept[-1]
+
+        trace.commit = keeping
+        return kept
+
     async def one_run(port: int, name: str, pipeline: int) -> dict:
         prefill.disagg_pipeline = pipeline
         _fresh_scheduler(prefill)
         _fresh_scheduler(worker)
+        steps = {"decode": kept_steps(worker), "prefill": kept_steps(prefill)}
         if name == "streamed":
             hook_pages()
         streamed0 = prefill.scheduler.stats.disagg_streamed_pages
         pulls0 = len(worker.pulls)
-        start = time.perf_counter()
-        answers = await asyncio.wait_for(asyncio.gather(*[
-            _http(port, "POST", "/v1/completions", http_body(i))
-            for i in range(len(bodies))]), 600)
-        wall = time.perf_counter() - start
-        pool = prefill.scheduler.pool
-        await until(lambda: len(prefill.transfers) == 0
-                    and _reclaimable_pages(pool) == pool.num_pages - 1,
-                    f"{name}: transfers unclaimed or pages held")
-        if name == "streamed":
-            del prefill.scheduler.release_transfer_pages
-            del worker.runner.stage_bundle
-        pulls = {p["request_id"]: p
-                 for p in list(worker.pulls)[pulls0:]}
+        bridged0 = (bridge.pulls, bridge.hits) if bridge else (0, 0)
+        events = _DecodeEvents(worker)
+        with events if bridge is not None else contextlib.nullcontext():
+            start = time.perf_counter()
+            answers = await asyncio.wait_for(asyncio.gather(*[
+                _http(port, "POST", "/v1/completions", http_body(i))
+                for i in range(len(bodies))]), 600)
+            wall = time.perf_counter() - start
+            pool = prefill.scheduler.pool
+            await until(lambda: len(prefill.transfers) == 0
+                        and _reclaimable_pages(pool) == pool.num_pages - 1,
+                        f"{name}: transfers unclaimed or pages held")
+            if name == "streamed":
+                unhook()
+            # every step the schedulers ran has committed (the finish frames
+            # go out inside a step, its commit after)
+            await until(lambda: all(
+                w.scheduler.steptrace.steps == w.scheduler.stats.steps
+                and w.scheduler.queue_depth() == (0, 0)
+                for w in workers.values()), f"{name}: steps uncommitted")
+        pulls = {p["request_id"]: p for p in list(worker.pulls)[pulls0:]}
         rows = []
         for i, res in enumerate(answers):
             o = _sse_outcome(res)
@@ -2739,31 +3038,140 @@ def phase_disagg(dev: torch.device, worker) -> dict:
             check(tok.decode(leg_d["tokens"]) == o["text"],
                   f"{name}: req-{i} text differs from the decode worker's")
             pull = pulls[rid]
+            check(pull["link"] == link,
+                  f"{name}: req-{i} pulled over {pull['link']}, not {link}")
+            split = _timeline_split(rid)
+            check(split["link"] == link and split["status"] == "ok",
+                  f"{name}: req-{i} timeline {split['link']} "
+                  f"{split['status']}")
             rows.append({
-                "rid": f"req-{i}", "prompt": len(prompts[i]),
+                "rid": f"req-{i}", "request_id": rid,
+                "prompt": len(prompts[i]),
                 "tokens": leg_d["tokens"],
                 "prefill_leg_ms": (leg_p["t_end"] - leg_p["t_arrive"]) * 1e3,
                 "params_ms": (leg_p["t_params"] - leg_p["t_arrive"]) * 1e3,
                 "pull_ms": pull["pull_ms"], "pull_bytes": pull["bytes"],
                 "pull_pages": pull["pages"],
                 "pull_GB_per_s": pull["bytes"] / pull["pull_ms"] / 1e6,
-                "pull_wait_ms": pull["wait_ms"],
-                "pull_assemble_ms": pull["assemble_ms"],
-                "onboard_ms": pull["stage_ms"],
                 "ttft_ms": (o["stamps"][0] - o["t0"]) * 1e3,
-                "itl_ms": (o["stamps"][-1] - o["stamps"][0]) * 1e3 / 63})
-        return {"wall_s": wall, "rows": rows,
-                "streamed_pages": (prefill.scheduler.stats
-                                   .disagg_streamed_pages - streamed0),
-                "decode_prefill_tokens": worker.scheduler.stats.prefill_tokens,
-                "prefill_prefill_tokens": (prefill.scheduler.stats
-                                           .prefill_tokens)}
+                "itl_ms": (o["stamps"][-1] - o["stamps"][0]) * 1e3 / 63,
+                "timeline": split})
+        out = {"wall_s": wall, "rows": rows,
+               "streamed_pages": (prefill.scheduler.stats
+                                  .disagg_streamed_pages - streamed0),
+               "decode_prefill_tokens": worker.scheduler.stats.prefill_tokens,
+               "prefill_prefill_tokens": (prefill.scheduler.stats
+                                          .prefill_tokens)}
+        if bridge is not None:
+            out["bridge"] = {"pulls": bridge.pulls - bridged0[0],
+                             "hits": bridge.hits - bridged0[1]}
+            out["steptrace"] = {kind: _steptrace_windows(
+                f"{label}: {name}", kept, kind) for kind, kept in steps.items()}
+            out["steptrace"]["decode_windows"] = _check_decode_windows(
+                f"{label}: {name}", events)
+        return out
+
+    async def capture(status_port: int, ms: int) -> tuple:
+        """One /debug/profile capture: its answer and the seconds it took.
+        A capture that has not answered in 120 s prints every thread's
+        stack and fails the phase."""
+        t = time.perf_counter()
+        try:
+            res = await asyncio.wait_for(_http(
+                status_port, "GET", f"/debug/profile?duration_ms={ms}"), 120)
+        except asyncio.TimeoutError:
+            faulthandler.dump_traceback(all_threads=True)
+            check(False, f"{label}: a {ms} ms /debug/profile capture hung")
+        check(res["status"] == 200, f"{label}: /debug/profile "
+                                    f"{res['status']} {res['text'][:300]}")
+        return json.loads(res["text"]), time.perf_counter() - t
+
+    async def debug_routes(fe_port: int, status_port: int,
+                           rids: list) -> dict:
+        """/debug/requests holds every request's timelines; /debug/profile
+        captures of 1 ms and PROFILE_MS on idle schedulers each write a
+        trace; one of PROFILE_MS, taken while the 8 requests decode, writes
+        a Chrome trace that names the decode scope."""
+        res = await _http(status_port, "GET", "/debug/requests?limit=512")
+        check(res["status"] == 200,
+              f"{label}: /debug/requests {res['status']}")
+        listed = {t["request_id"]: t
+                  for t in json.loads(res["text"])["completed"]}
+        missing = [r for r in rids
+                   if r not in listed or f"{r}#prefill" not in listed]
+        check(not missing, f"{label}: /debug/requests lacks {missing}")
+        check(all(any(e["event"] == "kv_pull" and e["link"] == link
+                      for e in listed[r]["events"]) for r in rids),
+              f"{label}: a timeline has no {link} kv_pull event")
+        # Idle schedulers: the operator's first capture of a quiet worker
+        # (the profiler's first start in a process takes seconds on the
+        # card's machine: CUPTI and Kineto set up)
+        idle = []
+        for ms in (1, PROFILE_MS):
+            got, took = await capture(status_port, ms)
+            check("trace.json" in got["files"],
+                  f"{label}: an idle capture wrote {got['files']}")
+            idle.append({"duration_ms": ms, "request_s": took,
+                         **{k: got[k] for k in ("start_s", "stop_s",
+                                                "export_s")}})
+        emit(f"{label}_profile_idle", captures=idle)
+        # Waves of long streams until the capture returns: its window must
+        # find the decode worker stepping. A token per dispatch: a fused,
+        # pipelined dispatch of 16 tokens lasts about as long as the window
+        # itself.
+        with knobs(DYNT_DECODE_BLOCK="1"):
+            _fresh_scheduler(worker)
+        done = asyncio.Event()
+
+        async def waves() -> int:
+            n = 0
+            while not done.is_set():
+                await asyncio.gather(*[
+                    _http(fe_port, "POST", "/v1/completions",
+                          {**http_body(i), "max_tokens": PROFILE_TOKENS})
+                    for i in range(len(bodies))])
+                n += 1
+            return n
+
+        traffic = asyncio.ensure_future(waves())
+        steps0 = worker.runner.decode_steps
+        await until(lambda: worker.runner.decode_steps > steps0 + 8,
+                    "the capture's requests never decoded")
+        capture_res, capture_s = await capture(status_port, PROFILE_MS)
+        steps_during = worker.runner.decode_steps - steps0
+        done.set()
+        n_waves = await asyncio.wait_for(traffic, 600)
+        path = Path(capture_res["trace_dir"]) / "trace.json"
+        events = json.loads(path.read_text()).get("traceEvents", [])
+        names = [e.get("name") for e in events]
+        emit(f"{label}_profile", request_s=capture_s, waves=n_waves,
+             decode_forwards=steps_during,
+             **{k: capture_res[k] for k in ("start_s", "stop_s", "export_s")})
+        check("decode" in names,
+              f"{label}: the profile names no decode scope: "
+              f"{collections.Counter(names).most_common(12)}")
+        out = {"timelines": len(listed), "idle_captures": idle,
+               "profile": {"duration_ms": capture_res["duration_ms"],
+                           "request_s": capture_s, "waves": n_waves,
+                           "start_s": capture_res["start_s"],
+                           "decode_forwards_by_its_end": steps_during,
+                           "trace_bytes": path.stat().st_size,
+                           "decode_scopes": names.count("decode"),
+                           "prefill_scopes": names.count("prefill"),
+                           "kernel_events": sum(
+                               1 for e in events
+                               if e.get("cat") == "kernel")}}
+        shutil.rmtree(capture_res["trace_dir"], ignore_errors=True)
+        return out
 
     async def serve() -> dict:
-        root = tempfile.mkdtemp(prefix="chip_smoke_disagg_")
+        root = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
         cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
                             tcp_host="127.0.0.1", system_enabled=False)
-        rt_w = await DistributedRuntime(dataclasses.replace(cfg)).start()
+        # the workers' runtime serves the status server (the debug routes)
+        # on the comesh run
+        rt_w = await DistributedRuntime(dataclasses.replace(
+            cfg, system_enabled=bridge is not None, system_port=0)).start()
         rt_fe = await DistributedRuntime(dataclasses.replace(cfg)).start()
         fe = Frontend(rt_fe, host="127.0.0.1", port=0)
         out = {}
@@ -2796,6 +3204,14 @@ def phase_disagg(dev: torch.device, worker) -> dict:
             out["forwards"] = {k: launched_forwards(w.runner) | {
                 "prefill": w.runner.prefill_steps}
                 for k, w in workers.items()}
+            if bridge is not None:
+                # after the counted runs: the capture's traffic is extra
+                out["bridge_device"] = _bridge_device_work(worker, prefill)
+                with knobs(DYNT_PROF_DIR=prof_dir):
+                    out["debug"] = await debug_routes(
+                        fe.port, rt_w.status_server.port,
+                        [r["request_id"] for name, _ in DISAGG_RUNS
+                         for r in out[name]["rows"]])
         finally:
             await fe.close()
             for w in workers.values():
@@ -2804,9 +3220,21 @@ def phase_disagg(dev: torch.device, worker) -> dict:
             await rt_fe.shutdown()
             await rt_w.shutdown()
             shutil.rmtree(root, ignore_errors=True)
+            shutil.rmtree(prof_dir, ignore_errors=True)
         return out
 
+    # the captures' traces go under TMPDIR, not the knob's shared default
+    prof_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_profiles_")
     out = asyncio.run(serve())
+    out.update(prompts=prompts, bodies=bodies, seen=seen)
+    return out
+
+
+def _check_disagg(worker, label: str, out: dict, aggregated: dict) -> dict:
+    """The checks both disaggregated phases share (see `_disagg_runs`);
+    returns each greedy stream's first divergence from the aggregated one
+    and its near-tie gap."""
+    prompts, bodies, seen = out["prompts"], out["bodies"], out["seen"]
     for name, _ in DISAGG_RUNS:
         run = out[name]
         check(run["decode_prefill_tokens"] == 0,
@@ -2844,36 +3272,279 @@ def phase_disagg(dev: torch.device, worker) -> dict:
                       f"(not a near-tie, <= {NEAR_TIE_NATS})")
             continuations[f"{name}/{rid}"] = (d if d < len(want) else None,
                                               gap)
-    check(out["launches"] == out["want"] and (dev.type != "cuda" or out[
-        "launches"]["paged_decode_attention_pool"] > 0),
+    check(out["launches"] == out["want"] and (
+        worker.device.type != "cuda"
+        or out["launches"]["paged_decode_attention_pool"] > 0),
           f"{label}: kernel launches {out['launches']} != expected "
           f"{out['want']}")
-    for w in workers.values():
-        check_graphed(w.runner, label)
+    return continuations
 
+
+def _disagg_summary(out: dict) -> dict:
+    """Per run: means over the 8 requests (client-side and timeline
+    splits) and each request's row."""
     def means(rows) -> dict:
-        keys = ("prefill_leg_ms", "params_ms", "pull_ms", "pull_wait_ms",
-                "pull_assemble_ms", "pull_GB_per_s", "onboard_ms", "ttft_ms",
-                "itl_ms")
-        return {k: float(np.mean([r[k] for r in rows])) for k in keys}
+        keys = ("prefill_leg_ms", "params_ms", "pull_ms", "pull_GB_per_s",
+                "ttft_ms", "itl_ms")
+        m = {k: float(np.mean([r[k] for r in rows])) for k in keys}
+        tl = [r["timeline"] for r in rows]
+        m["timeline"] = {k: float(np.mean([t[k] for t in tl]))
+                         for k in ("ttft_ms", "prefill_leg_ms", "pull_ms",
+                                   "onboard_ms")}
+        m["timeline"]["pull_split"] = {
+            k: float(np.mean([t["pull_split"].get(k, 0.0) for t in tl]))
+            for k in tl[0]["pull_split"]}
+        return m
 
-    runs = {name: {"wall_s": out[name]["wall_s"],
+    return {name: {"wall_s": out[name]["wall_s"],
                    "streamed_pages": out[name]["streamed_pages"],
                    "pulled_bytes": sum(r["pull_bytes"]
                                        for r in out[name]["rows"]),
                    "mean": means(out[name]["rows"]),
-                   "requests": [{k: v for k, v in r.items() if k != "tokens"}
+                   **{k: out[name][k] for k in ("bridge", "steptrace")
+                      if k in out[name]},
+                   "requests": [{k: v for k, v in r.items()
+                                 if k != "tokens"}
                                 for r in out[name]["rows"]]}
             for name, _ in DISAGG_RUNS}
-    emit(label, model=model,
+
+
+def phase_disagg(dev: torch.device, worker) -> tuple:
+    """Disaggregated prefill/decode through the host relay (the `dcn` link):
+    `_disagg_runs` without a bridge. Returns the phase's launches, the
+    prefill worker (the comesh phase reuses it) and the aggregated greedy
+    streams the runs were held against."""
+    label = "disagg"
+    t_phase = time.perf_counter()
+    # the same requests served aggregated on the decode worker
+    aggregated = _held_streams(dev, worker, f"{label}_aggregated")["streams"]
+    prefill, prefill_setup_s = _prefill_worker(dev, worker)
+    out = _disagg_runs(dev, worker, prefill, label)
+    continuations = _check_disagg(worker, label, out, aggregated)
+    for w in (worker, prefill):
+        check_graphed(w.runner, label)
+    emit(label, model=worker.card.name,
          nvidia_smi=nvidia_smi() if dev.type == "cuda" else None,
-         kv_dtype=runner.config.kv_dtype, prefill_setup_s=prefill_setup_s,
-         prefill_keys=len(prefill.runner.prefill_keys()), runs=runs,
-         pulled_pages_byte_equal=True, greedy_vs_aggregated=continuations,
-         forwards=out["forwards"], kernel_launches=out["launches"],
+         kv_dtype=worker.runner.config.kv_dtype, link="dcn",
+         prefill_setup_s=prefill_setup_s,
+         prefill_keys=len(prefill.runner.prefill_keys()),
+         runs=_disagg_summary(out), pulled_pages_byte_equal=True,
+         greedy_vs_aggregated=continuations, forwards=out["forwards"],
+         kernel_launches=out["launches"],
+         seconds=time.perf_counter() - t_phase)
+    return out["launches"], prefill, aggregated
+
+
+def phase_comesh(dev: torch.device, worker, prefill, aggregated) -> dict:
+    """Co-located disaggregation on one card (`--mode comesh`'s in-process
+    KV bridge, the `ici` link): the disagg phase's decode and prefill
+    workers share one IciKvBridge, so every pull is a gather from the
+    prefill pool, a device-to-device copy (none on one card) and an
+    in-place scatter into the decode pool at admission, with no host copy.
+    `_disagg_runs` with the bridge: hits == pulls == 8 in each run, the
+    decode worker prefills 0 tokens, req-0's bridged pages equal the prefill
+    pool's byte for byte, greedy streams equal the aggregated ones or part
+    at a near-tie, the step-trace invariant on both workers' steps, and the
+    debug routes. Prints the TTFT split (prefill leg, bridge pull,
+    onboard) from the timelines. Returns the phase's launches."""
+    from dynamo_tpu_torch.engine.ici_transfer import IciKvBridge
+
+    label = "comesh"
+    t_phase = time.perf_counter()
+    bridge = IciKvBridge()
+    # the CLI builds the pair with ici_bridge=; here the two live workers
+    # join one bridge
+    bridge.attach_prefill(prefill)
+    prefill.ici_bridge = worker.ici_bridge = bridge
+    try:
+        out = _disagg_runs(dev, worker, prefill, label, bridge=bridge)
+    finally:
+        prefill.ici_bridge = worker.ici_bridge = None
+    for name, _ in DISAGG_RUNS:
+        got = out[name]["bridge"]
+        check(got["pulls"] == got["hits"] == len(out["bodies"]),
+              f"{label}: {name}: bridge pulls {got['pulls']}, hits "
+              f"{got['hits']} (a pull fell back to recompute)")
+    continuations = _check_disagg(worker, label, out, aggregated)
+    for w in (worker, prefill):
+        check_graphed(w.runner, label)
+    emit(label, model=worker.card.name,
+         nvidia_smi=nvidia_smi() if dev.type == "cuda" else None,
+         kv_dtype=worker.runner.config.kv_dtype, link="ici",
+         runs=_disagg_summary(out), pulled_pages_byte_equal=True,
+         greedy_vs_aggregated=continuations, forwards=out["forwards"],
+         debug=out["debug"], kernel_launches=out["launches"],
          seconds=time.perf_counter() - t_phase)
     prefill.close()
     return out["launches"]
+
+
+# Decode attention against the batch: one greedy sequence decoded at batch 1
+# and batch 8, at table widths 32 and 128, with the port's split plan (a
+# span fixed by the page size) and with the plan it had before (a span that
+# followed the batch and the table width)
+INVARIANCE_WIDTHS = (32, 128)
+INVARIANCE_BATCHES = (1, 8)
+INVARIANCE_STEPS = 32
+INVARIANCE_LENGTHS = (300, 64, 200, 350, 90, 400, 128, 256)  # slot 0 first
+TARGET_BLOCKS = 4 * 132  # the earlier plan's aim: 4 blocks per SM
+
+
+def _batch_following_plan(batch: int, kh: int, rows: int, max_pages: int,
+                          ps: int):
+    """The decode kernel's split plan before this port fixed its span: the
+    shortest span that cuts the table into no more splits than it takes
+    for the grid to reach TARGET_BLOCKS blocks, so it follows the batch and
+    the table width."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    row_tile = 16 if rows <= 16 else 32
+    row_tiles = -(-rows // row_tile)
+    unit = pa.TILE * ps // math.gcd(pa.TILE, ps)
+    units = -(-(max_pages * ps) // unit)
+    want = -(-TARGET_BLOCKS // (batch * kh * row_tiles))
+    per = max(1, min(-(-units // want), pa.MAX_SPAN // unit))
+    n_split = -(-units // per)
+    return pa.SplitPlan(row_tile, row_tiles, per * unit, n_split,
+                        (n_split, kh * row_tiles, batch))
+
+
+def _greedy_at(runner, prompts: list, tables: np.ndarray, firsts: list,
+               batch: int, width: int) -> tuple:
+    """Slot 0's greedy tokens and raw logits rows over INVARIANCE_STEPS
+    decode steps (graph replays of the decode_logits key) with the first
+    `batch` sequences live, at table width `width`."""
+    b = batch
+    toks = np.array(firsts[:b], np.int32)
+    lens = np.array([len(p) for p in prompts[:b]], np.int32)
+    zeros_f, ones_f = np.zeros(b, np.float32), np.ones(b, np.float32)
+    tokens, rows = [int(toks[0])], []
+    for step in range(INVARIANCE_STEPS):
+        nxt = runner.decode(toks, lens.copy(), tables[:b, :width],
+                            lens + 1, np.ones(b, bool), zeros_f, ones_f,
+                            np.zeros(b, np.int32), np.zeros(b, np.uint32),
+                            np.full(b, step, np.int32), want_logits=True,
+                            logits_slots=[0])
+        rows.append(runner.last_decode_logits[0].astype(np.float32))
+        toks = nxt.astype(np.int32)
+        lens = lens + 1
+        tokens.append(int(toks[0]))
+    return tokens, np.stack(rows)
+
+
+def phase_batch_invariance(dev: torch.device, worker) -> None:
+    """Does slot 0's decode depend on the batch it is in? The bf16 runner
+    prefills 8 sequences (slot 0: 300 tokens), then decodes slot 0 greedily
+    at batch 1 and batch 8 and table widths 32 and 128, with the port's
+    split plan (`ops.paged_attention.split_plan`, span fixed by the page
+    size) and with the earlier, batch-following one. Per configuration: the
+    max |delta logits| against batch 1 / width 32 of the same plan over the
+    steps before the streams part, and the first token at which they part;
+    the port's plan must give the same logits, bit for bit, in all four.
+    Then rows 1 and 2 timed at the engine's shapes (16 slots, 8 live, widths
+    32 and 128) with each plan, in turns (port's, earlier, earlier,
+    port's)."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    runner = worker.runner
+    ps = runner.config.page_size
+    vocab = worker.model_config.vocab_size
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(1, vocab, n) for n in INVARIANCE_LENGTHS]
+    _fresh_scheduler(worker)  # an idle scheduler over an empty pool
+    tables = np.zeros((len(prompts), max(INVARIANCE_WIDTHS)), np.int32)
+    firsts = []
+    for i, p in enumerate(prompts):
+        need = -(-(len(p) + INVARIANCE_STEPS + 1) // ps)
+        check(need <= min(INVARIANCE_WIDTHS), "invariance: a sequence "
+              "outgrows the narrow table")
+        tables[i, :need] = 1 + i * min(INVARIANCE_WIDTHS) + np.arange(need)
+        firsts.append(runner.prefill_chunk(np.asarray(p, np.int32), 0,
+                                           tables[i], len(p),
+                                           (0.0, 1.0, 0, 0)))
+    plans = {"fixed": pa.split_plan, "batch_following": _batch_following_plan}
+    results: dict = {}
+    try:
+        for plan_name, plan in plans.items():
+            pa.split_plan = plan
+            runner.step_graphs.clear()  # the graphs captured the old plan
+            base = None
+            for width in INVARIANCE_WIDTHS:
+                for batch in INVARIANCE_BATCHES:
+                    tokens, logits = _greedy_at(runner, prompts, tables,
+                                                firsts, batch, width)
+                    key = f"{plan_name}/B={batch}/W={width}"
+                    if base is None:
+                        base = (tokens, logits)
+                    d = _first_divergence(base[0], tokens)
+                    # logits rows before the streams part see one context
+                    upto = min(d, INVARIANCE_STEPS)
+                    delta = (float(np.abs(logits[:upto]
+                                          - base[1][:upto]).max())
+                             if upto else 0.0)
+                    results[key] = {
+                        "max_abs_delta_logits": delta,
+                        "first_parting_token": (d if d < len(tokens)
+                                                else None),
+                        "split": pa.split_plan(batch, runner.model_config
+                                               .n_kv_heads,
+                                               runner.model_config.n_q_heads
+                                               // runner.model_config
+                                               .n_kv_heads, width,
+                                               ps)._asdict()}
+    finally:
+        pa.split_plan = plans["fixed"]
+        runner.step_graphs.clear()
+    _fresh_scheduler(worker)
+    # (on the CPU the plain versions run: their sums follow the gathered
+    # width, so only the card's kernel is held to it)
+    bad = {k: v for k, v in results.items() if k.startswith("fixed/")
+           and (v["max_abs_delta_logits"] or v["first_parting_token"])}
+    check(dev.type != "cuda" or not bad,
+          f"batch_invariance: the port's plan depends on the batch or the "
+          f"width: {bad}")
+
+    # rows 1 and 2 at the engine's shapes with each plan, in turns
+    hist = [0, 1, 15, 16, 17, 1000, 2047, 1500] + [0] * 8
+    st = _attention_setup(dev, hist, n_layers=8, n_pages=320)
+    q = torch.randn((len(hist), st["cfg"].n_q_heads, st["hd"]),
+                    generator=st["gen"], device=dev).to(torch.bfloat16)
+    times: dict = {}
+    for name, quantized in (("paged_decode_attention_pool", False),
+                            ("paged_decode_attention_pool_int8", True)):
+        kv = st["values"] if quantized else st["pool"]
+        scales = st["scales"] if quantized else None
+        for width in INVARIANCE_WIDTHS:
+            lens = (st["lens"] if width == 128 else
+                    torch.clamp(st["lens"], max=width * st["ps"]))
+            tables_w = st["tables"][:, :width].contiguous()
+
+            def call(i, kv=kv, scales=scales, tables_w=tables_w, lens=lens):
+                return pa.paged_decode_attention_pool(
+                    q, kv, i % st["n_layers"], tables_w, lens,
+                    kv_scales=scales)
+
+            ms = {"fixed": [], "batch_following": []}
+            for plan_name in ("fixed", "batch_following", "batch_following",
+                              "fixed"):
+                pa.split_plan = plans[plan_name]
+                try:
+                    ms[plan_name].append(gpu_time_ms(call, 200))
+                finally:
+                    pa.split_plan = plans["fixed"]
+            times[f"{name}[W={width}]"] = {
+                "fixed_ms": ms["fixed"],
+                "batch_following_ms": ms["batch_following"],
+                "fixed_over_batch_following": float(
+                    np.mean(ms["fixed"]) / np.mean(ms["batch_following"]))}
+    del st, q
+    free_memory()
+    emit("batch_invariance", model=worker.card.name,
+         nvidia_smi=nvidia_smi() if dev.type == "cuda" else None,
+         steps=INVARIANCE_STEPS, lengths=list(INVARIANCE_LENGTHS),
+         span=pa.SPAN, results=results, times=times,
+         seconds=time.perf_counter() - t_phase)
 
 
 # An HF checkpoint directory: written by the port, served from disk
@@ -5229,8 +5900,14 @@ def main() -> None:
         phase_serve(dev, worker, "serve_bf16")
         for name, n in phase_checkpoint(dev, worker).items():
             launches[name] = launches.get(name, 0) + n
-        for name, n in phase_disagg(dev, worker).items():
+        disagg, prefill, aggregated = phase_disagg(dev, worker)
+        for name, n in disagg.items():
             launches[name] = launches.get(name, 0) + n
+        for name, n in phase_comesh(dev, worker, prefill,
+                                    aggregated).items():
+            launches[name] = launches.get(name, 0) + n
+        del prefill
+        phase_batch_invariance(dev, worker)
     finally:
         worker.close()
     del worker

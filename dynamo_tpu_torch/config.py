@@ -198,6 +198,43 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
         "Serve POST /drain on the status server (unauthenticated and "
         "terminal; turn off where the status port is reachable beyond the "
         "operators)"),
+    # Observability (runtime/flight_recorder.py, runtime/status.py): the
+    # request timelines and the on-demand profiler capture
+    "DYNT_FLIGHT_RECORDER_SIZE": (
+        256, int,
+        "Completed request timelines the per-process flight recorder "
+        "retains (ring buffer behind /debug/requests)"),
+    "DYNT_SLOW_TRACE_MS": (
+        0.0, float,
+        "Force-sample slow requests: a request whose end-to-end wall time "
+        "meets this threshold has its flight-recorder timeline dumped to the "
+        "log at WARNING (0 disables)"),
+    "DYNT_DEBUG_ENDPOINTS": (
+        False, is_truthy,
+        "Also serve /debug/requests and /debug/profile on the tenant-facing "
+        "OpenAI frontend port (they leak cross-request timelines, so they "
+        "are opt-in there; the internal status server always serves them)"),
+    "DYNT_PROF_DIR": (
+        "/tmp/dynamo_tpu_profiles", str,
+        "Directory /debug/profile captures write their traces into (one "
+        "timestamped subdirectory per capture)"),
+    "DYNT_PROF_DEFAULT_MS": (
+        1000, int,
+        "Capture duration for /debug/profile when the request sends no "
+        "duration_ms query parameter"),
+    "DYNT_PROF_MAX_MS": (
+        30000, int,
+        "Ceiling on a single /debug/profile capture: profiling holds buffers "
+        "in the serving process, so an operator typo must not pin it for "
+        "minutes"),
+    # Worker startup (the reference's runtime/snapshot.py): the port has no
+    # snapshot protocol; the knob is read only so that --mode comesh refuses
+    # "dump" with the reference's message
+    "DYNT_SNAPSHOT_MODE": (
+        "off", str,
+        "The reference's worker snapshot protocol (off | dump). Not ported: "
+        "--mode comesh refuses dump, and every other mode ignores the "
+        "knob"),
     # Resilience: deadlines, retries, breakers, migration, canaries
     # (runtime/resilience.py, runtime/health_check.py, llm/engine.py)
     "DYNT_STREAM_IDLE_TIMEOUT_SECS": (

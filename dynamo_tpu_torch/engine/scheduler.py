@@ -44,9 +44,16 @@ bounces new arrivals with an in-band migrate. Page gathers, scatters and
 releases run on this thread, between steps (`run_in_step`) or in a step's
 dispatch/drain gap (`run_in_gap`).
 
-Not ported yet (each is a later slice): KVBM tiers, preemption/park, LoRA,
-multimodal, steptrace and the flight recorder. Requests that need one of
-them finish with an error.
+Each step is split into host and device time with no added sync
+(`steptrace`, `perf/steptrace.py`): dispatch scopes around the graph
+replays, drain scopes around the readbacks that already block, and the
+committed sample's split in the stats. A sequence submitted with a
+`record_id` stamps its flight-recorder timeline where the reference's does
+(`runtime/flight_recorder.py`): scheduled, prefill_start, first_token, its
+prefill and decode device windows, and the drain rungs.
+
+Not ported yet (each is a later slice): KVBM tiers, preemption/park, LoRA
+and multimodal. Requests that need one of them finish with an error.
 """
 
 from __future__ import annotations
@@ -71,6 +78,8 @@ from ..llm.logits_processing import (
     resolve_processors,
 )
 from ..llm.protocols import EngineOutput, PreprocessedRequest
+from ..perf.steptrace import StepTrace
+from ..runtime.flight_recorder import get_recorder
 from ..tokens import TokenBlockSequence, compute_block_hashes
 from .model_runner import DeviceBundle, ModelRunner, bucket_table_width
 from .pages import PageAllocation, PagePool
@@ -137,6 +146,18 @@ class _Seq:
     # prompt length, shipped with onboard_blocks, so decode continues the
     # committed stream instead of re-prefilling.
     resume_state: Optional[dict] = None
+    # Flight-recorder timeline key (the worker's generate qualifies prefill
+    # legs); None for bare-scheduler callers, whose stamps are no-ops.
+    record_id: Optional[str] = None
+    # prefill_start stamped (keeps the chunk loop off the recorder's lock)
+    prefill_stamped: bool = False
+    # Device-time attribution (perf/steptrace.py): the monotonic time of the
+    # FIRST prefill dispatch, and the device windows accumulated per phase,
+    # flushed onto the timeline at first_token (prefill) and at the finish
+    # (decode).
+    prefill_submit_ts: Optional[float] = None
+    device_prefill_ms: float = 0.0
+    device_decode_ms: float = 0.0
 
     @property
     def decode_ready(self) -> bool:
@@ -156,6 +177,11 @@ class SchedulerStats:
     last_step_wall_ms: float = 0.0
     prefill_tokens_last_step: int = 0
     decode_tokens_last_step: int = 0
+    # The last committed step's split (perf/steptrace.py): device window
+    # and host residual, mirrored into LoadMetrics; they sum to its wall.
+    # The full sample and the totals live on scheduler.steptrace.
+    device_ms_last_step: float = 0.0
+    host_ms_last_step: float = 0.0
     # Speculative decoding: verification steps run, draft tokens proposed
     # and accepted (bonus tokens excluded); spec_last_k is the longest draft
     # mined in the latest step, spec_ema the mean acceptance EMA over the
@@ -267,6 +293,9 @@ class InferenceScheduler:
         self._thread: Optional[threading.Thread] = None
         self.error: Optional[BaseException] = None
         self.stats = SchedulerStats()
+        # Device-time attribution (perf/steptrace.py): each step's device
+        # window against its host residual, with no added device sync
+        self.steptrace = StepTrace()
         # The tokenizer handed to logits-processor factories that declare a
         # `tokenizer` parameter (guided decoding needs it); the worker sets
         # it from its card.
@@ -309,12 +338,14 @@ class InferenceScheduler:
         onboard_blocks=None,
         onboard_first_token: Optional[int] = None,
         resume_state: Optional[dict] = None,
+        record_id: Optional[str] = None,
     ) -> "_SubmitHandle":
         """Queue a request. A prefill-only one (disaggregated prefill) stops
         after its prompt pass and parks its pages through `on_prefill_done`
         (and, streamed, `on_prefill_chunk`); one with `onboard_blocks`
         (pulled KV) skips prefill: with `onboard_first_token` it continues a
-        remote prefill, with `resume_state` a drained peer's stream."""
+        remote prefill, with `resume_state` a drained peer's stream.
+        `record_id` names the flight-recorder timeline its phases stamp."""
         handle = _SubmitHandle(self._wake.set)
         self._incoming.put((request, emit, handle, {
             "prefill_only": prefill_only,
@@ -323,6 +354,7 @@ class InferenceScheduler:
             "onboard_blocks": onboard_blocks,
             "onboard_first_token": onboard_first_token,
             "resume_state": resume_state,
+            "record_id": record_id,
         }))
         self._wake.set()
         return handle
@@ -565,6 +597,10 @@ class InferenceScheduler:
             seq.slot = free_slots[0]
             self._slots[seq.slot] = seq
             self._waiting.pop(0)
+            if seq.record_id is not None:
+                # admission ends the queue wait (first write wins, so a
+                # page-starved retry cannot move it)
+                get_recorder().stamp(seq.record_id, "scheduled")
             admitted += 1
             if seq.onboard_blocks is not None:
                 if seq.resume_state is not None:
@@ -615,6 +651,9 @@ class InferenceScheduler:
             # the proposer's index and the hash chain see the whole history
             seq.spec.extend(gen)
         self.stats.drain_resumed += 1
+        if seq.record_id is not None:
+            get_recorder().event(seq.record_id, "drain_resume",
+                                 pages=n_pages, tokens_preserved=len(gen))
         log.info("resumed drained %s (%d tokens preserved, %d pages pulled)",
                  seq.request.request_id, len(gen), n_pages)
 
@@ -633,8 +672,17 @@ class InferenceScheduler:
         active = sum(1 for s in self._slots if s is not None)
         return active, len(self._waiting)
 
+    def active_kv_tokens(self) -> int:
+        """KV tokens the live decode slots attend: the working set of the
+        live roofline gauges. Read across threads without a lock: a slightly
+        stale sum only skews a gauge."""
+        return sum(seq.kv_len for seq in list(self._slots)
+                   if seq is not None and not seq.finished
+                   and not seq.cancelled)
+
     def _step(self) -> bool:
         start = time.monotonic()
+        self.steptrace.begin()
         admitted = self._admit()
         # Deferred prefill tokens from the PREVIOUS iteration: their device
         # work was queued before this iteration's dispatches.
@@ -660,6 +708,9 @@ class InferenceScheduler:
             self.stats.prefill_tokens_last_step = prefill_tokens
             self.stats.decode_tokens_last_step = decode_tokens
             self.stats.last_step_wall_ms = (time.monotonic() - start) * 1e3
+            sample = self.steptrace.commit(self.stats.last_step_wall_ms)
+            self.stats.device_ms_last_step = sample.device_ms
+            self.stats.host_ms_last_step = sample.host_ms
             return True
         return False
 
@@ -686,6 +737,10 @@ class InferenceScheduler:
             chunk = min(per, seq.prompt_len - seq.prefill_pos)
             if chunk <= 0:
                 continue
+            if seq.record_id is not None and not seq.prefill_stamped:
+                # the first chunk of real prefill compute only
+                seq.prefill_stamped = True
+                get_recorder().stamp(seq.record_id, "prefill_start")
             work.append((seq, chunk))
             spent += chunk
         if not work:
@@ -712,13 +767,26 @@ class InferenceScheduler:
         # its token (_defer_first_token).
         sync = is_final and (seq.prefill_only or (sampling.logprobs
                                                   and not seq.processors))
-        token = self.runner.prefill_chunk(
-            tokens, seq.prefill_pos, seq.block_table,
-            kv_len_after=seq.prefill_pos + chunk,
-            sampling=(sampling.temperature, sampling.top_p,
-                      sampling.top_k, seq.seed),
-            return_device=not sync,
-        )
+        # A chunk read back in the call is one blocking window, all device;
+        # the others stamp their submit only (a deferred token's window
+        # closes at its drain).
+        scope = (self.steptrace.sync("prefill", self.stats.steps) if sync
+                 else self.steptrace.dispatch("prefill", self.stats.steps))
+        if seq.prefill_submit_ts is None:
+            seq.prefill_submit_ts = time.monotonic()
+        with scope:
+            token = self.runner.prefill_chunk(
+                tokens, seq.prefill_pos, seq.block_table,
+                kv_len_after=seq.prefill_pos + chunk,
+                sampling=(sampling.temperature, sampling.top_p,
+                          sampling.top_k, seq.seed),
+                return_device=not sync,
+            )
+        if sync:
+            # the prompt pass's device window: first chunk dispatched ->
+            # final token on the host
+            seq.device_prefill_ms = max(
+                0.0, (time.monotonic() - seq.prefill_submit_ts) * 1e3)
         seq.prefill_pos += chunk
         if not is_final:
             self._stream_prefill_chunk(seq)
@@ -752,8 +820,13 @@ class InferenceScheduler:
         want_samples = any(final and seq.request.sampling.logprobs
                            and not seq.processors
                            for final, (seq, _) in zip(finals, work))
-        toks_dev = self.runner.prefill_chunk_batch(rows,
-                                                   want_samples=want_samples)
+        now = time.monotonic()
+        for seq, _chunk in work:
+            if seq.prefill_submit_ts is None:
+                seq.prefill_submit_ts = now
+        with self.steptrace.dispatch("prefill", self.stats.steps):
+            toks_dev = self.runner.prefill_chunk_batch(
+                rows, want_samples=want_samples)
         samples = self.runner.last_prefill_samples
         self.stats.prefill_batched_steps += 1
         host_toks = None
@@ -771,7 +844,10 @@ class InferenceScheduler:
                 self._pending_prefill.append((seq, toks_dev[row]))
                 continue
             if host_toks is None:
-                host_toks = toks_dev.cpu().numpy()
+                with self.steptrace.drain("prefill"):
+                    host_toks = toks_dev.cpu().numpy()
+            seq.device_prefill_ms = max(
+                0.0, (time.monotonic() - seq.prefill_submit_ts) * 1e3)
             if seq.prefill_only:
                 self._finish_prefill_only(seq, int(host_toks[row]))
                 continue
@@ -817,6 +893,11 @@ class InferenceScheduler:
             seq.keep_pages = True
             seq.stream_done = True  # a clean finish: no abort hook at reap
         seq.finished = True
+        if seq.record_id is not None:
+            get_recorder().stamp(seq.record_id, "first_token")
+            if seq.device_prefill_ms:
+                get_recorder().device(seq.record_id, "prefill",
+                                      seq.device_prefill_ms)
         seq.emit(EngineOutput(
             token_ids=[], finish_reason="stop", prompt_tokens=seq.prompt_len,
             kv_transfer_params={**params, "first_token": first_token}))
@@ -852,7 +933,14 @@ class InferenceScheduler:
         sequence to decode. Returns 1 if a token was delivered."""
         if seq.cancelled or seq.finished:
             return 0
-        token = int(tok_dev.cpu().reshape(-1)[0])
+        # anchored=False: the chunk behind this token was submitted last
+        # step; this step's prefill submit stamp (if any) is another
+        # sequence's chunk, so only the blocked wait counts.
+        with self.steptrace.drain("prefill", anchored=False):
+            token = int(tok_dev.cpu().reshape(-1)[0])
+        if seq.prefill_submit_ts is not None:
+            seq.device_prefill_ms = max(
+                0.0, (time.monotonic() - seq.prefill_submit_ts) * 1e3)
         self._append_token(seq, token, prompt_tokens=seq.prompt_len)
         return 1
 
@@ -925,16 +1013,19 @@ class InferenceScheduler:
             # tokens before block d is read back.
             device_blocks = []
             toks_dev = None
-            for d in range(depth):
-                toks_dev = self.runner.decode_multi(
-                    self._tokens if d == 0 else toks_dev[-1],
-                    self._positions + d * block, tables,
-                    self._kv_lens + d * block * self._active,
-                    self._active, self._temp, self._top_p, self._top_k,
-                    self._seeds, self._steps + d * block, k=block,
-                    return_device=True,
-                )
-                device_blocks.append(toks_dev)
+            # the submit stamps and the profiler's decode scope; the device
+            # window runs from this scope's end to _drain_decode's readback
+            with self.steptrace.dispatch("decode", self.stats.steps):
+                for d in range(depth):
+                    toks_dev = self.runner.decode_multi(
+                        self._tokens if d == 0 else toks_dev[-1],
+                        self._positions + d * block, tables,
+                        self._kv_lens + d * block * self._active,
+                        self._active, self._temp, self._top_p, self._top_k,
+                        self._seeds, self._steps + d * block, k=block,
+                        return_device=True,
+                    )
+                    device_blocks.append(toks_dev)
             return ("blocks", device_blocks, ready, block)
         return ("count", self._decode_single(ready, tables, want_logprobs,
                                              want_logits))
@@ -953,7 +1044,11 @@ class InferenceScheduler:
         _kind, device_blocks, ready, block = pending
         # Copy EVERY block before emitting any token, so a finish frame
         # never goes out before the page release that follows it.
-        blocks_np = [t.cpu().numpy() for t in device_blocks]
+        with self.steptrace.drain("decode") as drain:
+            blocks_np = [t.cpu().numpy() for t in device_blocks]
+        # every live slot waited this device window out
+        for seq in ready:
+            seq.device_decode_ms += drain.device_ms
         count = 0
         for toks_k in blocks_np:
             for step in range(block):
@@ -1032,13 +1127,14 @@ class InferenceScheduler:
         width = bucket_table_width(-(-max_kv // self.page_size),
                                    self.runner.config.max_pages_per_seq)
         proc_slots = [s.slot for s in ready if s.processors]
-        targets, n_acc = self.runner.decode_spec(
-            self._tokens, drafts, self._positions,
-            np.ascontiguousarray(self._tables[:, :width]), self._kv_lens,
-            self._active, self._temp, self._top_p, self._top_k, self._seeds,
-            self._steps, want_logits=want_logits,
-            logits_slots=proc_slots if want_logits else None,
-            return_device=True)
+        with self.steptrace.dispatch("spec", self.stats.steps):
+            targets, n_acc = self.runner.decode_spec(
+                self._tokens, drafts, self._positions,
+                np.ascontiguousarray(self._tables[:, :width]), self._kv_lens,
+                self._active, self._temp, self._top_p, self._top_k,
+                self._seeds, self._steps, want_logits=want_logits,
+                logits_slots=proc_slots if want_logits else None,
+                return_device=True)
         logits = self.runner.last_spec_logits if want_logits else None
         return ("spec", targets, n_acc, ready, drafts, logits, proc_slots)
 
@@ -1050,12 +1146,17 @@ class InferenceScheduler:
         sits in the sequence's own slack pages and is rewritten by the next
         step."""
         _kind, targets_dev, n_acc_dev, ready, drafts, logits, slots = pending
-        targets = targets_dev.cpu().numpy()
-        n_acc = n_acc_dev.cpu().numpy()
-        # The targets' readback synchronized: the logits rows have landed.
-        rows = {}
+        with self.steptrace.drain("spec") as drain:
+            targets = targets_dev.cpu().numpy()
+            n_acc = n_acc_dev.cpu().numpy()
+            # The targets' readback synchronized: the logits rows have
+            # landed.
+            rows = {}
+            if logits is not None:
+                rows = dict(zip(slots, logits.numpy()))
+        for seq in ready:
+            seq.device_decode_ms += drain.device_ms
         if logits is not None:
-            rows = dict(zip(slots, logits.numpy()))
             self.stats.logits_steps += 1
             self.stats.spec_logits_steps += 1
         self.stats.spec_steps += 1
@@ -1149,11 +1250,16 @@ class InferenceScheduler:
         slots = ([s.slot for s in ready
                   if s.processors or s.request.sampling.logprobs]
                  if want_logits else None)
-        next_tokens = self.runner.decode(
-            self._tokens, self._positions, tables, self._kv_lens,
-            self._active, self._temp, self._top_p, self._top_k, self._seeds,
-            self._steps, want_logprobs=want_logprobs,
-            want_logits=want_logits, logits_slots=slots)
+        # dispatch, execution and readback in the one runner call: the whole
+        # duration is the device window
+        with self.steptrace.sync("decode", self.stats.steps) as sc:
+            next_tokens = self.runner.decode(
+                self._tokens, self._positions, tables, self._kv_lens,
+                self._active, self._temp, self._top_p, self._top_k,
+                self._seeds, self._steps, want_logprobs=want_logprobs,
+                want_logits=want_logits, logits_slots=slots)
+        for seq in ready:
+            seq.device_decode_ms += sc.device_ms
         lp_b, tid_b, tlp_b = self.runner.last_decode_sample
         rows = {}
         if want_logits:
@@ -1263,6 +1369,12 @@ class InferenceScheduler:
                       prompt_tokens: Optional[int] = None,
                       sample_info: Optional[tuple] = None) -> None:
         seq.generated.append(token)
+        if len(seq.generated) == 1 and seq.record_id is not None:
+            get_recorder().stamp(seq.record_id, "first_token")
+            if seq.device_prefill_ms:
+                # the device share of the TTFT the timeline just closed
+                get_recorder().device(seq.record_id, "prefill",
+                                      seq.device_prefill_ms)
         seq.last_token = token
         if seq.spec is not None:
             # Keep the n-gram index and the hash chain current on every
@@ -1285,6 +1397,14 @@ class InferenceScheduler:
             if n > 0:
                 top_logprobs = [[[int(i), float(v)]
                                  for i, v in zip(top_ids[:n], top_lps[:n])]]
+        if (finish is not None and seq.device_decode_ms
+                and seq.record_id is not None):
+            # Flush the decode device burn BEFORE the finish frame goes out:
+            # the worker closes the timeline as soon as it reads that frame.
+            # Zeroed, so the reap cannot count it twice.
+            get_recorder().device(seq.record_id, "decode",
+                                  seq.device_decode_ms)
+            seq.device_decode_ms = 0.0
         seq.emit(EngineOutput(
             token_ids=[token], finish_reason=finish,
             prompt_tokens=prompt_tokens,
@@ -1335,6 +1455,8 @@ class InferenceScheduler:
         def replay(seq: _Seq) -> None:
             self.stats.drain_replayed += 1
             report["replay"].append(seq.request.request_id)
+            get_recorder().event(seq.record_id, "drain", rung="replay",
+                                 tokens_preserved=len(seq.generated))
             seq.emit(EngineOutput(finish_reason="migrate",
                                   error="worker draining"))
 
@@ -1372,6 +1494,8 @@ class InferenceScheduler:
             seq.keep_pages = True
             self.stats.drain_handoff += 1
             report["handoff"].append(rid)
+            get_recorder().event(seq.record_id, "drain", rung="handoff",
+                                 tokens_preserved=len(seq.generated))
             seq.emit(EngineOutput(
                 finish_reason="migrate", error="worker draining (kv handoff)",
                 kv_transfer_params=params))
@@ -1401,6 +1525,11 @@ class InferenceScheduler:
         for i, seq in enumerate(self._slots):
             if seq is None or not (seq.finished or seq.cancelled):
                 continue
+            if seq.device_decode_ms and seq.record_id is not None:
+                # the decode device burn, flushed once at the reap
+                # (per-step recorder traffic would tax the loop)
+                get_recorder().device(seq.record_id, "decode",
+                                      seq.device_decode_ms)
             if (seq.stream_started and not seq.stream_done
                     and seq.on_prefill_chunk is not None):
                 # A prefill-only sequence died mid-stream (cancel or error
@@ -1417,6 +1546,12 @@ class InferenceScheduler:
                 computed = seq.prefill_pos // self.page_size
                 self.pool.release(seq.alloc, seq.block_hashes,
                                   computed_blocks=computed)
+            if (seq.spec is not None and seq.spec.proposed
+                    and seq.record_id is not None):
+                # where this request's speculated tokens were won or wasted
+                get_recorder().event(seq.record_id, "spec",
+                                     proposed=seq.spec.proposed,
+                                     accepted=seq.spec.accepted)
             if (seq.spec is not None and not seq.cancelled
                     and self.spec_lookahead is not None):
                 # Teach the cross-request lookahead this sequence's

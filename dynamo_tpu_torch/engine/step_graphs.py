@@ -46,6 +46,7 @@ import torch
 
 from ..ops import counted_wrappers
 from ..ops._launch import count_launch, tally
+from ..perf.steptrace import LAUNCH_GATE
 
 # A step: static inputs by name -> output tensors.
 Step = Callable[[dict], tuple]
@@ -117,7 +118,7 @@ class StepGraph:
             return
         torch.cuda.current_stream().wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with tally() as counts:
+        with tally() as counts, LAUNCH_GATE.launch():
             with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 outputs = self.step(self.inputs)
@@ -135,7 +136,8 @@ class StepGraph:
         for name, value in values.items():
             _copy_in(self.inputs[name], value)
         if self.graph is not None:
-            self.graph.replay()
+            with LAUNCH_GATE.launch():  # never beside a profiler start/stop
+                self.graph.replay()
         else:
             with tally():  # stands in for a replay: counted below
                 for static, out in zip(self.outputs, self.step(self.inputs)):

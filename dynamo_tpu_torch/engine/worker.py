@@ -44,12 +44,23 @@ server's POST /drain) parks each live decode sequence's prompt and
 generated pages and hands it to a peer with its resume state, and a failed
 handoff pull bounces with a plain migrate (the replay rung).
 
-LoadMetrics' `device_ms_in_step` and `host_ms_in_step` stay 0: the
-reference fills them from its steptrace, which is not ported. Not ported
-yet: the weights endpoint, LoRA and the co-meshed in-process handoff. The
-card names the worker's tool and reasoning parsers (`--tool-call-parser`,
-`--reasoning-parser`), and the scheduler's logits processors get the card's
-tokenizer, as in the reference.
+Co-located disaggregation (`--mode comesh`, `engine/ici_transfer.py`): a
+prefill worker and a decode worker in one process share an `IciKvBridge`
+(`ici_bridge=`). The prefill side advertises the bridge's token in its
+`kv_transfer_params`, and a decode worker holding the same bridge pulls
+through it, device to device, instead of over the wire; a drain handoff
+never offers the token, so it always takes the host relay.
+
+Every request's phases go on a flight-recorder timeline
+(`runtime/flight_recorder.py`; a prefill leg's under `<id>#prefill`), with a
+`kv_pull` event naming the link it took (`ici` or `dcn`) and the pull's
+split. LoadMetrics carry the last step's device / host split
+(`perf/steptrace.py`), and the metrics tick publishes the step histograms,
+the host-bound verdict and the live MFU and roofline-fraction gauges. Not
+ported yet: the weights endpoint and LoRA. The card names the worker's tool
+and reasoning parsers (`--tool-call-parser`, `--reasoning-parser`), and the
+scheduler's logits processors get the card's tokenizer, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -103,11 +114,15 @@ from ..llm.tokenizer import load_tokenizer
 from ..models import ModelConfig, Transformer, get_config
 from ..models.checkpoint import config_from_checkpoint, load_params
 from ..models.transformer import AttentionFn
+from ..perf.steptrace import LiveRoofline
+from ..runtime import metrics as rt_metrics
 from ..runtime.component import new_instance_id
+from ..runtime.flight_recorder import current_request_id, get_recorder
 from ..runtime.metrics import DISAGG_STREAMED_PAGES
 from ..runtime.push_router import PushRouter
 from .model_runner import ModelRunner, RunnerConfig
 from .drain import SERVING, DrainCoordinator, set_drain_state
+from .ici_transfer import split_devices
 from .scheduler import InferenceScheduler
 
 log = logging.getLogger("dynamo_tpu_torch.worker")
@@ -185,6 +200,7 @@ class TorchWorker:
         served_name: Optional[str] = None,
         dtype: str = "bfloat16",
         mode: str = "aggregated",
+        ici_bridge=None,
     ) -> None:
         """`model` is a preset name or a ModelConfig. Without `params` the
         weights are random, drawn from `seed` on `device`. `model_path`, an
@@ -201,12 +217,18 @@ class TorchWorker:
         go on the card, for the frontends' output parsers. `mode` is
         "aggregated", "prefill" (a `[PREFILL]` card; every request is served
         prefill-only) or "decode" (served as aggregated: it decodes what a
-        prefill pool prefilled, and prefills itself when no pool answers)."""
+        prefill pool prefilled, and prefills itself when no pool answers).
+        `ici_bridge`, an `engine.ici_transfer.IciKvBridge` shared by a
+        prefill and a decode worker in one process: the prefill side
+        attaches to it, and the decode side pulls through it."""
         if mode not in ("aggregated", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r} (expected aggregated, "
                              "prefill or decode)")
         self.mode = mode
         self.device = resolve_device(device)
+        self.ici_bridge = ici_bridge
+        if ici_bridge is not None and mode == "prefill":
+            ici_bridge.attach_prefill(self)
         tokenizer = {"kind": "byte"}
         if model_path:
             if params is not None:
@@ -243,8 +265,13 @@ class TorchWorker:
         self.draining = False
         self._drain_coordinator: Optional[DrainCoordinator] = None
         self._publisher = None
-        # The latest pulls' sizes and times (kv_pull's puller side)
+        # The latest pulls' links, sizes and times (the puller's side)
         self.pulls: collections.deque = collections.deque(maxlen=256)
+        # The live roofline gauges (perf/steptrace.py LiveRoofline) and the
+        # previous tick's cumulative (prefill tokens, decode tokens, decode
+        # steps, device ms) behind dynamo_mfu / dynamo_roofline_fraction
+        self._roofline: Optional[LiveRoofline] = None
+        self._roof_prev: Optional[tuple] = None
         self.card = ModelDeploymentCard(
             name=served_name or self.model_config.name,
             model_types=[PREFILL] if mode == "prefill" else [CHAT, COMPLETIONS],
@@ -356,12 +383,52 @@ class TorchWorker:
             step_wall_ms=stats.last_step_wall_ms,
             prefill_tokens_in_step=stats.prefill_tokens_last_step,
             decode_tokens_in_step=stats.decode_tokens_last_step,
+            device_ms_in_step=stats.device_ms_last_step,
+            host_ms_in_step=stats.host_ms_last_step,
             draining=self.draining,
         )
 
+    def publish_steptrace_metrics(self) -> None:
+        """Publish the device-time attribution (perf/steptrace.py): the
+        per-step device / host histograms of the samples committed since the
+        last call, the host-bound verdict, and the live MFU and roofline
+        fraction of the interval's work against the analytical model."""
+        trace = self.scheduler.steptrace
+        worker = f"{self.instance_id:x}"
+        for sample in trace.drain_samples():
+            for phase, ms in sample.device_by_phase.items():
+                rt_metrics.STEP_DEVICE_MS.labels(phase=phase).observe(ms)
+            rt_metrics.STEP_HOST_MS.labels(phase=sample.kind).observe(
+                sample.host_ms)
+        rt_metrics.HOST_BOUND.labels(worker=worker).set(
+            1.0 if trace.host_bound else 0.0)
+        if self._roofline is None:
+            wb = {"int8": 1.0, "int4": 0.53125}.get(
+                self.runner_config.weight_dtype, 2.0)
+            self._roofline = LiveRoofline(
+                self.model_config, num_chips=1, weight_bytes_per_param=wb,
+                kv_dtype_bytes=1 if self.runner_config.kv_dtype == "int8"
+                else 2)
+        stats = self.scheduler.stats
+        cur = (stats.prefill_tokens, stats.decode_tokens,
+               self.runner.decode_steps, trace.device_ms_total)
+        prev, self._roof_prev = self._roof_prev, cur
+        if prev is None:
+            return
+        device_s = (cur[3] - prev[3]) / 1e3
+        if device_s <= 0:
+            return
+        mfu, fraction = self._roofline.observe(
+            prefill_tokens=cur[0] - prev[0], decode_tokens=cur[1] - prev[1],
+            decode_steps=cur[2] - prev[2],
+            active_kv_tokens=self.scheduler.active_kv_tokens(),
+            device_s=device_s)
+        rt_metrics.MFU_GAUGE.labels(worker=worker).set(mfu)
+        rt_metrics.ROOFLINE_FRACTION.labels(worker=worker).set(fraction)
+
     async def _event_drain(self, publisher, interval: float = 0.05) -> None:
-        """KV events every tick, load metrics every 10th (~0.5 s), stale
-        transfers expired every 40th (~2 s)."""
+        """KV events every tick, load metrics and the step-trace metrics
+        every 10th (~0.5 s), stale transfers expired every 40th (~2 s)."""
         ticks = 0
         while True:
             await asyncio.sleep(interval)
@@ -377,6 +444,11 @@ class TorchWorker:
                 except Exception:  # noqa: BLE001 — the drain task survives
                     log.exception("transfer expiry failed")
             if ticks % 10 == 0:
+                try:
+                    self.publish_steptrace_metrics()
+                except Exception:  # noqa: BLE001 — the gauges must not kill
+                    # the drain task
+                    log.exception("steptrace metrics publish failed")
                 try:
                     await publisher.publish(LOAD_TOPIC,
                                             self._load_metrics().to_wire())
@@ -398,6 +470,10 @@ class TorchWorker:
         if streaming:
             # no first_token yet: the pull stream's last frame carries it
             params["streaming"] = True
+        if self.ici_bridge is not None:
+            # decode workers in THIS process pull through the bridge; remote
+            # ones take the wire
+            params["bridge_token"] = self.ici_bridge.token
         return params
 
     def _layout(self) -> KvLayoutDescriptor:
@@ -545,15 +621,22 @@ class TorchWorker:
     # -- disaggregation: the puller's side ---------------------------------
 
     async def _pull_remote_kv(self, params: dict, request_id: str = "",
-                              deadline=None):
+                              deadline=None, record_id: Optional[str] = None):
         """Pull parked pages from their owner. Returns (bundle, first_token)
         with the bundle staged on this runner's device, or (None, None)
         when the pull or its assembly fails (the caller recomputes, or, for
         a drain handoff, replays). A streamed handoff's first token comes in
         the pull stream's last frame. `deadline` is the request's remaining
-        end-to-end budget."""
+        end-to-end budget. The link is `ici` when the params carry this
+        worker's own bridge token (the pages move device to device), else
+        `dcn` (the host relay: kv_pull frames over the request plane); a
+        pull that lands puts a `kv_pull` event naming its link and its split
+        on the `record_id` timeline."""
         if params.get("mock") or "layout" not in params:
             return None, None  # a mocker handoff carries no data
+        if (self.ici_bridge is not None
+                and params.get("bridge_token") == self.ici_bridge.token):
+            return await self._pull_bridge(params, request_id, record_id)
         remote = KvLayoutDescriptor.from_wire(params["layout"])
         local = self._layout()
         if not remote.compatible(local):
@@ -573,6 +656,7 @@ class TorchWorker:
         first_token = None
         start = time.monotonic()
         t_first = None  # the first page frame's arrival
+        t_last = None  # the last page frame's
         try:
             async with contextlib.aclosing(router.generate(
                     {"transfer_id": params["transfer_id"]},
@@ -585,7 +669,8 @@ class TorchWorker:
                     if frame.get("done"):
                         first_token = frame.get("first_token")
                         continue
-                    t_first = t_first or time.monotonic()
+                    t_last = time.monotonic()
+                    t_first = t_first or t_last
                     pulled_bytes += len(frame.get("data") or b"")
                     assembler.add(frame)
             if not assembler.complete:
@@ -602,18 +687,58 @@ class TorchWorker:
         t0 = time.monotonic()
         staged = await asyncio.to_thread(self._stage, blocks)
         # pull_ms: the request to the assembled bundle; of it, wait_ms until
-        # the first page frame (a streamed pull waits on the prefill there)
-        # and assemble_ms the host assembly
-        self.pulls.append({
+        # the first page frame (a streamed pull waits on the prefill there),
+        # frames_ms from the first page frame to the last, and assemble_ms
+        # the host assembly; then stage_ms the upload
+        record = {
             "request_id": request_id, "transfer_id": params["transfer_id"],
-            "bytes": pulled_bytes, "pages": int(blocks.shape[0]),
-            "pull_ms": pull_s * 1e3,
+            "link": "dcn", "bytes": pulled_bytes,
+            "pages": int(blocks.shape[0]), "pull_ms": pull_s * 1e3,
             "wait_ms": ((t_first or t_frames) - start) * 1e3,
+            "frames_ms": ((t_last or t_frames) - (t_first or t_frames)) * 1e3,
             "assemble_ms": (t0 - t_frames) * 1e3,
-            "stage_ms": (time.monotonic() - t0) * 1e3})
+            "stage_ms": (time.monotonic() - t0) * 1e3}
+        self._record_pull(record, record_id)
         if first_token is None:
             first_token = params.get("first_token")
         return staged, first_token
+
+    async def _pull_bridge(self, params: dict, request_id: str,
+                           record_id: Optional[str]):
+        """The `ici` link: the pages through this process's bridge, device
+        to device (engine/ici_transfer.py); (None, None) recomputes."""
+        timings: dict = {}
+        start = time.monotonic()
+        bundle, first_token = await self.ici_bridge.pull(
+            params["transfer_id"], self.runner, timings=timings)
+        if bundle is None:
+            return None, None
+        tensor = bundle.tensor
+        # pull_ms: the claim to the bundle complete on this device; of it,
+        # wait_ms until the first pages were ready, gather_ms waiting on the
+        # prefill scheduler's gathers, copy_ms joining and completing it
+        self._record_pull({
+            "request_id": request_id, "transfer_id": params["transfer_id"],
+            "link": "ici", "bytes": tensor.numel() * tensor.element_size(),
+            "pages": int(tensor.shape[0]),
+            "pull_ms": (time.monotonic() - start) * 1e3, **timings},
+            record_id)
+        if first_token is None:
+            first_token = params.get("first_token")
+        return bundle, first_token
+
+    def _record_pull(self, record: dict, record_id: Optional[str]) -> None:
+        """Keep a landed pull's record and put it on the request's timeline
+        as a `kv_pull` event (its link, bytes, pages, duration_ms and the
+        split)."""
+        self.pulls.append(record)
+        split = {k: round(v, 3) for k, v in record.items()
+                 if k.endswith("_ms") and k != "pull_ms"}
+        get_recorder().event(
+            record_id, "kv_pull", link=record["link"],
+            transfer_id=record["transfer_id"], bytes=record["bytes"],
+            pages=record["pages"], duration_ms=round(record["pull_ms"], 3),
+            **split)
 
     def _stage(self, blocks):
         """Upload a pulled bundle and wait for it (a worker thread)."""
@@ -657,6 +782,9 @@ class TorchWorker:
             release=lambda: self.scheduler.release_transfer_pages(seq),
             layout=layout, prompt_len=computed_tokens))
         params = self._transfer_params(transfer_id, layout, computed_tokens)
+        # Never the bridge for a drain handoff: it serves the comesh prefill
+        # pool's transfers, not these, and the wire works from any peer.
+        params.pop("bridge_token", None)
         params["handoff"] = {
             "seed": int(seq.seed),
             "generated": [int(t) for t in seq.generated],
@@ -694,56 +822,106 @@ class TorchWorker:
 
     async def generate(self, body: dict, ctx=None) -> AsyncIterator[dict]:
         request = PreprocessedRequest.from_wire(body)
-        loop = asyncio.get_running_loop()
-        out_queue: asyncio.Queue = asyncio.Queue()
-
-        def emit(output: EngineOutput) -> None:
-            loop.call_soon_threadsafe(out_queue.put_nowait, output)
-
-        submit_kwargs: dict = {}
-        if (self.mode == "prefill"
-                or request.annotations.get("prefill_only")):
-            submit_kwargs.update(prefill_only=True,
-                                 on_prefill_done=self._register_transfer)
-            if self.disagg_pipeline > 0:
-                submit_kwargs["on_prefill_chunk"] = self._stream_transfer_chunk
-        elif request.disaggregated_params:
-            handoff = request.disaggregated_params.get("handoff")
-            blocks, first_token = await self._pull_remote_kv(
-                request.disaggregated_params, request.request_id,
-                deadline=getattr(ctx, "deadline", None))
-            if handoff is not None:
-                if blocks is None:
-                    # A drain handoff cannot fall through to a plain submit
-                    # (that re-emits the whole stream over tokens the client
-                    # has): bounce with a plain migrate, the replay rung.
-                    log.warning("drain handoff pull failed for %s; bouncing "
-                                "to replay", request.request_id)
-                    yield EngineOutput(
-                        finish_reason="migrate",
-                        error="drain handoff pull failed; replay").to_wire()
-                    return
-                submit_kwargs.update(onboard_blocks=blocks,
-                                     resume_state=handoff)
-            elif blocks is not None and first_token is not None:
-                submit_kwargs.update(onboard_blocks=blocks,
-                                     onboard_first_token=first_token)
-            # else: a plain submit recomputes the prefill
-        handle = self.scheduler.submit(request, emit, **submit_kwargs)
+        current_request_id.set(request.request_id)
+        prefill_only = (self.mode == "prefill"
+                        or bool(request.annotations.get("prefill_only")))
+        canary = bool(request.annotations.get("canary"))
+        recorder = get_recorder()
+        # A prefill leg reuses the decode request's id: qualify its record
+        # key, so both legs keep their own timeline when the pools share a
+        # process (comesh). Canary probes never open a timeline.
+        rec_id = (f"{request.request_id}#prefill" if prefill_only
+                  else request.request_id)
+        if not canary:
+            recorder.start(rec_id, model=request.model)
+        status = "error"
         try:
-            while True:
-                output: EngineOutput = await out_queue.get()
-                yield output.to_wire()
-                if output.finish_reason is not None:
-                    return
+            loop = asyncio.get_running_loop()
+            out_queue: asyncio.Queue = asyncio.Queue()
+
+            def emit(output: EngineOutput) -> None:
+                loop.call_soon_threadsafe(out_queue.put_nowait, output)
+
+            submit_kwargs: dict = {}
+            if prefill_only:
+                submit_kwargs.update(prefill_only=True,
+                                     on_prefill_done=self._register_transfer)
+                if self.disagg_pipeline > 0:
+                    submit_kwargs["on_prefill_chunk"] = (
+                        self._stream_transfer_chunk)
+            elif request.disaggregated_params:
+                handoff = request.disaggregated_params.get("handoff")
+                blocks, first_token = await self._pull_remote_kv(
+                    request.disaggregated_params, request.request_id,
+                    deadline=getattr(ctx, "deadline", None),
+                    record_id=rec_id)
+                if handoff is not None:
+                    if blocks is None:
+                        # A drain handoff cannot fall through to a plain
+                        # submit (that re-emits the whole stream over tokens
+                        # the client has): bounce with a plain migrate, the
+                        # replay rung.
+                        log.warning("drain handoff pull failed for %s; "
+                                    "bouncing to replay", request.request_id)
+                        yield EngineOutput(
+                            finish_reason="migrate",
+                            error="drain handoff pull failed; replay"
+                        ).to_wire()
+                        return
+                    submit_kwargs.update(onboard_blocks=blocks,
+                                         resume_state=handoff)
+                elif blocks is not None and first_token is not None:
+                    submit_kwargs.update(onboard_blocks=blocks,
+                                         onboard_first_token=first_token)
+                # else: a plain submit recomputes the prefill
+            recorder.stamp(rec_id, "queued")
+            handle = self.scheduler.submit(
+                request, emit, record_id=None if canary else rec_id,
+                **submit_kwargs)
+            try:
+                saw_error = False
+                while True:
+                    output: EngineOutput = await out_queue.get()
+                    saw_error = saw_error or output.error is not None
+                    if output.finish_reason is not None:
+                        status = "error" if saw_error else "ok"
+                        yield output.to_wire()
+                        return
+                    yield output.to_wire()
+            finally:
+                handle.cancel()
+        except asyncio.CancelledError:
+            # a deadline watchdog's cancel, or the client went away
+            status = "cancelled"
+            deadline = getattr(ctx, "deadline", None)
+            if deadline is not None and deadline.expired():
+                status = "deadline_exceeded"
+            raise
+        except GeneratorExit:
+            # the stream was closed by its consumer: an ordinary cancel, not
+            # an error (keep "ok" when the close raced the final frame)
+            if status == "error":
+                status = "cancelled"
+            raise
         finally:
-            handle.cancel()
+            # one exit for every path: close the timeline (a frontend in
+            # this process may have closed it first)
+            timeline = (recorder.finish(rec_id, status)
+                        or recorder.get(rec_id))
+            dev_ms = (timeline.device.get("prefill_device_ms")
+                      if timeline is not None and not canary else None)
+            if dev_ms:
+                # the device-time TTFT: the prefill device window behind
+                # this request's first token
+                rt_metrics.TTFT_DEVICE_MS.labels(
+                    model=request.model).observe(dev_ms)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
     """The subset of the reference worker's CLI that this package serves
     (--model-ref stays refused: the model registry is not ported), plus
-    --prewarm and --device."""
+    --prewarm and --device. --dp is taken for its checks only: data
+    parallelism is not ported, so only 1 serves."""
     parser = argparse.ArgumentParser("dynamo_tpu_torch.worker",
                                      allow_abbrev=False)
     parser.add_argument("--model", default="tiny-test",
@@ -759,10 +937,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="the endpoints' component (a prefill worker's "
                              "default is prefill)")
     parser.add_argument("--mode", default="aggregated",
-                        choices=["aggregated", "prefill", "decode"],
+                        choices=["aggregated", "prefill", "decode", "comesh"],
                         help="aggregated, or one side of disaggregated "
                              "serving: prefill (a [PREFILL] card; answers "
-                             "kv_transfer_params) or decode")
+                             "kv_transfer_params) or decode; comesh runs a "
+                             "prefill pool AND a decode pool in this process "
+                             "on disjoint devices with the in-process KV "
+                             "bridge")
+    parser.add_argument("--prefill-devices", type=int, default=1,
+                        help="comesh: devices of the prefill pool")
+    parser.add_argument("--decode-devices", type=int, default=1,
+                        help="comesh: devices of the decode pool")
+    parser.add_argument("--dp", type=int, default=1)
     parser.add_argument("--page-size", type=int,
                         default=env("DYNT_KV_BLOCK_SIZE"))
     parser.add_argument("--num-pages", type=int, default=2048)
@@ -804,7 +990,31 @@ async def main(argv: Optional[list[str]] = None) -> None:
         raise SystemExit("--kv-dtype int8 supports aggregated serving; "
                          "disaggregated prefill/decode pools still require "
                          "kv-dtype=model")
+    if args.mode == "comesh":
+        if env("DYNT_SNAPSHOT_MODE") == "dump":
+            raise SystemExit(
+                "--mode comesh does not support snapshot-gated startup "
+                "(two engines, one dump point); unset DYNT_SNAPSHOT_MODE")
+        # the pools ARE the device split
+        if args.dp != 1:
+            raise SystemExit("--dp is not meaningful with --mode comesh; "
+                             "size the pools with --prefill-devices/"
+                             "--decode-devices")
+    elif args.dp != 1:
+        raise SystemExit("--dp > 1 is not ported: one engine a worker")
     device = resolve_device(args.device)  # no card: raise before building
+    if args.mode == "comesh":
+        # On the CPU the host stands in for every device a pool asks for.
+        try:
+            pools = split_devices(
+                args.prefill_devices, args.decode_devices,
+                devices=([device] * (args.prefill_devices
+                                     + args.decode_devices)
+                         if device.type == "cpu" else None))
+        except ValueError as exc:
+            raise SystemExit(str(exc)) from exc
+        await _comesh_main(args, pools)
+        return
     runtime = await DistributedRuntime(RuntimeConfig.from_env()).start()
     worker: Optional[TorchWorker] = None
     health: Optional[HealthCheckManager] = None
@@ -839,5 +1049,81 @@ async def main(argv: Optional[list[str]] = None) -> None:
         if health is not None:
             await health.close()
         if worker is not None:
+            await worker.shutdown()
+        await runtime.shutdown()
+
+
+async def _comesh_main(args, pools) -> None:
+    """Co-located disaggregation: one process, a prefill worker and a decode
+    worker on disjoint devices (`split_devices`), the prompt's pages handed
+    over through one IciKvBridge. A frontend orchestrates as with remote
+    pools; the bridge token in kv_transfer_params selects the device path.
+    POST /drain and SIGTERM vacate BOTH workers through one composed drain:
+    decode first (live streams hand off or replay), then prefill (its
+    transfers are being pulled), under ONE DYNT_DRAIN_DEADLINE_SECS budget."""
+    from ..runtime import DistributedRuntime, HealthCheckManager, RuntimeConfig
+    from ..runtime.signals import wait_for_shutdown_signal
+    from .ici_transfer import IciKvBridge
+
+    (prefill_device,), (decode_device,) = pools
+    runtime = await DistributedRuntime(RuntimeConfig.from_env()).start()
+    bridge = IciKvBridge()
+    rc = RunnerConfig(page_size=args.page_size, num_pages=args.num_pages,
+                      max_batch=args.max_batch,
+                      max_pages_per_seq=args.max_pages_per_seq,
+                      weight_dtype=args.weight_dtype,
+                      kv_dtype=args.kv_dtype)
+    common = dict(model_path=args.model_path,
+                  served_name=args.served_model_name,
+                  namespace=args.namespace,
+                  tool_parser=args.tool_call_parser,
+                  reasoning_parser=args.reasoning_parser, ici_bridge=bridge)
+    workers: list[TorchWorker] = []
+    health: Optional[HealthCheckManager] = None
+    try:
+        for mode, component, device in (
+                ("prefill", "prefill", prefill_device),
+                ("decode", args.component, decode_device)):
+            # in a thread: loading a checkpoint takes seconds
+            worker = await asyncio.to_thread(
+                TorchWorker, args.model, rc, device=device, mode=mode,
+                component=component, **common)
+            workers.append(worker)
+            await asyncio.to_thread(worker.runner.prewarm if args.prewarm
+                                    else worker.runner.warmup)
+            worker.scheduler.start()
+        for worker in workers:
+            await worker.serve(runtime)
+        prefill_worker, decode_worker = workers
+
+        async def drain_both(reason: str = "control") -> dict:
+            budget = float(env("DYNT_DRAIN_DEADLINE_SECS"))
+            t0 = time.monotonic()
+            report: dict = {}
+            for label, w in (("decode", decode_worker),
+                             ("prefill", prefill_worker)):
+                try:
+                    report[label] = await w.drain(
+                        reason, deadline_secs=max(
+                            1.0, budget - (time.monotonic() - t0)))
+                except Exception:  # noqa: BLE001 — one worker's failed drain
+                    # must not skip the other's, or teardown
+                    log.exception("graceful drain failed (%s)", label)
+                    report[label] = {"error": "drain failed; see log"}
+            return report
+
+        # the workers' own registrations are last-wins: this one replaces
+        # them
+        if getattr(runtime, "status_server", None) is not None:
+            runtime.status_server.register_drain(drain_both)
+        health = HealthCheckManager(
+            runtime, canary_wait_time=env("DYNT_CANARY_WAIT_SECS"))
+        health.start()
+        await wait_for_shutdown_signal()
+        await drain_both("shutdown-signal")
+    finally:
+        if health is not None:
+            await health.close()
+        for worker in reversed(workers):
             await worker.shutdown()
         await runtime.shutdown()

@@ -11,7 +11,8 @@ frontend's pipeline is
 
 (`PrefillRouterEngine`, the disaggregated prefill leg, is in
 `llm/prefill_router.py`), and the request's end-to-end deadline travels
-down it to the request plane. Not ported yet: multimodal encoding, the
+down it to the request plane. Each replay and handoff goes on the request's
+flight-recorder timeline as a `migration` event. Not ported yet: multimodal encoding, the
 session tier, the LoRA instance filter, the gateway's instance pin and the
 otel spans.
 """
@@ -27,6 +28,7 @@ from typing import AsyncIterator, Optional
 from ..config import env
 from ..kv_router import KvScheduler, WorkerWithDpRank
 from ..kv_router.queue import QueuedRequest, SchedulerQueue
+from ..runtime.flight_recorder import get_recorder
 from ..runtime.metrics import DEADLINE_EXCEEDED
 from ..runtime.push_router import NoInstancesAvailable, PushRouter
 from ..runtime.request_plane import ConnectionLost
@@ -253,6 +255,10 @@ class Migration(TokenEngine):
                     # Re-dispatch the same request with the pull route as
                     # disaggregated_params: the destination pulls the
                     # source's pages and resumes, nothing re-prefilled.
+                    get_recorder().event(
+                        request.request_id, "migration", attempt=handoff_hops,
+                        cooperative=True, handoff=True,
+                        tokens_preserved=len(generated))
                     log.info("drain handoff for %s (hop %d, %d tokens "
                              "preserved, no re-prefill)", request.request_id,
                              handoff_hops, len(generated))
@@ -269,6 +275,14 @@ class Migration(TokenEngine):
                          "cooperative " if cooperative else "",
                          coop_attempts if cooperative else attempts,
                          len(generated))
+                # the replay marker on the timeline: the worker leg is
+                # replaced, its tokens preserved
+                get_recorder().event(request.request_id, "migration",
+                                     attempt=(coop_attempts if cooperative
+                                              else attempts),
+                                     cooperative=cooperative,
+                                     tokens_preserved=len(generated),
+                                     cause=str(exc))
                 sampling = type(request.sampling)(**{
                     **request.sampling.to_wire(), "max_tokens": remaining})
                 # replace keeps every other field (guided processors,

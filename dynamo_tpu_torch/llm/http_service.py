@@ -24,9 +24,14 @@ request whose budget is already spent, one whose budget cannot survive the
 estimated queue wait, and a tenant (`tenant` body field or
 `x-dynt-tenant-id` header) over its weighted fair share under contention.
 
+Every completion request opens a flight-recorder timeline
+(`runtime/flight_recorder.py`) backdated to its arrival, stamps its first
+token, and closes it with the outcome (ok, error, cancelled, shed,
+deadline_exceeded); with DYNT_DEBUG_ENDPOINTS the frontend also serves
+/debug/requests and /debug/profile, as the status server does.
+
 Not ported yet: embeddings, messages, responses, images and videos; the
-per-model busy-threshold routes; sessions; tracing, the flight recorder and
-audit.
+per-model busy-threshold routes; sessions; tracing and audit.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from ..runtime.admission import (
     check_tenant_admission,
     get_tenant_ledger,
 )
+from ..runtime.flight_recorder import current_request_id, get_recorder
 from ..runtime.http import (
     HTTPError,
     HttpServer,
@@ -59,7 +65,11 @@ from ..runtime.http import (
 from ..runtime.push_router import NoInstancesAvailable
 from ..runtime.request_plane import RemoteError
 from ..runtime.resilience import Deadline, DeadlineExceeded
-from ..runtime.status import metrics_response
+from ..runtime.status import (
+    debug_requests_response,
+    metrics_response,
+    profile_response,
+)
 from .chat_template import TemplateError
 from .manager import ModelEntry, ModelManager
 from .preprocessor import DeltaGenerator, RequestError
@@ -91,12 +101,14 @@ def _retry_after_header(secs: float) -> dict:
 class _LatencyObserver:
     """Per-request TTFT / ITL histograms, shared by the streaming and
     aggregate paths. A first token is one request drained from the model's
-    queue: the rate its wait estimate divides the backlog by."""
+    queue: the rate its wait estimate divides the backlog by. With a
+    request id, the first token is stamped on its timeline."""
 
-    def __init__(self, model: str,
-                 wait_estimator: QueueWaitEstimator) -> None:
+    def __init__(self, model: str, wait_estimator: QueueWaitEstimator,
+                 request_id: Optional[str] = None) -> None:
         self.model = model
         self.wait_estimator = wait_estimator
+        self.request_id = request_id
         self.start = time.monotonic()
         self.first_at: Optional[float] = None
         self.last_at: Optional[float] = None
@@ -109,6 +121,8 @@ class _LatencyObserver:
             self.first_at = now
             rt_metrics.TTFT_SECONDS.labels(model=self.model).observe(
                 now - self.start)
+            if self.request_id:
+                get_recorder().stamp(self.request_id, "first_token")
             self.wait_estimator.observe_drained(1)
         elif self.last_at is not None:
             rt_metrics.ITL_SECONDS.labels(model=self.model).observe(
@@ -256,6 +270,7 @@ class HttpService:
         return await self._completion_common(request, kind="completions")
 
     async def _completion_common(self, request: Request, kind: str):
+        received = time.time()
         try:
             body = request.json()
         except (ValueError, UnicodeDecodeError):
@@ -295,25 +310,45 @@ class HttpService:
             reasoning_parser=card.reasoning_parser)
         rt_metrics.INPUT_TOKENS.labels(model=model).observe(
             len(preprocessed.token_ids))
-        if body.get("stream", False):
-            return await self._stream_response(request, entry, preprocessed,
-                                               delta_gen, body)
-        return await self._aggregate_response(entry, preprocessed, delta_gen)
+        rid = preprocessed.request_id
+        current_request_id.set(rid)
+        # backdated to the handler's entry: tokenization precedes the id
+        get_recorder().start(rid, model=preprocessed.model,
+                             tenant=preprocessed.tenant, received=received)
+        try:
+            if body.get("stream", False):
+                return await self._stream_response(request, entry,
+                                                   preprocessed, delta_gen,
+                                                   body)
+            return await self._aggregate_response(entry, preprocessed,
+                                                  delta_gen)
+        except (ConnectionResetError, asyncio.CancelledError):
+            # a client going away is normal teardown (a no-op when the
+            # response path closed the timeline already)
+            get_recorder().finish(rid, "cancelled")
+            raise
+        except BaseException:
+            get_recorder().finish(rid, "error")
+            raise
 
-    def _count_request(self, model: str, status: str, start: float) -> None:
+    def _count_request(self, model: str, status: str, start: float,
+                       request_id: str) -> None:
         """Frontend request counter + duration (ref: http/service/metrics.rs
-        request counts feeding the Planner)."""
+        request counts feeding the Planner), and the timeline's close on
+        every outcome (a no-op when a more specific status closed it)."""
         labels = dict(namespace="http", component="frontend", endpoint=model)
         rt_metrics.REQUESTS_TOTAL.labels(status=status, **labels).inc()
         rt_metrics.REQUEST_DURATION.labels(**labels).observe(
             max(0.0, time.monotonic() - start))
+        get_recorder().finish(request_id, status)
 
     async def _consume(self, entry: ModelEntry,
                        preprocessed: PreprocessedRequest,
                        delta_gen: DeltaGenerator) -> Optional[Response]:
         """Drive the engine stream to completion through `delta_gen`.
         Returns an error Response, or None on success."""
-        obs = _LatencyObserver(preprocessed.model, entry.wait_estimator)
+        obs = _LatencyObserver(preprocessed.model, entry.wait_estimator,
+                               preprocessed.request_id)
         try:
             async with contextlib.aclosing(
                     entry.engine.generate(preprocessed)) as stream:
@@ -331,11 +366,14 @@ class HttpService:
         except AdmissionRefused as exc:
             # A refusal from a downstream edge (the router queue), counted
             # where it was decided.
+            get_recorder().finish(preprocessed.request_id, "shed")
             return json_response(
                 _error_body(503, str(exc), "overloaded"), status=503,
                 headers=_retry_after_header(exc.retry_after_s))
         except DeadlineExceeded as exc:
             rt_metrics.DEADLINE_EXCEEDED.labels(component="frontend").inc()
+            get_recorder().finish(preprocessed.request_id,
+                                  "deadline_exceeded")
             return json_response(
                 _error_body(504, str(exc), "deadline_exceeded"), status=504)
         except RemoteError as exc:
@@ -358,7 +396,8 @@ class HttpService:
             status = "ok"
             return json_response(delta_gen.final_response())
         finally:
-            self._count_request(model, status, start)
+            self._count_request(model, status, start,
+                                preprocessed.request_id)
 
     async def _stream_response(self, request: Request, entry: ModelEntry,
                                preprocessed: PreprocessedRequest,
@@ -372,7 +411,8 @@ class HttpService:
         })
         await response.prepare(request)
         start = time.monotonic()
-        obs = _LatencyObserver(model, entry.wait_estimator)
+        obs = _LatencyObserver(model, entry.wait_estimator,
+                               preprocessed.request_id)
         include_usage = bool(
             (body.get("stream_options") or {}).get("include_usage", False))
         try:
@@ -402,11 +442,14 @@ class HttpService:
             await response.write(b"data: [DONE]\n\n")
         except AdmissionRefused as exc:
             # A refusal after the stream's headers went out: in-band.
+            get_recorder().finish(preprocessed.request_id, "shed")
             await response.write(
                 _sse(_error_body(503, str(exc), "overloaded")))
             await response.write(b"data: [DONE]\n\n")
         except DeadlineExceeded as exc:
             rt_metrics.DEADLINE_EXCEEDED.labels(component="frontend").inc()
+            get_recorder().finish(preprocessed.request_id,
+                                  "deadline_exceeded")
             await response.write(
                 _sse(_error_body(504, str(exc), "deadline_exceeded")))
             await response.write(b"data: [DONE]\n\n")
@@ -418,7 +461,8 @@ class HttpService:
             await response.write(b"data: [DONE]\n\n")
         except (ConnectionResetError, asyncio.CancelledError):
             # Client went away: the cancellation reaches the worker through
-            # the request plane.
+            # the request plane; the timeline closes as cancelled.
+            get_recorder().finish(preprocessed.request_id, "cancelled")
             log.info("client disconnected: %s", preprocessed.request_id)
             raise
         finally:
@@ -427,19 +471,31 @@ class HttpService:
             # finish_reason "error" is an in-band engine failure.
             status = ("ok" if delta_gen.finish_reason not in (None, "error")
                       else "error")
-            self._count_request(model, status, start)
+            self._count_request(model, status, start,
+                                preprocessed.request_id)
         await response.write_eof()
         return response
 
+    async def _debug_requests(self, request: Request) -> Response:
+        return debug_requests_response(request)
+
+    async def _debug_profile(self, request: Request) -> Response:
+        return await profile_response(request)
+
     async def start(self) -> None:
-        self._server = HttpServer({
+        routes = {
             ("POST", "/v1/chat/completions"): self._chat,
             ("POST", "/v1/completions"): self._completions,
             ("GET", "/v1/models"): self._models,
             ("GET", "/health"): self._health,
             ("GET", "/live"): self._health,
             ("GET", "/metrics"): self._metrics,
-        }, self.host, self.port)
+        }
+        if env("DYNT_DEBUG_ENDPOINTS"):
+            # they leak cross-request timelines: opt-in on the tenant port
+            routes[("GET", "/debug/requests")] = self._debug_requests
+            routes[("GET", "/debug/profile")] = self._debug_profile
+        self._server = HttpServer(routes, self.host, self.port)
         await self._server.start()
         self.port = self._server.port
         log.info("OpenAI frontend listening on %s:%d", self.host, self.port)

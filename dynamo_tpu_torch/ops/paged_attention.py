@@ -25,7 +25,10 @@ on the CPU.
 The kernel splits the history over the grid (flash-decoding): `split_plan`
 chooses, from host shapes only, the span of history tokens each block
 takes and the row tiles of the group; with more than one split a second
-kernel merges the splits' partials. `_merge_split_partials` is the plain
+kernel merges the splits' partials. The span is fixed (SPAN tokens, cut to
+whole tiles and pages), so a sequence's partials are summed in one order
+whatever the batch and the table width hold: a stream replayed or handed
+off into another batch decodes bit-equal. `_merge_split_partials` is the plain
 mirror of that split-and-merge, for the tests.
 
 Around them, as in the reference: `_combine_current` / `_combine_chunk`
@@ -64,11 +67,15 @@ from ._launch import (
 
 _KERNEL = "paged_decode_pool"
 # The kernel's tiling (csrc/paged_decode_pool.cu): history tokens per ring
-# stage (kTile), the most tokens one split takes (kMaxSpan), and the
-# blocks a launch aims for: 4 per SM of an H100's 132.
+# stage (kTile), the most tokens one split takes (kMaxSpan), and the tokens
+# a split takes: two tiles, whatever the batch and the table width. Of the
+# spans that decode bit-equal in any batch, 128 costs least over table
+# widths of 8-128 pages on an H100 (scripts/torch_decode_span.py; 256 is
+# 1.3-1.4x slower at 16-64 pages, and a one-tile span of 64 does not
+# decode bit-equal across batches).
 TILE = 64
 MAX_SPAN = 2048
-TARGET_BLOCKS = 4 * 132
+SPAN = 128
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -105,9 +112,10 @@ def split_plan(batch: int, kh: int, rows: int, max_pages: int,
                ps: int) -> SplitPlan:
     """The kernel's split plan, from host-known shapes only (never the
     lengths, so planning never waits for the card). A span is a whole
-    number of 64-token tiles and of pages, at most MAX_SPAN tokens: the
-    shortest that cuts the table's max_pages * ps tokens into no more
-    splits than it takes for the grid to reach TARGET_BLOCKS blocks."""
+    number of 64-token tiles and of pages: the most of them that fit in
+    SPAN tokens (at least one, at most MAX_SPAN tokens), set by the page
+    size alone, so a sequence's splits are the same in any batch and at any
+    table width; the splits cover the table's max_pages * ps tokens."""
     row_tile = 16 if rows <= 16 else 32
     row_tiles = -(-rows // row_tile)
     unit = TILE * ps // math.gcd(TILE, ps)
@@ -115,8 +123,7 @@ def split_plan(batch: int, kh: int, rows: int, max_pages: int,
         raise ValueError(f"page size {ps} does not tile into spans of at "
                          f"most {MAX_SPAN} tokens")
     units = -(-(max_pages * ps) // unit)
-    want = -(-TARGET_BLOCKS // (batch * kh * row_tiles))
-    per = max(1, min(-(-units // want), MAX_SPAN // unit))
+    per = max(1, min(SPAN, MAX_SPAN) // unit)
     n_split = -(-units // per)
     return SplitPlan(row_tile, row_tiles, per * unit, n_split,
                      (n_split, kh * row_tiles, batch))

@@ -18,7 +18,7 @@ import http
 import json
 import logging
 from typing import Any, Awaitable, Callable, Optional, Union
-from urllib.parse import urlsplit
+from urllib.parse import parse_qsl, urlsplit
 
 log = logging.getLogger("dynamo_tpu_torch.http")
 
@@ -31,7 +31,13 @@ class Request:
     def __init__(self, method: str, target: str, version: str,
                  headers: dict[str, str], conn: "_Conn") -> None:
         self.method = method
-        self.path = urlsplit(target).path
+        url = urlsplit(target)
+        self.path = url.path
+        # the query's parameters; a repeated name keeps its first value, as
+        # aiohttp's `request.query.get` reads it
+        self.query: dict[str, str] = {}
+        for name, value in parse_qsl(url.query, keep_blank_values=True):
+            self.query.setdefault(name, value)
         self.version = version
         self.headers = headers  # lower-case names
         self.body = b""

@@ -271,6 +271,50 @@ DISAGG_STREAMED_PAGES = Counter(
     "KV pages parked for transfer before their prompt finished "
     "prefilling (chunked disagg handoff; serial handoffs count 0 here)",
     ["worker"])
+# Device-time attribution (perf/steptrace.py): every scheduler step split
+# into host and device burn, the per-request device-time TTFT, and the live
+# roofline comparison against the analytical model (profiler/timing_model.py)
+STEP_DEVICE_MS = Histogram(
+    "dynamo_step_device_ms",
+    "Per-step device window (dispatch submitted -> drain complete) in "
+    "ms, by engine phase (decode / prefill / spec)",
+    ["phase"],
+    buckets=(0.05, 0.2, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
+             500.0, 2000.0))
+STEP_HOST_MS = Histogram(
+    "dynamo_step_host_ms",
+    "Per-step host residual (wall - device window) in ms, labelled by "
+    "the step's dominant device phase ('host' = no device work)",
+    ["phase"],
+    buckets=(0.05, 0.2, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
+             500.0, 2000.0))
+TTFT_DEVICE_MS = Histogram(
+    "dynamo_ttft_device_ms",
+    "Device-stream burn (ms) of the prefill phase behind each first "
+    "token \u2014 the device-time TTFT next to the host wall-clock "
+    "dynamo_time_to_first_token_seconds",
+    ["model"],
+    buckets=(1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 200.0, 400.0,
+             800.0, 1600.0, 3200.0, 6400.0, 12800.0))
+MFU_GAUGE = Gauge(
+    "dynamo_mfu",
+    "Achieved fraction of peak matmul FLOPs over the last metrics "
+    "interval (2 * params * tokens / device-time * peak), from the "
+    "live step decomposition and the model geometry",
+    ["worker"])
+ROOFLINE_FRACTION = Gauge(
+    "dynamo_roofline_fraction",
+    "Ideal device time at the analytical roofline "
+    "(profiler/timing_model.py) for the interval's executed steps, "
+    "divided by the measured device time \u2014 1.0 means the engine runs "
+    "at the hardware ceiling",
+    ["worker"])
+HOST_BOUND = Gauge(
+    "dynamo_host_bound",
+    "Host-bound verdict: 1 once the per-step host residual has "
+    "exceeded the device window for 8 consecutive steps (scaling "
+    "chips will not move this pool's latency), else 0",
+    ["worker"])
 # Frontend service metrics that feed the Planner (ref: http/service/metrics.rs
 # TTFT/ITL histograms)
 TTFT_SECONDS = Histogram(

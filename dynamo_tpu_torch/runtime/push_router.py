@@ -12,7 +12,8 @@ per endpoint: closed -> open -> half-open single probe); discovery
 re-confirming an instance resets its breaker. A failure before the first
 output is retried on another instance after a decorrelated-jitter backoff
 (`RetryPolicy`), paid from a `RetryBudget` shared by this router, so a
-browned-out fleet degrades instead of drawing a retry storm. An end-to-end
+browned-out fleet degrades instead of drawing a retry storm; each retry (or
+its denial) goes on the request's flight-recorder timeline. An end-to-end
 `Deadline` is re-encoded onto every attempt's headers and bounds the whole
 loop. A watcher marks a vacating instance as draining (`set_draining`): no
 mode but direct selects it until its discovery record is deleted.
@@ -28,6 +29,7 @@ import random
 from typing import Any, AsyncIterator, Awaitable, Callable, Optional
 
 from .component import Client
+from .flight_recorder import get_recorder
 from .metrics import RETRIES_TOTAL
 from .request_plane import ConnectionLost, EndpointNotFound
 from .resilience import (
@@ -213,10 +215,15 @@ class PushRouter:
                 if not self.budget.try_spend():
                     RETRIES_TOTAL.labels(endpoint=subject,
                                          outcome="denied").inc()
+                    get_recorder().event(None, "retry_denied",
+                                         endpoint=subject)
                     log.warning("retry budget exhausted for %s", subject)
                     raise
                 RETRIES_TOTAL.labels(endpoint=subject,
                                      outcome="allowed").inc()
+                # on the request's timeline (the task's current request id)
+                get_recorder().event(None, "retry", endpoint=subject,
+                                     instance=f"{iid:x}", attempt=attempts)
                 prev_delay = self.policy.next_delay(prev_delay)
                 delay = prev_delay
                 if deadline is not None:

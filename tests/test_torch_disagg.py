@@ -23,9 +23,7 @@ goes when its last card goes and the frontend serves aggregated again.
 """
 
 import asyncio
-import contextlib
 import dataclasses
-import io
 import threading
 import time
 
@@ -497,10 +495,24 @@ def test_card_and_cli_modes():
         TorchWorker(CFG, RunnerConfig(**RUNNER), device="cpu", mode="comesh")
     args = build_arg_parser().parse_args(["--mode", "prefill"])
     assert (args.mode, args.component) == ("prefill", "backend")
-    with contextlib.redirect_stderr(io.StringIO()), \
-            pytest.raises(SystemExit):
-        build_arg_parser().parse_args(["--mode", "comesh"])
-    # an int8 pool serves aggregated only, as the reference's CLI says
-    with pytest.raises(SystemExit, match="kv-dtype"):
-        asyncio.run(main(["--mode", "decode", "--kv-dtype", "int8",
+    # comesh is one process holding both pools (engine/ici_transfer.py),
+    # one device each by default; its checks are the reference's
+    args = build_arg_parser().parse_args(["--mode", "comesh"])
+    assert (args.mode, args.prefill_devices, args.decode_devices,
+            args.dp) == ("comesh", 1, 1, 1)
+    with pytest.raises(SystemExit, match="--dp is not meaningful"):
+        asyncio.run(main(["--mode", "comesh", "--dp", "2",
                           "--device", "cpu"]))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DYNT_SNAPSHOT_MODE", "dump")
+        with pytest.raises(SystemExit, match="snapshot-gated"):
+            asyncio.run(main(["--mode", "comesh", "--device", "cpu"]))
+    # a pool of two devices would be tensor parallel: not ported
+    with pytest.raises(SystemExit, match="tensor parallelism"):
+        asyncio.run(main(["--mode", "comesh", "--prefill-devices", "2",
+                          "--device", "cpu"]))
+    # an int8 pool serves aggregated only, as the reference's CLI says
+    for mode in ("decode", "comesh"):
+        with pytest.raises(SystemExit, match="kv-dtype"):
+            asyncio.run(main(["--mode", mode, "--kv-dtype", "int8",
+                              "--device", "cpu"]))

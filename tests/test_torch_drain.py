@@ -610,6 +610,16 @@ async def _handoff_round(tmp_path, make_workers, source: int):
         draining = asyncio.ensure_future(src.drain("test"))
         try:
             await _until(lambda: control.qsize() > 0, "the sweep queued")
+            # The handoffs are re-dispatched by the frontend, which must
+            # have seen the source's draining card by then, or one can go
+            # back to the source, bounce and take the replay rung. The
+            # settle tick does not cover it here: a JAX source's
+            # LoadMetrics go to its own runtime's event plane, so only the
+            # card's republish (file discovery, polled every 0.25 s)
+            # reaches a port frontend.
+            await _until(lambda: src.instance_id
+                         not in entry.router.available(),
+                         "the frontend saw the source draining")
         finally:
             gate.set()
         report = await draining

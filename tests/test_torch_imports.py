@@ -75,6 +75,13 @@ DISAGG_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
     "engine.drain"))
 
 
+# Modules of the co-located disaggregation and observability slice: each
+# must be among the checked sources and import cleanly on its own.
+OBSERVABILITY_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
+    "engine.ici_transfer", "perf", "perf.steptrace", "profiler",
+    "profiler.chips", "profiler.timing_model", "runtime.flight_recorder"))
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "scripts" /
@@ -124,6 +131,14 @@ def test_sources_cover_the_disagg_modules():
         assert ROOT / (module.replace(".", "/") + ".py") in files
 
 
+def test_sources_cover_the_observability_modules():
+    files = set(_sources())
+    for module in OBSERVABILITY_MODULES:
+        path = ROOT / module.replace(".", "/")
+        assert (path.with_suffix(".py") in files
+                or path / "__init__.py" in files), module
+
+
 def test_sources_cover_the_logits_modules():
     files = set(_sources())
     for module in LOGITS_MODULES:
@@ -134,7 +149,8 @@ def test_sources_cover_the_logits_modules():
 
 @pytest.mark.parametrize("module", SERVING_MODULES + KV_ROUTING_MODULES
                          + LOGITS_MODULES + CHECKPOINT_MODULES
-                         + RESILIENCE_MODULES + DISAGG_MODULES)
+                         + RESILIENCE_MODULES + DISAGG_MODULES
+                         + OBSERVABILITY_MODULES)
 def test_serving_module_imports_on_its_own(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -405,8 +405,10 @@ class _pool:
 
 def test_load_metrics_leave_the_steptrace_split_at_zero(fleet):
     """The worker's LoadMetrics are the reference's fields from its pool and
-    scheduler; the device / host split of a step stays 0 (the reference's
-    steptrace is not ported)."""
+    scheduler. The device / host split of a step is the last committed
+    step's (perf/steptrace.py, as the reference's `_load_metrics` fills it):
+    it sums to that step's wall, and it stays at zero until a step
+    commits."""
     w = fleet["workers"][1]
     m = w._load_metrics()
     pool = w.scheduler.pool
@@ -415,8 +417,18 @@ def test_load_metrics_leave_the_steptrace_split_at_zero(fleet):
     assert m.kv_usage == pool.usage()
     assert (m.active_requests, m.waiting_requests) == (0, 0)
     assert m.step_wall_ms > 0 and m.decode_tokens_in_step >= 0
-    assert (m.device_ms_in_step, m.host_ms_in_step, m.draining) == (
-        0.0, 0.0, False)
+    last = w.scheduler.steptrace.last
+    assert (m.device_ms_in_step, m.host_ms_in_step) == (last.device_ms,
+                                                        last.host_ms)
+    assert m.device_ms_in_step > 0 and m.host_ms_in_step >= 0
+    assert m.device_ms_in_step + m.host_ms_in_step == pytest.approx(
+        m.step_wall_ms, rel=1e-9)
+    assert m.draining is False
+    fresh = TorchWorker(CFG, RunnerConfig(**RUNNER), device="cpu",
+                        params=w.runner.model)
+    m = fresh._load_metrics()
+    assert (m.device_ms_in_step, m.host_ms_in_step, m.step_wall_ms) == (
+        0.0, 0.0, 0.0)
     entry = fleet["frontends"]["kv"].manager.get(MODEL)
     assert set(entry.worker_usage) == {x.instance_id
                                        for x in fleet["workers"]}

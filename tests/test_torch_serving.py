@@ -563,17 +563,23 @@ def test_worker_and_frontend_mains_start_and_stop(run, tmp_path,
 
 def test_cli_refuses_what_is_not_ported():
     from dynamo_tpu_torch.engine.worker import build_arg_parser as worker_cli
+    from dynamo_tpu_torch.engine.worker import main as worker_main
     from dynamo_tpu_torch.frontend.service import build_arg_parser
 
     for argv in (["--router-mode", "least_loaded"], ["--namespace", "g"],
                  ["--audit-sinks", "log"], ["--kserve-grpc-port", "1"]):
         with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
             build_arg_parser().parse_args(argv)
-    for argv in (["--mode", "comesh"], ["--max-loras", "2"],
+    for argv in (["--mode", "gang"], ["--max-loras", "2"],
                  ["--tp", "2"], ["--kv-dtype", "fp8"],
                  ["--model-ref", "ns/model"]):
         with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
             worker_cli().parse_args(argv)
+    # --mode comesh is served (engine/ici_transfer.py); --dp only parses:
+    # data parallelism is refused when the worker starts
+    assert worker_cli().parse_args(["--mode", "comesh"]).mode == "comesh"
+    with pytest.raises(SystemExit, match="--dp > 1 is not ported"):
+        asyncio.run(worker_main(["--dp", "2", "--device", "cpu"]))
     assert worker_cli().parse_args([]).device == "cuda"
     args = worker_cli().parse_args(["--model-path", "/ckpt",
                                     "--served-model-name", "m"])

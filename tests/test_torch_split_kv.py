@@ -86,13 +86,17 @@ def test_plan_tiles_the_table_and_fills_the_card(batch, kh, rows, max_pages,
     assert plan.row_tile * plan.row_tiles >= rows
     assert plan.row_tile * (plan.row_tiles - 1) < rows
     assert plan.grid == (plan.n_split, kh * plan.row_tiles, batch)
-    # the shortest span (in units) that cuts the table into at most the
-    # splits the target block count asks for, unless capped at MAX_SPAN
-    want = -(-tpa.TARGET_BLOCKS // (batch * kh * plan.row_tiles))
-    units, per = -(-ctx // unit), plan.span // unit
-    if plan.span + unit <= tpa.MAX_SPAN:
-        assert plan.n_split <= want
-    assert per == 1 or -(-units // (per - 1)) > want
+    # the span is the page size's alone: the most units in SPAN tokens (at
+    # least one), the same in every batch and at every table width, so a
+    # sequence's splits never depend on its neighbours; the card fills
+    # through batch x kv heads x splits (2,048 blocks at the engine's 16
+    # slots, 8 kv heads and 128-page tables)
+    assert plan.span == max(1, tpa.SPAN // unit) * unit
+    for other_batch, other_pages in ((1, max_pages), (batch + 7, 2 * max_pages)):
+        other = tpa.split_plan(other_batch, kh, rows, other_pages, ps)
+        assert other.span == plan.span
+    engine = tpa.split_plan(16, 8, 4, 128, 16)
+    assert np.prod(engine.grid) == 2048
 
 
 def test_plan_is_made_from_shapes_alone():
@@ -180,8 +184,10 @@ def test_merged_partials_match_pallas_interpret(dtype, quantized):
         jnp.asarray(case[3]), kv_scales=j_scales, interpret=True)
     q = torch.from_numpy(case[0][:, 0]).to(tdt)
     lens = torch.from_numpy(case[3])
-    plan = tpa.split_plan(q.shape[0], 2, 4, MAX_PAGES, PS)
-    assert plan.n_split == 4  # one 64-token span per split
+    # four splits of one 64-token unit each: the kernel's own plan takes
+    # this 256-token table in two spans
+    plan = _plan(64, q.shape[0], 2, 4)
+    assert plan.n_split == 4
     acc, m, l = tpa._merge_split_partials(q, k, v, torch.from_numpy(case[2]),
                                           lens, plan, ks, vs)
     live = (lens > 0).numpy()
