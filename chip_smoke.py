@@ -123,6 +123,14 @@ Phases, each printing one JSON line:
               parting token of each against batch 1 / width 32 (the port's
               plan must give equal logits in all four); rows 1 and 2 timed
               with each plan at the engine's shapes
+  kvbm_bf16 - the KVBM tiers on the bf16 path: a TorchWorker on the engine
+              worker's weights with G2 = 32 pinned blocks over a G4
+              directory (2 MiB bf16 blocks); one 1,039-token greedy prompt
+              served cold, again with G1 intact, and again after G1 is
+              cleared: it onboards its 64 blocks (mostly G4 `.npy` blobs of
+              2-byte words, which the reference's G4 cannot read back); the
+              onboarded stream equals the G1 hit's token for token and the
+              cold one up to a near-tie; row 1 counted
   unified   - the same traffic through TorchWorker(attention_fn=
               paged_attention), the reference's unified path: row 3 = 32 x
               decode forwards, row 1 = 0; then greedy parity against the
@@ -182,8 +190,7 @@ Phases, each printing one JSON line:
               lag and the event plane's CPU share; rows 2 and 6 counted;
               wave 2's prefill tokens exactly its suffixes' (kv) and 4
               prefixes more (round_robin), its TTFT for cache hits and
-              misses, each wave's batched prefill dispatches; run three
-              times
+              misses, each wave's batched prefill dispatches
   resilience - migration, deadlines and admission at full width: a second
               mistral-7b W4A16 worker on the first's weights, each prewarmed
               on its own port runtime with a HealthCheckManager, a port
@@ -217,6 +224,22 @@ Phases, each printing one JSON line:
               stall and bytes, and each stream against the same request
               served undrained on A (greedy ones part only at a near-tie);
               rows 2 and 6 counted
+  kvbm      - the KVBM tiers at full width: a mistral-7b W4A16 + int8 KV
+              TorchWorker on the engine's weights with G2 128 pinned blocks,
+              G3 64 in a file and a G4 directory (1,310,720 B packed blocks),
+              prewarmed; 8 greedy requests over 4 shared 1,024-token
+              prefixes (32 out) in three waves admitted whole: cold (the
+              prompt blocks offload, G2 -> G3 -> G4; then flush), G1 hits,
+              and G1 cleared (wave 2 onboards from the tiers). Every wave-2
+              stream equals its G1-hit stream token for token and its
+              wave-1 stream up to a near-tie; wave 2 computes >= 16 x
+              onboarded blocks fewer prefill tokens; G2 and G3 or G4 hits;
+              nothing dropped. Prints the offload's blocks and GB/s (D2H,
+              tier sinks, drain to flush), dropped, deferred seconds, hits
+              by tier, prefill tokens and TTFT per wave, onboard ms a
+              request; then ITL of 8 decode streams beside a 256-block
+              offload backlog, KVBM on and off in turns; rows 2 and 6
+              counted
   spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
               KV: a runner of 8 slots, all live, 5 positions each (the int8
               pool kernel folded, the q4 v2 kernel at M = 8 x 5 = 40),
@@ -258,6 +281,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -265,7 +289,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HANG_S = 1100  # the whole run's watchdog (it takes 550-600 s)
+HANG_S = 1100  # the whole run's watchdog (it takes 600-700 s)
 MODEL = "llama3-8b"
 QMODEL = "mistral-7b"
 SEED = 0
@@ -354,13 +378,99 @@ KERNELS = {
 }
 
 
+_LAST_EMIT = ["start", time.perf_counter()]  # the hang report's landmark
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+    _LAST_EMIT[:] = [phase, time.perf_counter()]
+
+
+def _await_chain(coro) -> list:
+    """`name:line` of each coroutine or async generator a suspended task
+    awaits, outermost first (a task's own stack shows only its top)."""
+    chain = []
+    while coro is not None and len(chain) < 24:
+        frame = getattr(coro, "cr_frame", None) or getattr(
+            coro, "ag_frame", None) or getattr(coro, "gi_frame", None)
+        if frame is not None:
+            chain.append(f"{frame.f_code.co_name}:{frame.f_lineno}")
+        nxt = (getattr(coro, "cr_await", None)
+               or getattr(coro, "ag_await", None)
+               or getattr(coro, "gi_yieldfrom", None))
+        if nxt is None and frame is None:
+            # an `async for` step (async_generator_asend) hides its
+            # generator: find it among the step's references
+            nxt = next((r for r in gc.get_referents(coro)
+                        if hasattr(r, "ag_frame")), None)
+        coro = nxt
+    return chain
+
+
+def hang_report(after_s: float) -> None:
+    """Every thread's stack (faulthandler), then, so that they end standard
+    error: each pending asyncio task's await chain and the stacks of the
+    threads that are not idle pool workers, the main thread's last."""
+    err = sys.stderr
+    since = time.perf_counter() - _LAST_EMIT[1]
+    err.write(f"chip_smoke: HANG: {after_s:.0f} s in, {since:.0f} s after "
+              f"the '{_LAST_EMIT[0]}' line\n")
+    faulthandler.dump_traceback(file=err, all_threads=True)
+    try:
+        tasks = (list(asyncio.tasks._scheduled_tasks)
+                 + list(asyncio.tasks._eager_tasks))
+        for task in tasks:
+            if not task.done():
+                err.write(f"task {task.get_name()}: "
+                          f"{' > '.join(_await_chain(task.get_coro()))}\n")
+    except Exception as e:  # noqa: BLE001 — a report, not a check
+        err.write(f"(tasks unreadable: {e!r})\n")
+    frames = sys._current_frames()
+    idle, main_id = 0, threading.main_thread().ident
+    for th in sorted(threading.enumerate(), key=lambda t: t.ident == main_id):
+        frame = frames.get(th.ident)
+        if frame is None or th is threading.current_thread():
+            continue
+        stack = []
+        while frame is not None:
+            stack.append(f"{Path(frame.f_code.co_filename).name}:"
+                         f"{frame.f_lineno} {frame.f_code.co_name}")
+            frame = frame.f_back
+        if stack[0].startswith("thread.py:") and stack[0].endswith(" _worker"):
+            idle += 1
+            continue
+        err.write(f"thread {th.name}: {' < '.join(stack[:8])}\n")
+    err.write(f"({idle} idle pool threads)\n")
+    err.flush()
+
+
+def _arm_watchdog(seconds: float) -> threading.Event:
+    """After `seconds` without `.set()` on the returned event: the hang
+    report, then exit 1. faulthandler stays armed 40 s later in case the
+    report itself cannot run (a thread holding the GIL)."""
+    done = threading.Event()
+    t0 = time.perf_counter()
+
+    def watch() -> None:
+        if done.wait(seconds):
+            return
+        try:
+            hang_report(time.perf_counter() - t0)
+        finally:
+            os._exit(1)
+
+    threading.Thread(target=watch, name="chip_smoke-watchdog",
+                     daemon=True).start()
+    faulthandler.dump_traceback_later(seconds + 40, exit=True)
+    return done
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
-        raise SystemExit(f"chip_smoke: FAILED: {what}")
+        # said at once: a phase's clean-up can still wait for good
+        msg = f"chip_smoke: FAILED: {what}"
+        print(msg, file=sys.stderr, flush=True)
+        raise SystemExit(msg)
 
 
 @contextlib.contextmanager
@@ -989,16 +1099,18 @@ def phase_gemms(dev: torch.device) -> list:
 
 async def _stream(worker, body: dict) -> dict:
     t0 = time.perf_counter()
-    tokens, stamps, finish = [], [], []
+    tokens, stamps, counts, finish = [], [], [], []
     async for frame in worker.generate(body):
         if frame.get("t"):
             tokens += frame["t"]
             stamps.append(time.perf_counter())
+            counts.append(len(frame["t"]))
         if "f" in frame:
             finish.append(frame["f"])
             if frame.get("err"):
                 raise SystemExit(f"chip_smoke: request failed: {frame['err']}")
-    return {"tokens": tokens, "finish": finish, "t0": t0, "stamps": stamps}
+    return {"tokens": tokens, "finish": finish, "t0": t0, "stamps": stamps,
+            "counts": counts}
 
 
 async def _serve_wave(worker, bodies: list, hold: bool = False) -> list:
@@ -4394,7 +4506,7 @@ def phase_logits_q(dev: torch.device, worker) -> dict:
 
 KV_PREFIX = 1024  # tokens of each shared prefix (64 pages of 16)
 KV_OUT = 32  # output tokens of every request
-KV_RUNS = 3  # serve_kv runs, each with its own second worker and frontends
+KV_RUNS = 1  # serve_kv runs, each with its own second worker and frontends
 
 
 def kv_traffic(vocab: int) -> dict:
@@ -5850,7 +5962,422 @@ def phase_drain(dev: torch.device, worker_a, worker_b) -> dict:
     return out["launches"]
 
 
-def _kv_body(rid: str, prompt) -> dict:
+KVBM_PREFIX = 1024  # tokens of each shared prefix (64 blocks of 16)
+KVBM_G2, KVBM_G3 = 128, 64  # tier sizes in blocks (mistral-7b int8 leg)
+KVBM_BF16_G2 = 32  # the bf16 leg's G2 (its 64 prefix blocks spill to G4)
+KVBM_ITL_OUT = 256  # the ITL wave's decode tokens
+KVBM_ITL_PROMPT = 64  # its decode streams' prompts
+KVBM_BACKLOG_PROMPT = 512  # 8 requests of 32 blocks: a 256-block backlog
+KVBM_ITL_RUNS = 2  # turns of KVBM on / off
+
+
+def kvbm_traffic(vocab: int) -> list:
+    """8 prompts over 4 shared KVBM_PREFIX-token prefixes (0, 0, 1, 1, ...)
+    with distinct 32-128-token suffixes, none a multiple of 16 (so the G1
+    hit and the KVBM onboard leave the same tail to compute)."""
+    rng = np.random.default_rng(SEED + 23)
+    prefixes = [rng.integers(1, vocab, KVBM_PREFIX) for _ in range(4)]
+    out = []
+    for i in (0, 0, 1, 1, 2, 2, 3, 3):
+        n = int(rng.integers(32, 129))
+        n += n % 16 == 0
+        out.append([int(t) for t in np.concatenate(
+            [prefixes[i], rng.integers(1, vocab, n)])])
+    return out
+
+
+def _hold_scheduler(worker) -> threading.Event:
+    """Hold `worker`'s running scheduler between steps until the returned
+    event is set, so requests submitted meanwhile are admitted in one
+    iteration."""
+    started, gate = threading.Event(), threading.Event()
+
+    def hold():
+        started.set()
+        gate.wait(60.0)
+
+    worker.scheduler.run_in_step(hold)
+    check(started.wait(60.0), "kvbm: the scheduler never reached the gate")
+    return gate
+
+
+async def _gated_wave(worker, bodies: list) -> list:
+    """Stream `bodies` through a running scheduler, admitted whole."""
+    gate = _hold_scheduler(worker)
+    tasks = [asyncio.ensure_future(_stream(worker, b)) for b in bodies]
+    await asyncio.sleep(0)  # each generate() has submitted its request
+    gate.set()
+    return await asyncio.gather(*tasks)
+
+
+def _kvbm_streams_check(label: str, plain, prompts, got: list, want: list,
+                        exact: list) -> dict:
+    """Every stream of `got` equals `exact`'s token for token (the same
+    computed tail over the same KV bytes), and `want`'s, or parts from it
+    only at a near-tie (a recomputed tail of another chunk shape; the gap
+    is read on `plain`, a runner on the same weights)."""
+    out = {"equal_to_reference_run": 0, "near_ties": []}
+    for i, (g, w, e) in enumerate(zip(got, want, exact)):
+        check(g["tokens"] == e["tokens"],
+              f"{label}: stream {i} differs from the same prompt's G1-hit "
+              f"stream at token {_first_divergence(g['tokens'], e['tokens'])}")
+        d = _first_divergence(w["tokens"], g["tokens"])
+        if d == len(w["tokens"]):
+            out["equal_to_reference_run"] += 1
+            continue
+        gap = _near_tie_gap(plain, prompts[i] + w["tokens"][:d],
+                            w["tokens"][d], g["tokens"][d])
+        check(gap <= NEAR_TIE_NATS,
+              f"{label}: stream {i} parts from the cold stream at token {d}, "
+              f"{gap:.3f} nats below the top (not a near-tie, <= "
+              f"{NEAR_TIE_NATS})")
+        out["near_ties"].append({"stream": i, "at": d, "gap_nats": gap})
+    return out
+
+
+def _onload_events(rids: list) -> list:
+    from dynamo_tpu_torch.runtime.flight_recorder import get_recorder
+
+    out = []
+    for rid in rids:
+        tl = get_recorder().get(rid)
+        check(tl is not None, f"kvbm: no timeline for {rid}")
+        events = [e for e in tl.events if e["event"] == "kvbm_onload"]
+        out.append(events[0] if events else None)
+    return out
+
+
+async def _itl_wave(worker, run: int, kvbm) -> dict:
+    """8 decode streams (KVBM_ITL_PROMPT tokens, KVBM_ITL_OUT out) and 8
+    one-token requests of KVBM_BACKLOG_PROMPT tokens, admitted together:
+    the one-token requests release their 256 prompt blocks into the
+    offload queue after their prefill, and the decode streams' ITL is read
+    over their frames after that moment."""
+    vocab = worker.model_config.vocab_size
+    rng = np.random.default_rng(SEED + 29 + run)
+    decode = [_kv_body(f"itl{run}-{i}", rng.integers(1, vocab,
+                                                     KVBM_ITL_PROMPT),
+                       KVBM_ITL_OUT) for i in range(8)]
+    backlog = [_kv_body(f"bl{run}-{i}", rng.integers(
+        1, vocab, KVBM_BACKLOG_PROMPT), 1) for i in range(8)]
+    gate = _hold_scheduler(worker)
+    d_tasks = [asyncio.ensure_future(_stream(worker, b)) for b in decode]
+    b_tasks = [asyncio.ensure_future(_stream(worker, b)) for b in backlog]
+    await asyncio.sleep(0)
+    gate.set()
+    await asyncio.gather(*b_tasks)
+    t_backlog = time.perf_counter()
+    depth = kvbm.offload.queue_depth() if kvbm is not None else None
+    sunk = kvbm.offload.sunk_bytes if kvbm is not None else None
+    results = await asyncio.gather(*d_tasks)
+    itl = []
+    for r in results:
+        after = [(t, n) for t, n in zip(r["stamps"], r["counts"])
+                 if t >= t_backlog]
+        if len(after) >= 2:
+            itl.append((after[-1][0] - after[0][0]) * 1e3
+                       / sum(n for _, n in after[1:]))
+    # on the card the backlog's prefill ends long before the streams'
+    # decode does; on the CPU it may not
+    check(worker.device.type != "cuda" or len(itl) == len(results),
+          f"kvbm: only {len(itl)} streams decoded after the backlog queued")
+    out = {"itl_ms_mean": float(np.mean(itl)) if itl else None,
+           "streams_read": len(itl),
+           "tokens_after_backlog": float(np.mean([
+               sum(n for t, n in zip(r["stamps"], r["counts"])
+                   if t >= t_backlog) for r in results]))}
+    if kvbm is not None:
+        out.update(backlog_blocks=depth,
+                   queue_after_blocks=kvbm.offload.queue_depth(),
+                   sunk_during_MB=(kvbm.offload.sunk_bytes - sunk) / 1e6)
+    return out
+
+
+def phase_kvbm(dev: torch.device, worker) -> dict:
+    """The KVBM tiers at full width on mistral-7b W4A16 + int8 KV: a
+    TorchWorker with a KvbmConfig (G2 KVBM_G2 = 128 pinned host blocks, G3
+    KVBM_G3 = 64 blocks in a file, a G4 directory, all under a temporary
+    directory removed at the end) on `worker`'s weight tensors, prewarmed.
+    A tier block is 1,310,720 B (packed int8 values + 128-lane bf16
+    scales).
+
+    Wave 1: 8 greedy requests over 4 shared 1,024-token prefixes with
+    distinct 32-128-token suffixes, 32 out, admitted in one iteration;
+    their prompt blocks offload (G2, cascading to G3, then G4) and the
+    phase waits for `flush`. Then the same 8 again with G1 intact (the G1
+    hits), then G1 cleared (`run_in_step(pool.clear)`) and the same 8 again
+    (wave 2): they onboard from the tiers.
+
+    Checks: every wave-2 stream equals the G1-hit stream token for token
+    (the same tail computed over the same KV bytes) and its wave-1 stream,
+    or parts from it only at a near-tie (wave 1 computed the tail in
+    another chunk shape); wave 2 computes >= 16 x onboarded blocks fewer
+    prefill tokens than wave 1; G2 and G3 or G4 report hits; nothing was
+    dropped. Printed: the offload's blocks, bytes and rates (the D2H copies
+    and the tier sinks on the offload thread; the drain from wave 1's end to
+    flush), dropped and deferred seconds, hits by tier, prefill tokens,
+    TTFT per wave and onboard ms per request (`kvbm_onload` events).
+
+    Then the offload's cost to decode: 8 decode streams beside 8 one-token
+    requests whose 256 prompt blocks queue for offload, ITL read after the
+    backlog is queued; KVBM on (this worker, default DYNT_OFFLOAD_BW_FRAC)
+    and off (`worker`, a new scheduler) in turns, KVBM_ITL_RUNS each; no
+    limit. Rows 2 and 6 launch once per layer (projection) of every forward
+    of both runners. Returns the phase's launches."""
+    import tempfile
+
+    from dynamo_tpu_torch.block_manager import KvbmConfig
+    from dynamo_tpu_torch.config import env
+    from dynamo_tpu_torch.engine import InferenceScheduler, TorchWorker
+    from dynamo_tpu_torch.runtime.metrics import KVBM_OFFLOAD_DEFERRED
+
+    label = "kvbm"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dynamo_kvbm_")
+    kw = None
+    try:
+        kw = TorchWorker(
+            worker.model_config, worker.runner_config, device=dev,
+            params=worker.runner.model,
+            kvbm_config=KvbmConfig(
+                host_blocks=KVBM_G2, disk_blocks=KVBM_G3,
+                disk_path=os.path.join(root, "g3.bin"),
+                object_store_root=os.path.join(root, "g4")))
+        mgr = kw.kvbm
+        cfg = kw.model_config
+        # int8 values, then one bf16 scale per token over 128 lanes
+        # (1,310,720 B for mistral-7b)
+        ps = kw.runner_config.page_size
+        block = cfg.n_layers * 2 * ps * (cfg.n_kv_heads * cfg.head_dim
+                                         + 128 * 2)
+        check(mgr.layout.block_bytes() == block
+              and mgr.host.arena.pinned == (dev.type == "cuda"),
+              f"{label}: block of {mgr.layout.block_bytes()} B, pinned "
+              f"{mgr.host.arena.pinned}")
+        t0 = time.perf_counter()
+        kw.runner.prewarm()
+        prewarm_s = time.perf_counter() - t0
+        kw.scheduler.start()
+        prompts = kvbm_traffic(kw.model_config.vocab_size)
+        stats = kw.scheduler.stats
+        deferred0 = KVBM_OFFLOAD_DEFERRED.labels().get()
+        reset_counts()
+        reset_runner_counts(kw.runner)
+        reset_runner_counts(worker.runner)
+
+        def wave(prefix: str) -> tuple:
+            before = stats.prefill_tokens
+            results = asyncio.run(_gated_wave(kw, [
+                _kv_body(f"{prefix}-{i}", p)
+                for i, p in enumerate(prompts)]))
+            return results, stats.prefill_tokens - before
+
+        w1, prefill_w1 = wave("w1")
+        t_end = max(r["stamps"][-1] for r in w1)
+        check(mgr.flush(120.0), f"{label}: the offload did not drain")
+        drain_s = time.perf_counter() - t_end
+        off = mgr.offload
+        offload = {
+            "offloaded_blocks": mgr.stats.offloaded,
+            "sunk_GB": off.sunk_bytes / 1e9,
+            "copy_GB_per_s": off.sunk_bytes / max(off.copy_seconds, 1e-9)
+            / 1e9,
+            "sink_GB_per_s": off.sunk_bytes / max(off.sink_seconds, 1e-9)
+            / 1e9,
+            "drain_s": drain_s, "drain_GB_per_s": off.sunk_bytes / drain_s
+            / 1e9,
+            "dropped": off.dropped,
+            "deferred_s": KVBM_OFFLOAD_DEFERRED.labels().get() - deferred0,
+            "usage": mgr.usage()}
+        hits, prefill_hits = wave("g1")
+        kw.scheduler.run_in_step(kw.scheduler.pool.clear).get(timeout=60.0)
+        onboarded0 = stats.kvbm_onboarded_blocks
+        w2, prefill_w2 = wave("w2")
+        onboarded = stats.kvbm_onboarded_blocks - onboarded0
+        onloads = _onload_events([f"w2-{i}" for i in range(len(prompts))])
+        tier_hits = {"host": mgr.stats.onboard_hits_host,
+                     "disk": mgr.stats.onboard_hits_disk,
+                     "object": mgr.stats.onboard_hits_object}
+        check(onboarded > 0 and all(e is not None for e in onloads),
+              f"{label}: wave 2 onboarded {onboarded} blocks, events "
+              f"{onloads}")
+        check(prefill_w1 - prefill_w2 >= ps * onboarded,
+              f"{label}: wave 2 computed {prefill_w2} prefill tokens against "
+              f"wave 1's {prefill_w1}, {onboarded} blocks onboarded")
+        check(tier_hits["host"] > 0
+              and tier_hits["disk"] + tier_hits["object"] > 0,
+              f"{label}: onboard hits by tier {tier_hits}")
+        check(off.dropped == 0 and mgr.object_store.corrupt_reads == 0,
+              f"{label}: dropped {off.dropped}, corrupt G4 reads "
+              f"{mgr.object_store.corrupt_reads}")
+
+        # the offload's cost to decode: KVBM on and off in turns
+        itl = {"on": [], "off": []}
+        for run in range(2 * KVBM_ITL_RUNS):
+            if run % 2 == 0:
+                check(mgr.flush(120.0), f"{label}: the offload did not drain")
+                itl["on"].append(asyncio.run(_itl_wave(kw, run // 2, mgr)))
+                check(itl["on"][-1]["backlog_blocks"] >= 128,
+                      f"{label}: a backlog of only "
+                      f"{itl['on'][-1]['backlog_blocks']} blocks")
+            else:
+                worker.scheduler.stop()
+                worker.scheduler = InferenceScheduler(worker.runner)
+                worker.scheduler.start()
+                try:
+                    itl["off"].append(asyncio.run(
+                        _itl_wave(worker, run // 2, None)))
+                finally:
+                    worker.scheduler.stop()
+        check(mgr.flush(120.0), f"{label}: the offload did not drain")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = read_counts()
+        want = {}
+        for r in (kw.runner, worker.runner):
+            for name, n in expected_counts(
+                    r, dev, decode=r.decode_steps, prefill=r.prefill_steps,
+                    warm=r.graph_warm_forwards).items():
+                want[name] = want.get(name, 0) + n
+        check(launches == want and (dev.type != "cuda" or (
+            launches["q4_matmul_v2"] > 0
+            and launches["paged_decode_attention_pool_int8"] > 0)),
+              f"{label}: kernel launches {launches} != expected {want}")
+        check_graphed(kw.runner, label)
+        forwards = {"kvbm": launched_forwards(kw.runner)
+                    | {"prefill": kw.runner.prefill_steps},
+                    "plain": launched_forwards(worker.runner)
+                    | {"prefill": worker.runner.prefill_steps}}
+        kw.scheduler.stop()
+        # after the counted runs: the near-tie reads run eager forwards
+        streams = _kvbm_streams_check(label, worker, prompts, w2, w1, hits)
+        nvsmi = nvidia_smi() if dev.type == "cuda" else None
+        emit("kvbm_offload", model=kw.card.name, nvidia_smi=nvsmi,
+             block_bytes=mgr.layout.block_bytes(), g2_blocks=KVBM_G2,
+             g3_blocks=KVBM_G3, prewarm_s=prewarm_s, **offload)
+        emit("kvbm_onboard", onboarded_blocks=onboarded,
+             onboard_hits=tier_hits,
+             prefill_tokens={"wave1": prefill_w1, "g1_hits": prefill_hits,
+                             "wave2": prefill_w2},
+             prompt_tokens=sum(len(p) for p in prompts),
+             onboard_ms=[e["ms"] for e in onloads],
+             onboard_blocks=[e["blocks"] for e in onloads],
+             onboard_ms_mean=float(np.mean([e["ms"] for e in onloads])),
+             streams=streams, corrupt_g4_reads=mgr.object_store.corrupt_reads,
+             usage=mgr.usage())
+        emit("kvbm_ttft", nvidia_smi=nvsmi, wave1=_latency(w1),
+             wave2=_latency(w2), g1_hits=_latency(hits))
+        emit("kvbm_itl", nvidia_smi=nvsmi,
+             bw_frac=env("DYNT_OFFLOAD_BW_FRAC"),
+             on=itl["on"], off=itl["off"],
+             itl_ms_on=[r["itl_ms_mean"] for r in itl["on"]],
+             itl_ms_off=[r["itl_ms_mean"] for r in itl["off"]],
+             forwards=forwards, kernel_launches=launches,
+             seconds=time.perf_counter() - t_phase)
+        return launches
+    finally:
+        if kw is not None:
+            kw.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_kvbm_bf16(dev: torch.device, worker) -> dict:
+    """The KVBM tiers on the bf16 path (llama3-8b): a TorchWorker on
+    `worker`'s weight tensors with G2 = KVBM_BF16_G2 blocks over a G4
+    directory (no G3; 2 MiB bf16 blocks). One 1,024-token prefix with a
+    15-token suffix, greedy, 32 out: served cold, its 64 prompt blocks
+    offloaded (half spill from G2 to G4 as `.npy` blobs of 2-byte words),
+    served again with G1 intact (G1 hit), then G1 cleared and served again:
+    it onboards from G2 and G4. Checks: the onboarded stream equals the G1
+    hit's token for token and the cold one (or parts only at a near-tie);
+    G4 hits > 0 (the port reads back its own bf16 blobs, where the
+    reference's G4 misses); no corrupt G4 read; row 1 launches once per
+    layer of every decode forward. Returns the phase's launches."""
+    import tempfile
+
+    from dynamo_tpu_torch.block_manager import KvbmConfig
+    from dynamo_tpu_torch.engine import TorchWorker
+
+    label = "kvbm_bf16"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dynamo_kvbm_bf16_")
+    vocab = worker.model_config.vocab_size
+    rng = np.random.default_rng(SEED + 31)
+    prompt = rng.integers(1, vocab, KVBM_PREFIX + 15).tolist()
+    kb = None
+    try:
+        kb = TorchWorker(
+            worker.model_config, worker.runner_config, device=dev,
+            params=worker.runner.model,
+            kvbm_config=KvbmConfig(host_blocks=KVBM_BF16_G2,
+                                   object_store_root=os.path.join(root,
+                                                                  "g4")))
+        mgr = kb.kvbm
+        check(mgr.layout.dtype == "bfloat16" and mgr.disk is None,
+              f"{label}: layout {mgr.layout}")
+        kb.start()
+        reset_counts()
+        reset_runner_counts(kb.runner)
+        stats = kb.scheduler.stats
+
+        def serve(rid: str) -> tuple:
+            before = stats.prefill_tokens
+            res = asyncio.run(_gated_wave(kb, [_kv_body(rid, prompt)]))[0]
+            return res, stats.prefill_tokens - before
+
+        cold, prefill_cold = serve("bf16-cold")
+        check(mgr.flush(120.0), f"{label}: the offload did not drain")
+        hit, prefill_hit = serve("bf16-g1")
+        kb.scheduler.run_in_step(kb.scheduler.pool.clear).get(timeout=60.0)
+        warm, prefill_warm = serve("bf16-warm")
+        onboarded = stats.kvbm_onboarded_blocks
+        onload = _onload_events(["bf16-warm"])[0]
+        ps = kb.runner_config.page_size
+        check(onboarded == (len(prompt) - 1) // ps and onload is not None,
+              f"{label}: onboarded {onboarded} blocks")
+        check(mgr.stats.onboard_hits_object > 0
+              and mgr.object_store.corrupt_reads == 0,
+              f"{label}: G4 hits {mgr.stats.onboard_hits_object}, corrupt "
+              f"reads {mgr.object_store.corrupt_reads}")
+        check(prefill_cold - prefill_warm >= ps * onboarded,
+              f"{label}: {prefill_warm} prefill tokens after onboarding "
+              f"{onboarded} blocks (cold {prefill_cold})")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = read_counts()
+        r = kb.runner
+        want = expected_counts(r, dev, decode=r.decode_steps,
+                               prefill=r.prefill_steps,
+                               warm=r.graph_warm_forwards)
+        check(launches == want and (dev.type != "cuda" or launches[
+            "paged_decode_attention_pool"] > 0),
+              f"{label}: kernel launches {launches} != expected {want}")
+        kb.scheduler.stop()
+        streams = _kvbm_streams_check(label, worker, [prompt], [warm], [cold],
+                                      [hit])
+        emit(label, model=kb.card.name,
+             nvidia_smi=nvidia_smi() if dev.type == "cuda" else None,
+             block_bytes=mgr.layout.block_bytes(), g2_blocks=KVBM_BF16_G2,
+             offloaded_blocks=mgr.stats.offloaded,
+             offload_dropped=mgr.offload.dropped, onboarded_blocks=onboarded,
+             onboard_hits={"host": mgr.stats.onboard_hits_host,
+                           "object": mgr.stats.onboard_hits_object},
+             onboard_ms=onload["ms"],
+             prefill_tokens={"cold": prefill_cold, "g1_hit": prefill_hit,
+                             "onboarded": prefill_warm},
+             ttft_ms={k: (r_["stamps"][0] - r_["t0"]) * 1e3
+                      for k, r_ in (("cold", cold), ("g1_hit", hit),
+                                    ("onboarded", warm))},
+             streams=streams, kernel_launches=launches,
+             seconds=time.perf_counter() - t_phase)
+        return launches
+    finally:
+        if kb is not None:
+            kb.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _kv_body(rid: str, prompt, max_tokens: int = KV_OUT) -> dict:
     from dynamo_tpu_torch.llm.protocols import (
         PreprocessedRequest,
         SamplingOptions,
@@ -5859,7 +6386,7 @@ def _kv_body(rid: str, prompt) -> dict:
 
     return PreprocessedRequest(
         request_id=rid, token_ids=list(prompt),
-        sampling=SamplingOptions(max_tokens=KV_OUT, temperature=0.0),
+        sampling=SamplingOptions(max_tokens=max_tokens, temperature=0.0),
         stop=StopConditions(ignore_eos=True)).to_wire()
 
 
@@ -5876,9 +6403,9 @@ def main() -> None:
     from dynamo_tpu_torch.engine import RunnerConfig
 
     t_start = time.perf_counter()
-    # A phase that hangs prints every thread's stack and fails the run
-    # before a 1,200 s limit cuts it silently.
-    faulthandler.dump_traceback_later(HANG_S, exit=True)
+    # A phase that hangs prints every thread's stack and the pending tasks'
+    # awaits and fails the run before a 1,200 s limit cuts it silently.
+    watchdog = _arm_watchdog(HANG_S)
     dev = resolve_device("cuda")
     smi = nvidia_smi()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
@@ -5908,6 +6435,8 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + n
         del prefill
         phase_batch_invariance(dev, worker)
+        for name, n in phase_kvbm_bf16(dev, worker).items():
+            launches[name] = launches.get(name, 0) + n
     finally:
         worker.close()
     del worker
@@ -5950,6 +6479,9 @@ def main() -> None:
         finally:
             worker_b.close()
         del worker_b
+        free_memory()
+        for name, n in phase_kvbm(dev, worker).items():
+            launches[name] = launches.get(name, 0) + n
     finally:
         worker.close()
     del worker
@@ -5972,6 +6504,7 @@ def main() -> None:
     # launches on its path
     kernels = [{**e, "launches": launches[e["name"].split("[")[0]]}
                for e in entries]
+    watchdog.set()
     faulthandler.cancel_dump_traceback_later()
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -305,6 +305,48 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
     "DYNT_TENANT_DEFAULT_WEIGHT": (
         1.0, float,
         "Fair-share weight of tenants not named in DYNT_TENANT_WEIGHTS"),
+    # KVBM offload (block_manager/offload.py)
+    "DYNT_OFFLOAD_BW_FRAC": (
+        0.25, float,
+        "Bandwidth budget for KVBM D2H offload: the fraction of wall time "
+        "the offload path may hold the scheduler thread with device "
+        "gathers. After a gather that took g seconds in-step, the next "
+        "gather is deferred g*(1/frac - 1) seconds. 0 disables throttling"),
+    "DYNT_OFFLOAD_SUBBATCH": (
+        2, int,
+        "Pages per in-step offload gather sub-batch; one sub-batch bundle "
+        "sinks to G2 while the next gathers (double buffering)"),
+    "DYNT_OFFLOAD_QUEUE_CAP": (
+        4096, int,
+        "Bound on the KVBM offload queue (blocks awaiting D2H); a store "
+        "burst past the cap drops the OLDEST queued blocks (counted by "
+        "dynamo_kvbm_offload_dropped_total)"),
+    # KVBM pin leases (block_manager/manager.py)
+    "DYNT_PIN_TTL_SECS": (
+        300.0, float,
+        "Default lease TTL for a cache_control pinned prefix (a "
+        "request-supplied ttl is clamped to at most this). A pinned prefix "
+        "cannot be evicted from KVBM G2/G3 mid-lease but ALWAYS dies at "
+        "TTL"),
+    # G4 object-store auth (block_manager/storage.py HttpObjectStoreClient)
+    "DYNT_G4_AUTH": (
+        "none", str,
+        "Auth mode for the HTTP(S) G4 object-store client: none | hmac "
+        "(SigV4-style canonical-string request signing) | bearer (static "
+        "token)"),
+    "DYNT_G4_HMAC_KEY_ID": (
+        "", str,
+        "Access-key id sent in the Authorization Credential for "
+        "hmac-signed G4 requests"),
+    "DYNT_G4_HMAC_SECRET": (
+        "", str, "HMAC-SHA256 signing secret for G4 request signing"),
+    "DYNT_G4_BEARER_TOKEN": (
+        "", str,
+        "Static bearer token for G4 requests when DYNT_G4_AUTH=bearer"),
+    "DYNT_G4_SIG_TTL_SECS": (
+        300.0, float,
+        "Maximum age of a signed G4 request's x-dynt-date before the "
+        "server rejects it (replay window)"),
 }
 
 

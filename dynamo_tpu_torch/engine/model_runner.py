@@ -776,15 +776,20 @@ class ModelRunner:
             tensor = gather_kv_blocks(self.kv_cache, page_ids)
         return DeviceBundle(tensor, self._ready_event())
 
-    def bundle_to_host(self, bundle: DeviceBundle) -> torch.Tensor:
+    def bundle_to_host(self, bundle: DeviceBundle,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """A device bundle's bytes on the host (pinned memory on the card):
         the copy runs on a side stream behind the bundle's event, so the
         thread that calls this (not the scheduler's) waits, and the step
-        stream does not."""
+        stream does not. `out`, a page-locked tensor of the bundle's shape
+        and dtype, receives the copy instead of a new allocation (the KVBM
+        offload reuses one staging buffer)."""
         tensor = bundle.tensor
         if tensor.device.type != "cuda":
             return tensor
-        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        host = (out if out is not None else
+                torch.empty(tensor.shape, dtype=tensor.dtype,
+                            pin_memory=True))
         stream = self._side_stream()
         with torch.cuda.stream(stream):
             if bundle.ready is not None:

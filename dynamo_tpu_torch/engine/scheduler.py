@@ -44,6 +44,13 @@ bounces new arrivals with an in-band migrate. Page gathers, scatters and
 releases run on this thread, between steps (`run_in_step`) or in a step's
 dispatch/drain gap (`run_in_gap`).
 
+With a KV block manager (`kvbm=`, `block_manager/`), the pool's
+registrations also queue the KVBM offload, whose page gathers ride the
+dispatch/drain gap (`run_in_gap`, budgeted by `_offload_pressure`), and
+admission onboards the prompt blocks the prefix cache missed but a tier
+holds (`_onboard_from_kvbm`): the blocks are scattered into the new pages
+instead of prefilled.
+
 Each step is split into host and device time with no added sync
 (`steptrace`, `perf/steptrace.py`): dispatch scopes around the graph
 replays, drain scopes around the readbacks that already block, and the
@@ -52,8 +59,8 @@ committed sample's split in the stats. A sequence submitted with a
 (`runtime/flight_recorder.py`): scheduled, prefill_start, first_token, its
 prefill and decode device windows, and the drain rungs.
 
-Not ported yet (each is a later slice): KVBM tiers, preemption/park, LoRA
-and multimodal. Requests that need one of them finish with an error.
+Not ported yet (each is a later slice): preemption/park, LoRA and
+multimodal. Requests that need one of them finish with an error.
 """
 
 from __future__ import annotations
@@ -212,6 +219,9 @@ class SchedulerStats:
     drain_errored: int = 0
     drain_resumed: int = 0
     drain_bounced: int = 0
+    # Prompt blocks onboarded from the KVBM tiers at admission (each
+    # skipped a page of prefill)
+    kvbm_onboarded_blocks: int = 0
 
 
 def _bundle_pages(blocks) -> int:
@@ -244,11 +254,15 @@ class InferenceScheduler:
         runner: ModelRunner,
         on_stored: Optional[Callable[[list[int], Optional[int]], None]] = None,
         on_removed: Optional[Callable[[list[int]], None]] = None,
+        kvbm=None,  # Optional[block_manager.KvBlockManager]
     ) -> None:
         """`on_stored(hashes, parent)` / `on_removed(hashes)` hear, on the
         scheduler thread, the prefix-cache registrations and evictions of
-        the page pool: the worker's KV events."""
+        the page pool: the worker's KV events. `kvbm`, a KvBlockManager,
+        hears the registrations too (its offload queue) and is attached to
+        this engine."""
         self.runner = runner
+        self.kvbm = kvbm
         cfg = runner.config
         self.page_size = cfg.page_size
         # Multi-step decode block (DYNT_DECODE_BLOCK): >1 fuses K decode
@@ -273,8 +287,29 @@ class InferenceScheduler:
         # Graceful drain (engine/drain.py): while draining, new arrivals
         # bounce with an in-band migrate the frontend replays on a peer.
         self.draining = False
-        self.pool = PagePool(cfg.num_pages, on_stored=on_stored,
+
+        def _stored(hashes: list[int], parent: Optional[int]) -> None:
+            # G1 registrations fan out to the router's events AND the KVBM
+            # offload queue
+            if on_stored is not None:
+                on_stored(hashes, parent)
+            if kvbm is not None:
+                kvbm.notify_stored(hashes, parent)
+
+        self.pool = PagePool(cfg.num_pages, on_stored=_stored,
                              on_removed=on_removed)
+        if kvbm is not None:
+            # Offload gathers ride the dispatch/drain gap (run_in_gap): they
+            # queue behind the decode block, and the bandwidth budget reads
+            # the step wall time to back off under serving pressure. The
+            # D2H copies run on the offload thread (bundle_to_host).
+            kvbm.attach_engine(
+                lookup_pages=lambda hs: [self.pool.lookup(h) for h in hs],
+                gather=runner.gather_pages_device,
+                run_in_step=self.run_in_gap,
+                step_pressure=self._offload_pressure,
+                to_host=runner.bundle_to_host,
+            )
         self.max_batch = cfg.max_batch
         self._slots: list[Optional[_Seq]] = [None] * cfg.max_batch
         self._waiting: list[_Seq] = []
@@ -594,6 +629,10 @@ class InferenceScheduler:
             seq.block_table[: len(pages)] = pages
             seq.prefill_pos = min(alloc.cached_blocks * self.page_size,
                                   seq.prompt_len - 1)
+            # Pulled-KV sequences carry their pages in onboard_blocks: a
+            # KVBM lookup would be redundant (and overwritten) for them.
+            if self.kvbm is not None and seq.onboard_blocks is None:
+                self._onboard_from_kvbm(seq)
             seq.slot = free_slots[0]
             self._slots[seq.slot] = seq
             self._waiting.pop(0)
@@ -608,6 +647,43 @@ class InferenceScheduler:
                 else:
                     self._onboard(seq)
         return admitted
+
+    def _onboard_from_kvbm(self, seq: _Seq) -> None:
+        """KVBM onboard at admission: prompt blocks the G1 prefix cache
+        missed but G2/G3/G4 hold are scattered into the freshly allocated
+        pages instead of prefilled. At least one prompt token is kept for
+        recompute (the logits source). The read is host work on this
+        thread, as in the reference; the upload is staged on the runner's
+        side stream and the scatter waits for it on the step stream."""
+        cached_n = seq.alloc.cached_blocks
+        # Only blocks fully inside prompt_len - 1 can skip compute.
+        max_blocks = (seq.prompt_len - 1) // self.page_size
+        candidates = seq.block_hashes[cached_n:max_blocks]
+        if not candidates:
+            return
+        start = time.perf_counter()
+        n = self.kvbm.match_prefix(candidates)
+        if n == 0:
+            return
+        bundle = self.kvbm.read_blocks(candidates[:n])
+        if bundle is None:
+            # evicted between match and read: a designed degrade to
+            # recompute
+            return
+        target = np.asarray(seq.block_table[cached_n : cached_n + n],
+                            np.int32)
+        self.runner.scatter_pages(target, self.runner.stage_bundle(bundle))
+        if seq.record_id is not None:
+            # ms: this thread's time for the match, the tier reads and the
+            # upload and scatter issue
+            get_recorder().event(
+                seq.record_id, "kvbm_onload", blocks=n,
+                tokens=n * self.page_size,
+                ms=(time.perf_counter() - start) * 1e3)
+        seq.prefill_pos = (cached_n + n) * self.page_size
+        self.stats.kvbm_onboarded_blocks += n
+        log.info("kvbm onboard: %d blocks (skipping %d prefill tokens) for %s",
+                 n, n * self.page_size, seq.request.request_id)
 
     def _onboard(self, seq: _Seq) -> None:
         """Disaggregated decode side: write the pulled prompt KV into this
@@ -666,6 +742,14 @@ class InferenceScheduler:
             return
         self.runner.scatter_pages(np.asarray(seq.block_table[lo:hi], np.int32),
                                   _bundle_slice(blocks, lo, hi))
+
+    def _offload_pressure(self) -> float:
+        """Step-time pressure for the KVBM offload budget: the last step's
+        wall time while sequences are live, 0 when idle (an idle engine's
+        step thread is free: offload at full rate)."""
+        if self._waiting or any(s is not None for s in self._slots):
+            return self.stats.last_step_wall_ms
+        return 0.0
 
     def queue_depth(self) -> tuple[int, int]:
         """(live slots, waiting sequences)."""

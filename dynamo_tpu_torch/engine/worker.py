@@ -51,6 +51,15 @@ prefill worker and a decode worker in one process share an `IciKvBridge`
 through it, device to device, instead of over the wire; a drain handoff
 never offers the token, so it always takes the host relay.
 
+KV block manager tiers (`kvbm_config`, `--kvbm-host-blocks` /
+`--kvbm-disk-blocks` / `--kvbm-disk-path` / `--kvbm-object-store`): the
+scheduler gets a `block_manager.KvBlockManager` over this runner's layout,
+offloading prompt blocks as they register and onboarding them at
+admission; `generate` leases a request's `cache_anchors` prefix blocks
+(`cache_ttl`, at most DYNT_PIN_TTL_SECS) and prefetches them into G2 (a
+`session_pin` event), the event-drain tick sweeps expired leases, and
+`shutdown` flushes the offload before it stops the scheduler.
+
 Every request's phases go on a flight-recorder timeline
 (`runtime/flight_recorder.py`; a prefill leg's under `<id>#prefill`), with a
 `kv_pull` event naming the link it took (`ici` or `dcn`) and the pull's
@@ -76,6 +85,7 @@ import time
 import uuid
 from typing import AsyncIterator, Optional, Union
 
+from ..block_manager import BlockLayoutSpec, KvBlockManager, KvbmConfig
 from ..config import env
 from ..device import DeviceLike, resolve_device
 from ..kv_router.local_indexer import LocalKvIndexer
@@ -120,6 +130,7 @@ from ..runtime.component import new_instance_id
 from ..runtime.flight_recorder import current_request_id, get_recorder
 from ..runtime.metrics import DISAGG_STREAMED_PAGES
 from ..runtime.push_router import PushRouter
+from ..tokens import compute_block_hashes
 from .model_runner import ModelRunner, RunnerConfig
 from .drain import SERVING, DrainCoordinator, set_drain_state
 from .ici_transfer import split_devices
@@ -201,6 +212,7 @@ class TorchWorker:
         dtype: str = "bfloat16",
         mode: str = "aggregated",
         ici_bridge=None,
+        kvbm_config=None,
     ) -> None:
         """`model` is a preset name or a ModelConfig. Without `params` the
         weights are random, drawn from `seed` on `device`. `model_path`, an
@@ -220,7 +232,11 @@ class TorchWorker:
         prefill pool prefilled, and prefills itself when no pool answers).
         `ici_bridge`, an `engine.ici_transfer.IciKvBridge` shared by a
         prefill and a decode worker in one process: the prefill side
-        attaches to it, and the decode side pulls through it."""
+        attaches to it, and the decode side pulls through it.
+        `kvbm_config`, a `block_manager.KvbmConfig` with host blocks, gives
+        the scheduler a KvBlockManager over this runner's layout (G2 host,
+        optional G3 disk and G4 object store): prompt blocks offload as
+        they register and onboard at admission."""
         if mode not in ("aggregated", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r} (expected aggregated, "
                              "prefill or decode)")
@@ -250,9 +266,15 @@ class TorchWorker:
         self.runtime = None
         self.instance_id = new_instance_id()
         self.events = KvEventBuffer(self.instance_id)
+        self.kvbm: Optional[KvBlockManager] = None
+        if kvbm_config is not None and kvbm_config.enabled:
+            self.kvbm = KvBlockManager(
+                kvbm_config,
+                BlockLayoutSpec.from_runner_layout(self.runner.kv_layout()),
+                pin_memory=self.device.type == "cuda")
         self.scheduler = InferenceScheduler(
             self.runner, on_stored=self.events.on_stored,
-            on_removed=self.events.on_removed)
+            on_removed=self.events.on_removed, kvbm=self.kvbm)
         # Parked KV transfers served by kv_pull (a prefill leg's prompt
         # pages, or a drain handoff's), expired on the event-drain tick
         self.transfers = PendingTransferTable()
@@ -302,8 +324,11 @@ class TorchWorker:
         self.scheduler.start()
 
     def close(self) -> None:
-        """Stop the scheduler thread (`shutdown` first when serving)."""
+        """Stop the scheduler thread, then the KVBM's threads (`shutdown`
+        first when serving)."""
         self.scheduler.stop()
+        if self.kvbm is not None:
+            self.kvbm.close()
 
     async def serve(self, runtime) -> None:
         """Register `generate`, `clear_kv_blocks`, `kv_blocks`, `kv_pull`
@@ -359,6 +384,10 @@ class TorchWorker:
         for router in self._pull_clients.values():
             await router.client.close()
         self._pull_clients = {}
+        if self.kvbm is not None:
+            # Drain pending offload gathers while the scheduler thread can
+            # still serve run_in_gap; close() then stops both.
+            await asyncio.to_thread(self.kvbm.flush, 5.0)
         self.close()
 
     async def _clear_kv(self, body, ctx) -> AsyncIterator[dict]:
@@ -443,6 +472,13 @@ class TorchWorker:
                     self.transfers.expire_stale()
                 except Exception:  # noqa: BLE001 — the drain task survives
                     log.exception("transfer expiry failed")
+                if self.kvbm is not None:
+                    try:
+                        # Session pin leases die at TTL even when no new
+                        # pin traffic triggers the lazy sweep.
+                        self.kvbm.sweep_pins()
+                    except Exception:  # noqa: BLE001 — the drain survives
+                        log.exception("pin sweep failed")
             if ticks % 10 == 0:
                 try:
                     self.publish_steptrace_metrics()
@@ -820,6 +856,28 @@ class TorchWorker:
 
                 request_shutdown("drain control verb")
 
+    def _pin_anchors(self, request: PreprocessedRequest, rec_id: str) -> None:
+        """Session tier: lease the anchored prefix blocks against tier
+        eviction (they always die at TTL) and stage any G3/G4 residents up
+        into G2, so the admission-time onboard reads host RAM."""
+        try:
+            page = self.scheduler.page_size
+            n = (max(request.cache_anchors) // page) * page
+            hashes = (compute_block_hashes(request.token_ids[:n], page,
+                                           lora_id=request.kv_salt())
+                      if n else [])
+            if hashes:
+                # the client's lease TTL when the wire carries one
+                # (pin_blocks clamps it to the system ceiling)
+                ttl = request.cache_ttl or env("DYNT_PIN_TTL_SECS")
+                self.kvbm.pin_blocks(hashes, ttl)
+                self.kvbm.prefetch(hashes)
+                get_recorder().event(rec_id, "session_pin",
+                                     blocks=len(hashes))
+        except Exception:  # noqa: BLE001 — pinning is a cache hint; a
+            # failure degrades to normal eviction order
+            log.exception("session pin failed for %s", request.request_id)
+
     async def generate(self, body: dict, ctx=None) -> AsyncIterator[dict]:
         request = PreprocessedRequest.from_wire(body)
         current_request_id.set(request.request_id)
@@ -842,6 +900,8 @@ class TorchWorker:
             def emit(output: EngineOutput) -> None:
                 loop.call_soon_threadsafe(out_queue.put_nowait, output)
 
+            if request.cache_anchors and self.kvbm is not None:
+                self._pin_anchors(request, rec_id)
             submit_kwargs: dict = {}
             if prefill_only:
                 submit_kwargs.update(prefill_only=True,
@@ -973,6 +1033,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "card")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--kvbm-host-blocks", type=int, default=0,
+                        help="G2 host-RAM KV tier size in blocks (0=off)")
+    parser.add_argument("--kvbm-disk-blocks", type=int, default=0,
+                        help="G3 local-disk KV tier size in blocks (0=off)")
+    parser.add_argument("--kvbm-disk-path", default="/tmp/dynamo_tpu_kvbm.bin")
+    parser.add_argument("--kvbm-object-store", default=None,
+                        help="G4 blob-store root (a directory, e.g. a "
+                             "gcsfuse mountpoint, or an http(s):// URL)")
     return parser
 
 
@@ -1003,6 +1071,13 @@ async def main(argv: Optional[list[str]] = None) -> None:
     elif args.dp != 1:
         raise SystemExit("--dp > 1 is not ported: one engine a worker")
     device = resolve_device(args.device)  # no card: raise before building
+    kvbm_config = None
+    if args.kvbm_host_blocks > 0:
+        kvbm_config = KvbmConfig(
+            host_blocks=args.kvbm_host_blocks,
+            disk_blocks=args.kvbm_disk_blocks,
+            disk_path=args.kvbm_disk_path,
+            object_store_root=args.kvbm_object_store)
     if args.mode == "comesh":
         # On the CPU the host stands in for every device a pool asks for.
         try:
@@ -1030,7 +1105,8 @@ async def main(argv: Optional[list[str]] = None) -> None:
             model_path=args.model_path, served_name=args.served_model_name,
             device=device, namespace=args.namespace,
             component=component, tool_parser=args.tool_call_parser,
-            reasoning_parser=args.reasoning_parser, mode=args.mode)
+            reasoning_parser=args.reasoning_parser, mode=args.mode,
+            kvbm_config=kvbm_config)
         await asyncio.to_thread(worker.runner.prewarm if args.prewarm
                                 else worker.runner.warmup)
         worker.scheduler.start()

@@ -264,6 +264,19 @@ DRAIN_DURATION_MS = Gauge(
     "dynamo_drain_duration_ms",
     "Wall time of this worker's last graceful drain, start to "
     "deregistration-ready", ["worker"])
+# KVBM offload (block_manager/offload.py): queue pressure and the
+# bandwidth budget of the D2H offload path
+KVBM_OFFLOAD_DROPPED = Counter(
+    "dynamo_kvbm_offload_dropped_total",
+    "Blocks dropped from the KVBM offload queue (store burst past "
+    "DYNT_OFFLOAD_QUEUE_CAP; oldest first — offload is best-effort)")
+KVBM_OFFLOAD_QUEUE_DEPTH = Gauge(
+    "dynamo_kvbm_offload_queue_depth",
+    "Blocks currently queued for KVBM D2H offload")
+KVBM_OFFLOAD_DEFERRED = Counter(
+    "dynamo_kvbm_offload_deferred_seconds_total",
+    "Seconds the offload worker spent deferring device gathers to honor "
+    "the DYNT_OFFLOAD_BW_FRAC bandwidth budget")
 # Disaggregated prefill (engine/worker.py): KV pages streamed to the decode
 # pool while the prefill pass was still computing
 DISAGG_STREAMED_PAGES = Counter(

@@ -82,10 +82,20 @@ OBSERVABILITY_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
     "profiler.chips", "profiler.timing_model", "runtime.flight_recorder"))
 
 
+# Modules of the KVBM tiers slice: each must be among the checked sources
+# and import cleanly on its own.
+KVBM_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
+    "block_manager", "block_manager.state", "block_manager.layout",
+    "block_manager.pool", "block_manager.storage", "block_manager.offload",
+    "block_manager.manager"))
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "scripts" /
-                                          "torch_decode_profile.py"]
+                                          "torch_decode_profile.py",
+                                          ROOT / "scripts" /
+                                          "torch_kvbm_phases.py"]
     assert len(files) > 10
     return files
 
@@ -139,6 +149,14 @@ def test_sources_cover_the_observability_modules():
                 or path / "__init__.py" in files), module
 
 
+def test_sources_cover_the_kvbm_modules():
+    files = set(_sources())
+    for module in KVBM_MODULES:
+        path = ROOT / module.replace(".", "/")
+        assert (path.with_suffix(".py") in files
+                or path / "__init__.py" in files), module
+
+
 def test_sources_cover_the_logits_modules():
     files = set(_sources())
     for module in LOGITS_MODULES:
@@ -150,7 +168,7 @@ def test_sources_cover_the_logits_modules():
 @pytest.mark.parametrize("module", SERVING_MODULES + KV_ROUTING_MODULES
                          + LOGITS_MODULES + CHECKPOINT_MODULES
                          + RESILIENCE_MODULES + DISAGG_MODULES
-                         + OBSERVABILITY_MODULES)
+                         + OBSERVABILITY_MODULES + KVBM_MODULES)
 def test_serving_module_imports_on_its_own(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
