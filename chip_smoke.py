@@ -240,6 +240,24 @@ Phases, each printing one JSON line:
               request; then ITL of 8 decode streams beside a 256-block
               offload backlog, KVBM on and off in turns; rows 2 and 6
               counted
+  preempt   - priority classes at full width, DYNT_CONFORMANCE=1: a
+              mistral-7b W4A16 + int8 KV TorchWorker on the engine's weights
+              with a KVBM of G2 64 blocks (the park store), prewarmed; 16
+              batch requests (256-1,024 prompt tokens, 192 out, half seeded
+              at temperature 0.8), and when each has 32 tokens 4
+              interactive ones (128-512 tokens, 32 out) in one iteration:
+              4 batch slots park (gather on the step stream, pinned D2H,
+              then release) and resume (staged upload, in-place scatter);
+              the same traffic with DYNT_PREEMPT_ENABLE=0, the batch alone,
+              and over HTTP with no KVBM (4 cooperative migrates the
+              frontend's Migration replays). Every batch stream equals its
+              uninterrupted one token for token, the interactive streams
+              equal with preemption off, pages and park store back where
+              they were, no protocol violation, every migrated stream
+              complete; interactive TTFT on and off, park ms (gather, D2H,
+              release) and bytes, resume ms (stage, scatter), the batch's
+              completion and ITL, the migrated streams' stall; rows 2 and
+              6 counted
   spec_q    - the spec step at mistral-7b widths, 4 layers, W4A16 + int8
               KV: a runner of 8 slots, all live, 5 positions each (the int8
               pool kernel folded, the q4 v2 kernel at M = 8 x 5 = 40),
@@ -6377,6 +6395,551 @@ def phase_kvbm_bf16(dev: torch.device, worker) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+PREEMPT_BATCH = 16  # batch streams: every slot of the default runner
+PREEMPT_BATCH_PROMPT = (256, 1024)  # their prompt lengths, inclusive
+PREEMPT_BATCH_OUT = 192
+PREEMPT_INTER = 4  # interactive requests, arriving together
+PREEMPT_INTER_PROMPT = (128, 512)
+PREEMPT_INTER_OUT = 32
+PREEMPT_AT = 32  # tokens every batch stream has when they arrive
+PREEMPT_G2 = 64  # the park store's KVBM: G2 blocks (the park is not a tier)
+
+
+def preempt_traffic(vocab: int) -> dict:
+    """The preempt phase's requests, from seed SEED: 16 batch bodies (256-
+    1,024 random prompt tokens, 192 out, ignore_eos, even ones greedy, odd
+    ones seeded at temperature 0.8) and 4 interactive ones (128-512 tokens,
+    32 out, greedy)."""
+    from dynamo_tpu_torch.llm.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    rng = np.random.default_rng(SEED)
+
+    def prompts(n, bounds):
+        return [rng.integers(1, vocab, int(rng.integers(bounds[0],
+                                                        bounds[1] + 1)))
+                .tolist() for _ in range(n)]
+
+    batch = prompts(PREEMPT_BATCH, PREEMPT_BATCH_PROMPT)
+    inter = prompts(PREEMPT_INTER, PREEMPT_INTER_PROMPT)
+
+    def bodies(tag, run, ps, out, priority, sampled):
+        rows = []
+        for i, p in enumerate(ps):
+            temp = 0.8 if sampled and i % 2 else 0.0
+            rows.append(PreprocessedRequest(
+                request_id=f"{tag}{run}-{i}", token_ids=p,
+                sampling=SamplingOptions(max_tokens=out, temperature=temp,
+                                         seed=i),
+                stop=StopConditions(ignore_eos=True),
+                priority=priority).to_wire())
+        return rows
+
+    return {"batch_prompts": batch, "inter_prompts": inter,
+            "batch": lambda run: bodies("pb", run, batch, PREEMPT_BATCH_OUT,
+                                        "batch", True),
+            "inter": lambda run: bodies("pi", run, inter, PREEMPT_INTER_OUT,
+                                        "interactive", False)}
+
+
+async def _live_stream(worker, body: dict, rec: dict) -> dict:
+    """`_stream` into `rec` as the frames arrive (another task watches its
+    token count)."""
+    rec.update(tokens=[], stamps=[], counts=[], finish=[],
+               t0=time.perf_counter())
+    async for frame in worker.generate(body):
+        if frame.get("t"):
+            rec["tokens"] += frame["t"]
+            rec["stamps"].append(time.perf_counter())
+            rec["counts"].append(len(frame["t"]))
+        if "f" in frame:
+            rec["finish"].append(frame["f"])
+            if frame.get("err") and frame["f"] != "migrate":
+                raise SystemExit(f"chip_smoke: request failed: {frame['err']}")
+    return rec
+
+
+async def _preempt_wave(worker, batch: list, inter: list) -> tuple:
+    """The 16 batch requests admitted whole; once each has PREEMPT_AT
+    tokens, the interactive ones admitted in one iteration."""
+    recs = [{} for _ in batch]
+    gate = _hold_scheduler(worker)
+    b_tasks = [asyncio.ensure_future(_live_stream(worker, b, r))
+               for b, r in zip(batch, recs)]
+    await asyncio.sleep(0)  # each generate() has submitted its request
+    gate.set()
+    i_tasks = []
+    if inter:
+        t_wait = time.perf_counter()
+        while min(len(r.get("tokens", ())) for r in recs) < PREEMPT_AT:
+            check(time.perf_counter() - t_wait < 300,
+                  "preempt: the batch streams never reached "
+                  f"{PREEMPT_AT} tokens")
+            await asyncio.sleep(0.001)
+        gate = _hold_scheduler(worker)
+        i_tasks = [asyncio.ensure_future(_live_stream(worker, b, {}))
+                   for b in inter]
+        await asyncio.sleep(0)
+        gate.set()
+    return (await asyncio.gather(*b_tasks), await asyncio.gather(*i_tasks))
+
+
+class _ParkClock:
+    """Times each park and resume of a scheduler: wraps the runner's gather
+    / copy / stage / scatter calls (each synchronised on the card, so its
+    own time is read), the park store's claim (which names the sequence a
+    resume is for) and the scheduler's `_preempt_seq`. A park's release_ms
+    is the rest of `_preempt_seq` (the park store's insert, the pool's
+    release, the bookkeeping). The KVBM offload's gathers were bound before
+    and are not timed."""
+
+    def __init__(self, sched) -> None:
+        self.parks: list = []
+        self.resumes: list = []
+        runner, kvbm = sched.runner, sched.kvbm
+        cuda = runner.device.type == "cuda"
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+        def device_ms(fn, *args):
+            """fn(*args) and the step stream's time over it (CUDA events;
+            None on the CPU)."""
+            if not cuda:
+                return fn(*args), None
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            end.synchronize()
+            return out, start.elapsed_time(end)
+
+        gather, to_host = runner.gather_pages_device, runner.bundle_to_host
+        stage, scatter = runner.stage_bundle, runner.scatter_pages
+        preempt, claim = sched._preempt_seq, kvbm.claim_parked
+        cur: dict = {}
+
+        def timed_gather(ids):
+            t0 = time.perf_counter()
+            bundle, cur["gather_device_ms"] = device_ms(gather, ids)
+            cur["gather_ms"] = (time.perf_counter() - t0) * 1e3
+            return bundle
+
+        def timed_to_host(bundle, out=None):
+            t0 = time.perf_counter()
+            host = to_host(bundle, out)
+            cur["d2h_ms"] = (time.perf_counter() - t0) * 1e3
+            cur["bytes"] = host.numel() * host.element_size()
+            return host
+
+        def timed_preempt(victim):
+            cur.clear()
+            t0 = time.perf_counter()
+            parked = preempt(victim)
+            ms = (time.perf_counter() - t0) * 1e3
+            if parked:
+                self.parks.append(dict(
+                    cur, rid=victim.request.request_id,
+                    pages=victim.parked_pages, ms=ms,
+                    release_ms=ms - cur["gather_ms"] - cur["d2h_ms"]))
+            return parked
+
+        def timed_claim(rid):
+            self.resumes.append({"rid": rid})
+            return claim(rid)
+
+        def resuming() -> bool:
+            # a KVBM onboard at admission stages and scatters too
+            return bool(self.resumes) and "ms" not in self.resumes[-1]
+
+        def timed_stage(blocks):
+            if not resuming():
+                return stage(blocks)
+            t0 = time.perf_counter()
+            staged = stage(blocks)
+            if staged.ready is not None:
+                staged.ready.synchronize()
+            self.resumes[-1].update(
+                stage_ms=(time.perf_counter() - t0) * 1e3,
+                bytes=blocks.numel() * blocks.element_size())
+            return staged
+
+        def timed_scatter(ids, blocks):
+            if not resuming():
+                return scatter(ids, blocks)
+            t0 = time.perf_counter()
+            _, dev_ms = device_ms(scatter, ids, blocks)
+            sync()
+            rec = self.resumes[-1]
+            rec.update(scatter_ms=(time.perf_counter() - t0) * 1e3,
+                       scatter_device_ms=dev_ms, pages=len(ids))
+            rec["ms"] = rec["stage_ms"] + rec["scatter_ms"]
+
+        runner.gather_pages_device = timed_gather
+        runner.bundle_to_host = timed_to_host
+        runner.stage_bundle = timed_stage
+        runner.scatter_pages = timed_scatter
+        sched._preempt_seq = timed_preempt
+        kvbm.claim_parked = timed_claim
+        self._undo = [(runner, n) for n in (
+            "gather_pages_device", "bundle_to_host", "stage_bundle",
+            "scatter_pages")] + [(sched, "_preempt_seq"),
+                                 (kvbm, "claim_parked")]
+
+    def close(self) -> None:
+        for obj, name in self._undo:
+            delattr(obj, name)
+
+
+def _preempt_streams_check(label: str, worker, prompts: list, got: list,
+                           want: list, scattered: dict) -> None:
+    """Each stream of `got` equals `want`'s token for token. Where one parts:
+    the token, the logit gap of the two tokens there (on `worker`'s runner)
+    and the pages scattered into its sequence, then fail."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g["tokens"] == w["tokens"]:
+            continue
+        d = _first_divergence(g["tokens"], w["tokens"])
+        gap = None
+        if d < min(len(g["tokens"]), len(w["tokens"])):
+            gap = _near_tie_gap(worker, prompts[i] + w["tokens"][:d],
+                                w["tokens"][d], g["tokens"][d])
+        check(False, f"{label}: stream {i} parts at token {d} of "
+                     f"{len(w['tokens'])} ({len(g['tokens'])} got), logit "
+                     f"gap {gap} nats, pages scattered "
+                     f"{scattered.get(i)}")
+
+
+def _text_divergence(text: str, tokens: list) -> int:
+    """The first token of `tokens` whose ByteTokenizer decode is not a
+    prefix of `text` (len(tokens) if none)."""
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    for i in range(len(tokens)):
+        if not text.startswith(tok.decode(tokens[: i + 1])):
+            return i
+    return len(tokens)
+
+
+def phase_preempt(dev: torch.device, worker) -> dict:
+    """Priority classes and preemption at full width on mistral-7b W4A16 +
+    int8 KV (default RunnerConfig: max batch 16), with DYNT_CONFORMANCE=1
+    (the monitor reset first). A TorchWorker on `worker`'s weight tensors
+    with a KVBM of G2 PREEMPT_G2 = 64 blocks (its park store), prewarmed.
+
+    Traffic (`preempt_traffic`): 16 batch requests admitted whole; when every
+    batch stream has emitted 32 tokens, 4 interactive requests arrive in one
+    iteration. Runs, one after another: (a) on that worker, preemption on;
+    (b) the same traffic on `worker` (a fresh scheduler, no KVBM) with
+    DYNT_PREEMPT_ENABLE=0; (c) the 16 batch requests alone there, the
+    uninterrupted streams; (d) `worker` with no KVBM served over HTTP by the
+    port's Frontend in this process, the same traffic as /v1/completions
+    with `priority`: the victims take the cooperative migrate, and the
+    frontend's Migration replays them on the same worker.
+
+    Checks: in (a) 4 parked, 4 resumed, 0 migrated; every batch stream of
+    (a) equals its stream in (c) token for token (where one parts, its
+    token, logit gap and scattered pages are printed, and the phase fails);
+    the interactive streams of (a) and (b) are equal; the pool's free pages
+    and the park store's count return to their values before (a); the
+    monitor saw no violation, 4 preemption lifecycles back in `running`
+    and one finished flight-recorder lifecycle per request; in (d) 4
+    migrated and all 20 streams finish with their max_tokens. Printed:
+    interactive TTFT in (a) against (b); each park's ms (gather, D2H,
+    release) and bytes, each resume's (stage, scatter); the batch streams'
+    completion and ITL in (a) against (c); (d)'s migrated streams' stall
+    and their first divergence from (c) (the replay prefills the generated
+    tokens: prefill- and decode-shaped GEMMs round differently, so it is
+    reported, not required). Rows 2 and 6 launch once per layer
+    (projection) of every forward of both runners. Returns the launches."""
+    from dynamo_tpu_torch.block_manager import KvbmConfig
+    from dynamo_tpu_torch.engine import TorchWorker
+    from dynamo_tpu_torch.runtime import conformance
+    from dynamo_tpu_torch.runtime.metrics import PREEMPT_TOTAL
+
+    label = "preempt"
+    t_phase = time.perf_counter()
+    traffic = preempt_traffic(worker.model_config.vocab_size)
+    bprompts, iprompts = traffic["batch_prompts"], traffic["inter_prompts"]
+    kw = None
+    try:
+        with knobs(DYNT_CONFORMANCE="1"):
+            conformance.reset_monitor()
+            monitor = conformance.get_monitor()
+            kw = TorchWorker(worker.model_config, worker.runner_config,
+                             device=dev, params=worker.runner.model,
+                             kvbm_config=KvbmConfig(host_blocks=PREEMPT_G2))
+            t0 = time.perf_counter()
+            kw.runner.prewarm()
+            prewarm_s = time.perf_counter() - t0
+            kw.scheduler.start()
+            sched = kw.scheduler
+            check(sched.preempt_enabled and sched.kvbm is kw.kvbm,
+                  f"{label}: the scheduler has no park store")
+            reset_counts()
+            reset_runner_counts(kw.runner)
+            reset_runner_counts(worker.runner)
+            pages0 = _reclaimable_pages(sched.pool)
+            parked0 = kw.kvbm.parked_count()
+            kinds0 = {k: PREEMPT_TOTAL.labels(kind=k).get()
+                      for k in ("park", "resume", "migrate")}
+            clock = _ParkClock(sched)
+            t_a = time.perf_counter()
+            a_batch, a_inter = asyncio.run(_preempt_wave(
+                kw, traffic["batch"]("a"), traffic["inter"]("a")))
+            wall_a = time.perf_counter() - t_a
+            t_idle = time.perf_counter()
+            while (sched._waiting or sched._parked
+                   or any(s is not None for s in sched._slots)
+                   or _reclaimable_pages(sched.pool) != pages0):
+                pages = _reclaimable_pages(sched.pool)
+                check(time.perf_counter() - t_idle < 30,
+                      f"{label}: (a) left pages {pages} of {pages0}, parked "
+                      f"{len(sched._parked)}")
+                time.sleep(0.005)
+            clock.close()
+            stats_a = {k: getattr(sched.stats, k) for k in (
+                "preempt_parked", "preempt_resumed", "preempt_migrated")}
+            kinds = {k: PREEMPT_TOTAL.labels(kind=k).get() - kinds0[k]
+                     for k in kinds0}
+            snap = monitor.snapshot()
+            states = dict(monitor._state)
+        conformance.reset_monitor()
+        check(stats_a == {"preempt_parked": PREEMPT_INTER,
+                          "preempt_resumed": PREEMPT_INTER,
+                          "preempt_migrated": 0},
+              f"{label}: (a) stats {stats_a}")
+        check(kinds == {"park": PREEMPT_INTER, "resume": PREEMPT_INTER,
+                        "migrate": 0}, f"{label}: dynamo_preempt_total {kinds}")
+        check(kw.kvbm.parked_count() == parked0 == 0,
+              f"{label}: {kw.kvbm.parked_count()} bundles left parked")
+        pre = {k[1]: v for k, v in states.items() if k[0] == "preemption"}
+        fr = {k[1]: v for k, v in states.items()
+              if k[0] == "flight_recorder"}
+        a_rids = [f"pba-{i}" for i in range(PREEMPT_BATCH)] + [
+            f"pia-{i}" for i in range(PREEMPT_INTER)]
+        check(snap["total_violations"] == 0
+              and sorted(pre.values()) == ["running"] * PREEMPT_INTER
+              and {r: fr.get(r) for r in a_rids}
+              == {r: "finished" for r in a_rids},
+              f"{label}: conformance {snap}, preemption {pre}, flight "
+              f"recorder {fr}")
+        check(kw.kvbm.flush(120.0), f"{label}: the offload did not drain")
+        victims = [p["rid"] for p in clock.parks]
+        check(len(victims) == PREEMPT_INTER
+              and sorted(r["rid"] for r in clock.resumes) == sorted(victims)
+              and all("ms" in r for r in clock.resumes),
+              f"{label}: timed parks {clock.parks}, resumes "
+              f"{clock.resumes}")
+        kw.scheduler.stop()
+
+        # (b) preemption off, (c) the batch alone: `worker`, no KVBM
+        with knobs(DYNT_PREEMPT_ENABLE="0"):
+            _fresh_scheduler(worker)
+        check(not worker.scheduler.preempt_enabled,
+              f"{label}: DYNT_PREEMPT_ENABLE=0 left preemption on")
+        b_batch, b_inter = asyncio.run(_preempt_wave(
+            worker, traffic["batch"]("b"), traffic["inter"]("b")))
+        check(worker.scheduler.stats.preempt_parked
+              == worker.scheduler.stats.preempt_migrated == 0,
+              f"{label}: (b) preempted with preemption off")
+        _fresh_scheduler(worker)
+        t_c = time.perf_counter()
+        c_batch, _ = asyncio.run(_preempt_wave(
+            worker, traffic["batch"]("c"), []))
+        wall_c = time.perf_counter() - t_c
+        worker.scheduler.stop()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = read_counts()
+        want = {}
+        for r in (kw.runner, worker.runner):
+            for name, n in expected_counts(
+                    r, dev, decode=r.decode_steps, prefill=r.prefill_steps,
+                    warm=r.graph_warm_forwards).items():
+                want[name] = want.get(name, 0) + n
+        check(launches == want and (dev.type != "cuda" or (
+            launches["q4_matmul_v2"] > 0
+            and launches["paged_decode_attention_pool_int8"] > 0)),
+              f"{label}: kernel launches {launches} != expected {want}")
+        check_graphed(kw.runner, label)
+
+        # after the counted runs: a parting stream's gap runs eager forwards
+        scattered = {int(r["rid"].split("-")[-1]): r["pages"]
+                     for r in clock.resumes}
+        _preempt_streams_check(f"{label}: (a) batch against (c)", worker,
+                               bprompts, a_batch, c_batch, scattered)
+        _preempt_streams_check(f"{label}: (a) interactive against (b)",
+                               worker, iprompts, a_inter, b_inter, {})
+        for r in a_batch + c_batch:
+            check(len(r["tokens"]) == PREEMPT_BATCH_OUT,
+                  f"{label}: a batch stream of {len(r['tokens'])} tokens")
+
+        # (d) the migrate rung over HTTP: `worker`, no KVBM
+        d = asyncio.run(_preempt_http(worker, traffic))
+        d_victims = d["victims"]
+        check(len(d_victims) == PREEMPT_INTER
+              and d["stats"]["preempt_migrated"] == PREEMPT_INTER,
+              f"{label}: (d) migrated {d_victims}, stats {d['stats']}")
+        d_out = {}
+        for i, o in enumerate(d["batch"] + d["inter"]):
+            n_out = PREEMPT_BATCH_OUT if i < PREEMPT_BATCH else (
+                PREEMPT_INTER_OUT)
+            check(o["finish"] == "length"
+                  and o["usage"]["completion_tokens"] == n_out,
+                  f"{label}: (d) stream {i} ended {o['finish']} with "
+                  f"{o['usage']}")
+        for i in d_victims:
+            o = d["batch"][i]
+            gaps = np.diff(o["stamps"]) * 1e3
+            d_out[f"pbd-{i}"] = {
+                "stall_ms": float(gaps.max()),
+                "first_divergence_from_c": _text_divergence(
+                    o["text"], c_batch[i]["tokens"])}
+
+        def completion_s(rows):
+            return [r["stamps"][-1] - r["t0"] for r in rows]
+
+        parked = [a_batch[int(v.split("-")[-1])] for v in victims]
+        others = [r for r in a_batch if not any(r is p for p in parked)]
+
+        def ttft(rows):
+            t = [(r["stamps"][0] - r["t0"]) * 1e3 for r in rows]
+            return {"mean": float(np.mean(t)), "max": float(np.max(t))}
+
+        nvsmi = nvidia_smi() if dev.type == "cuda" else None
+        emit(label, model=kw.card.name, nvidia_smi=nvsmi,
+             prewarm_s=prewarm_s, g2_blocks=PREEMPT_G2,
+             stats_a=stats_a, victims=victims,
+             interactive_ttft_ms={"a_preempt": ttft(a_inter),
+                                  "b_no_preempt": ttft(b_inter)},
+             park=clock.parks, resume=clock.resumes,
+             park_ms_mean=float(np.mean([p["ms"] for p in clock.parks])),
+             resume_ms_mean=float(np.mean([p["ms"] for p in clock.resumes])),
+             batch_completion_s={
+                 "a": float(np.max(completion_s(a_batch))),
+                 "c": float(np.max(completion_s(c_batch))),
+                 "a_victims_mean": float(np.mean([
+                     completion_s(a_batch)[int(v.split("-")[-1])]
+                     for v in victims]))},
+             batch_itl_ms={
+                 "a": _latency(a_batch)["itl_ms_mean"],
+                 "c": _latency(c_batch)["itl_ms_mean"],
+                 "a_victims": _latency(parked)["itl_ms_mean"],
+                 "a_others": _latency(others)["itl_ms_mean"]},
+             wall_s={"a": wall_a, "c": wall_c},
+             conformance={k: snap[k] for k in (
+                 "total_violations", "instances_tracked", "by_protocol")},
+             migrate_rung={"victims": d_out,
+                           "interactive_ttft_ms": ttft(d["inter"]),
+                           "stats": d["stats"]},
+             kernel_launches=launches,
+             seconds=time.perf_counter() - t_phase)
+        return launches
+    finally:
+        conformance.reset_monitor()
+        if kw is not None:
+            kw.close()
+
+
+async def _preempt_http(worker, traffic: dict) -> dict:
+    """Run (d): `worker` (a fresh scheduler, no KVBM) behind the port's
+    Frontend on a DistributedRuntime in this process; the 16 batch and, once
+    each batch sequence has PREEMPT_AT tokens, the 4 interactive requests as
+    streamed /v1/completions with token-id prompts and `priority`. Records
+    the victims the scheduler migrated, by their index in the batch (the
+    frontend names requests itself)."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import InferenceScheduler
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    model = worker.card.name
+    worker.scheduler.stop()
+    worker.scheduler = InferenceScheduler(
+        worker.runner, on_stored=worker.events.on_stored,
+        on_removed=worker.events.on_removed)
+    sched = worker.scheduler
+    victims: list = []
+    preempt = sched._preempt_seq
+
+    def recorded(victim):
+        ids = victim.request.token_ids
+        victims.append(next(i for i, p in enumerate(traffic["batch_prompts"])
+                            if ids[:len(p)] == p))
+        return preempt(victim)
+
+    sched._preempt_seq = recorded
+
+    def http_body(b: dict) -> dict:
+        s = b["sampling"]
+        return {"model": model, "prompt": b["token_ids"],
+                "max_tokens": s["max_tokens"], "temperature": s["temperature"],
+                "seed": s["seed"], "ignore_eos": True,
+                "priority": b["priority"], "stream": True,
+                "stream_options": {"include_usage": True}}
+
+    async def submitted(n: int) -> None:
+        while sched._incoming.qsize() < n:
+            await asyncio.sleep(0.0005)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+    cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
+                        tcp_host="127.0.0.1", system_enabled=False)
+    rt = await DistributedRuntime(cfg).start()
+    frontend = Frontend(rt, host="127.0.0.1", port=0)
+    try:
+        await worker.serve(rt)
+        await frontend.start()
+        port = frontend.port
+        t_list = time.perf_counter()
+        while True:
+            res = await _http(port, "GET", "/v1/models")
+            if model in [m["id"] for m in json.loads(res["text"])["data"]]:
+                break
+            check(time.perf_counter() - t_list < 30,
+                  f"preempt: /v1/models never listed {model}")
+            await asyncio.sleep(0.05)
+        batch = traffic["batch"]("d")
+        b_tasks = []
+        for i, b in enumerate(batch):
+            b_tasks.append(asyncio.ensure_future(
+                _http(port, "POST", "/v1/completions", http_body(b))))
+            await asyncio.wait_for(submitted(i + 1), 60)
+        sched.start()
+        t_wait = time.perf_counter()
+        while not (sum(s is not None for s in sched._slots) == PREEMPT_BATCH
+                   and all(s is not None and len(s.generated) >= PREEMPT_AT
+                           for s in list(sched._slots))):
+            check(time.perf_counter() - t_wait < 300,
+                  "preempt: (d) the batch never reached "
+                  f"{PREEMPT_AT} tokens")
+            await asyncio.sleep(0.001)
+        gate = _hold_scheduler(worker)
+        i_tasks = []
+        for i, b in enumerate(traffic["inter"]("d")):
+            i_tasks.append(asyncio.ensure_future(
+                _http(port, "POST", "/v1/completions", http_body(b))))
+            await asyncio.wait_for(submitted(i + 1), 60)
+        gate.set()
+        answers = await asyncio.wait_for(
+            asyncio.gather(*(b_tasks + i_tasks)), 600)
+        outs = [_sse_outcome(a) for a in answers]
+        stats = {k: getattr(sched.stats, k) for k in (
+            "preempt_parked", "preempt_resumed", "preempt_migrated")}
+    finally:
+        await frontend.close()
+        await worker.shutdown()
+        await rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"batch": outs[:PREEMPT_BATCH], "inter": outs[PREEMPT_BATCH:],
+            "victims": victims, "stats": stats}
+
+
 def _kv_body(rid: str, prompt, max_tokens: int = KV_OUT) -> dict:
     from dynamo_tpu_torch.llm.protocols import (
         PreprocessedRequest,
@@ -6481,6 +7044,8 @@ def main() -> None:
         del worker_b
         free_memory()
         for name, n in phase_kvbm(dev, worker).items():
+            launches[name] = launches.get(name, 0) + n
+        for name, n in phase_preempt(dev, worker).items():
             launches[name] = launches.get(name, 0) + n
     finally:
         worker.close()

@@ -209,6 +209,12 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
         "Force-sample slow requests: a request whose end-to-end wall time "
         "meets this threshold has its flight-recorder timeline dumped to the "
         "log at WARNING (0 disables)"),
+    "DYNT_CONFORMANCE": (
+        False, is_truthy,
+        "Runtime protocol-conformance monitor (runtime/conformance.py): "
+        "replay flight-recorder stamps, drain / breaker / transfer / "
+        "preemption lifecycle events against the protocol specs and count "
+        "violations into dynamo_protocol_violations_total"),
     "DYNT_DEBUG_ENDPOINTS": (
         False, is_truthy,
         "Also serve /debug/requests and /debug/profile on the tenant-facing "
@@ -272,6 +278,18 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
     "DYNT_MIGRATION_LIMIT": (
         3, int,
         "Failure migrations (stream replays on another worker) per request"),
+    # Priority classes and preemption (engine/scheduler.py)
+    "DYNT_PREEMPT_ENABLE": (
+        True, is_truthy,
+        "Preempt batch-class decode slots under interactive pressure: park "
+        "to the KVBM park store (resumed when pressure clears, the committed "
+        "stream unchanged), or a cooperative migrate when no park store is "
+        "attached. Off = class-blind slot allocation (priority still orders "
+        "the queues)"),
+    "DYNT_PREEMPT_MAX_PARKED": (
+        16, int,
+        "Bound on concurrently parked (preempted) sequences per engine; past "
+        "it a preemption takes the cooperative migrate"),
     "DYNT_PREEMPT_MIGRATION_LIMIT": (
         3, int,
         "Cooperative migrations (worker-emitted finish_reason=migrate) per "

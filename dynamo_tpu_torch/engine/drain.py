@@ -19,8 +19,8 @@ plane, or the status server's POST /drain:
      (unclaimed transfers, prefill-only legs) ends with an in-band error.
 
 The worker deregisters only once `drain()` returns: empty, or expired.
-The reference's `conformance.observe` calls have no counterpart here (its
-protocol conformance recorder is not ported).
+Every state change replays against the `drain_ladder` spec
+(`runtime/conformance.py`) when DYNT_CONFORMANCE is on.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import time
 from typing import Optional
 
 from ..config import env
+from ..runtime import conformance
 from ..runtime.metrics import DRAIN_DURATION_MS, DRAIN_SEQUENCES, DRAIN_STATE
 
 log = logging.getLogger("dynamo_tpu_torch.drain")
@@ -45,6 +46,9 @@ def set_drain_state(instance_id: int, state: str) -> None:
     without the stamp a dashboard could not tell serving from not scraped);
     the ladder stamps every transition."""
     DRAIN_STATE.labels(worker=f"{instance_id:x}").set(_STATE_CODE[state])
+    # every ladder transition, the startup stamp included, flows through
+    # here: replay it against the drain_ladder spec
+    conformance.observe("drain_ladder", instance_id, state)
 
 
 class DrainCoordinator:

@@ -51,6 +51,22 @@ admission onboards the prompt blocks the prefix cache missed but a tier
 holds (`_onboard_from_kvbm`): the blocks are scattered into the new pages
 instead of prefilled.
 
+Priority classes (`request.priority`: interactive > standard > batch) order
+admission, class-strict and FIFO within a class (one stable sort per drain
+of the arrivals). A waiting head with no free slot, or no pages, preempts
+the cheapest lower-class decode slot (DYNT_PREEMPT_ENABLE), on the step's
+first admit pass only, when no decode block is in flight: with a KVBM park
+store (`kvbm.park_sequence`, at most DYNT_PREEMPT_MAX_PARKED) the victim's
+computed pages are gathered on the step stream, copied to pinned host memory
+and synchronised, and only then released (`_preempt_seq`); the sequence
+keeps its seed, generated tokens, speculation and processor state and
+resumes when pressure clears (`_resume_parked`: the bundle is staged on the
+side stream and scattered into new pages, the prefix cache's pages
+skipped), continuing its stream unchanged. With no park store the victim
+takes the cooperative in-band migrate, which the frontend's `Migration`
+replays. Each park, migrate, resume, expiry and drop replays against the
+`preemption` spec (`runtime/conformance.py`) when DYNT_CONFORMANCE is on.
+
 Each step is split into host and device time with no added sync
 (`steptrace`, `perf/steptrace.py`): dispatch scopes around the graph
 replays, drain scopes around the readbacks that already block, and the
@@ -59,8 +75,8 @@ committed sample's split in the stats. A sequence submitted with a
 (`runtime/flight_recorder.py`): scheduled, prefill_start, first_token, its
 prefill and decode device windows, and the drain rungs.
 
-Not ported yet (each is a later slice): preemption/park, LoRA and
-multimodal. Requests that need one of them finish with an error.
+Not ported yet (each is a later slice): LoRA and multimodal. Requests that
+need one of them finish with an error.
 """
 
 from __future__ import annotations
@@ -84,9 +100,11 @@ from ..llm.logits_processing import (
     host_sample,
     resolve_processors,
 )
-from ..llm.protocols import EngineOutput, PreprocessedRequest
+from ..llm.protocols import EngineOutput, PreprocessedRequest, class_rank
 from ..perf.steptrace import StepTrace
+from ..runtime.conformance import observe
 from ..runtime.flight_recorder import get_recorder
+from ..runtime.metrics import PREEMPT_TOTAL
 from ..tokens import TokenBlockSequence, compute_block_hashes
 from .model_runner import DeviceBundle, ModelRunner, bucket_table_width
 from .pages import PageAllocation, PagePool
@@ -94,6 +112,13 @@ from .sampler import TOP_LOGPROBS_K
 from .spec import BlockLookahead, NGramProposer, SlotSpec, propose_for
 
 log = logging.getLogger("dynamo_tpu_torch.scheduler")
+
+
+def _observe_preempt(instance: str, event: str) -> None:
+    """Feed the `preemption` lifecycle to the conformance monitor. The
+    instance key is scheduler-scoped (an id(self) prefix), so a migrated
+    request replayed on a peer starts a fresh lifecycle there."""
+    observe("preemption", instance, event)
 
 
 @dataclasses.dataclass
@@ -165,6 +190,16 @@ class _Seq:
     prefill_submit_ts: Optional[float] = None
     device_prefill_ms: float = 0.0
     device_decode_ms: float = 0.0
+    # Priority class: orders admission (class-strict, stable within a class)
+    # and marks lower-class decode slots as preemption donors; parked_pages
+    # is how many leading block-table pages the park bundle covers, so the
+    # resume scatters exactly what the park gathered.
+    priority_class: str = "standard"
+    parked_pages: int = 0
+
+    @property
+    def rank(self) -> int:
+        return class_rank(self.priority_class)
 
     @property
     def decode_ready(self) -> bool:
@@ -222,6 +257,12 @@ class SchedulerStats:
     # Prompt blocks onboarded from the KVBM tiers at admission (each
     # skipped a page of prefill)
     kvbm_onboarded_blocks: int = 0
+    # Preemption: batch decode slots parked to the KVBM park store or
+    # cooperatively migrated under interactive pressure, and parked
+    # sequences resumed
+    preempt_parked: int = 0
+    preempt_migrated: int = 0
+    preempt_resumed: int = 0
 
 
 def _bundle_pages(blocks) -> int:
@@ -284,6 +325,11 @@ class InferenceScheduler:
         # Streamed-chunk token budget of prefill-only sequences
         # (DYNT_DISAGG_CHUNK; 0 = the engine's prefill chunk)
         self.disagg_chunk = max(0, int(env("DYNT_DISAGG_CHUNK") or 0))
+        # Preemption under interactive pressure: batch decode slots park to
+        # the KVBM park store, or migrate cooperatively without one.
+        self.preempt_enabled = bool(env("DYNT_PREEMPT_ENABLE"))
+        self.preempt_max_parked = max(0, int(env("DYNT_PREEMPT_MAX_PARKED")))
+        self._parked: list[_Seq] = []
         # Graceful drain (engine/drain.py): while draining, new arrivals
         # bounce with an in-band migrate the frontend replays on a peer.
         self.draining = False
@@ -474,12 +520,25 @@ class InferenceScheduler:
             if not seq.finished and not seq.cancelled:
                 seq.finished = True
                 seq.emit(EngineOutput(finish_reason="error", error=reason))
+        for seq in self._parked:
+            # their bundles were gathered from a pool that is gone
+            self._drop_parked(seq.request.request_id)
+            if not seq.cancelled:
+                seq.emit(EngineOutput(finish_reason="error", error=reason))
+                seq.cancelled = True
+        self._parked.clear()
 
     def _drain_incoming(self) -> None:
+        added = False
         while True:
             try:
                 request, emit, handle, extra = self._incoming.get_nowait()
             except thread_queue.Empty:
+                if added:
+                    # Class-strict admission order: ONE stable sort per
+                    # drain keeps FIFO within a class while a fresh
+                    # interactive arrival overtakes every waiting batch one.
+                    self._waiting.sort(key=lambda s: -s.rank)
                 return
             if self.error is not None:
                 emit(EngineOutput(finish_reason="error",
@@ -501,6 +560,7 @@ class InferenceScheduler:
                 if handle._cancelled:  # cancelled before the seq existed
                     seq.cancelled = True
                 self._waiting.append(seq)
+                added = True
 
     def _page_span(self, prompt_len: int, max_tokens: int,
                    with_slack: bool = True) -> int:
@@ -552,6 +612,7 @@ class InferenceScheduler:
                                  np.int32),
             slot=-1, prompt_len=prompt_len, prefill_pos=0, seed=seed,
             processors=processors,
+            priority_class=request.priority or "standard",
         )
         if self.spec_enabled:
             stop_ids = set(request.stop.stop_token_ids)
@@ -599,27 +660,41 @@ class InferenceScheduler:
             procs.append(MinPProcessor(s.min_p, s.temperature))
         return procs or None
 
-    def _admit(self) -> int:
+    def _admit(self, allow_preempt: bool = False) -> int:
+        """Admit waiting sequences into free slots, head first. With
+        `allow_preempt` (the step's first pass, no decode block in flight)
+        a parked sequence of the head's class or better resumes before the
+        head, a head with no free slot or no pages preempts a lower-class
+        decode slot, and parked sequences resume at the end."""
         admitted = 0
         while self._waiting:
             seq = self._waiting[0]
             if seq.cancelled:
                 self._waiting.pop(0)
                 continue
+            # A parked sequence of the head's class or better resumes BEFORE
+            # the head: it was admitted first, and a waiting batch request
+            # must not take the slot ahead of a parked standard one.
+            if allow_preempt and self._resume_parked(limit=1,
+                                                     min_rank=seq.rank):
+                admitted += 1
+                continue
             free_slots = [i for i, s in enumerate(self._slots) if s is None]
             if not free_slots:
+                # No slot: preempt a lower-class decode slot and retry. Only
+                # on the step's first pass: the late pass runs with a decode
+                # block in flight, whose drain would append tokens to a
+                # victim that no longer owns its pages.
+                if allow_preempt and self._try_preempt_for(seq):
+                    continue
                 break
-            total_pages = self._page_span(seq.prompt_len,
-                                          seq.request.sampling.max_tokens)
-            seq.slack_ok = (
-                total_pages <= self.runner.config.max_pages_per_seq
-                and total_pages <= self.pool.num_pages - 1)
-            if not seq.slack_ok:
-                total_pages = self._page_span(
-                    seq.prompt_len, seq.request.sampling.max_tokens,
-                    with_slack=False)
+            total_pages = self._slacked_span(seq)
             alloc = self.pool.allocate(seq.block_hashes, total_pages)
             if alloc is None:
+                # page starvation is the other trigger: a parked victim
+                # returns its pages to the pool
+                if allow_preempt and self._try_preempt_for(seq):
+                    continue
                 break  # no pages; retry next iteration
             # Never skip the whole prompt: recompute at least the last token
             # so there are logits to sample from (cached pages stay correct:
@@ -646,7 +721,205 @@ class InferenceScheduler:
                     self._onboard_resume(seq)
                 else:
                     self._onboard(seq)
+        if allow_preempt:
+            # the pressure check ran: parked sequences resume when slots and
+            # pages are back and nothing of a higher class is waiting
+            admitted += self._resume_parked()
         return admitted
+
+    def _slacked_span(self, seq: _Seq) -> int:
+        """Pages to allocate for `seq` (setting `seq.slack_ok`): its span
+        with the decode slack, or without it when that would not fit."""
+        total_pages = self._page_span(seq.prompt_len,
+                                      seq.request.sampling.max_tokens)
+        seq.slack_ok = (total_pages <= self.runner.config.max_pages_per_seq
+                        and total_pages <= self.pool.num_pages - 1)
+        if not seq.slack_ok:
+            total_pages = self._page_span(
+                seq.prompt_len, seq.request.sampling.max_tokens,
+                with_slack=False)
+        return total_pages
+
+    # -- preemption: park to the KVBM, or migrate ---------------------------
+
+    def _park_capacity_ok(self) -> bool:
+        return (self.kvbm is not None
+                and hasattr(self.kvbm, "park_sequence")
+                and len(self._parked) < self.preempt_max_parked)
+
+    def _preempt_victim(self, head_rank: int) -> Optional[_Seq]:
+        """The cheapest lower-class decode slot to evict: lowest class
+        first, then fewest generated tokens (the least KV to move, the least
+        work to replay), then slot index. Only plain decode-ready slots
+        qualify: prefill-only, transfer-owning and first-token-deferred
+        sequences hold state a park cannot carry."""
+        best = None
+        for seq in self._slots:
+            if seq is None or seq.finished or seq.cancelled:
+                continue
+            if seq.prefill_only or seq.keep_pages or seq.first_deferred:
+                continue
+            if not seq.decode_ready or not seq.generated:
+                continue
+            if seq.rank >= head_rank:
+                continue
+            key = (seq.rank, len(seq.generated), seq.slot)
+            if best is None or key < best[0]:
+                best = (key, seq)
+        return best[1] if best is not None else None
+
+    def _try_preempt_for(self, head: _Seq) -> bool:
+        """Free a slot and its pages for `head` by preempting a lower-class
+        victim. True only when a park freed them NOW (the caller retries the
+        admission); a migrate returns False: its slot and pages come back at
+        the reap, the END of this step, and retrying in this pass would
+        migrate every lower-class slot for one waiting head."""
+        if not self.preempt_enabled:
+            return False
+        victim = self._preempt_victim(head.rank)
+        if victim is None:
+            return False
+        return self._preempt_seq(victim)
+
+    def _preempt_seq(self, victim: _Seq) -> bool:
+        """Preempt one decode slot. Park: its computed pages are gathered on
+        the step stream (behind every step that wrote them), copied to
+        pinned host memory and synchronised, and only then released to the
+        pool (a release before the copy ends would race the next
+        allocation); the bundle goes to the KVBM park store and the sequence
+        keeps its seed, tokens, speculation and processor state for the
+        resume. Otherwise the cooperative in-band migrate, which the
+        frontend's Migration replays; the reap releases its pages. Returns
+        whether the park freed the slot and pages at once."""
+        rid = victim.request.request_id
+        # KV on the device: positions 0 .. kv_len - 2 (the last generated
+        # token's KV is written by its next decode step)
+        computed = max(0, victim.kv_len - 1)
+        n_pages = -(-computed // self.page_size) if computed else 0
+        parked = False
+        if self._park_capacity_ok() and n_pages > 0:
+            ids = np.asarray(victim.block_table[:n_pages], np.int32)
+            bundle = self.runner.bundle_to_host(
+                self.runner.gather_pages_device(ids))
+            parked = bool(self.kvbm.park_sequence(rid, bundle))
+        if parked:
+            self.pool.release(
+                victim.alloc, victim.block_hashes,
+                computed_blocks=victim.prefill_pos // self.page_size)
+            self._slots[victim.slot] = None
+            victim.slot = -1
+            victim.alloc = PageAllocation([], [], 0)
+            victim.parked_pages = n_pages
+            self._parked.append(victim)
+            self.stats.preempt_parked += 1
+            PREEMPT_TOTAL.labels(kind="park").inc()
+            _observe_preempt(f"{id(self)}:{rid}", "park")
+            get_recorder().event(victim.record_id, "preempt", kind="park",
+                                 pages=n_pages,
+                                 tokens_preserved=len(victim.generated))
+            log.info("preempted %s to KVBM (%d pages, %d tokens kept)",
+                     rid, n_pages, len(victim.generated))
+            return True
+        # The Migration operator replays prompt + generated on a peer (or
+        # here, later) under DYNT_PREEMPT_MIGRATION_LIMIT.
+        victim.finished = True
+        self.stats.preempt_migrated += 1
+        PREEMPT_TOTAL.labels(kind="migrate").inc()
+        _observe_preempt(f"{id(self)}:{rid}", "migrate")
+        get_recorder().event(victim.record_id, "preempt", kind="migrate",
+                             tokens_preserved=len(victim.generated))
+        victim.emit(EngineOutput(finish_reason="migrate",
+                                 error="preempted under interactive pressure"))
+        log.info("preempted %s via cooperative migrate", rid)
+        return False
+
+    def _resume_parked(self, limit: Optional[int] = None,
+                       min_rank: int = -1) -> int:
+        """Resume parked sequences when pressure clears: a free slot, pages,
+        and no higher-class request waiting (`min_rank` further restricts
+        the candidates: the admit loop resumes only those that outrank or
+        equal its head). The deadline kept burning across the park: an
+        expired sequence finishes with an error instead of resuming into a
+        reply nobody waits for. The bundle is staged on the runner's side
+        stream and scattered into the new pages behind its event; cached
+        prompt pages already hold the same KV, so only the rest is
+        written."""
+        if not self._parked:
+            return 0
+        waiting_rank = max(
+            (s.rank for s in self._waiting if not s.cancelled), default=-1)
+        resumed = 0
+        # the higher class first; park order (FIFO) within a class
+        for seq in sorted(self._parked, key=lambda s: -s.rank):
+            if limit is not None and resumed >= limit:
+                break
+            rid = seq.request.request_id
+            if seq.cancelled:
+                self._parked.remove(seq)
+                self._drop_parked(rid)
+                _observe_preempt(f"{id(self)}:{rid}", "drop")
+                continue
+            deadline = seq.request.deadline
+            if deadline is not None and deadline.expired():
+                self._parked.remove(seq)
+                self._drop_parked(rid)
+                seq.finished = True
+                get_recorder().event(seq.record_id, "preempt",
+                                     kind="expired")
+                _observe_preempt(f"{id(self)}:{rid}", "expire")
+                seq.emit(EngineOutput(
+                    finish_reason="error",
+                    error="deadline exceeded while preempted"))
+                continue
+            if seq.rank < waiting_rank or seq.rank < min_rank:
+                continue  # pressure persists: stay parked
+            free_slots = [i for i, s in enumerate(self._slots) if s is None]
+            if not free_slots:
+                break
+            alloc = self.pool.allocate(seq.block_hashes,
+                                       self._slacked_span(seq))
+            if alloc is None:
+                break
+            bundle = self.kvbm.claim_parked(rid)
+            if bundle is None:
+                # The park store lost the bundle; a resume must never
+                # scatter garbage: degrade to the cooperative migrate.
+                self.pool.release(alloc, seq.block_hashes, computed_blocks=0)
+                self._parked.remove(seq)
+                seq.finished = True
+                self.stats.preempt_migrated += 1
+                PREEMPT_TOTAL.labels(kind="migrate").inc()
+                _observe_preempt(f"{id(self)}:{rid}", "migrate")
+                seq.emit(EngineOutput(
+                    finish_reason="migrate",
+                    error="park bundle lost; replay elsewhere"))
+                continue
+            self._parked.remove(seq)
+            seq.alloc = alloc
+            pages = alloc.pages
+            seq.block_table[: len(pages)] = pages
+            cached_n = min(alloc.cached_blocks, seq.parked_pages)
+            target = np.asarray(seq.block_table[cached_n:seq.parked_pages],
+                                np.int32)
+            if len(target):
+                self.runner.scatter_pages(
+                    target, self.runner.stage_bundle(bundle[cached_n:]))
+            seq.slot = free_slots[0]
+            self._slots[seq.slot] = seq
+            seq.parked_pages = 0
+            self.stats.preempt_resumed += 1
+            PREEMPT_TOTAL.labels(kind="resume").inc()
+            _observe_preempt(f"{id(self)}:{rid}", "resume")
+            get_recorder().event(seq.record_id, "preempt", kind="resume",
+                                 tokens_preserved=len(seq.generated))
+            log.info("resumed parked %s (%d tokens preserved)",
+                     rid, len(seq.generated))
+            resumed += 1
+        return resumed
+
+    def _drop_parked(self, rid: str) -> None:
+        if self.kvbm is not None and hasattr(self.kvbm, "drop_parked"):
+            self.kvbm.drop_parked(rid)
 
     def _onboard_from_kvbm(self, seq: _Seq) -> None:
         """KVBM onboard at admission: prompt blocks the G1 prefix cache
@@ -752,9 +1025,11 @@ class InferenceScheduler:
         return 0.0
 
     def queue_depth(self) -> tuple[int, int]:
-        """(live slots, waiting sequences)."""
+        """(live slots, waiting sequences). Parked sequences count as
+        waiting: they hold live client streams the admission estimators
+        must see as backlog."""
         active = sum(1 for s in self._slots if s is not None)
-        return active, len(self._waiting)
+        return active, len(self._waiting) + len(self._parked)
 
     def active_kv_tokens(self) -> int:
         """KV tokens the live decode slots attend: the working set of the
@@ -767,7 +1042,10 @@ class InferenceScheduler:
     def _step(self) -> bool:
         start = time.monotonic()
         self.steptrace.begin()
-        admitted = self._admit()
+        # Preemption and resume only on this first pass: no decode block is
+        # in flight yet, so a victim's pages are gathered and released
+        # without racing a pending drain.
+        admitted = self._admit(allow_preempt=True)
         # Deferred prefill tokens from the PREVIOUS iteration: their device
         # work was queued before this iteration's dispatches.
         ripe = self._pending_prefill
@@ -1527,8 +1805,8 @@ class InferenceScheduler:
         carry).
 
         Rung 2, cooperative replay: everything else live (mid-prefill,
-        processor slots, waiting) emits a plain migrate; the peer replays
-        prompt + generated tokens.
+        processor slots, waiting, parked) emits a plain migrate; the peer
+        replays prompt + generated tokens.
 
         Prefill-only sequences that already handed pages to a transfer keep
         running (their decode peer is pulling); the drain deadline bounds
@@ -1549,6 +1827,13 @@ class InferenceScheduler:
                 replay(seq)
                 seq.cancelled = True
         self._waiting.clear()
+        for seq in self._parked:
+            # parked bundles reference a pool that is departing: replay
+            self._drop_parked(seq.request.request_id)
+            if not seq.cancelled:
+                replay(seq)
+                seq.cancelled = True
+        self._parked.clear()
         for seq in self._slots:
             if seq is None or seq.finished or seq.cancelled:
                 continue
@@ -1596,6 +1881,13 @@ class InferenceScheduler:
                 seq.cancelled = True
                 n += 1
         self._waiting.clear()
+        for seq in self._parked:
+            self._drop_parked(seq.request.request_id)
+            if not seq.cancelled:
+                seq.emit(EngineOutput(finish_reason="error", error=reason))
+                seq.cancelled = True
+                n += 1
+        self._parked.clear()
         for seq in self._slots:
             if seq is not None and not seq.finished and not seq.cancelled:
                 seq.emit(EngineOutput(finish_reason="error", error=reason))

@@ -58,7 +58,11 @@ offloading prompt blocks as they register and onboarding them at
 admission; `generate` leases a request's `cache_anchors` prefix blocks
 (`cache_ttl`, at most DYNT_PIN_TTL_SECS) and prefetches them into G2 (a
 `session_pin` event), the event-drain tick sweeps expired leases, and
-`shutdown` flushes the offload before it stops the scheduler.
+`shutdown` flushes the offload before it stops the scheduler. The same
+manager is the park store of the scheduler's preemption: a batch decode slot
+preempted for an interactive request parks its pages there and resumes
+later; with no KVBM the victim migrates (the frontend replays it). Parked
+sequences count as waiting in LoadMetrics.
 
 Every request's phases go on a flight-recorder timeline
 (`runtime/flight_recorder.py`; a prefill leg's under `<id>#prefill`), with a

@@ -20,9 +20,9 @@ the other. Two repairs:
     the layout dtype and assembles every bundle as that dtype over
     `[n, L, 2, ps, kh, hd]`, which raises `ValueError` on a packed bundle.
 
-The reference's `conformance.observe` calls (its protocol conformance
-recorder, `runtime/conformance.py`) have no counterpart: that module is not
-ported.
+A streamed transfer's accepted append / finish / fail replay against the
+`kv_stream_transfer` spec (`runtime/conformance.py`) when DYNT_CONFORMANCE
+is on.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..runtime import conformance
 
 # Target bytes per kv_pull response frame (well under the codec's MAX_FRAME).
 TRANSFER_CHUNK_BYTES = 4 << 20
@@ -143,6 +145,8 @@ class StreamingTransfer(PendingTransfer):
                 # finish pinned the final list, or fail released the pages
                 # (appending would advertise pages the pool may reissue)
                 return
+            conformance.observe("kv_stream_transfer", self.transfer_id,
+                                "append")
             self.page_ids.extend(int(p) for p in page_ids)
             self._cond.notify_all()
 
@@ -154,6 +158,8 @@ class StreamingTransfer(PendingTransfer):
         with self._cond:
             if self.failed or self.done:
                 return  # the first terminal event wins
+            conformance.observe("kv_stream_transfer", self.transfer_id,
+                                "finish")
             self.page_ids = [int(p) for p in all_page_ids]
             self.first_token = int(first_token)
             self.done = True
@@ -168,6 +174,8 @@ class StreamingTransfer(PendingTransfer):
                 # done: a completed prompt pass is a valid transfer whose
                 # TTL owns the release; failed: already released
                 return
+            conformance.observe("kv_stream_transfer", self.transfer_id,
+                                "fail")
             self.failed = True
             self._cond.notify_all()
         if self._table.claim(self.transfer_id) is not None:

@@ -18,8 +18,8 @@ Stamps are first-write-wins (phases are facts, not counters) and the whole
 structure is thread-safe: the engine scheduler stamps from its own thread
 while the asyncio side reads snapshots. Request ids default to the
 `current_request_id` contextvar, so most call sites stamp with no plumbing.
-The reference's protocol-conformance monitor is not ported, so no stamp is
-replayed against a state machine.
+Accepted stamps and the finish replay against the `flight_recorder` spec
+(`runtime/conformance.py`) when DYNT_CONFORMANCE is on.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import time
 from typing import Optional
 
 from ..config import env
+from . import conformance
 
 log = logging.getLogger("dynamo_tpu_torch.flight_recorder")
 
@@ -145,6 +146,11 @@ class FlightRecorder:
             tl = self._inflight.get(rid)
             if tl is not None and phase not in tl.phases:
                 tl.phases[phase] = time.time() if ts is None else ts
+                if phase != "received":
+                    # Accepted first-write stamps replay against the phase
+                    # machine ("received" is its initial state, not an
+                    # event), under the lock, so in acceptance order.
+                    conformance.observe("flight_recorder", rid, phase)
 
     def device(self, request_id: Optional[str], phase: str,
                device_ms: float = 0.0, host_ms: float = 0.0) -> None:
@@ -191,6 +197,7 @@ class FlightRecorder:
             tl.phases.setdefault("finished", time.time())
             tl.slow = bool(self.slow_ms) and tl.elapsed_ms() >= self.slow_ms
             self._completed.append(tl)
+            conformance.observe("flight_recorder", rid, "finished")
         if status not in ("ok", "cancelled", "shed"):
             # Errors and deadline overruns dump; a client cancel is normal
             # teardown and a shed is deliberate degradation (dumping each

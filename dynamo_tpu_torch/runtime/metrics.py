@@ -248,6 +248,26 @@ TENANT_SHED = Counter(
     "queue (deadline-aware admission). Untagged requests count under "
     "tenant=untagged only when quota-shed",
     ["tenant", "reason"])
+# Priority classes (engine/scheduler.py): batch decode slots preempted under
+# interactive pressure, and parked sequences resumed
+PREEMPT_TOTAL = Counter(
+    "dynamo_preempt_total",
+    "Scheduler preemption events, by kind: park (batch decode slot "
+    "offloaded to the KVBM park store under interactive pressure), "
+    "migrate (cooperative preempt-and-migrate fallback: the worker "
+    "emitted finish_reason=migrate), resume (parked sequence restored "
+    "and decoding again)",
+    ["kind"])
+# Runtime protocol conformance (runtime/conformance.py): observed lifecycle
+# events the protocol specs forbid. DS101 = no transition for the event in
+# the current state, DS201 = an event after a terminal state.
+PROTOCOL_VIOLATIONS = Counter(
+    "dynamo_protocol_violations_total",
+    "Observed lifecycle events forbidden by the dynastate protocol "
+    "specs, by protocol and rule (DS101 unhandled-event-in-state, "
+    "DS201 post-terminal-event). Nonzero means a live code path "
+    "diverged from the machine-checked protocol contract",
+    ["protocol", "rule"])
 # Graceful drain (engine/drain.py): how a departing worker vacated its
 # live streams
 DRAIN_STATE = Gauge(

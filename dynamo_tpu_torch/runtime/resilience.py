@@ -20,8 +20,9 @@ trip a breaker that probes its way back.
                      half-open (after reset_secs, admitting a single probe)
                      -> closed on the probe's success, open on its failure.
 
-The breaker serializes its transitions with a lock; the rest is
-asyncio-single-threaded.
+The breaker serializes its transitions with a lock, and each replays
+against the `breaker` spec (`runtime/conformance.py`) when DYNT_CONFORMANCE
+is on; the rest is asyncio-single-threaded.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import time
 from typing import Any, Callable, Optional
 
 from ..config import env
+from . import conformance
 from .metrics import (
     BREAKER_STATE,
     BREAKER_TRANSITIONS,
@@ -245,6 +247,8 @@ class CircuitBreaker:
         if state == self.state:
             return
         self.state = state
+        # the breaker spec pins which trips exist; the new state is the event
+        conformance.observe("breaker", id(self), state)
         if self._on_transition is not None:
             self._on_transition(state)
 

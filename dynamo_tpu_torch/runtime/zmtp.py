@@ -321,5 +321,13 @@ class ZmtpSubscriber:
 
     async def close(self) -> None:
         self._task.cancel()
-        with contextlib.suppress(asyncio.CancelledError):
+        try:
             await self._task
+        except asyncio.CancelledError:
+            # The connection task's own cancel ends here. A cancel of the
+            # caller that lands meanwhile (a subscriber manager's watch loop
+            # being closed while it closes a deleted publisher's connection)
+            # goes on: swallowed, it left that loop waiting for its next
+            # discovery event forever.
+            if asyncio.current_task().cancelling():
+                raise

@@ -348,6 +348,31 @@ def test_zmq_event_plane_across_packages(run, tmp_path, direction):
     assert left == {}  # close() withdrew the advertisement
 
 
+def test_a_cancel_during_subscriber_close_goes_on(run):
+    """A task cancelled while it closes a ZmtpSubscriber ends cancelled. A
+    subscriber manager's watch loop closes a deleted publisher's connection
+    this way; when the manager's own close cancelled it there, the cancel
+    was swallowed and the loop waited for its next discovery event for
+    good."""
+
+    async def go():
+        sub = zmtp.ZmtpSubscriber("tcp://127.0.0.1:1", [b"kv"],
+                                  lambda frames: None)
+        await asyncio.sleep(0.05)  # the connection task is running
+
+        async def closer():
+            await sub.close()
+            await asyncio.Event().wait()  # the next event, which never comes
+
+        task = asyncio.create_task(closer())
+        await asyncio.sleep(0)  # closer now awaits the connection task
+        task.cancel()
+        done, _ = await asyncio.wait([task], timeout=W)
+        return task in done and task.cancelled()
+
+    assert run(go())
+
+
 def test_frames_and_greeting_are_zmtp_3():
     g = zmtp.GREETING
     assert len(g) == 64 and g[0] == 0xFF and g[9] == 0x7F
