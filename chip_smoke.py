@@ -18,8 +18,10 @@ Phases, each printing one JSON line:
               the same at a speculative chunk's folded width (g' = 20), and
               the one-layer normalized (row 3) and partials (row 4)
               kernels; then the folded pool kernels at g' = 40 (two row
-              tiles) and rows 1-2 at a full batch of 16 x 2,047 tokens
-              (also timed with the split plan held to one split)
+              tiles), rows 1-2 at a full batch of 16 x 2,047 tokens
+              (also timed with the split plan held to one split), and rows
+              1-2 at qwen3-30b-a3b's decode shape (kh = 4, g = 8: half of
+              each 16-row tile is padding)
   gemm      - the W8A16 and W4A16 (v2, v1) kernels the same way, at every
               mistral-7b projection geometry, for M = 8, 16, 40, 80 and 512
               (the small-M bodies up to 80 rows, the prefill body above),
@@ -265,6 +267,23 @@ Phases, each printing one JSON line:
   secondary - mistral-7b widths at 4 layers through the runner: W8A16 with
               int8 KV, and W4A16 under DYNT_Q4_VARIANT=v1; a few greedy
               steps each against the plain versions, launches checked
+  engine_moe - the MoE path, once every earlier model is freed: a
+              TorchWorker serving qwen3-30b-a3b bf16 at full width and
+              depth (48 layers of 128 experts, top-8; 61 GB of random
+              weights from the seed), bf16 KV at the default 2,048 pages,
+              prewarmed; the card's free memory first. The standard
+              traffic: row 1 = 48 x decode forwards, every step a graph
+              replay; TTFT, ITL, tok/s, peak memory. Then the 8 requests
+              twice more, each admitted whole on a new scheduler: the
+              streams equal; the fused block's per-step host and device
+              wall (graphs on and off); the prefill chunk walls at 38, 512
+              and 1,500 tokens (graphed); the capacity drops of each prompt
+              as one chunk (the plain routing on the card's hidden states,
+              eagerly, outside the timed runs: picks of real tokens dropped
+              at the bucket's padding and at none); greedy parity against
+              the plain attention (parity_moe); and a 2-layer full-width
+              Qwen3-MoE directory written by save_params and read back by
+              load_params, every tensor equal (checkpoint_moe)
 
 Every decode, fused block, spec step and prefill chunk (padded to its
 bucket) runs as a CUDA-graph replay (`RunnerConfig.cuda_graphs`, on by
@@ -310,6 +329,7 @@ ROOT = Path(__file__).resolve().parent
 HANG_S = 1100  # the whole run's watchdog (it takes 600-700 s)
 MODEL = "llama3-8b"
 QMODEL = "mistral-7b"
+MOE_MODEL = "qwen3-30b-a3b"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
@@ -719,15 +739,15 @@ def phase_build() -> None:
 
 
 def _attention_setup(dev: torch.device, hist: list, n_layers: int,
-                     n_pages: int) -> dict:
-    """llama3-8b attention inputs: a random bf16 pool of `n_layers` layers
+                     n_pages: int, model: str = MODEL) -> dict:
+    """`model`'s attention inputs: a random bf16 pool of `n_layers` layers
     and the same pool quantized to int8 by the port's quantize_kv, one
     block table row per history length (distinct random pages; unused
     slots point at scratch page 0, as the scheduler's tables do)."""
     from dynamo_tpu_torch.models import get_config
     from dynamo_tpu_torch.models.transformer import quantize_kv
 
-    cfg = get_config(MODEL)
+    cfg = get_config(model)
     kh, hd, ps, max_pages = cfg.n_kv_heads, cfg.head_dim, 16, 128
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -972,6 +992,18 @@ def phase_kernels(dev: torch.device) -> list:
             dev, full, name, f"{name}[B={FULL_BATCH}]", q_full, "pool",
             quantized, one_split=True))
     del full, q_full
+    free_memory()
+
+    # qwen3-30b-a3b: 32 q heads over 4 kv heads, g = 8 rows of each tile
+    moe = _attention_setup(dev, [0, 1, 15, 16, 17, 1000, 2047, 1500],
+                           n_layers=8, n_pages=320, model=MOE_MODEL)
+    q_moe = torch.randn((len(moe["hist"]), moe["cfg"].n_q_heads, hd),
+                        generator=moe["gen"], device=dev).to(torch.bfloat16)
+    for name, quantized in (("paged_decode_attention_pool", False),
+                            ("paged_decode_attention_pool_int8", True)):
+        results.append(_attention_case(
+            dev, moe, name, f"{name}[g=8]", q_moe, "pool", quantized))
+    del moe, q_moe
     free_memory()
     return results
 
@@ -6954,6 +6986,219 @@ def _kv_body(rid: str, prompt, max_tokens: int = KV_OUT) -> dict:
 
 
 
+MOE_CHUNKS = (38, 512, 1500)  # engine_moe's prefill chunk walls
+MOE_CKPT_LAYERS = 2  # the checkpoint leg's depth cut (full width)
+MOE_CKPT_SHARD_BYTES = 10**9
+
+
+def _moe_weights_bytes(cfg) -> int:
+    """Bytes of the port's weights for a MoE config (no dense MLP leaves
+    on its MoE layers)."""
+    h, e = cfg.hidden, cfg.n_experts
+    em = cfg.expert_mlp_hidden or cfg.mlp_hidden
+    attn = (2 * h * cfg.n_q_heads * cfg.head_dim
+            + 2 * h * cfg.n_kv_heads * cfg.head_dim
+            + 2 * h + (2 * cfg.head_dim if cfg.qk_norm else 0))
+    per_layer = attn + h * e + 3 * e * h * em
+    embed = cfg.vocab_size * h * (1 if cfg.tie_embeddings else 2)
+    return 2 * (cfg.n_layers * per_layer + embed + h)
+
+
+def _moe_drops(dev: torch.device, worker, prompts: list) -> dict:
+    """Each prompt as one prefill chunk at its own bucket, run eagerly
+    (`prefill_chunk` with cuda_graphs off) with the port's `moe` wrapped:
+    per layer, the plain routing of the card's hidden states and the
+    capacity slots of its picks, counted as the dispatch counts them (at
+    the padded length) and as they would fall with no padding (the same
+    picks of the real tokens, capacity at the chunk's own length), and the
+    share of the real picks that land on the k most-picked experts (k / e
+    when the load is even). Outside any timed run; pages from the worker's
+    (stopped) scheduler pool, released after."""
+    from dynamo_tpu_torch.models import moe as moe_mod
+    from dynamo_tpu_torch.models import transformer as tmod
+
+    runner, cfg = worker.runner, worker.model_config
+    e, k = cfg.n_experts, cfg.n_experts_active
+    stats = []
+
+    def counting(x, p, config):
+        _, topi = moe_mod.routing_weights(x, p, config)
+        st = stats[-1]
+        t, n = x.shape[1], st["tokens"]
+        _, keep = moe_mod.pick_slots(topi, e, moe_mod.capacity(config, t))
+        _, keep_np = moe_mod.pick_slots(topi[:, :n], e,
+                                        moe_mod.capacity(config, n))
+        st["real_picks"] += n * k
+        st["dropped_padded"] += int((~keep[..., :n]).sum())
+        st["dropped_unpadded"] += int((~keep_np).sum())
+        st["pad_picks_kept"] += int(keep[..., n:].sum())
+        load = torch.bincount(topi[:, :n].reshape(-1), minlength=e)
+        st["top_k_experts_share"].append(
+            float(load.sort(descending=True).values[:k].sum()) / (n * k))
+        return wrapped(x, p, config)
+
+    wrapped = tmod.moe
+    tmod.moe = counting
+    runner.config.cuda_graphs = False
+    pool = worker.scheduler.pool
+    try:
+        for tokens in prompts:
+            n = len(tokens)
+            stats.append({"tokens": n, "bucket": runner._bucket_for(n),
+                          "real_picks": 0, "dropped_padded": 0,
+                          "dropped_unpadded": 0, "pad_picks_kept": 0,
+                          "top_k_experts_share": []})
+            alloc = pool.allocate([], -(-n // runner.config.page_size))
+            check(alloc is not None, "engine_moe: no pages for a drop count")
+            table = np.zeros(runner.config.max_pages_per_seq, np.int32)
+            table[:len(alloc.pages)] = alloc.pages
+            runner.prefill_chunk(tokens, 0, table, n, (0.0, 1.0, 0, 0))
+            pool.release(alloc, [])
+    finally:
+        tmod.moe = wrapped
+        runner.config.cuda_graphs = True
+    total = {key: sum(st[key] for st in stats) for key in (
+        "real_picks", "dropped_padded", "dropped_unpadded")}
+    for st in stats:
+        shares = st.pop("top_k_experts_share")
+        st["top_k_experts_share"] = {
+            "first_layer": shares[0], "last_layer": shares[-1],
+            "mean": float(np.mean(shares)), "even": k / e}
+    return {"per_prompt": stats, **total,
+            "dropped_padded_share": total["dropped_padded"]
+            / total["real_picks"],
+            "dropped_unpadded_share": total["dropped_unpadded"]
+            / total["real_picks"],
+            "note": "each prompt alone as one chunk; the served run chunks "
+                    "and groups by the scheduler's budget"}
+
+
+def _moe_checkpoint(dev: torch.device, worker) -> dict:
+    """The first MOE_CKPT_LAYERS layers of the served model at full width,
+    written as a Qwen3-MoE directory by save_params (1 GB shards, an
+    index) and read back onto the card by load_params: the config equals
+    the cut preset but for its name, and every tensor, the expert stacks
+    among them, equals the written one. The directory is deleted after."""
+    from dynamo_tpu_torch.models.checkpoint import (
+        config_from_checkpoint,
+        load_params,
+        save_params,
+    )
+
+    cfg = dataclasses.replace(worker.model_config, n_layers=MOE_CKPT_LAYERS)
+    view = _view_model(worker.runner.model, cfg)
+    root = ROOT / "build" / "checkpoint" / f"{cfg.name}-{cfg.n_layers}l"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        save_params(view, cfg, str(root), max_shard_bytes=MOE_CKPT_SHARD_BYTES)
+        write_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in root.iterdir())
+        loaded_cfg = config_from_checkpoint(str(root))
+        check(dataclasses.replace(loaded_cfg, name=cfg.name) == cfg,
+              f"checkpoint_moe: config {loaded_cfg} != {cfg}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = load_params(str(root), loaded_cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_tensors = 2 + (0 if cfg.tie_embeddings else 1)
+        check(torch.equal(model.embed, view.embed)
+              and torch.equal(model.final_norm, view.final_norm)
+              and (cfg.tie_embeddings
+                   or torch.equal(model.lm_head, view.lm_head)),
+              "checkpoint_moe: embed, norm or head differ")
+        for i, (got, want) in enumerate(zip(model.layers, view.layers)):
+            check(sorted(got.keys()) == sorted(want.keys()),
+                  f"checkpoint_moe: layer {i} leaves {got.keys()}")
+            for name in want.keys():
+                check(torch.equal(got[name], want[name]),
+                      f"checkpoint_moe: layer {i} {name} differs")
+                n_tensors += 1
+        weights = sum(t.numel() * t.element_size() for t in model.parameters())
+        del model
+        free_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"layers": cfg.n_layers, "bytes_on_disk": on_disk,
+           "weights_GB": weights / 1e9, "tensors_equal": n_tensors,
+           "write_s": write_s, "load_s": load_s,
+           "load_GB_per_s": weights / 1e9 / load_s, "cut": "depth only"}
+    emit("checkpoint_moe", **out)
+    return out
+
+
+def phase_engine_moe(dev: torch.device) -> dict:
+    """qwen3-30b-a3b at full width and depth through TorchWorker (see the
+    module docstring's engine_moe). Returns the launches of the served
+    run (row 1)."""
+    from dynamo_tpu_torch.engine import RunnerConfig
+    from dynamo_tpu_torch.models import get_config
+
+    cfg = get_config(MOE_MODEL)
+    rc = RunnerConfig()
+    kv_bytes = (cfg.n_layers * 2 * rc.num_pages * rc.page_size
+                * cfg.n_kv_heads * cfg.head_dim * 2)
+    weights = _moe_weights_bytes(cfg)
+    free_b, total_b = torch.cuda.mem_get_info()
+    emit("engine_moe_memory", free_GB=free_b / 1e9, total_GB=total_b / 1e9,
+         weights_GB=weights / 1e9, kv_GB=kv_bytes / 1e9,
+         kv_bytes_per_token=kv_bytes // (rc.num_pages * rc.page_size),
+         num_pages=rc.num_pages)
+    check(free_b > weights + kv_bytes,
+          f"engine_moe: {free_b / 1e9:.1f} GB free for "
+          f"{(weights + kv_bytes) / 1e9:.1f} GB of weights and KV")
+    t0 = time.perf_counter()
+    worker, counts, _ = phase_engine(dev, MOE_MODEL, rc, label="engine_moe",
+                                     prewarm=True)
+    runner = worker.runner
+    try:
+        held = sum(t.numel() * t.element_size()
+                   for t in runner.model.parameters())
+        check(held == weights, f"engine_moe: {held} B of weights, "
+              f"{weights} B expected")
+        decode = runner.decode_steps
+        check(decode > 0 and counts["paged_decode_attention_pool"]
+              == cfg.n_layers * decode * (dev.type == "cuda"),
+              f"engine_moe: row 1 launched {counts} for {decode} decode "
+              f"forwards of {cfg.n_layers} layers")
+        # the 8 requests twice more, each admitted whole on a new scheduler
+        runs = [_held_streams(dev, worker, f"engine_moe_run{i}")
+                for i in (1, 2)]
+        divergence = {rid: _first_divergence(toks, runs[1]["streams"][rid])
+                      for rid, toks in runs[0]["streams"].items()}
+        check(all(at == 64 for at in divergence.values()),
+              f"engine_moe: streams of two runs part at {divergence}")
+        timings = _step_timings(runner, ())
+        rng = np.random.default_rng(SEED + 13)
+        walls = {}
+        for n in MOE_CHUNKS:
+            table = _pool_table(worker, n, 0)
+            tokens = rng.integers(1, cfg.vocab_size, n)
+            args = (tokens, 0, table, n, (0.0, 1.0, 0, 0))
+            replays = runner.graph_replays
+            walls[n] = min(_wall_ms(lambda: runner.prefill_chunk(*args))
+                           for _ in range(3))
+            check(runner.graph_replays == replays + 3
+                  and runner.eager_forwards["prefill"] == 0,
+                  f"engine_moe: the {n}-token chunk was not a replay")
+        _, prompts = standard_traffic(cfg.vocab_size)
+        drops = _moe_drops(dev, worker, prompts)
+        emit("engine_moe_runs", streams_equal_two_runs=True,
+             noise_launches=[r["noise_launches"] for r in runs],
+             step_timings=timings,
+             prefill_chunk_wall_ms={str(n): ms for n, ms in walls.items()},
+             capacity_drops=drops, weights_GB=held / 1e9,
+             phase_s=time.perf_counter() - t0)
+        phase_parity(worker, "parity_moe")
+        _moe_checkpoint(dev, worker)
+    finally:
+        worker.close()
+    del worker, runner
+    free_memory()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -7062,13 +7307,18 @@ def main() -> None:
     launches["q4_matmul_v1"] = phase_secondary(dev, "int4", "v1")[
         "q4_matmul_v1"]
 
+    # the MoE path (qwen3-30b-a3b, 61 GB): alone on the card
+    free_memory()
+    launches["paged_decode_attention_pool[g=8]"] = phase_engine_moe(dev)[
+        "paged_decode_attention_pool"]
+
     for name in KERNELS:
         check(launches.get(name, 0) > 0,
               f"{name} was not launched on its path")
     # an extra case of a kernel ("name[shape]") carries that kernel's
-    # launches on its path
-    kernels = [{**e, "launches": launches[e["name"].split("[")[0]]}
-               for e in entries]
+    # launches on its path (row 1 at g = 8: on the MoE path)
+    kernels = [{**e, "launches": launches.get(
+        e["name"], launches[e["name"].split("[")[0]])} for e in entries]
     watchdog.set()
     faulthandler.cancel_dump_traceback_later()
     emit("done", seconds=time.perf_counter() - t_start)

@@ -40,7 +40,11 @@ sequences' chunks share one forward (`prefill_chunk_batch`), the batch
 padded to a power of two B; a group runs only where B x bucket <= the
 largest bucket, so a longer work list is split into groups in work order
 (the reference does not split; the sampler keys on (seed, step), never on
-the row, so each row's result is the same under any grouping).
+the row, so each row's result is the same under any grouping). A MoE
+model's rows are all padded to the bucket of the work list's longest chunk,
+as the reference's one dispatch pads them: a row's padded length sets its
+expert capacity and its padding tokens take expert slots, so a row padded
+to a smaller group's bucket could drop other picks (`work_bucket`).
 
 With `RunnerConfig.cuda_graphs` (the default) each `decode`, `decode_multi`,
 `decode_spec` and prefill call is one CUDA-graph replay per group
@@ -301,16 +305,29 @@ class ModelRunner:
                 return b
         return self.config.prefill_buckets[-1]
 
+    def work_bucket(self, lengths: Sequence[int]) -> Optional[int]:
+        """The bucket every row of a prefill work list is padded to, when
+        the model makes a row depend on it: for a MoE model, the bucket of
+        the list's longest chunk (the reference's one dispatch pads every
+        row to it, and the expert capacity and the padding tokens' picks
+        follow a row's padded length). None for a dense model, whose rows
+        are the same at any bucket: each group then takes its own."""
+        if not self.model_config.n_experts:
+            return None
+        return self._bucket_for(max(lengths))
+
     def prefill_groups(self, lengths: Sequence[int]) -> list[list[int]]:
         """Split a prefill work list (chunk lengths, in work order) into
         groups of row indices, each run as one forward: a group grows while
-        its padded batch times its bucket stays within the largest bucket,
-        which bounds both the key space and the largest step."""
+        its padded batch times its bucket (`work_bucket`, else its longest
+        chunk's) stays within the largest bucket, which bounds both the key
+        space and the largest step."""
         groups: list[list[int]] = []
         longest = 0
+        fixed = self.work_bucket(lengths) if lengths else None
         for i, n in enumerate(lengths):
             if groups and (_pow2(len(groups[-1]) + 1)
-                           * self._bucket_for(max(longest, n))
+                           * (fixed or self._bucket_for(max(longest, n)))
                            <= self.max_prefill_chunk):
                 groups[-1].append(i)
                 longest = max(longest, n)
@@ -387,8 +404,11 @@ class ModelRunner:
         of the step, or the groups' rows concatenated. `want_samples=True`
         fills `last_prefill_samples` with each row's (logprob, top_ids,
         top_logprobs), a host sync; otherwise it holds None per row."""
-        groups = self.prefill_groups([len(r[0]) for r in rows])
-        outs = [self._prefill_group([rows[i] for i in g]) for g in groups]
+        lengths = [len(r[0]) for r in rows]
+        groups = self.prefill_groups(lengths)
+        bucket = self.work_bucket(lengths)
+        outs = [self._prefill_group([rows[i] for i in g], bucket=bucket)
+                for g in groups]
         if len(groups) == 1:
             tokens = outs[0][0]
         else:
@@ -404,18 +424,19 @@ class ModelRunner:
             self.last_prefill_samples = [None] * len(rows)
         return tokens
 
-    def _prefill_group(self, rows: list, want_logits: bool = False) -> tuple:
-        """One prefill forward over `rows`, padded to (power-of-two B, the
-        bucket of the longest chunk) and to the full table width (a shorter
-        table is padded with page 0): padding tokens and rows write to
-        scratch page 0 (valid False; padding rows have a zero table and
-        kv_len 0). Returns the step's cloned outputs (tokens [B], logprob
-        [B], top ids and logprobs [B, K], and with `want_logits` the
-        last-row logits [B, V])."""
+    def _prefill_group(self, rows: list, want_logits: bool = False,
+                       bucket: Optional[int] = None) -> tuple:
+        """One prefill forward over `rows`, padded to (power-of-two B,
+        `bucket`, by default the bucket of the longest chunk) and to the
+        full table width (a shorter table is padded with page 0): padding
+        tokens and rows write to scratch page 0 (valid False; padding rows
+        have a zero table and kv_len 0). Returns the step's cloned outputs
+        (tokens [B], logprob [B], top ids and logprobs [B, K], and with
+        `want_logits` the last-row logits [B, V])."""
         n = len(rows)
         b = _pow2(n)
         longest = max(len(r[0]) for r in rows)
-        bucket = self._bucket_for(longest)
+        bucket = bucket or self._bucket_for(longest)
         if longest > bucket or b * bucket > self.max_prefill_chunk:
             raise ValueError(
                 f"prefill group of {n} rows up to {longest} tokens exceeds "

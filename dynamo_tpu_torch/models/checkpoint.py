@@ -1,13 +1,20 @@
 """HF checkpoint directories: config.json and safetensors shards <-> the
 port's `Transformer`.
 
-Port of the dense path of `dynamo_tpu/models/checkpoint.py`:
+Port of the dense and MoE paths of `dynamo_tpu/models/checkpoint.py`:
 
   * `config_from_hf(cfg)` / `config_from_checkpoint(dir)` — HF config.json
-    -> ModelConfig, field for field as the reference builds it (MoE, MLA and
+    -> ModelConfig, field for field as the reference builds it (MLA and
     gpt-oss configs parse; `check_supported` then refuses them before any
     shard is read);
-  * `build_mapping(config)` — HF tensor names <-> leaves, dense + qk_norm;
+  * `build_mapping(config)` — HF tensor names <-> leaves, dense + qk_norm
+    (everything but the experts);
+  * the experts of Qwen3-MoE (`mlp.gate`, `mlp.experts.N.gate_proj`) and
+    Mixtral (`block_sparse_moe.gate`, `block_sparse_moe.experts.N.w1`)
+    checkpoints, the style detected from layer 0's names as the reference
+    detects it: each layer's router becomes `router [H, E]` and its experts
+    `e_gate / e_up [E, H, M]` and `e_down [E, M, H]`, each expert written
+    into its stack on the device as it is read;
   * `ShardReader(dir)` — one file, an index-sharded directory, or a
     directory of shards (`models/safetensors.py` reads the format);
   * `load_params(dir, config)` — the `Transformer`, built on the device
@@ -25,12 +32,15 @@ einsum-ready [in, ...out] with explicit head axes):
     o_proj  [H, qh*hd]  ->  wo [qh, hd, H]
     gate/up [M, H]      ->  w_gate/w_up [H, M]
     down    [H, M]      ->  w_down [M, H]
+    router  [E, H]      ->  router [H, E]
+    expert gate/up/down ->  row e of e_gate / e_up / e_down, transposed
 
 Errors are the reference's types and name the file: a missing tensor
 raises KeyError, a mis-shaped one ValueError, a file that is not
 safetensors `SafetensorsError` (a ValueError). Nothing falls back to random
-weights. Not ported yet: the MoE expert stacking, the DeepSeek and gpt-oss
-loaders, mxfp4 dequantization and `checkpoint_digest`.
+weights. A MoE layer gets no dense MLP leaves (the reference zero-fills
+them). Not ported yet: the DeepSeek and gpt-oss loaders, mxfp4
+dequantization and `checkpoint_digest`.
 """
 
 from __future__ import annotations
@@ -334,6 +344,39 @@ def build_mapping(config: ModelConfig) -> list[_Entry]:
     return entries
 
 
+def _expert_style(present: set[str], layer0: str) -> str:
+    """Detect MoE naming: qwen3moe `mlp.experts.{e}.gate_proj` vs mixtral
+    `block_sparse_moe.experts.{e}.w1`."""
+    if f"{layer0}mlp.experts.0.gate_proj.weight" in present:
+        return "qwen3moe"
+    if f"{layer0}block_sparse_moe.experts.0.w1.weight" in present:
+        return "mixtral"
+    raise KeyError(
+        "MoE checkpoint uses an unrecognized expert naming scheme "
+        "(expected mlp.experts.N.gate_proj or block_sparse_moe.experts.N.w1)")
+
+
+def _moe_names(style: str, prefix: str, e: int) -> dict:
+    """Per-expert tensor names for gate/up/down + the router."""
+    if style == "qwen3moe":
+        return {
+            "router": f"{prefix}mlp.gate.weight",
+            "gate": f"{prefix}mlp.experts.{e}.gate_proj.weight",
+            "up": f"{prefix}mlp.experts.{e}.up_proj.weight",
+            "down": f"{prefix}mlp.experts.{e}.down_proj.weight",
+        }
+    return {
+        "router": f"{prefix}block_sparse_moe.gate.weight",
+        "gate": f"{prefix}block_sparse_moe.experts.{e}.w1.weight",
+        "up": f"{prefix}block_sparse_moe.experts.{e}.w3.weight",
+        "down": f"{prefix}block_sparse_moe.experts.{e}.w2.weight",
+    }
+
+
+# Our expert stacks by the per-expert HF name they gather: (stack, key)
+_EXPERT_STACKS = (("e_gate", "gate"), ("e_up", "up"), ("e_down", "down"))
+
+
 # ---------------------------------------------------------------------------
 # Safetensors shard reader
 # ---------------------------------------------------------------------------
@@ -471,6 +514,9 @@ def load_params(path: str, config: ModelConfig, *,
                 loaded.add(entry.hf_name)
             n_bytes += leaf.numel() * leaf.element_size()
             _set_path(tree, entry.path, leaf)
+        if config.n_experts:
+            n_bytes += _load_experts(read, present, config, tree, dev, dtype,
+                                     loaded)
         leftovers = [n for n in present - loaded
                      if not n.endswith(_IGNORED_SUFFIXES)
                      and not (config.tie_embeddings
@@ -484,8 +530,38 @@ def load_params(path: str, config: ModelConfig, *,
     return Transformer(config, tree)
 
 
+def _load_experts(read, present: set[str], config: ModelConfig, tree: dict,
+                  dev: torch.device, dtype: torch.dtype,
+                  loaded: set[str]) -> int:
+    """Every layer's router and expert stacks into `tree`, each expert
+    copied into its row of a stack allocated on the device; returns their
+    bytes."""
+    style = _expert_style(present, "model.layers.0.")
+    h, e = config.hidden, config.n_experts
+    em = config.expert_mlp_hidden or config.mlp_hidden
+    shapes = {"gate": (em, h), "up": (em, h), "down": (h, em)}
+    n_bytes = 0
+    for i in range(config.n_layers):
+        prefix = f"model.layers.{i}."
+        lp = tree["layers"][i]
+        router = _moe_names(style, prefix, 0)["router"]
+        lp["router"] = read(router, (e, h)).t().contiguous().to(dtype)
+        loaded.add(router)
+        for stack, key in _EXPERT_STACKS:
+            lp[stack] = torch.empty((e, *shapes[key][::-1]), dtype=dtype,
+                                    device=dev)
+        for j in range(e):
+            names = _moe_names(style, prefix, j)
+            for stack, key in _EXPERT_STACKS:
+                lp[stack][j] = read(names[key], shapes[key]).t()
+            loaded.update(names.values())
+        n_bytes += sum(lp[name].numel() * lp[name].element_size()
+                       for name in ("router", "e_gate", "e_up", "e_down"))
+    return n_bytes
+
+
 def hf_config_dict(config: ModelConfig) -> dict:
-    """config.json contents for an exported dense checkpoint
+    """config.json contents for an exported dense or MoE checkpoint
     (HF-readable)."""
     if config.is_mla:
         raise NotImplementedError("MLA checkpoints are not ported")
@@ -532,15 +608,26 @@ def _hf_tensors(model: Transformer, config: ModelConfig
             raise TypeError(f"{entry.hf_name}: a {type(leaf).__name__} leaf "
                             "cannot be saved (save the dense model)")
         yield entry.hf_name, entry.to_hf(leaf.detach())
+    if config.n_experts:
+        style = "qwen3moe" if config.qk_norm else "mixtral"
+        for i, lp in enumerate(model.layers):
+            prefix = f"model.layers.{i}."
+            yield (_moe_names(style, prefix, 0)["router"],
+                   lp["router"].detach().t().contiguous())
+            for j in range(config.n_experts):
+                names = _moe_names(style, prefix, j)
+                for stack, key in _EXPERT_STACKS:
+                    yield names[key], lp[stack][j].detach().t().contiguous()
 
 
 def save_params(model: Transformer, config: ModelConfig, path: str, *,
                 max_shard_bytes: Optional[int] = None) -> None:
     """Write the model as an HF-style checkpoint directory: config.json,
     and model.safetensors (or, with `max_shard_bytes`, numbered shards and
-    model.safetensors.index.json), with HF names. The exact inverse of
-    `load_params`. Each tensor is copied to the host once, as it is
-    written."""
+    model.safetensors.index.json), with HF names; a MoE model's experts
+    under the Qwen3-MoE names when it has qk_norm, else Mixtral's, as the
+    reference names them. The exact inverse of `load_params`. Each tensor
+    is copied to the host once, as it is written."""
     check_supported(config)
     os.makedirs(path, exist_ok=True)
     if max_shard_bytes is None:

@@ -7,7 +7,10 @@ holding the same values, leaf for leaf, in the same layouts. bf16 arrays
 arrive as numpy arrays of the `bfloat16` extension dtype; their bits are
 reinterpreted, never rounded. Quantized leaves ({"q8", "qs"} and
 {"q4", "qs4", "qz4"}) become `Q8Weight` / `Q4Weight`; a v1 int4 leaf stays
-uint8 and a v2 leaf int8, so the dtype keeps carrying the layout.
+uint8 and a v2 leaf int8, so the dtype keeps carrying the layout. A MoE
+layer's router, expert stacks, f32 `e_bias` and shared experts cross bit
+for bit; the dense MLP leaves the JAX package keeps on a MoE layer (its
+forward never reads them) are left behind.
 
 `kv_cache_from_numpy` does the same for the reference's int8 KV pool, a
 (values, scales) pair whose lane-broadcast scale rows [L, 2, P, ps, 128]
@@ -24,6 +27,10 @@ from ..ops.q4_linear import Q4Weight
 from ..ops.q8_linear import Q8Weight
 from .config import ModelConfig
 from .transformer import KVCache, Transformer
+
+
+# A MoE layer's unused dense MLP leaves in the JAX package's tree
+_DENSE_MLP = ("w_gate", "w_up", "w_down")
 
 
 def _tensor(arr, device: torch.device) -> torch.Tensor:
@@ -53,6 +60,10 @@ def params_from_numpy(tree: dict, config: ModelConfig, *,
             return [convert(v) for v in node]
         return _tensor(node, dev)
 
+    tree = dict(tree)
+    tree["layers"] = [
+        {k: v for k, v in layer.items() if k not in _DENSE_MLP}
+        if "router" in layer else layer for layer in tree["layers"]]
     return Transformer(config, convert(tree))
 
 

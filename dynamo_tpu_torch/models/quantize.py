@@ -23,8 +23,9 @@ from .transformer import Transformer
 def check_quantizable(config, dtype: str = "int8") -> None:
     if config.is_mla or config.is_gptoss or config.n_experts:
         raise ValueError(
-            f"weight_dtype='{dtype}' supports the dense llama/mistral/qwen "
-            f"family ({config.name} is MLA/MoE/gpt-oss)")
+            f"weight_dtype='{dtype}' supports the dense "
+            f"llama/mistral/qwen family in v1 ({config.name} is "
+            "MLA/MoE/gpt-oss)")
 
 
 def quantized_kind(model: Transformer) -> Optional[str]:

@@ -21,8 +21,13 @@ the card, their plain versions on the CPU), or through the `matmul_fn` a
 caller passes. The KV pool is bf16, or int8 as a (values, scales) pair with
 one bf16 scale per token (`make_kv_cache_int8`, `quantize_kv`).
 
-Qwen3-style `qk_norm` is kept, so qwen3 configs run too. MoE, MLA, gpt-oss,
-LoRA and multimodal splicing are not ported yet and raise.
+Qwen3-style `qk_norm` is kept, so qwen3 configs run too. MoE layers (Qwen3-MoE,
+Mixtral, and the DeepSeek routing variants: sigmoid scoring, group-limited
+selection, the routed scale, shared experts, `first_k_dense` stacks) route
+through `models.moe`: a layer holding a `router` runs the capacity dispatch
+in place of the dense SwiGLU, as the reference selects per layer. A MoE
+layer holds no dense MLP leaves (the JAX package keeps unused ones). MLA,
+gpt-oss, LoRA and multimodal splicing are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops.q4_linear import Q4Weight, q4_matmul, q4_matmul_ref
 from ..ops.q8_linear import Q8Weight, q8_matmul, q8_matmul_ref
 from .config import ModelConfig
+from .moe import moe
 
 AttentionFn = Callable[..., torch.Tensor]
 QuantWeight = Union[Q8Weight, Q4Weight]
@@ -59,8 +65,6 @@ def check_supported(config: ModelConfig) -> None:
     missing = []
     if config.is_mla:
         missing.append("MLA attention")
-    if config.n_experts:
-        missing.append("MoE")
     if config.is_gptoss:
         missing.append("gpt-oss sinks/sliding window")
     if config.image_token_id >= 0:
@@ -112,7 +116,10 @@ class Transformer(nn.Module):
     ["lm_head"], "layers": [{"attn_norm", "wq", "wk", "wv", "wo",
     "mlp_norm", "w_gate", "w_up", "w_down", ["q_norm", "k_norm"]}, ...]}
     with tensors, or quantized leaves (`Q8Weight` / `Q4Weight`) for the
-    projections, as leaves. Inference only: nothing requires grad."""
+    projections, as leaves. A MoE layer holds `router`, `e_gate`, `e_up`,
+    `e_down` (and `e_bias`, `s_gate`, `s_up`, `s_down` where its config
+    has them; see `models.moe`) in place of the dense MLP leaves.
+    Inference only: nothing requires grad."""
 
     def __init__(self, config: ModelConfig, tree: dict) -> None:
         super().__init__()
@@ -143,7 +150,10 @@ def init_params(config: ModelConfig, *, device: DeviceLike = "cuda",
                 seed: int = 0) -> Transformer:
     """Random weights at `init_params`' scales (normal / sqrt(fan_in), norms
     at 1), drawn on `device` from a `torch.Generator` seeded with `seed`.
-    The draws differ from the JAX package's for the same seed."""
+    The draws differ from the JAX package's for the same seed. A MoE layer
+    (`config.layer_is_moe`) gets the router, the expert stacks, a zero f32
+    `e_bias` for sigmoid scoring and the shared experts' projections, and no
+    dense MLP leaves."""
     check_supported(config)
     dev = resolve_device(device)
     dtype = torch_dtype(config.dtype)
@@ -159,7 +169,7 @@ def init_params(config: ModelConfig, *, device: DeviceLike = "cuda",
     def ones(n):
         return torch.ones(n, device=dev, dtype=dtype)
 
-    def layer():
+    def layer(layer_idx):
         p = {
             "attn_norm": ones(h),
             "wq": dense((h, qh, hd), h),
@@ -167,19 +177,33 @@ def init_params(config: ModelConfig, *, device: DeviceLike = "cuda",
             "wv": dense((h, kh, hd), h),
             "wo": dense((qh, hd, h), qh * hd),
             "mlp_norm": ones(h),
-            "w_gate": dense((h, m), h),
-            "w_up": dense((h, m), h),
-            "w_down": dense((m, h), m),
         }
         if config.qk_norm:
             p["q_norm"] = ones(hd)
             p["k_norm"] = ones(hd)
+        if not config.layer_is_moe(layer_idx):
+            p["w_gate"] = dense((h, m), h)
+            p["w_up"] = dense((h, m), h)
+            p["w_down"] = dense((m, h), m)
+            return p
+        e, em = config.n_experts, config.expert_mlp_hidden or m
+        p["router"] = dense((h, e), h)
+        if config.moe_scoring == "sigmoid":
+            p["e_bias"] = torch.zeros(e, device=dev, dtype=torch.float32)
+        p["e_gate"] = dense((e, h, em), h)
+        p["e_up"] = dense((e, h, em), h)
+        p["e_down"] = dense((e, em, h), em)
+        if config.n_shared_experts:
+            sm = config.n_shared_experts * em
+            p["s_gate"] = dense((h, sm), h)
+            p["s_up"] = dense((h, sm), h)
+            p["s_down"] = dense((sm, h), sm)
         return p
 
     tree = {
         "embed": dense((config.vocab_size, h), h),
         "final_norm": ones(h),
-        "layers": [layer() for _ in range(config.n_layers)],
+        "layers": [layer(i) for i in range(config.n_layers)],
     }
     if not config.tie_embeddings:
         tree["lm_head"] = dense((h, config.vocab_size), h)
@@ -310,6 +334,17 @@ def _swiglu(x: torch.Tensor, p, mm: Optional[MatmulFn] = None) -> torch.Tensor:
     gate = _mm(x, p["w_gate"], matmul_fn=mm)
     up = _mm(x, p["w_up"], matmul_fn=mm)
     return _mm(F.silu(gate) * up, p["w_down"], matmul_fn=mm)
+
+
+def _mlp(x: torch.Tensor, lp, config: ModelConfig,
+         mm: Optional[MatmulFn] = None) -> torch.Tensor:
+    """The block after attention, on the residual x: the routed experts on
+    a layer that holds a router (stacks may mix dense and MoE layers), else
+    the dense SwiGLU."""
+    h = rms_norm(x, lp["mlp_norm"], config.rms_eps)
+    if "router" in lp:
+        return moe(h, lp, config)
+    return _swiglu(h, lp, mm)
 
 
 def _qkv(h: torch.Tensor, lp, config: ModelConfig, cos: torch.Tensor,
@@ -511,8 +546,7 @@ def _forward_deferred(model, tokens, positions, kv_cache, block_tables,
         ks.append(k)
         vs.append(v)
         x = x + _mm(attn, lp["wo"], k=2, matmul_fn=matmul_fn)
-        x = x + _swiglu(rms_norm(x, lp["mlp_norm"], config.rms_eps), lp,
-                        matmul_fn)
+        x = x + _mlp(x, lp, config, matmul_fn)
     write_kv_stack(kv_cache, torch.stack(ks), torch.stack(vs), block_tables,
                    positions, active[:, None].expand(positions.shape))
     return _logits(model, x, matmul_fn)
@@ -595,8 +629,7 @@ def forward(
         attn = attention(q, kv_cache, layer_idx, block_tables, positions,
                          kv_lens)
         x = x + _mm(attn, lp["wo"], k=2, matmul_fn=matmul_fn)
-        x = x + _swiglu(rms_norm(x, lp["mlp_norm"], config.rms_eps), lp,
-                        matmul_fn)
+        x = x + _mlp(x, lp, config, matmul_fn)
     if last_idx is not None:
         x = torch.gather(x, 1, last_idx.long()[:, None, None].expand(
             -1, 1, x.shape[-1]))

@@ -414,7 +414,7 @@ def test_config_from_hf_matches_reference(name):
         assert port.hf_config_dict(got) == ref.hf_config_dict(want)
 
 
-@pytest.mark.parametrize("name", ["mixtral", "deepseek_v2_lite", "gptoss"])
+@pytest.mark.parametrize("name", ["deepseek_v3", "deepseek_v2_lite", "gptoss"])
 def test_unported_families_raise_before_any_shard(tmp_path, name):
     (tmp_path / "config.json").write_text(json.dumps(HF_CONFIGS[name]))
     cfg = port.config_from_checkpoint(str(tmp_path))

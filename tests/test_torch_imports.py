@@ -90,6 +90,12 @@ KVBM_MODULES = tuple(f"dynamo_tpu_torch.{m}" for m in (
     "block_manager.manager"))
 
 
+# Modules of the MoE slice: each must be among the checked sources and
+# import cleanly on its own.
+MOE_MODULES = ("dynamo_tpu_torch.models.moe",
+               "dynamo_tpu_torch.models.transformer")
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "scripts" /
@@ -157,6 +163,12 @@ def test_sources_cover_the_kvbm_modules():
                 or path / "__init__.py" in files), module
 
 
+def test_sources_cover_the_moe_modules():
+    files = set(_sources())
+    for module in MOE_MODULES:
+        assert ROOT / (module.replace(".", "/") + ".py") in files
+
+
 def test_sources_cover_the_logits_modules():
     files = set(_sources())
     for module in LOGITS_MODULES:
@@ -168,7 +180,8 @@ def test_sources_cover_the_logits_modules():
 @pytest.mark.parametrize("module", SERVING_MODULES + KV_ROUTING_MODULES
                          + LOGITS_MODULES + CHECKPOINT_MODULES
                          + RESILIENCE_MODULES + DISAGG_MODULES
-                         + OBSERVABILITY_MODULES + KVBM_MODULES)
+                         + OBSERVABILITY_MODULES + KVBM_MODULES
+                         + MOE_MODULES)
 def test_serving_module_imports_on_its_own(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

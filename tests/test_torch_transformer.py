@@ -1,5 +1,5 @@
-"""The port's dense transformer (dynamo_tpu_torch.models) against the JAX
-package, with the JAX params carried across by `params_from_numpy`.
+"""The port's transformer (dynamo_tpu_torch.models), dense and MoE, against
+the JAX package, with the JAX params carried across by `params_from_numpy`.
 
 Both frameworks run on the CPU here. Tolerances, float32: logits 1e-4; the
 pool written by a whole forward 1e-5 (its K/V come out of matmuls and norms
@@ -23,11 +23,13 @@ from dynamo_tpu.models import get_config
 from dynamo_tpu.models import init_params as j_init
 from dynamo_tpu.models import make_kv_cache as j_make_kv
 from dynamo_tpu.models.transformer import forward_decode as j_forward_decode
+from dynamo_tpu.models.transformer import forward_spec as j_forward_spec
 from dynamo_tpu.models.transformer import write_kv_pages as j_write_pages
 from dynamo_tpu.models.transformer import write_kv_stack as j_write_stack
 from dynamo_tpu_torch.models import (
     forward,
     forward_decode,
+    forward_spec,
     make_kv_cache,
     params_from_numpy,
 )
@@ -35,12 +37,25 @@ from dynamo_tpu_torch.models.transformer import write_kv_pages, write_kv_stack
 from dynamo_tpu_torch.ops import paged_attention_decode_pool
 
 _TINY = get_config("tiny-test")
+_MOE = get_config("tiny-moe-test")
 CONFIGS = {
     "f32": (dataclasses.replace(_TINY, dtype="float32"), 1e-4, 1e-5),
     "f32-qknorm-untied": (dataclasses.replace(
         _TINY, dtype="float32", qk_norm=True, tie_embeddings=False),
         1e-4, 1e-5),
     "bf16": (_TINY, 0.08, 0.02),
+    # 4 experts, top-2, capacity factor 1.25: at T = 11 a row has 7 slots
+    # per expert, so the prefill chunk drops picks
+    "moe-f32": (dataclasses.replace(_MOE, dtype="float32"), 1e-4, 1e-5),
+    # DeepSeek routing on a mixed stack: layer 0 dense, layer 1 of 8
+    # experts with sigmoid scores, 2 of 4 groups, a routed scale and a
+    # shared expert
+    "moe-f32-deepseek-routing": (dataclasses.replace(
+        _MOE, dtype="float32", n_experts=8, first_k_dense=1,
+        n_shared_experts=1, moe_scoring="sigmoid", moe_n_group=4,
+        moe_topk_group=2, moe_norm_topk=False, moe_routed_scale=2.5),
+        1e-4, 1e-5),
+    "moe-bf16": (_MOE, 0.08, 0.02),
 }
 
 B, T, PS, PAGES, MAX_PAGES = 3, 11, 4, 32, 8
@@ -109,6 +124,23 @@ def test_prefill_then_decode_match_jax(name):
         np.testing.assert_array_equal(kv.float().numpy()[:, :, 1:] != 0,
                                       _pool_np(j_kv2)[:, :, 1:] != 0)
 
+    # one 3-position verification chunk (deferred write) from the same pool
+    chunk = rng.integers(0, cfg.vocab_size, (B, 3)).astype(np.int32)
+    cpos = (T - 1 + np.arange(3, dtype=np.int32))[None].repeat(B, 0)
+    lens_c = np.full(B, T, np.int32)  # committed incl. chunk token 0
+    _, j_spec = j_forward_spec(
+        params, cfg, jnp.asarray(chunk), jnp.asarray(cpos), j_kv,
+        jnp.asarray(tables), jnp.asarray(lens_c), jnp.asarray(active))
+    kv = torch.from_numpy(np.array(j_kv).view(np.int16)).view(
+        torch.bfloat16) if cfg.dtype == "bfloat16" \
+        else torch.from_numpy(np.array(j_kv))
+    spec = forward_spec(model, torch.from_numpy(chunk).long(),
+                        torch.from_numpy(cpos).long(), kv,
+                        torch.from_numpy(tables), torch.from_numpy(lens_c),
+                        torch.from_numpy(active))
+    np.testing.assert_allclose(spec.numpy(), np.asarray(j_spec),
+                               rtol=logit_tol, atol=logit_tol)
+
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_write_paths_bit_equal(dtype):
@@ -171,6 +203,6 @@ def test_unported_families_raise():
     from dynamo_tpu_torch.models import get_config as t_get_config
     from dynamo_tpu_torch.models import init_params
 
-    for name in ("tiny-moe-test", "tiny-mla-test", "tiny-gptoss-test"):
+    for name in ("tiny-mla-test", "tiny-gptoss-test"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             init_params(t_get_config(name), device="cpu")
