@@ -268,11 +268,13 @@ Phases, each printing one JSON line:
               int8 KV, and W4A16 under DYNT_Q4_VARIANT=v1; a few greedy
               steps each against the plain versions, launches checked
   engine_moe - the MoE path, once every earlier model is freed: a
-              TorchWorker serving qwen3-30b-a3b bf16 at full width and
-              depth (48 layers of 128 experts, top-8; 61 GB of random
-              weights from the seed), bf16 KV at the default 2,048 pages,
-              prewarmed; the card's free memory first. The standard
-              traffic: row 1 = 48 x decode forwards, every step a graph
+              TorchWorker serving qwen3-30b-a3b bf16 at full width, its
+              depth cut to MOE_LAYERS = 24 of 48 layers to keep the whole
+              script near its time budget (layers of 128 experts, top-8;
+              31 GB of random weights from the seed), bf16 KV at the
+              default 2,048 pages, prewarmed; the card's free memory
+              first. The standard traffic: row 1 = 24 x decode forwards,
+              every step a graph
               replay; TTFT, ITL, tok/s, peak memory. Then the 8 requests
               twice more, each admitted whole on a new scheduler: the
               streams equal; the fused block's per-step host and device
@@ -284,6 +286,30 @@ Phases, each printing one JSON line:
               the plain attention (parity_moe); and a 2-layer full-width
               Qwen3-MoE directory written by save_params and read back by
               load_params, every tensor equal (checkpoint_moe)
+  engine_gptoss - gpt-oss, once the MoE model is freed: a TorchWorker
+              serving gpt-oss-20b bf16 at full width and depth (24 layers,
+              64 q / 8 kv heads of 64, 32 experts top-4 of width 2,880;
+              41,829,514,368 B of random weights from the seed, checked to
+              the byte), bf16 KV at the default 2,048 pages (1.61 GB),
+              prewarmed; the card's free memory first. The standard traffic
+              (prompts past the 128-token window): every step a graph
+              replay of the unified forward (sink attention and the
+              dense-over-experts MoE, both plain PyTorch, as the reference
+              runs them: no attention or matmul kernel of the port launches
+              anywhere in the phase, and the runner never speculates);
+              TTFT, ITL, tok/s, peak memory. Then the 8 requests twice more,
+              each admitted whole on a new scheduler: the streams equal; the
+              fused block's per-step host and device wall beside the
+              weights' read floor at 3.35 TB/s (graphs on and off); the
+              prefill chunk walls at 38, 512 and 1,500 tokens (graphed);
+              graphed against eager logits and greedy tokens on a 300-token
+              prompt (parity_gptoss, parity_moe's tolerance); and a 2-layer
+              full-width directory whose experts this script encodes as
+              MXFP4 (checkpoint_gptoss): served through TorchWorker(
+              model_path=...), every expert equal to its encoded E2M1 x
+              2^k values bit for bit and every other tensor to the written
+              one, a 32-token forward on the card against the same on the
+              CPU; write and load seconds
 
 Every decode, fused block, spec step and prefill chunk (padded to its
 bucket) runs as a CUDA-graph replay (`RunnerConfig.cuda_graphs`, on by
@@ -330,6 +356,7 @@ HANG_S = 1100  # the whole run's watchdog (it takes 600-700 s)
 MODEL = "llama3-8b"
 QMODEL = "mistral-7b"
 MOE_MODEL = "qwen3-30b-a3b"
+MOE_LAYERS = 24  # engine_moe's depth cut (of 48): the script's time budget
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
@@ -7129,13 +7156,13 @@ def _moe_checkpoint(dev: torch.device, worker) -> dict:
 
 
 def phase_engine_moe(dev: torch.device) -> dict:
-    """qwen3-30b-a3b at full width and depth through TorchWorker (see the
-    module docstring's engine_moe). Returns the launches of the served
-    run (row 1)."""
+    """qwen3-30b-a3b at full width, MOE_LAYERS deep, through TorchWorker
+    (see the module docstring's engine_moe). Returns the launches of the
+    served run (row 1)."""
     from dynamo_tpu_torch.engine import RunnerConfig
     from dynamo_tpu_torch.models import get_config
 
-    cfg = get_config(MOE_MODEL)
+    cfg = dataclasses.replace(get_config(MOE_MODEL), n_layers=MOE_LAYERS)
     rc = RunnerConfig()
     kv_bytes = (cfg.n_layers * 2 * rc.num_pages * rc.page_size
                 * cfg.n_kv_heads * cfg.head_dim * 2)
@@ -7149,7 +7176,7 @@ def phase_engine_moe(dev: torch.device) -> dict:
           f"engine_moe: {free_b / 1e9:.1f} GB free for "
           f"{(weights + kv_bytes) / 1e9:.1f} GB of weights and KV")
     t0 = time.perf_counter()
-    worker, counts, _ = phase_engine(dev, MOE_MODEL, rc, label="engine_moe",
+    worker, counts, _ = phase_engine(dev, cfg, rc, label="engine_moe",
                                      prewarm=True)
     runner = worker.runner
     try:
@@ -7192,6 +7219,332 @@ def phase_engine_moe(dev: torch.device) -> dict:
              phase_s=time.perf_counter() - t0)
         phase_parity(worker, "parity_moe")
         _moe_checkpoint(dev, worker)
+    finally:
+        worker.close()
+    del worker, runner
+    free_memory()
+    return counts
+
+
+GPTOSS_MODEL = "gpt-oss-20b"
+GPTOSS_WEIGHT_BYTES = 41_829_514_368  # 20,914,757,184 params in bf16
+GPTOSS_CKPT_LAYERS = 2  # checkpoint_gptoss's depth cut (full width)
+GPTOSS_FORWARD_TOKENS = 32  # its card-against-CPU forward
+# E2M1 magnitudes by code (codes 8-15 are their negatives)
+E2M1 = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
+
+
+def _gptoss_weights_bytes(cfg) -> int:
+    """Bytes of a gpt-oss config's weights in bf16: attention with its
+    biases and sinks, norms, the router and its bias, the fused experts
+    with their biases, embedding and (untied) head."""
+    h, hd, e = cfg.hidden, cfg.head_dim, cfg.n_experts
+    qh, kh = cfg.n_q_heads, cfg.n_kv_heads
+    em = cfg.expert_mlp_hidden or cfg.mlp_hidden
+    attn = (2 * h * qh * hd + 2 * h * kh * hd  # wq, wo, wk, wv
+            + qh * hd + 2 * kh * hd + h + qh)  # bq, bk, bv, bo, sinks
+    experts = e * (h * 2 * em + 2 * em + em * h + h) + h * e + e
+    per_layer = attn + 2 * h + experts
+    embed = cfg.vocab_size * h * (1 if cfg.tie_embeddings else 2)
+    return 2 * (cfg.n_layers * per_layer + embed + h)
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k in f32 from its bits, exactly, for integer k in [-126, 127]."""
+    return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def mxfp4_encode(w: torch.Tensor) -> tuple:
+    """An expert stack w [e, in, out] as the HF gpt-oss checkpoints store
+    it: blocks uint8 [e, out, in / 32, 16] (two E2M1 codes a byte, the low
+    nibble first) and scales uint8 [e, out, in / 32] (E8M0: 2^(s - 127)),
+    each group of 32 inputs scaled by a power of two so its largest
+    magnitude is at most 6, every value rounded to the nearest E2M1
+    magnitude. Also returns what they decode to, [e, in, out] in bf16:
+    code x 2^k, exact. One expert at a time (the distances to the eight
+    magnitudes of a whole stack would take 17 GB). Written here, not in
+    the package, which only reads the format."""
+    e, n_in, n_out = w.shape
+    mags = torch.tensor(E2M1, device=w.device)
+    signed = torch.cat([mags, -mags])
+    blocks = torch.empty((e, n_out, n_in // 32, 16), dtype=torch.uint8,
+                         device=w.device)
+    scales = torch.empty((e, n_out, n_in // 32), dtype=torch.uint8,
+                         device=w.device)
+    values = torch.empty_like(w, dtype=torch.bfloat16)
+    for j in range(e):
+        x = w[j].t().float().reshape(n_out, n_in // 32, 32)
+        amax = x.abs().amax(-1).clamp_min(2.0 ** -120)
+        k = torch.ceil(torch.log2(amax / 6.0))
+        scaled = x / _pow2(k)[..., None]
+        code = (scaled.abs()[..., None] - mags).abs().argmin(-1)
+        code = code + 8 * ((scaled < 0) & (code > 0)).long()
+        blocks[j] = (code[..., 0::2] | (code[..., 1::2] << 4)).to(torch.uint8)
+        scales[j] = (k + 127).to(torch.uint8)
+        values[j] = (signed[code] * _pow2(k)[..., None]).reshape(
+            n_out, n_in).t().to(torch.bfloat16)
+    return blocks, scales, values
+
+
+def _gptoss_hf_config(cfg) -> dict:
+    """config.json of an HF gpt-oss directory of `cfg`."""
+    return {
+        "architectures": ["GptOssForCausalLM"], "model_type": "gpt_oss",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden,
+        "intermediate_size": cfg.expert_mlp_hidden,
+        "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_q_heads,
+        "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+        "num_local_experts": cfg.n_experts,
+        "num_experts_per_tok": cfg.n_experts_active,
+        "sliding_window": cfg.sliding_window,
+        "max_position_embeddings": cfg.max_context,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+        "tie_word_embeddings": cfg.tie_embeddings, "attention_bias": True,
+        "swiglu_limit": cfg.swiglu_limit,
+        "layer_types": ["sliding_attention", "full_attention"]
+        * (cfg.n_layers // 2),
+        "rope_scaling": {
+            "rope_type": "yarn", "factor": cfg.rope_yarn_factor,
+            "beta_fast": cfg.rope_yarn_beta_fast,
+            "beta_slow": cfg.rope_yarn_beta_slow, "truncate": False,
+            "original_max_position_embeddings": cfg.rope_yarn_orig_max},
+        "torch_dtype": cfg.dtype,
+    }
+
+
+def _gptoss_hf_tensors(model, cfg, encoded: dict):
+    """(HF name, tensor) of a gpt-oss model, the experts as the MXFP4
+    `encoded` blocks and scales by layer; each tensor made when the
+    writer asks for it."""
+    h, qh, kh, hd = cfg.hidden, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    yield "model.embed_tokens.weight", model.embed.detach()
+    yield "model.norm.weight", model.final_norm.detach()
+    yield "lm_head.weight", model.lm_head.detach().t().contiguous()
+    for i, lp in enumerate(model.layers[:cfg.n_layers]):
+        p = f"model.layers.{i}."
+        a, m = p + "self_attn.", p + "mlp."
+        yield p + "input_layernorm.weight", lp["attn_norm"].detach()
+        yield p + "post_attention_layernorm.weight", lp["mlp_norm"].detach()
+        for proj, leaf, heads in (("q", "wq", qh), ("k", "wk", kh),
+                                  ("v", "wv", kh)):
+            yield (f"{a}{proj}_proj.weight",
+                   lp[leaf].detach().reshape(h, heads * hd).t().contiguous())
+            yield (f"{a}{proj}_proj.bias",
+                   lp["b" + proj].detach().reshape(heads * hd))
+        yield (a + "o_proj.weight",
+               lp["wo"].detach().reshape(qh * hd, h).t().contiguous())
+        yield a + "o_proj.bias", lp["bo"].detach()
+        yield a + "sinks", lp["sinks"].detach()
+        yield m + "router.weight", lp["router"].detach().t().contiguous()
+        yield m + "router.bias", lp["router_bias"].detach()
+        for proj, leaf in (("gate_up_proj", "e_gate_up"),
+                           ("down_proj", "e_down")):
+            blocks, scales, _ = encoded[(i, leaf)]
+            yield f"{m}experts.{proj}_blocks", blocks
+            yield f"{m}experts.{proj}_scales", scales
+            yield f"{m}experts.{proj}_bias", lp[leaf + "_bias"].detach()
+
+
+def _gptoss_checkpoint(dev: torch.device, worker) -> dict:
+    """The first GPTOSS_CKPT_LAYERS layers of the served gpt-oss-20b at full
+    width, their experts MXFP4-encoded (`mxfp4_encode`), written as an HF
+    gpt-oss directory (1 GB shards and an index) and served through
+    `TorchWorker(model_path=...)`, the loader of `--model-path`: the config
+    equals the cut preset but its name, every expert equals its encoded
+    E2M1 x 2^k values bit for bit and every other leaf the written one, and
+    a 32-token forward on the card agrees with the same forward on the CPU
+    (the loaded weights copied there) within parity_moe's tolerance. The
+    directory is deleted after."""
+    from dynamo_tpu_torch.engine import RunnerConfig, TorchWorker
+    from dynamo_tpu_torch.models import Transformer, forward, make_kv_cache
+    from dynamo_tpu_torch.models.checkpoint import config_from_checkpoint
+    from dynamo_tpu_torch.models.safetensors import write_shards
+
+    cfg = dataclasses.replace(worker.model_config,
+                              n_layers=GPTOSS_CKPT_LAYERS)
+    model = worker.runner.model
+    root = ROOT / "build" / "checkpoint" / f"{cfg.name}-{cfg.n_layers}l"
+    shutil.rmtree(root, ignore_errors=True)
+    encoded = {(i, leaf): mxfp4_encode(model.layers[i][leaf])
+               for i in range(cfg.n_layers)
+               for leaf in ("e_gate_up", "e_down")}
+    try:
+        t0 = time.perf_counter()
+        root.mkdir(parents=True)
+        write_shards(_gptoss_hf_tensors(model, cfg, encoded), str(root),
+                     MOE_CKPT_SHARD_BYTES)
+        (root / "config.json").write_text(
+            json.dumps(_gptoss_hf_config(cfg), indent=2))
+        write_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in root.iterdir())
+        loaded_cfg = config_from_checkpoint(str(root))
+        check(dataclasses.replace(loaded_cfg, name=cfg.name) == cfg,
+              f"checkpoint_gptoss: config {loaded_cfg} != {cfg}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = TorchWorker(model_path=str(root), device=dev,
+                             runner_config=RunnerConfig(num_pages=64))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = served.runner.model
+        check(served.model_config == loaded_cfg
+              and not served.runner.supports_spec,
+              "checkpoint_gptoss: the worker's config or spec support")
+        n_tensors, n_experts_equal = 3, 0
+        check(torch.equal(got.embed, model.embed)
+              and torch.equal(got.final_norm, model.final_norm)
+              and torch.equal(got.lm_head, model.lm_head),
+              "checkpoint_gptoss: embed, norm or head differ")
+        for i, layer in enumerate(got.layers):
+            want = model.layers[i]
+            check(sorted(layer.keys()) == sorted(want.keys()),
+                  f"checkpoint_gptoss: layer {i} leaves {layer.keys()}")
+            for name in layer.keys():
+                if name in ("e_gate_up", "e_down"):
+                    ok = torch.equal(layer[name].view(torch.int16),
+                                     encoded[(i, name)][2].view(torch.int16))
+                    n_experts_equal += ok
+                else:
+                    ok = torch.equal(layer[name], want[name])
+                check(ok, f"checkpoint_gptoss: layer {i} {name} differs")
+                n_tensors += 1
+        weights = sum(t.numel() * t.element_size() for t in got.parameters())
+        check(weights == _gptoss_weights_bytes(cfg),
+              f"checkpoint_gptoss: {weights} B of weights")
+        served.close()
+        # the same 32-token forward on the card and on the CPU
+        cpu_model = Transformer(loaded_cfg, {
+            "embed": got.embed.cpu(), "final_norm": got.final_norm.cpu(),
+            "lm_head": got.lm_head.cpu(),
+            "layers": [{k: layer[k].cpu() for k in layer.keys()}
+                       for layer in got.layers]})
+        n = GPTOSS_FORWARD_TOKENS
+        tokens = np.random.default_rng(SEED + 21).integers(
+            1, cfg.vocab_size, n)
+
+        def run(m, device):
+            pages = -(-n // 16) + 1
+            kv = make_kv_cache(loaded_cfg, pages, 16, device=device)
+            with torch.inference_mode():
+                out = forward(
+                    m, torch.as_tensor(tokens[None], device=device),
+                    torch.arange(n, device=device)[None], kv,
+                    torch.arange(1, pages, dtype=torch.int32,
+                                 device=device)[None],
+                    torch.tensor([n], dtype=torch.int32, device=device))
+            return out[0].float().cpu().numpy()
+
+        card = run(got, dev)
+        t0 = time.perf_counter()
+        host = run(cpu_model, torch.device("cpu"))
+        cpu_forward_s = time.perf_counter() - t0
+        diff = float(np.abs(card - host).max())
+        scale = float(np.abs(host).max())
+        agree = int((card.argmax(-1) == host.argmax(-1)).sum())
+        check(np.isfinite(card).all() and diff <= PARITY_LOGITS_REL_TOL
+              * scale, f"checkpoint_gptoss: card logits max|d| {diff} > "
+              f"{PARITY_LOGITS_REL_TOL} x {scale}")
+        del served, got, cpu_model
+        free_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"layers": cfg.n_layers, "bytes_on_disk": on_disk,
+           "weights_GB": weights / 1e9, "tensors_equal": n_tensors,
+           "experts_equal_encoded_bitwise": n_experts_equal,
+           "write_s": write_s, "load_s": load_s,
+           "load_GB_per_s": weights / 1e9 / load_s,
+           "cpu_forward_s": cpu_forward_s,
+           "forward_tokens": n, "logits_max_abs_diff": diff,
+           "logits_max_abs": scale, "tolerance_rel": PARITY_LOGITS_REL_TOL,
+           "argmax_agree_rows": agree, "cut": "depth only"}
+    emit("checkpoint_gptoss", **out)
+    return out
+
+
+def phase_engine_gptoss(dev: torch.device) -> dict:
+    """gpt-oss-20b at full width and depth through TorchWorker (see the
+    module docstring's engine_gptoss). The path runs no attention or
+    matmul kernel of the port: every count must stay 0 through the
+    phase."""
+    from dynamo_tpu_torch.engine import RunnerConfig
+    from dynamo_tpu_torch.models import get_config
+
+    cfg = get_config(GPTOSS_MODEL)
+    rc = RunnerConfig()
+    kv_bytes = (cfg.n_layers * 2 * rc.num_pages * rc.page_size
+                * cfg.n_kv_heads * cfg.head_dim * 2)
+    weights = _gptoss_weights_bytes(cfg)
+    check(weights == GPTOSS_WEIGHT_BYTES,
+          f"engine_gptoss: {weights} B counted for {GPTOSS_WEIGHT_BYTES}")
+    free_b, total_b = torch.cuda.mem_get_info()
+    read_floor_ms = weights / HBM_BYTES_PER_S * 1e3
+    emit("engine_gptoss_memory", free_GB=free_b / 1e9,
+         total_GB=total_b / 1e9, weights_B=weights, kv_B=kv_bytes,
+         kv_bytes_per_token=kv_bytes // (rc.num_pages * rc.page_size),
+         num_pages=rc.num_pages, decode_read_floor_ms=read_floor_ms)
+    check(free_b > weights + kv_bytes,
+          f"engine_gptoss: {free_b / 1e9:.1f} GB free for "
+          f"{(weights + kv_bytes) / 1e9:.1f} GB of weights and KV")
+    t0 = time.perf_counter()
+    worker, counts, _ = phase_engine(dev, GPTOSS_MODEL, rc,
+                                     label="engine_gptoss", prewarm=True)
+    runner = worker.runner
+    try:
+        check(not any(counts.values()),
+              f"engine_gptoss: kernels launched {counts}")
+        check(not runner.supports_spec and runner.decode_attention_fn is None
+              and runner.spec_attention_fn is None,
+              "engine_gptoss: the runner holds a kernel or speculates")
+        held = sum(t.numel() * t.element_size()
+                   for t in runner.model.parameters())
+        check(held == weights, f"engine_gptoss: {held} B of weights, "
+              f"{weights} B expected")
+        kv_held = runner.kv_cache.numel() * runner.kv_cache.element_size()
+        check(kv_held == kv_bytes, f"engine_gptoss: KV pool {kv_held} B")
+        # the 8 requests twice more, each admitted whole on a new scheduler
+        runs = [_held_streams(dev, worker, f"engine_gptoss_run{i}")
+                for i in (1, 2)]
+        divergence = {rid: _first_divergence(toks, runs[1]["streams"][rid])
+                      for rid, toks in runs[0]["streams"].items()}
+        check(all(at == 64 for at in divergence.values()),
+              f"engine_gptoss: streams of two runs part at {divergence}")
+        reset_counts()
+        timings = _step_timings(runner, ())
+        rng = np.random.default_rng(SEED + 13)
+        walls = {}
+        for n in MOE_CHUNKS:
+            table = _pool_table(worker, n, 0)
+            tokens = rng.integers(1, cfg.vocab_size, n)
+            args = (tokens, 0, table, n, (0.0, 1.0, 0, 0))
+            replays = runner.graph_replays
+            walls[n] = min(_wall_ms(lambda: runner.prefill_chunk(*args))
+                           for _ in range(3))
+            check(runner.graph_replays == replays + 3
+                  and runner.eager_forwards["prefill"] == 0,
+                  f"engine_gptoss: the {n}-token chunk was not a replay")
+        step = timings["decode_block"]["on"]["wall_ms"]
+        emit("engine_gptoss_runs", streams_equal_two_runs=True,
+             noise_launches=[r["noise_launches"] for r in runs],
+             step_timings=timings, decode_step_wall_ms=step,
+             decode_read_floor_ms=read_floor_ms,
+             decode_step_x_floor=step / read_floor_ms,
+             prefill_chunk_wall_ms={str(n): ms for n, ms in walls.items()},
+             weights_B=held, kv_B=kv_held, supports_spec=False,
+             phase_s=time.perf_counter() - t0)
+        # graphed against eager logits and greedy tokens (prompt past the
+        # 128-token window)
+        graphed = dataclasses.replace(runner.config, cuda_graphs=True)
+        eager = dataclasses.replace(runner.config, cuda_graphs=False)
+        phase_parity(worker, "parity_gptoss", kernel_fns={"config": graphed},
+                     plain_fns={"config": eager})
+        _gptoss_checkpoint(dev, worker)
+        launched = read_counts()
+        check(not any(launched.values()),
+              f"engine_gptoss: kernels launched in the phase {launched}")
+        emit("engine_gptoss_kernels", launches_in_phase=launched,
+             attention_kernel_launches=sum(
+                 n for name, n in launched.items() if "attention" in name))
     finally:
         worker.close()
     del worker, runner
@@ -7311,6 +7664,11 @@ def main() -> None:
     free_memory()
     launches["paged_decode_attention_pool[g=8]"] = phase_engine_moe(dev)[
         "paged_decode_attention_pool"]
+
+    # gpt-oss (gpt-oss-20b, 41.8 GB): alone on the card; it runs no kernel
+    # of the table (plain sink attention and dense-over-experts MoE)
+    free_memory()
+    phase_engine_gptoss(dev)
 
     for name in KERNELS:
         check(launches.get(name, 0) > 0,

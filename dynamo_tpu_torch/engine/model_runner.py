@@ -25,7 +25,10 @@ swappable (`decode_attention_fn`, `spec_attention_fn`). A caller that
 passes `attention_fn` gets the reference's unified path instead: decode
 runs the write-then-attend `forward` with it (the T = 1 kernel for
 `ops.paged_attention.paged_attention`), it serves prefill too, and
-speculation is off (`supports_spec`).
+speculation is off (`supports_spec`). gpt-oss always takes the unified
+`forward` (single steps, fused blocks, every graph key), whose sink
+attention is plain PyTorch: it has no decode or spec attention function,
+launches no attention kernel and never speculates, as in the reference.
 With `weight_dtype` "int8" or "int4" the projections are quantized at init
 (leaf by leaf, on the runner's device) and every projection of every
 forward goes through `models.transformer.quant_matmul`, the W8A16 / W4A16
@@ -257,9 +260,13 @@ class ModelRunner:
         # The decode and spec attentions and the quantized matmul: the CUDA
         # kernels on the card, their plain versions on the CPU. A caller may
         # swap in other functions with the same signatures (chip_smoke.py's
-        # parity phases pass the plain versions and the drop-ins).
-        self.decode_attention_fn = paged_attention_decode_pool
-        self.spec_attention_fn = paged_attention_spec_pool
+        # parity phases pass the plain versions and the drop-ins). gpt-oss
+        # has none, as in the reference: its sink attention runs in the
+        # unified forward, in plain PyTorch.
+        gptoss = model_config.is_gptoss
+        self.decode_attention_fn = (None if gptoss
+                                    else paged_attention_decode_pool)
+        self.spec_attention_fn = None if gptoss else paged_attention_spec_pool
         self.matmul_fn = quant_matmul
         # Decode, spec and prefill forwards run (a batched prefill group is
         # one): on the card each decode or spec forward launches its
@@ -311,8 +318,11 @@ class ModelRunner:
         the list's longest chunk (the reference's one dispatch pads every
         row to it, and the expert capacity and the padding tokens' picks
         follow a row's padded length). None for a dense model, whose rows
-        are the same at any bucket: each group then takes its own."""
-        if not self.model_config.n_experts:
+        are the same at any bucket: each group then takes its own; and for
+        gpt-oss, whose experts run dense over every token with no capacity,
+        so its rows are the same at any bucket too."""
+        cfg = self.model_config
+        if not cfg.n_experts or cfg.is_gptoss:
             return None
         return self._bucket_for(max(lengths))
 
@@ -351,8 +361,9 @@ class ModelRunner:
         """Whether this runner runs speculative verification. A caller's
         `attention_fn` turns it off, as in the reference: sequential decode
         then runs the injected attention, and targets drawn from another
-        attention would diverge from the non-speculative stream."""
-        return self.attention_fn is None
+        attention would diverge from the non-speculative stream. gpt-oss
+        never speculates: its sink attention has no verification path."""
+        return self.attention_fn is None and not self.model_config.is_gptoss
 
     def _t(self, x, dtype: torch.dtype) -> torch.Tensor:
         """Host array (or device tensor) -> tensor on the runner's device."""
@@ -493,12 +504,13 @@ class ModelRunner:
         """One decode forward, logits [B, 1, V], over the runner's current
         functions: the deferred-write fast path, or the unified
         write-then-attend `forward` when the caller supplied `attention_fn`
-        (inactive slots write to scratch page 0)."""
+        or the model is gpt-oss (inactive slots write to scratch page 0)."""
         attention_fn, decode_fn, _, matmul_fn = self._functions()
         model, kv = self.model, self.kv_cache
+        unified = attention_fn is not None or self.model_config.is_gptoss
 
         def fwd(toks, pos, tables, lens, act):
-            if attention_fn is not None:
+            if unified:
                 return forward(model, toks[:, None], pos[:, None], kv, tables,
                                lens, valid=act[:, None],
                                attention_fn=attention_fn, matmul_fn=matmul_fn)

@@ -1,12 +1,12 @@
 """HF checkpoint directories: config.json and safetensors shards <-> the
 port's `Transformer`.
 
-Port of the dense and MoE paths of `dynamo_tpu/models/checkpoint.py`:
+Port of the dense, MoE and gpt-oss paths of `dynamo_tpu/models/checkpoint.py`:
 
   * `config_from_hf(cfg)` / `config_from_checkpoint(dir)` — HF config.json
-    -> ModelConfig, field for field as the reference builds it (MLA and
-    gpt-oss configs parse; `check_supported` then refuses them before any
-    shard is read);
+    -> ModelConfig, field for field as the reference builds it (MLA
+    configs parse; `check_supported` then refuses them before any shard is
+    read);
   * `build_mapping(config)` — HF tensor names <-> leaves, dense + qk_norm
     (everything but the experts);
   * the experts of Qwen3-MoE (`mlp.gate`, `mlp.experts.N.gate_proj`) and
@@ -15,6 +15,13 @@ Port of the dense and MoE paths of `dynamo_tpu/models/checkpoint.py`:
     detects it: each layer's router becomes `router [H, E]` and its experts
     `e_gate / e_up [E, H, M]` and `e_down [E, M, H]`, each expert written
     into its stack on the device as it is read;
+  * gpt-oss checkpoints (`GptOssForCausalLM`): the dense mapping's
+    attention and norm tensors plus the projection biases, `sinks`, the
+    biased router and the fused experts `mlp.experts.gate_up_proj` /
+    `down_proj` with their biases, stored in bf16 as [E, in, out] or in
+    MXFP4 as `<name>_blocks` [E, out, G, 16] and `<name>_scales`
+    [E, out, G] (`mxfp4_dequant`, on the device), transposed to
+    [E, in, out];
   * `ShardReader(dir)` — one file, an index-sharded directory, or a
     directory of shards (`models/safetensors.py` reads the format);
   * `load_params(dir, config)` — the `Transformer`, built on the device
@@ -39,8 +46,9 @@ Errors are the reference's types and name the file: a missing tensor
 raises KeyError, a mis-shaped one ValueError, a file that is not
 safetensors `SafetensorsError` (a ValueError). Nothing falls back to random
 weights. A MoE layer gets no dense MLP leaves (the reference zero-fills
-them). Not ported yet: the DeepSeek and gpt-oss loaders, mxfp4
-dequantization and `checkpoint_digest`.
+them). gpt-oss directories are read, not written: the reference's
+`hf_config_dict` has no gpt-oss branch, so `save_params` refuses them. Not
+ported yet: the DeepSeek loader and `checkpoint_digest`.
 """
 
 from __future__ import annotations
@@ -502,9 +510,11 @@ def load_params(path: str, config: ModelConfig, *,
 
         for entry in build_mapping(config):
             if (entry.hf_name == "lm_head.weight"
-                    and entry.hf_name not in present):
+                    and entry.hf_name not in present
+                    and not config.is_gptoss):
                 # Tied-in-practice checkpoint that omits the head: HF falls
-                # back to the embedding — mirror that.
+                # back to the embedding — mirror that (the reference's
+                # gpt-oss loader does not).
                 emb = read("model.embed_tokens.weight",
                            (config.vocab_size, config.hidden))
                 leaf = emb.t().contiguous().to(dtype)
@@ -514,7 +524,10 @@ def load_params(path: str, config: ModelConfig, *,
                 loaded.add(entry.hf_name)
             n_bytes += leaf.numel() * leaf.element_size()
             _set_path(tree, entry.path, leaf)
-        if config.n_experts:
+        if config.is_gptoss:
+            n_bytes += _load_gptoss(read, present, config, tree, dtype,
+                                    loaded)
+        elif config.n_experts:
             n_bytes += _load_experts(read, present, config, tree, dev, dtype,
                                      loaded)
         leftovers = [n for n in present - loaded
@@ -560,9 +573,92 @@ def _load_experts(read, present: set[str], config: ModelConfig, tree: dict,
     return n_bytes
 
 
+# E2M1 codes -> values (the reference's `_FP4_LUT`)
+_FP4_LUT = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0,
+            -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0)
+
+
+def mxfp4_dequant(blocks: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """MXFP4 -> f32, as the reference's `mxfp4_dequant` (the format of HF
+    gpt-oss checkpoints). blocks: uint8 [..., G, 16], 32 E2M1 values a
+    group, the LOW nibble first; scales: uint8 [..., G], one E8M0 exponent a
+    group, 2^(s - 127). Returns [..., G * 32] f32 on blocks' device. The
+    scale is built from its bits (s << 23; 2^-127 is the subnormal 1 << 22,
+    and s = 255 gives inf, as the reference's exp2 does), so every value is
+    the exact product."""
+    lut = torch.tensor(_FP4_LUT, dtype=torch.float32, device=blocks.device)
+    codes = blocks.long()
+    vals = torch.stack([lut[codes & 0x0F], lut[codes >> 4]], dim=-1)
+    s = scales.to(device=blocks.device, dtype=torch.int32)
+    bits = torch.where(s == 0, torch.full_like(s, 1 << 22), s << 23)
+    out = vals.reshape(*blocks.shape[:-1], -1) * bits.view(
+        torch.float32)[..., None]
+    return out.reshape(*out.shape[:-2], -1)
+
+
+def _gptoss_expert_tensor(read, present: set[str], base: str, shape: tuple,
+                          loaded: set[str]) -> torch.Tensor:
+    """An expert stack in the forward layout `shape` = [e, in, out] on the
+    device: a bf16 checkpoint stores it so under `base`; an MXFP4 one
+    stores `<base>_blocks` [e, out, in / 32, 16] and `<base>_scales`
+    [e, out, in / 32], dequantized and transposed (as the HF dequant's
+    final transpose(1, 2))."""
+    if base in present:
+        loaded.add(base)
+        return read(base, shape)
+    e, n_in, n_out = shape
+    blocks = read(base + "_blocks", (e, n_out, n_in // 32, 16))
+    scales = read(base + "_scales", (e, n_out, n_in // 32))
+    loaded.update((base + "_blocks", base + "_scales"))
+    return mxfp4_dequant(blocks, scales).transpose(1, 2).contiguous()
+
+
+def _load_gptoss(read, present: set[str], config: ModelConfig, tree: dict,
+                 dtype: torch.dtype, loaded: set[str]) -> int:
+    """Every gpt-oss layer's leaves beyond the dense mapping (the reference's
+    `_load_gptoss`): the projection biases, `sinks`, the router and its
+    bias, and the expert stacks with their biases; returns their bytes."""
+    h, hd = config.hidden, config.head_dim
+    qh, kh, e = config.n_q_heads, config.n_kv_heads, config.n_experts
+    em = config.expert_mlp_hidden or config.mlp_hidden
+    n_bytes = 0
+    for i in range(config.n_layers):
+        p = f"model.layers.{i}."
+        a, m = p + "self_attn.", p + "mlp."
+        vectors = {  # leaf: (HF name, HF shape, our shape)
+            "bq": (a + "q_proj.bias", (qh * hd,), (qh, hd)),
+            "bk": (a + "k_proj.bias", (kh * hd,), (kh, hd)),
+            "bv": (a + "v_proj.bias", (kh * hd,), (kh, hd)),
+            "bo": (a + "o_proj.bias", (h,), (h,)),
+            "sinks": (a + "sinks", (qh,), (qh,)),
+            "router_bias": (m + "router.bias", (e,), (e,)),
+            "e_gate_up_bias": (m + "experts.gate_up_proj_bias", (e, 2 * em),
+                               (e, 2 * em)),
+            "e_down_bias": (m + "experts.down_proj_bias", (e, h), (e, h)),
+        }
+        lp = tree["layers"][i]
+        for leaf, (name, shape, ours) in vectors.items():
+            lp[leaf] = read(name, shape).reshape(ours).to(dtype)
+            loaded.add(name)
+        lp["router"] = read(m + "router.weight", (e, h)).t().contiguous(
+            ).to(dtype)
+        loaded.add(m + "router.weight")
+        lp["e_gate_up"] = _gptoss_expert_tensor(
+            read, present, m + "experts.gate_up_proj", (e, h, 2 * em),
+            loaded).to(dtype)
+        lp["e_down"] = _gptoss_expert_tensor(
+            read, present, m + "experts.down_proj", (e, em, h),
+            loaded).to(dtype)
+        n_bytes += sum(lp[leaf].numel() * lp[leaf].element_size()
+                       for leaf in (*vectors, "router", "e_gate_up",
+                                    "e_down"))
+    return n_bytes
+
+
 def hf_config_dict(config: ModelConfig) -> dict:
     """config.json contents for an exported dense or MoE checkpoint
-    (HF-readable)."""
+    (HF-readable). Like the reference's it has no gpt-oss branch (a gpt-oss
+    config comes out Mixtral-shaped), so `save_params` refuses gpt-oss."""
     if config.is_mla:
         raise NotImplementedError("MLA checkpoints are not ported")
     moe = config.n_experts > 0
@@ -627,8 +723,13 @@ def save_params(model: Transformer, config: ModelConfig, path: str, *,
     model.safetensors.index.json), with HF names; a MoE model's experts
     under the Qwen3-MoE names when it has qk_norm, else Mixtral's, as the
     reference names them. The exact inverse of `load_params`. Each tensor
-    is copied to the host once, as it is written."""
+    is copied to the host once, as it is written. gpt-oss raises
+    NotImplementedError: `hf_config_dict` cannot describe it."""
     check_supported(config)
+    if config.is_gptoss:
+        raise NotImplementedError(
+            f"{config.name}: gpt-oss checkpoints are read, not written (no "
+            "gpt-oss config.json writer, as in the reference)")
     os.makedirs(path, exist_ok=True)
     if max_shard_bytes is None:
         save_file(dict(_hf_tensors(model, config)),

@@ -10,7 +10,10 @@ reinterpreted, never rounded. Quantized leaves ({"q8", "qs"} and
 uint8 and a v2 leaf int8, so the dtype keeps carrying the layout. A MoE
 layer's router, expert stacks, f32 `e_bias` and shared experts cross bit
 for bit; the dense MLP leaves the JAX package keeps on a MoE layer (its
-forward never reads them) are left behind.
+forward never reads them) are left behind. A gpt-oss layer's leaves (`bq`,
+`bk`, `bv`, `bo`, `sinks`, `router`, `router_bias`, `e_gate_up`,
+`e_gate_up_bias`, `e_down`, `e_down_bias`) cross bit for bit as they are;
+its tree holds no dense MLP leaves.
 
 `kv_cache_from_numpy` does the same for the reference's int8 KV pool, a
 (values, scales) pair whose lane-broadcast scale rows [L, 2, P, ps, 128]

@@ -33,6 +33,15 @@ Top-k selections sort stably in descending order, so equal scores keep the
 lower expert first, as `jax.lax.top_k` orders them: the order of the k picks
 decides who wins a slot. Every shape is static and nothing reads back to
 the host, so a step that runs `moe` is one CUDA-graph replay.
+
+`moe_gptoss` is the port of `_moe_gptoss`, gpt-oss's block: a biased f32
+router, a softmax over the top-k logits, and every expert on every token
+(dense over experts, no capacity, nothing dropped) with the fused,
+interleaved gate/up projection and the clipped gated SwiGLU; the top-k mask
+combines the experts' outputs in f32. It never goes through the capacity
+dispatch. Its leaves: `router [h, e]`, `router_bias [e]`,
+`e_gate_up [e, h, 2em]` (gate at the even columns, up at the odd ones),
+`e_gate_up_bias [e, 2em]`, `e_down [e, em, h]`, `e_down_bias [e, h]`.
 """
 
 from __future__ import annotations
@@ -159,3 +168,28 @@ def moe(x: torch.Tensor, p, config: ModelConfig) -> torch.Tensor:
     if "s_gate" in p:
         out = out + shared_expert(x, p)
     return out
+
+
+def moe_gptoss(x: torch.Tensor, p, config: ModelConfig) -> torch.Tensor:
+    """gpt-oss's MoE block for x [b, t, h] (the reference's `_moe_gptoss`);
+    returns [b, t, h] in x's dtype. The expert projections run as batched
+    matmuls over the expert axis, every token through every expert."""
+    b, t, h = x.shape
+    e, k = config.n_experts, config.n_experts_active
+    logits = x.float() @ p["router"].float() + p["router_bias"].float()
+    topv, topi = _top_k(logits.reshape(b * t, e), k)
+    mask = torch.zeros((b * t, e), dtype=torch.float32,
+                       device=x.device).scatter(-1, topi,
+                                                torch.softmax(topv, dim=-1))
+    xs = x.reshape(1, b * t, h).expand(e, b * t, h)
+    gate_up = (torch.bmm(xs, p["e_gate_up"])
+               + p["e_gate_up_bias"][:, None, :].to(x.dtype))  # [e, bt, 2em]
+    limit = config.swiglu_limit
+    gate = gate_up[..., ::2].float().clamp(max=limit)
+    up = gate_up[..., 1::2].float().clamp(min=-limit, max=limit)
+    glu = gate * torch.sigmoid(gate * config.swiglu_alpha)
+    act = ((up + 1.0) * glu).to(x.dtype)
+    expert_out = (torch.bmm(act, p["e_down"])
+                  + p["e_down_bias"][:, None, :].to(x.dtype))  # [e, bt, h]
+    out = (expert_out.float() * mask.t()[:, :, None]).sum(0)
+    return out.to(x.dtype).reshape(b, t, h)

@@ -1,6 +1,8 @@
-"""Dense GQA decoder transformer over a paged KV pool, in PyTorch.
+"""GQA decoder transformers over a paged KV pool, in PyTorch: dense, MoE and
+gpt-oss.
 
-Port of the dense branch of `dynamo_tpu/models/transformer.py`. The weights
+Port of the dense, MoE and gpt-oss branches of
+`dynamo_tpu/models/transformer.py`. The weights
 live in a `Transformer` module in the JAX package's layouts (`wq [h, qh, hd]`,
 `wk/wv [h, kh, hd]`, `wo [qh, hd, h]`, `w_gate/w_up [h, m]`, `w_down [m, h]`,
 `embed [V, h]`, `lm_head [h, V]`), so every projection is
@@ -26,8 +28,16 @@ Mixtral, and the DeepSeek routing variants: sigmoid scoring, group-limited
 selection, the routed scale, shared experts, `first_k_dense` stacks) route
 through `models.moe`: a layer holding a `router` runs the capacity dispatch
 in place of the dense SwiGLU, as the reference selects per layer. A MoE
-layer holds no dense MLP leaves (the JAX package keeps unused ones). MLA,
-gpt-oss, LoRA and multimodal splicing are not ported yet and raise.
+layer holds no dense MLP leaves (the JAX package keeps unused ones).
+
+gpt-oss (`config.is_gptoss`) runs `forward` only, as the reference runs it:
+biased q/k/v projections, YaRN rope (`yarn_rope_tables`, `rope_gptoss`),
+the write-then-attend sink attention with a sliding window on even layers
+(`paged_attention_sinks_xla`, plain PyTorch: the reference runs no kernel
+for it and ignores `attention_fn`), `bo` after `wo`, and the dense-over-
+experts clipped SwiGLU (`models.moe.moe_gptoss`). The deferred-write
+`forward_decode` / `forward_spec` refuse it. MLA, LoRA and multimodal
+splicing are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops.q4_linear import Q4Weight, q4_matmul, q4_matmul_ref
 from ..ops.q8_linear import Q8Weight, q8_matmul, q8_matmul_ref
 from .config import ModelConfig
-from .moe import moe
+from .moe import moe, moe_gptoss
 
 AttentionFn = Callable[..., torch.Tensor]
 QuantWeight = Union[Q8Weight, Q4Weight]
@@ -65,8 +75,6 @@ def check_supported(config: ModelConfig) -> None:
     missing = []
     if config.is_mla:
         missing.append("MLA attention")
-    if config.is_gptoss:
-        missing.append("gpt-oss sinks/sliding window")
     if config.image_token_id >= 0:
         missing.append("multimodal embedding splice")
     if missing:
@@ -118,7 +126,12 @@ class Transformer(nn.Module):
     with tensors, or quantized leaves (`Q8Weight` / `Q4Weight`) for the
     projections, as leaves. A MoE layer holds `router`, `e_gate`, `e_up`,
     `e_down` (and `e_bias`, `s_gate`, `s_up`, `s_down` where its config
-    has them; see `models.moe`) in place of the dense MLP leaves.
+    has them; see `models.moe`) in place of the dense MLP leaves. A gpt-oss
+    layer holds, beside the attention and norm leaves, `bq [qh, hd]`,
+    `bk / bv [kh, hd]`, `bo [h]`, `sinks [qh]`, `router [h, e]`,
+    `router_bias [e]`, `e_gate_up [e, h, 2em]` (gate and up interleaved
+    along the last axis), `e_gate_up_bias [e, 2em]`, `e_down [e, em, h]`
+    and `e_down_bias [e, h]`, and no dense MLP leaves.
     Inference only: nothing requires grad."""
 
     def __init__(self, config: ModelConfig, tree: dict) -> None:
@@ -153,7 +166,9 @@ def init_params(config: ModelConfig, *, device: DeviceLike = "cuda",
     The draws differ from the JAX package's for the same seed. A MoE layer
     (`config.layer_is_moe`) gets the router, the expert stacks, a zero f32
     `e_bias` for sigmoid scoring and the shared experts' projections, and no
-    dense MLP leaves."""
+    dense MLP leaves. A gpt-oss layer gets the reference's leaves at its
+    scales: the biases at 0.02 of a projection's, `sinks` at fan-in 1, and
+    zero router and expert biases."""
     check_supported(config)
     dev = resolve_device(device)
     dtype = torch_dtype(config.dtype)
@@ -181,6 +196,24 @@ def init_params(config: ModelConfig, *, device: DeviceLike = "cuda",
         if config.qk_norm:
             p["q_norm"] = ones(hd)
             p["k_norm"] = ones(hd)
+        if config.is_gptoss:
+            e, em = config.n_experts, config.expert_mlp_hidden or m
+            zeros = lambda *shape: torch.zeros(  # noqa: E731
+                shape, device=dev, dtype=dtype)
+            p.update({
+                "bq": dense((qh, hd), h) * 0.02,
+                "bk": dense((kh, hd), h) * 0.02,
+                "bv": dense((kh, hd), h) * 0.02,
+                "bo": dense((h,), h) * 0.02,
+                "sinks": dense((qh,), 1),
+                "router": dense((h, e), h),
+                "router_bias": zeros(e),
+                "e_gate_up": dense((e, h, 2 * em), h),
+                "e_gate_up_bias": zeros(e, 2 * em),
+                "e_down": dense((e, em, h), em),
+                "e_down_bias": zeros(e, h),
+            })
+            return p
         if not config.layer_is_moe(layer_idx):
             p["w_gate"] = dense((h, m), h)
             p["w_up"] = dense((h, m), h)
@@ -300,6 +333,56 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+def yarn_rope_tables(config: ModelConfig, *, device: DeviceLike = "cpu"
+                     ) -> tuple[torch.Tensor, float]:
+    """YaRN-scaled inverse frequencies and the cos/sin attention factor, as
+    HF `_compute_yarn_parameters` gives them for gpt-oss (truncate=False,
+    attention_factor = 0.1 ln(factor) + 1). Returns (inv_freq [hd/2] f32 on
+    `device`, attention_factor)."""
+    dim = config.head_dim
+    base = config.rope_theta
+    factor = config.rope_yarn_factor
+    orig_max = config.rope_yarn_orig_max
+
+    def correction_dim(num_rot):
+        return (dim * math.log(orig_max / (num_rot * 2 * math.pi))
+                ) / (2 * math.log(base))
+
+    low = max(correction_dim(config.rope_yarn_beta_fast), 0)
+    high = min(correction_dim(config.rope_yarn_beta_slow), dim - 1)
+    if low == high:
+        high += 0.001
+    dev = torch.device(device)
+    pos_freqs = base ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                      device=dev) / dim)
+    extrap = 1.0 / pos_freqs
+    interp = 1.0 / (factor * pos_freqs)
+    ramp = torch.clip(
+        (torch.arange(dim // 2, dtype=torch.float32, device=dev) - low)
+        / (high - low), 0, 1)
+    extrap_factor = 1.0 - ramp
+    inv_freq = interp * (1 - extrap_factor) + extrap * extrap_factor
+    return inv_freq, 0.1 * math.log(factor) + 1.0
+
+
+def rope_gptoss_tables(positions: torch.Tensor, config: ModelConfig
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) [..., T, 1, hd/2] f32 for `positions` [..., T], YaRN-scaled
+    and multiplied by the attention factor before the rotation; computed
+    once a forward, as `rope_tables`."""
+    inv_freq, att = yarn_rope_tables(config, device=positions.device)
+    angles = positions[..., None].float() * inv_freq
+    return ((torch.cos(angles) * att)[..., None, :],
+            (torch.sin(angles) * att)[..., None, :])
+
+
+def rope_gptoss(x: torch.Tensor, positions: torch.Tensor,
+                config: ModelConfig) -> torch.Tensor:
+    """Rotary embedding with YaRN scaling: `rope`'s half-split rotation with
+    `rope_gptoss_tables`' cos and sin."""
+    return apply_rope(x, *rope_gptoss_tables(positions, config))
+
+
 def quant_matmul(x: torch.Tensor, w: QuantWeight) -> torch.Tensor:
     """x [M, K] @ a quantized leaf -> [M, N]: `ops.q8_matmul` /
     `ops.q4_matmul` (the CUDA kernels for CUDA tensors)."""
@@ -338,10 +421,12 @@ def _swiglu(x: torch.Tensor, p, mm: Optional[MatmulFn] = None) -> torch.Tensor:
 
 def _mlp(x: torch.Tensor, lp, config: ModelConfig,
          mm: Optional[MatmulFn] = None) -> torch.Tensor:
-    """The block after attention, on the residual x: the routed experts on
-    a layer that holds a router (stacks may mix dense and MoE layers), else
-    the dense SwiGLU."""
+    """The block after attention, on the residual x: gpt-oss's dense-over-
+    experts block, the routed experts on a layer that holds a router
+    (stacks may mix dense and MoE layers), else the dense SwiGLU."""
     h = rms_norm(x, lp["mlp_norm"], config.rms_eps)
+    if config.is_gptoss:
+        return moe_gptoss(h, lp, config)
     if "router" in lp:
         return moe(h, lp, config)
     return _swiglu(h, lp, mm)
@@ -349,9 +434,13 @@ def _mlp(x: torch.Tensor, lp, config: ModelConfig,
 
 def _qkv(h: torch.Tensor, lp, config: ModelConfig, cos: torch.Tensor,
          sin: torch.Tensor, mm: Optional[MatmulFn] = None):
+    """q, k, v of the normed residual h, rotated; a layer holding biases
+    (gpt-oss) adds them in the model dtype before the rope."""
     q = _mm(h, lp["wq"], matmul_fn=mm)
     k = _mm(h, lp["wk"], matmul_fn=mm)
     v = _mm(h, lp["wv"], matmul_fn=mm)
+    if "bq" in lp:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     if config.qk_norm:
         q = rms_norm(q, lp["q_norm"], config.rms_eps)
         k = rms_norm(k, lp["k_norm"], config.rms_eps)
@@ -467,6 +556,42 @@ def paged_attention_xla(
     return out.reshape(b, t, qh, hd).to(q.dtype)
 
 
+def paged_attention_sinks_xla(
+    q: torch.Tensor,  # [B, T, qh, hd]
+    kv_cache: KVCache,
+    layer: int,
+    block_tables: torch.Tensor,  # [B, max_pages]
+    positions: torch.Tensor,  # [B, T]
+    kv_lens: torch.Tensor,  # [B]
+    sinks: torch.Tensor,  # [qh] learned sink logits
+    window: int,  # 0 = full attention
+) -> torch.Tensor:
+    """gpt-oss attention: a per-head SINK logit joins each row's softmax as
+    one more column whose probability is then dropped, so attention mass can
+    park on the sink; on a sliding layer a key must also lie within `window`
+    of the query (kv position > query position - window)."""
+    b, t, qh, hd = q.shape
+    kh = _kv_parts(kv_cache)[0].shape[4]
+    k = _gather_pages(kv_cache, layer, block_tables, 0)
+    v = _gather_pages(kv_cache, layer, block_tables, 1)
+    ctx = k.shape[1]
+    group = qh // kh
+    qg = q.reshape(b, t, kh, group, hd).float()
+    scores = torch.einsum("btkgh,bskh->btkgs", qg, k) / math.sqrt(hd)
+    kv_pos = torch.arange(ctx, device=q.device)[None, None, :]
+    mask = ((kv_pos <= positions[..., None])
+            & (kv_pos < kv_lens.long()[:, None, None]))
+    if window:
+        mask = mask & (kv_pos > positions[..., None] - window)
+    scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30)
+    sink = sinks.float().reshape(1, 1, kh, group, 1)
+    combined = torch.cat([scores, sink.expand(b, t, kh, group, 1)], dim=-1)
+    combined = combined - combined.amax(dim=-1, keepdim=True)
+    probs = torch.softmax(combined, dim=-1)[..., :-1]  # drop the sink
+    out = torch.einsum("btkgs,bskh->btkgh", probs, v)
+    return out.reshape(b, t, qh, hd).to(q.dtype)
+
+
 def paged_attention_spec_xla(
     q: torch.Tensor,  # [B, T, qh, hd] T chunk queries per sequence
     kv_cache: KVCache,
@@ -529,13 +654,26 @@ def _logits(model: Transformer, x: torch.Tensor,
     return _mm(x, model.head, matmul_fn=mm).float()
 
 
+def _attn_out(attn: torch.Tensor, lp,
+              mm: Optional[MatmulFn] = None) -> torch.Tensor:
+    """The output projection, plus `bo` on a layer that holds it."""
+    out = _mm(attn, lp["wo"], k=2, matmul_fn=mm)
+    return out + lp["bo"] if "bo" in lp else out
+
+
 def _forward_deferred(model, tokens, positions, kv_cache, block_tables,
                       kv_lens, active, attn_fn, matmul_fn):
     """Chunk forward with DEFERRED cache writes (tokens / positions [B, T]):
     every layer attends over (pool history + the chunk's K/V held in
     registers) through `attn_fn`; the pool is written once at the end for
-    all layers, in place. Returns logits [B, T, V] f32."""
+    all layers, in place. Returns logits [B, T, V] f32. gpt-oss is refused:
+    its sink attention runs in the unified `forward` only, as the
+    reference's runner runs it."""
     config = model.config
+    if config.is_gptoss:
+        raise NotImplementedError(
+            f"{config.name}: gpt-oss decodes through the unified forward "
+            "(sink attention); it has no deferred-write path")
     cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
     x = model.embed[tokens]  # [B, T, H]
     ks, vs = [], []
@@ -545,7 +683,7 @@ def _forward_deferred(model, tokens, positions, kv_cache, block_tables,
         attn = attn_fn(q, kv_cache, layer_idx, block_tables, kv_lens, k, v)
         ks.append(k)
         vs.append(v)
-        x = x + _mm(attn, lp["wo"], k=2, matmul_fn=matmul_fn)
+        x = x + _attn_out(attn, lp, matmul_fn)
         x = x + _mlp(x, lp, config, matmul_fn)
     write_kv_stack(kv_cache, torch.stack(ks), torch.stack(vs), block_tables,
                    positions, active[:, None].expand(positions.shape))
@@ -619,16 +757,24 @@ def forward(
     if valid is None:
         valid = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
     attention = attention_fn or paged_attention_xla
-    cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
+    if config.is_gptoss:  # its branch ignores attention_fn, as the reference
+        cos, sin = rope_gptoss_tables(positions, config)
+    else:
+        cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
     x = model.embed[tokens]  # [B, T, H]
     for layer_idx, lp in enumerate(model.layers):
         h = rms_norm(x, lp["attn_norm"], config.rms_eps)
         q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn)
         write_kv_pages(kv_cache, layer_idx, k, v, block_tables, positions,
                        valid)
-        attn = attention(q, kv_cache, layer_idx, block_tables, positions,
-                         kv_lens)
-        x = x + _mm(attn, lp["wo"], k=2, matmul_fn=matmul_fn)
+        if config.is_gptoss:
+            attn = paged_attention_sinks_xla(
+                q, kv_cache, layer_idx, block_tables, positions, kv_lens,
+                lp["sinks"], config.layer_sliding_window(layer_idx))
+        else:
+            attn = attention(q, kv_cache, layer_idx, block_tables, positions,
+                             kv_lens)
+        x = x + _attn_out(attn, lp, matmul_fn)
         x = x + _mlp(x, lp, config, matmul_fn)
     if last_idx is not None:
         x = torch.gather(x, 1, last_idx.long()[:, None, None].expand(

@@ -20,6 +20,8 @@ op) in turn:
   * a `torch.profiler` trace of one block: device time by kernel name, the
     attention kernels' share (the split decode body and its merge), and the
     device's busy share of the block's wall time;
+  * (gpt-oss: the unified forward graphed and eager, no kernel variants,
+    no verification step, as the runner serves it)
   * the same for one speculative verification step (`decode_spec`) of
     K = 4 drafts per slot (5 positions each: the folded attention, the
     projections at M = 16 slots x 5 = 80, since the runner's 16 slots all
@@ -210,12 +212,20 @@ def main() -> None:
                     "calls_per_step": e.count / steps} for e in events[:12]])
 
     modes = {"on": (True,), "off": (False,), "both": (True, False)}
-    for name, attn_fn, spec_fn, mm_fn, graphs in (
-            *[("kernel", paged_attention_decode_pool,
-               paged_attention_spec_pool, quant_matmul, g)
-              for g in modes[args.graphs]],
-            ("plain", paged_attention_decode_xla, paged_attention_spec_xla,
-             quant_matmul_ref, False)):
+    if cfg.is_gptoss:
+        # no decode or spec kernel and no speculation: the unified forward
+        # (plain sink attention, dense-over-experts MoE), graphed or eager
+        variants = [("unified", None, None, quant_matmul, g)
+                    for g in modes[args.graphs]]
+    else:
+        variants = [*[("kernel", paged_attention_decode_pool,
+                       paged_attention_spec_pool, quant_matmul, g)
+                      for g in modes[args.graphs]],
+                    ("plain", paged_attention_decode_xla,
+                     paged_attention_spec_xla, quant_matmul_ref, False)]
+    functions = (runner.decode_attention_fn, runner.spec_attention_fn,
+                 runner.matmul_fn)
+    for name, attn_fn, spec_fn, mm_fn, graphs in variants:
         runner.decode_attention_fn, runner.matmul_fn = attn_fn, mm_fn
         runner.spec_attention_fn = spec_fn
         rc.cuda_graphs = graphs
@@ -223,12 +233,13 @@ def main() -> None:
                 lambda: runner.decode_multi(**args_np, k=BLOCK,
                                             return_device=True),
                 BLOCK, name, block=BLOCK)
-        measure("spec_step",
-                lambda: runner.decode_spec(**spec_args, return_device=True),
-                1, name, spec_k=SPEC_K, positions=SPEC_K + 1)
-    runner.decode_attention_fn = paged_attention_decode_pool
-    runner.spec_attention_fn = paged_attention_spec_pool
-    runner.matmul_fn = quant_matmul
+        if runner.supports_spec:
+            measure("spec_step",
+                    lambda: runner.decode_spec(**spec_args,
+                                               return_device=True),
+                    1, name, spec_k=SPEC_K, positions=SPEC_K + 1)
+    (runner.decode_attention_fn, runner.spec_attention_fn,
+     runner.matmul_fn) = functions
     rc.cuda_graphs = True
     _emit("graphs", captures=runner.graph_captures,
           replays=runner.graph_replays, capture_s=runner.graph_capture_s,
