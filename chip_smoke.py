@@ -310,6 +310,28 @@ Phases, each printing one JSON line:
               2^k values bit for bit and every other tensor to the written
               one, a 32-token forward on the card against the same on the
               CPU; write and load seconds
+  engine_mla - DeepSeek's latent attention, once gpt-oss is freed: a
+              TorchWorker serving deepseek-v2-lite bf16 at full width and
+              depth (27 layers: one dense, then 26 of 64 routed experts
+              top-6 and 2 shared; 16 heads over a 512 + 64 latent;
+              31,412,968,448 B of random weights from the seed, checked to
+              the byte), its latent pool [27, 1, 2,048, 16, 1, 576] at
+              31,104 B a token (1.02 GB), prewarmed; the standard traffic
+              with every step a graph replay of the unified forward (the
+              latent attention and the experts in plain PyTorch, as the
+              reference runs them: no kernel of the port launches anywhere
+              in the phase, and the runner never speculates); TTFT, ITL,
+              tok/s, peak memory. Then two held runs, equal; the fused
+              block's wall beside the weights' read floor; the prefill
+              chunk walls at 38, 512 and 1,500 tokens; a finished 700-token
+              request's latent pages gathered to pinned host memory,
+              staged and scattered into fresh pages, bit-equal, and the
+              same 16 greedy tokens decoded on them (engine_mla_transfer);
+              graphed against eager (parity_mla); and a 2-layer full-width
+              DeepSeek-V2 directory written by save_params and served
+              through TorchWorker(model_path=...), every tensor equal, a
+              32-token forward on the card against the CPU
+              (checkpoint_mla)
 
 Every decode, fused block, spec step and prefill chunk (padded to its
 bucket) runs as a CUDA-graph replay (`RunnerConfig.cuda_graphs`, on by
@@ -7552,6 +7574,307 @@ def phase_engine_gptoss(dev: torch.device) -> dict:
     return counts
 
 
+MLA_MODEL = "deepseek-v2-lite"
+MLA_WEIGHT_BYTES = 31_412_968_448  # 15,706,484,224 params in bf16
+MLA_KV_BYTES_PER_TOKEN = 31_104  # 27 layers x (512 + 64) latent x 2 B
+MLA_CKPT_LAYERS = 2  # checkpoint_mla's depth cut: a dense layer, a MoE one
+MLA_TRANSFER_PROMPT = 700  # the transfer leg's prompt (44 pages of 16)
+MLA_TRANSFER_STEPS = 16  # greedy decode steps before and after the move
+
+
+def _mla_weights_bytes(cfg) -> int:
+    """Bytes of an MLA config's weights as the port holds them: the latent
+    attention (wq, or the q LoRA path), norms, the dense MLP on the first
+    `first_k_dense` layers and the router, the routed and the shared
+    experts on the rest (no dense MLP leaves there), embedding and
+    (untied) head, all in bf16 but a sigmoid router's f32 selection
+    bias."""
+    h, qh, e = cfg.hidden, cfg.n_q_heads, cfg.n_experts
+    nhd, rhd = cfg.mla_nope_head_dim, cfg.mla_rope_head_dim
+    vhd, dc, qr = cfg.mla_v_head_dim, cfg.mla_kv_lora_rank, cfg.mla_q_lora_rank
+    em = cfg.expert_mlp_hidden or cfg.mlp_hidden
+    query = (h * qr + qr + qr * qh * (nhd + rhd) if qr
+             else h * qh * (nhd + rhd))
+    attn = (query + h * dc + h * rhd + dc + dc * qh * (nhd + vhd)
+            + qh * vhd * h + 2 * h)
+    moe = h * e + 3 * e * h * em + 3 * h * cfg.n_shared_experts * em
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    params = (cfg.n_layers * attn + n_moe * moe
+              + (cfg.n_layers - n_moe) * 3 * h * cfg.mlp_hidden
+              + cfg.vocab_size * h * (1 if cfg.tie_embeddings else 2) + h)
+    bias = 4 * e * n_moe if cfg.moe_scoring == "sigmoid" else 0
+    return 2 * params + bias
+
+
+def _mla_transfer(dev: torch.device, worker) -> dict:
+    """A finished request's latent pages moved to fresh pages and decoded
+    again, through the runner's page I/O (the path of KV transfers): a
+    700-token prompt prefilled into pages of the (stopped) scheduler's pool
+    and decoded 16 greedy steps; its pages gathered on the device
+    (`gather_pages_device`), copied to pinned host memory
+    (`bundle_to_host`), uploaded on the side stream (`stage_bundle`) and
+    written into fresh pages (`scatter_pages`); the moved pages equal the
+    source bit for bit, and the same 16 steps on the moved prefix give the
+    same greedy tokens."""
+    runner, cfg = worker.runner, worker.model_config
+    n, steps = MLA_TRANSFER_PROMPT, MLA_TRANSFER_STEPS
+    prompt = np.random.default_rng(SEED + 22).integers(1, cfg.vocab_size, n)
+    src, dst = _pool_table(worker, n, steps), _pool_table(worker, n, steps)
+    pages = -(-(n + steps) // runner.config.page_size)
+    first = runner.prefill_chunk(prompt, 0, src, n, (0.0, 1.0, 0, 0))
+    width = runner.config.max_pages_per_seq
+    greedy = (np.zeros(1, np.float32), np.ones(1, np.float32),
+              np.zeros(1, np.int32), np.zeros(1, np.uint32))
+
+    def decode(table) -> list:
+        tok, out = first, []
+        for s in range(steps):
+            nxt = runner.decode(
+                np.asarray([tok], np.int32), np.asarray([n + s], np.int32),
+                table[None, :width], np.asarray([n + s + 1], np.int32),
+                np.ones(1, bool), *greedy, np.asarray([s], np.int32))
+            tok = int(nxt[0])
+            out.append(tok)
+        return out
+
+    want = decode(src)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = runner.bundle_to_host(runner.gather_pages_device(src[:pages]))
+    t1 = time.perf_counter()
+    runner.scatter_pages(dst[:pages], runner.stage_bundle(bundle))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    kv = runner.kv_cache
+
+    def at(table) -> torch.Tensor:
+        return kv[:, :, torch.as_tensor(table[:pages], dtype=torch.long,
+                                        device=dev)]
+
+    check(torch.equal(at(dst), at(src)),
+          "engine_mla_transfer: moved pages differ from the source")
+    n_bytes = bundle.numel() * bundle.element_size()
+    check(tuple(bundle.shape) == (pages, cfg.n_layers, 1,
+                                  runner.config.page_size, 1,
+                                  cfg.kv_cache_head_dim)
+          and n_bytes == pages * runner.config.page_size
+          * MLA_KV_BYTES_PER_TOKEN,
+          f"engine_mla_transfer: bundle {tuple(bundle.shape)}")
+    got = decode(dst)
+    check(got == want, f"engine_mla_transfer: greedy tokens on the moved "
+          f"prefix {got} != {want}")
+    out = {"prompt": n, "pages": pages, "bundle_B": n_bytes,
+           "pages_bit_equal": True, "greedy_steps_equal": steps,
+           "gather_to_host_ms": (t1 - t0) * 1e3,
+           "stage_and_scatter_ms": (t2 - t1) * 1e3,
+           "layout": runner.kv_layout()}
+    emit("engine_mla_transfer", **out)
+    return out
+
+
+def _mla_checkpoint(dev: torch.device, worker) -> dict:
+    """The first MLA_CKPT_LAYERS layers of the served deepseek-v2-lite at
+    full width (a dense layer, then a MoE one), written as a DeepSeek-V2
+    directory by save_params (1 GB shards and an index, the rope rows
+    permuted to HF's interleaved order) and served through
+    `TorchWorker(model_path=...)`, the loader of `--model-path`: the config
+    equals the cut preset but its name, every tensor equals the written
+    one, and a 32-token forward on the card agrees with the same forward
+    on the CPU (the loaded weights copied there) within parity_moe's
+    tolerance. The directory is deleted after."""
+    from dynamo_tpu_torch.engine import RunnerConfig, TorchWorker
+    from dynamo_tpu_torch.models import Transformer, forward, make_kv_cache
+    from dynamo_tpu_torch.models.checkpoint import (
+        config_from_checkpoint,
+        save_params,
+    )
+
+    cfg = dataclasses.replace(worker.model_config, n_layers=MLA_CKPT_LAYERS)
+    model = worker.runner.model
+    view = _view_model(model, cfg)
+    root = ROOT / "build" / "checkpoint" / f"{cfg.name}-{cfg.n_layers}l"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        save_params(view, cfg, str(root), max_shard_bytes=MOE_CKPT_SHARD_BYTES)
+        write_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in root.iterdir())
+        loaded_cfg = config_from_checkpoint(str(root))
+        check(dataclasses.replace(loaded_cfg, name=cfg.name) == cfg,
+              f"checkpoint_mla: config {loaded_cfg} != {cfg}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = TorchWorker(model_path=str(root), device=dev,
+                             runner_config=RunnerConfig(num_pages=64))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = served.runner.model
+        check(served.model_config == loaded_cfg
+              and not served.runner.supports_spec,
+              "checkpoint_mla: the worker's config or spec support")
+        check(torch.equal(got.embed, view.embed)
+              and torch.equal(got.final_norm, view.final_norm)
+              and torch.equal(got.lm_head, view.lm_head),
+              "checkpoint_mla: embed, norm or head differ")
+        n_tensors = 3
+        for i, layer in enumerate(got.layers):
+            want = view.layers[i]
+            check(sorted(layer.keys()) == sorted(want.keys()),
+                  f"checkpoint_mla: layer {i} leaves {layer.keys()}")
+            for name in layer.keys():
+                check(torch.equal(layer[name], want[name]),
+                      f"checkpoint_mla: layer {i} {name} differs")
+                n_tensors += 1
+        weights = sum(t.numel() * t.element_size() for t in got.parameters())
+        check(weights == _mla_weights_bytes(cfg),
+              f"checkpoint_mla: {weights} B of weights")
+        served.close()
+        # the same 32-token forward on the card and on the CPU
+        cpu_model = Transformer(loaded_cfg, {
+            "embed": got.embed.cpu(), "final_norm": got.final_norm.cpu(),
+            "lm_head": got.lm_head.cpu(),
+            "layers": [{k: layer[k].cpu() for k in layer.keys()}
+                       for layer in got.layers]})
+        n = GPTOSS_FORWARD_TOKENS
+        tokens = np.random.default_rng(SEED + 23).integers(
+            1, cfg.vocab_size, n)
+
+        def run(m, device):
+            pages = -(-n // 16) + 1
+            kv = make_kv_cache(loaded_cfg, pages, 16, device=device)
+            with torch.inference_mode():
+                out = forward(
+                    m, torch.as_tensor(tokens[None], device=device),
+                    torch.arange(n, device=device)[None], kv,
+                    torch.arange(1, pages, dtype=torch.int32,
+                                 device=device)[None],
+                    torch.tensor([n], dtype=torch.int32, device=device))
+            return out[0].float().cpu().numpy()
+
+        card = run(got, dev)
+        t0 = time.perf_counter()
+        host = run(cpu_model, torch.device("cpu"))
+        cpu_forward_s = time.perf_counter() - t0
+        diff = float(np.abs(card - host).max())
+        scale = float(np.abs(host).max())
+        agree = int((card.argmax(-1) == host.argmax(-1)).sum())
+        check(np.isfinite(card).all() and diff <= PARITY_LOGITS_REL_TOL
+              * scale, f"checkpoint_mla: card logits max|d| {diff} > "
+              f"{PARITY_LOGITS_REL_TOL} x {scale}")
+        check(2 * agree > n, f"checkpoint_mla: argmax agrees in {agree} of "
+              f"{n} rows")
+        del served, got, cpu_model
+        free_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"layers": cfg.n_layers, "bytes_on_disk": on_disk,
+           "weights_GB": weights / 1e9, "tensors_equal": n_tensors,
+           "write_s": write_s, "load_s": load_s,
+           "load_GB_per_s": weights / 1e9 / load_s,
+           "cpu_forward_s": cpu_forward_s,
+           "forward_tokens": n, "logits_max_abs_diff": diff,
+           "logits_max_abs": scale, "tolerance_rel": PARITY_LOGITS_REL_TOL,
+           "argmax_agree_rows": agree, "cut": "depth only"}
+    emit("checkpoint_mla", **out)
+    return out
+
+
+def phase_engine_mla(dev: torch.device) -> dict:
+    """deepseek-v2-lite at full width and depth through TorchWorker (see the
+    module docstring's engine_mla). The path runs no attention or matmul
+    kernel of the port: every count must stay 0 through the phase."""
+    from dynamo_tpu_torch.engine import RunnerConfig
+    from dynamo_tpu_torch.models import get_config
+
+    cfg = get_config(MLA_MODEL)
+    rc = RunnerConfig()
+    tokens = rc.num_pages * rc.page_size
+    kv_bytes = (cfg.n_layers * cfg.kv_cache_kv_dims * tokens
+                * cfg.kv_cache_heads * cfg.kv_cache_head_dim * 2)
+    weights = _mla_weights_bytes(cfg)
+    check(weights == MLA_WEIGHT_BYTES,
+          f"engine_mla: {weights} B counted for {MLA_WEIGHT_BYTES}")
+    check(kv_bytes == MLA_KV_BYTES_PER_TOKEN * tokens,
+          f"engine_mla: {kv_bytes} B of latent pool for {tokens} tokens")
+    free_b, total_b = torch.cuda.mem_get_info()
+    read_floor_ms = weights / HBM_BYTES_PER_S * 1e3
+    emit("engine_mla_memory", free_GB=free_b / 1e9, total_GB=total_b / 1e9,
+         weights_B=weights, kv_B=kv_bytes,
+         kv_bytes_per_token=kv_bytes // tokens,
+         num_pages=rc.num_pages, decode_read_floor_ms=read_floor_ms)
+    check(free_b > weights + kv_bytes,
+          f"engine_mla: {free_b / 1e9:.1f} GB free for "
+          f"{(weights + kv_bytes) / 1e9:.1f} GB of weights and KV")
+    t0 = time.perf_counter()
+    worker, counts, _ = phase_engine(dev, MLA_MODEL, rc, label="engine_mla",
+                                     prewarm=True)
+    runner = worker.runner
+    try:
+        check(not any(counts.values()),
+              f"engine_mla: kernels launched {counts}")
+        check(not runner.supports_spec and runner.decode_attention_fn is None
+              and runner.spec_attention_fn is None,
+              "engine_mla: the runner holds a kernel or speculates")
+        held = sum(t.numel() * t.element_size()
+                   for t in runner.model.parameters())
+        check(held == weights, f"engine_mla: {held} B of weights, "
+              f"{weights} B expected")
+        kv_held = runner.kv_cache.numel() * runner.kv_cache.element_size()
+        check(kv_held == kv_bytes
+              and tuple(runner.kv_cache.shape) == (
+                  cfg.n_layers, 1, rc.num_pages, rc.page_size, 1,
+                  cfg.kv_cache_head_dim),
+              f"engine_mla: latent pool {tuple(runner.kv_cache.shape)}, "
+              f"{kv_held} B")
+        # the 8 requests twice more, each admitted whole on a new scheduler
+        runs = [_held_streams(dev, worker, f"engine_mla_run{i}")
+                for i in (1, 2)]
+        divergence = {rid: _first_divergence(toks, runs[1]["streams"][rid])
+                      for rid, toks in runs[0]["streams"].items()}
+        check(all(at == 64 for at in divergence.values()),
+              f"engine_mla: streams of two runs part at {divergence}")
+        reset_counts()
+        timings = _step_timings(runner, ())
+        rng = np.random.default_rng(SEED + 13)
+        walls = {}
+        for n in MOE_CHUNKS:
+            table = _pool_table(worker, n, 0)
+            tokens = rng.integers(1, cfg.vocab_size, n)
+            args = (tokens, 0, table, n, (0.0, 1.0, 0, 0))
+            replays = runner.graph_replays
+            walls[n] = min(_wall_ms(lambda: runner.prefill_chunk(*args))
+                           for _ in range(3))
+            check(runner.graph_replays == replays + 3
+                  and runner.eager_forwards["prefill"] == 0,
+                  f"engine_mla: the {n}-token chunk was not a replay")
+        step = timings["decode_block"]["on"]["wall_ms"]
+        emit("engine_mla_runs", streams_equal_two_runs=True,
+             noise_launches=[r["noise_launches"] for r in runs],
+             step_timings=timings, decode_step_wall_ms=step,
+             decode_read_floor_ms=read_floor_ms,
+             decode_step_x_floor=step / read_floor_ms,
+             prefill_chunk_wall_ms={str(n): ms for n, ms in walls.items()},
+             weights_B=held, kv_B=kv_held, supports_spec=False,
+             phase_s=time.perf_counter() - t0)
+        _mla_transfer(dev, worker)
+        # graphed against eager logits and greedy tokens
+        graphed = dataclasses.replace(runner.config, cuda_graphs=True)
+        eager = dataclasses.replace(runner.config, cuda_graphs=False)
+        phase_parity(worker, "parity_mla", kernel_fns={"config": graphed},
+                     plain_fns={"config": eager})
+        _mla_checkpoint(dev, worker)
+        launched = read_counts()
+        check(not any(launched.values()),
+              f"engine_mla: kernels launched in the phase {launched}")
+        emit("engine_mla_kernels", launches_in_phase=launched,
+             phase_s=time.perf_counter() - t0)
+    finally:
+        worker.close()
+    del worker, runner
+    free_memory()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -7669,6 +7992,11 @@ def main() -> None:
     # of the table (plain sink attention and dense-over-experts MoE)
     free_memory()
     phase_engine_gptoss(dev)
+
+    # MLA (deepseek-v2-lite, 31.4 GB): alone on the card; it runs no kernel
+    # of the table (plain latent attention, as the reference runs it)
+    free_memory()
+    phase_engine_mla(dev)
 
     for name in KERNELS:
         check(launches.get(name, 0) > 0,

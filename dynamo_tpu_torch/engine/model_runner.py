@@ -25,10 +25,12 @@ swappable (`decode_attention_fn`, `spec_attention_fn`). A caller that
 passes `attention_fn` gets the reference's unified path instead: decode
 runs the write-then-attend `forward` with it (the T = 1 kernel for
 `ops.paged_attention.paged_attention`), it serves prefill too, and
-speculation is off (`supports_spec`). gpt-oss always takes the unified
-`forward` (single steps, fused blocks, every graph key), whose sink
-attention is plain PyTorch: it has no decode or spec attention function,
-launches no attention kernel and never speculates, as in the reference.
+speculation is off (`supports_spec`). gpt-oss and MLA always take the
+unified `forward` (single steps, fused blocks, every graph key), whose sink
+and latent attentions are plain PyTorch: they have no decode or spec
+attention function, launch no attention kernel and never speculate, as in
+the reference; MLA's pool is the latent [L, 1, P, ps, 1, dc + rhd] and
+refuses int8.
 With `weight_dtype` "int8" or "int4" the projections are quantized at init
 (leaf by leaf, on the runner's device) and every projection of every
 forward goes through `models.transformer.quant_matmul`, the W8A16 / W4A16
@@ -218,6 +220,9 @@ class ModelRunner:
             raise ValueError(f"unknown kv_dtype {runner_config.kv_dtype!r} "
                              "(expected 'model' or 'int8')")
         kv_quantized = runner_config.kv_dtype == "int8"
+        if kv_quantized and model_config.is_mla:
+            raise ValueError("int8 KV targets standard-attention models "
+                             "(MLA's latent cache is already compact)")
         if kv_quantized and model_config.head_dim != KV_SCALE_LANES:
             # As the reference: its int8 kernel covers head_dim 128 only,
             # and the port does not run a plain decode path in its place.
@@ -261,12 +266,12 @@ class ModelRunner:
         # kernels on the card, their plain versions on the CPU. A caller may
         # swap in other functions with the same signatures (chip_smoke.py's
         # parity phases pass the plain versions and the drop-ins). gpt-oss
-        # has none, as in the reference: its sink attention runs in the
-        # unified forward, in plain PyTorch.
-        gptoss = model_config.is_gptoss
-        self.decode_attention_fn = (None if gptoss
+        # and MLA have none: their sink and latent attentions run in the
+        # unified forward, in plain PyTorch, as the reference runs them.
+        unified = self._unified_model
+        self.decode_attention_fn = (None if unified
                                     else paged_attention_decode_pool)
-        self.spec_attention_fn = None if gptoss else paged_attention_spec_pool
+        self.spec_attention_fn = None if unified else paged_attention_spec_pool
         self.matmul_fn = quant_matmul
         # Decode, spec and prefill forwards run (a batched prefill group is
         # one): on the card each decode or spec forward launches its
@@ -300,6 +305,12 @@ class ModelRunner:
         self.logits_bytes_read = 0
 
     # -- helpers -----------------------------------------------------------
+
+    @property
+    def _unified_model(self) -> bool:
+        """gpt-oss and MLA: every decode is the unified write-then-attend
+        `forward`, as the reference's runner gates its fast decode off."""
+        return self.model_config.is_gptoss or self.model_config.is_mla
 
     @property
     def max_prefill_chunk(self) -> int:
@@ -362,8 +373,9 @@ class ModelRunner:
         `attention_fn` turns it off, as in the reference: sequential decode
         then runs the injected attention, and targets drawn from another
         attention would diverge from the non-speculative stream. gpt-oss
-        never speculates: its sink attention has no verification path."""
-        return self.attention_fn is None and not self.model_config.is_gptoss
+        and MLA never speculate: their sink and latent attentions have no
+        verification path."""
+        return self.attention_fn is None and not self._unified_model
 
     def _t(self, x, dtype: torch.dtype) -> torch.Tensor:
         """Host array (or device tensor) -> tensor on the runner's device."""
@@ -504,10 +516,11 @@ class ModelRunner:
         """One decode forward, logits [B, 1, V], over the runner's current
         functions: the deferred-write fast path, or the unified
         write-then-attend `forward` when the caller supplied `attention_fn`
-        or the model is gpt-oss (inactive slots write to scratch page 0)."""
+        or the model is gpt-oss or MLA (inactive slots write to scratch
+        page 0)."""
         attention_fn, decode_fn, _, matmul_fn = self._functions()
         model, kv = self.model, self.kv_cache
-        unified = attention_fn is not None or self.model_config.is_gptoss
+        unified = attention_fn is not None or self._unified_model
 
         def fwd(toks, pos, tables, lens, act):
             if unified:
@@ -796,8 +809,9 @@ class ModelRunner:
 
     @torch.inference_mode()
     def gather_pages_device(self, page_ids) -> DeviceBundle:
-        """Gather pages into a FRESH bundle on the device: [n, L, 2, ps, kh,
-        hd], or packed uint8 [n, bytes] for an int8 pool
+        """Gather pages into a FRESH bundle on the device: [n, L, kv_dims,
+        ps, heads, head_dim] (MLA's [n, L, 1, ps, 1, dc + rhd]), or packed
+        uint8 [n, bytes] for an int8 pool
         (`ops/block_copy.py`). Runs on the scheduler thread, queued on the
         stream the step graphs replay on, so it reads what every earlier
         step wrote; the returned event marks its end. The copy to the host
@@ -871,15 +885,16 @@ class ModelRunner:
 
     def kv_layout(self) -> dict:
         """The wire-layout descriptor of this runner's pool, as the
-        reference's `kv_layout` writes it: an int8 pool travels packed
+        reference's `kv_layout` writes it: the pool's geometry (MLA's
+        latent stack is 1 x 1 x (dc + rhd)), and an int8 pool travels packed
         (`kv_dtype` "int8", `scale_lanes` 128), so the two packages'
         descriptors compare equal."""
         cfg = self.model_config
         layout = {
             "n_layers": cfg.n_layers,
-            "kv_heads": cfg.n_kv_heads,
-            "head_dim": cfg.head_dim,
-            "kv_dims": 2,
+            "kv_heads": cfg.kv_cache_heads,
+            "head_dim": cfg.kv_cache_head_dim,
+            "kv_dims": cfg.kv_cache_kv_dims,
             "page_size": self.config.page_size,
             "dtype": cfg.dtype,
         }

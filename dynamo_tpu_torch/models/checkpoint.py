@@ -1,14 +1,12 @@
 """HF checkpoint directories: config.json and safetensors shards <-> the
 port's `Transformer`.
 
-Port of the dense, MoE and gpt-oss paths of `dynamo_tpu/models/checkpoint.py`:
+Port of `dynamo_tpu/models/checkpoint.py` but `checkpoint_digest`:
 
   * `config_from_hf(cfg)` / `config_from_checkpoint(dir)` — HF config.json
-    -> ModelConfig, field for field as the reference builds it (MLA
-    configs parse; `check_supported` then refuses them before any shard is
-    read);
+    -> ModelConfig, field for field as the reference builds it;
   * `build_mapping(config)` — HF tensor names <-> leaves, dense + qk_norm
-    (everything but the experts);
+    (everything but the experts; MLA has a path of its own);
   * the experts of Qwen3-MoE (`mlp.gate`, `mlp.experts.N.gate_proj`) and
     Mixtral (`block_sparse_moe.gate`, `block_sparse_moe.experts.N.w1`)
     checkpoints, the style detected from layer 0's names as the reference
@@ -22,6 +20,16 @@ Port of the dense, MoE and gpt-oss paths of `dynamo_tpu/models/checkpoint.py`:
     MXFP4 as `<name>_blocks` [E, out, G, 16] and `<name>_scales`
     [E, out, G] (`mxfp4_dequant`, on the device), transposed to
     [E, in, out];
+  * DeepSeek checkpoints (`DeepseekV2ForCausalLM`, `DeepseekV3ForCausalLM`),
+    read and written by the reference's `_load_deepseek` / `_save_deepseek`
+    mapping: `q_proj` -> `wq` (or `q_a_proj` / `q_a_layernorm` / `q_b_proj`
+    -> `w_dq` / `q_a_norm` / `w_uq`), `kv_a_proj_with_mqa` -> `w_dkv` ++
+    `w_kr`, `kv_a_layernorm` -> `kv_norm`, `kv_b_proj` -> `w_uk` ++ `w_uv`,
+    `o_proj` -> `wo`; the rope rows of the V2 shape permuted from HF's
+    interleaved pairs to the half-split rotation (`_rope_perm`, the V3
+    shape already rotates halves); `first_k_dense_replace` dense layers,
+    then the router (and `e_score_correction_bias`), the experts and the
+    shared experts;
   * `ShardReader(dir)` — one file, an index-sharded directory, or a
     directory of shards (`models/safetensors.py` reads the format);
   * `load_params(dir, config)` — the `Transformer`, built on the device
@@ -47,8 +55,7 @@ raises KeyError, a mis-shaped one ValueError, a file that is not
 safetensors `SafetensorsError` (a ValueError). Nothing falls back to random
 weights. A MoE layer gets no dense MLP leaves (the reference zero-fills
 them). gpt-oss directories are read, not written: the reference's
-`hf_config_dict` has no gpt-oss branch, so `save_params` refuses them. Not
-ported yet: the DeepSeek loader and `checkpoint_digest`.
+`hf_config_dict` has no gpt-oss branch, so `save_params` refuses them.
 """
 
 from __future__ import annotations
@@ -312,7 +319,7 @@ def build_mapping(config: ModelConfig) -> list[_Entry]:
     """Dense-path entries: every tensor of a dense (or qk_norm) model."""
     if config.is_mla:
         raise ValueError("MLA checkpoints load through the dedicated "
-                         "DeepSeek path, which is not ported")
+                         "DeepSeek path (_load_deepseek)")
     h, hd = config.hidden, config.head_dim
     qh, kh, m = config.n_q_heads, config.n_kv_heads, config.mlp_hidden
     vec = lambda n: ((n,), _copy, _copy)  # noqa: E731
@@ -493,7 +500,6 @@ def load_params(path: str, config: ModelConfig, *,
     dev = resolve_device(device)
     dtype = torch_dtype(config.dtype)
     tree: dict = {"layers": [{} for _ in range(config.n_layers)]}
-    n_bytes = 0
     with ShardReader(path) as reader:
         present = reader.names()
         loaded: set[str] = set()
@@ -508,28 +514,16 @@ def load_params(path: str, config: ModelConfig, *,
             # too, so no leaf keeps the map alive; it goes with `raw`)
             return raw.to(dev, copy=True)
 
-        for entry in build_mapping(config):
-            if (entry.hf_name == "lm_head.weight"
-                    and entry.hf_name not in present
-                    and not config.is_gptoss):
-                # Tied-in-practice checkpoint that omits the head: HF falls
-                # back to the embedding — mirror that (the reference's
-                # gpt-oss loader does not).
-                emb = read("model.embed_tokens.weight",
-                           (config.vocab_size, config.hidden))
-                leaf = emb.t().contiguous().to(dtype)
-            else:
-                leaf = entry.to_ours(read(entry.hf_name, entry.shape)
-                                     ).to(dtype)
-                loaded.add(entry.hf_name)
-            n_bytes += leaf.numel() * leaf.element_size()
-            _set_path(tree, entry.path, leaf)
-        if config.is_gptoss:
-            n_bytes += _load_gptoss(read, present, config, tree, dtype,
-                                    loaded)
-        elif config.n_experts:
-            n_bytes += _load_experts(read, present, config, tree, dev, dtype,
-                                     loaded)
+        if config.is_mla:
+            n_bytes = _load_deepseek(read, config, tree, dev, dtype, loaded)
+        else:
+            n_bytes = _load_mapped(read, present, config, tree, dtype, loaded)
+            if config.is_gptoss:
+                n_bytes += _load_gptoss(read, present, config, tree, dtype,
+                                        loaded)
+            elif config.n_experts:
+                n_bytes += _load_experts(read, present, config, tree, dev,
+                                         dtype, loaded)
         leftovers = [n for n in present - loaded
                      if not n.endswith(_IGNORED_SUFFIXES)
                      and not (config.tie_embeddings
@@ -541,6 +535,28 @@ def load_params(path: str, config: ModelConfig, *,
     log.info("loaded checkpoint %s: %.2f GiB as %s on %s", path,
              n_bytes / 2**30, config.dtype, dev)
     return Transformer(config, tree)
+
+
+def _load_mapped(read, present: set[str], config: ModelConfig, tree: dict,
+                 dtype: torch.dtype, loaded: set[str]) -> int:
+    """Every tensor of `build_mapping` into `tree`; returns their bytes."""
+    n_bytes = 0
+    for entry in build_mapping(config):
+        if (entry.hf_name == "lm_head.weight"
+                and entry.hf_name not in present
+                and not config.is_gptoss):
+            # Tied-in-practice checkpoint that omits the head: HF falls
+            # back to the embedding — mirror that (the reference's gpt-oss
+            # loader does not).
+            emb = read("model.embed_tokens.weight",
+                       (config.vocab_size, config.hidden))
+            leaf = emb.t().contiguous().to(dtype)
+        else:
+            leaf = entry.to_ours(read(entry.hf_name, entry.shape)).to(dtype)
+            loaded.add(entry.hf_name)
+        n_bytes += leaf.numel() * leaf.element_size()
+        _set_path(tree, entry.path, leaf)
+    return n_bytes
 
 
 def _load_experts(read, present: set[str], config: ModelConfig, tree: dict,
@@ -655,12 +671,216 @@ def _load_gptoss(read, present: set[str], config: ModelConfig, tree: dict,
     return n_bytes
 
 
+def _rope_perm(rhd: int) -> torch.Tensor:
+    """HF DeepSeek-V2's interleaved rope (pairs 2i, 2i + 1) -> the half-
+    split rotation (i, i + rhd/2): the order of the rope rows of the
+    projections. q and k permute alike, so their products do not change."""
+    return torch.cat([torch.arange(0, rhd, 2), torch.arange(1, rhd, 2)])
+
+
+def _rope_order(config: ModelConfig, inverse: bool = False) -> torch.Tensor:
+    """The rope rows' order between HF and the forward: `_rope_perm` (or
+    its inverse) for the V2 shape, the identity for the V3 shape, whose HF
+    modeling already rotates halves."""
+    rhd = config.mla_rope_head_dim
+    if config.moe_scoring == "sigmoid" or config.mla_q_lora_rank > 0:
+        return torch.arange(rhd)
+    perm = _rope_perm(rhd)
+    return torch.argsort(perm) if inverse else perm
+
+
+def _reorder_rope(w: torch.Tensor, n: int, order: torch.Tensor
+                  ) -> torch.Tensor:
+    """[..., n + rhd] with its last rhd entries (the rope rows) taken in
+    `order`."""
+    return torch.cat([w[..., :n], w[..., n:][..., order.to(w.device)]],
+                     dim=-1)
+
+
+def _load_deepseek(read, config: ModelConfig, tree: dict, dev: torch.device,
+                   dtype: torch.dtype, loaded: set[str]) -> int:
+    """A DeepSeek MLA checkpoint into `tree`, as the reference's
+    `_load_deepseek` maps it (see the module docstring), every tensor's
+    shape checked; each expert is written into its row of a stack allocated
+    on the device as it is read, and a MoE layer gets no dense MLP leaves.
+    Returns the leaves' bytes."""
+    h, qh, vocab = config.hidden, config.n_q_heads, config.vocab_size
+    nhd, rhd = config.mla_nope_head_dim, config.mla_rope_head_dim
+    vhd, dc, qr = (config.mla_v_head_dim, config.mla_kv_lora_rank,
+                   config.mla_q_lora_rank)
+    e, m = config.n_experts, config.mlp_hidden
+    em = config.expert_mlp_hidden or m
+    order = _rope_order(config)
+
+    def get(name: str, shape: tuple) -> torch.Tensor:
+        loaded.add(name)
+        return read(name, shape)
+
+    def linear(name: str, n_in: int, n_out: int) -> torch.Tensor:
+        """HF Linear [out, in] -> [in, out]."""
+        return get(name, (n_out, n_in)).t().contiguous()
+
+    tree["embed"] = get("model.embed_tokens.weight", (vocab, h)).to(dtype)
+    tree["final_norm"] = get("model.norm.weight", (h,)).to(dtype)
+    if not config.tie_embeddings:
+        tree["lm_head"] = linear("lm_head.weight", h, vocab).to(dtype)
+    for i in range(config.n_layers):
+        p = f"model.layers.{i}."
+        a, f = p + "self_attn.", p + "mlp."
+        lp = tree["layers"][i]
+        if qr:
+            lp["w_dq"] = linear(a + "q_a_proj.weight", h, qr).to(dtype)
+            lp["q_a_norm"] = get(a + "q_a_layernorm.weight", (qr,)).to(dtype)
+            w_uq = linear(a + "q_b_proj.weight", qr, qh * (nhd + rhd))
+            lp["w_uq"] = _reorder_rope(w_uq.reshape(qr, qh, nhd + rhd), nhd,
+                                       order).to(dtype)
+        else:
+            wq = linear(a + "q_proj.weight", h, qh * (nhd + rhd))
+            lp["wq"] = _reorder_rope(wq.reshape(h, qh, nhd + rhd), nhd,
+                                     order).to(dtype)
+        kv_a = _reorder_rope(linear(a + "kv_a_proj_with_mqa.weight", h,
+                                    dc + rhd), dc, order)
+        lp["w_dkv"] = kv_a[:, :dc].contiguous().to(dtype)
+        lp["w_kr"] = kv_a[:, dc:].contiguous().to(dtype)
+        lp["kv_norm"] = get(a + "kv_a_layernorm.weight", (dc,)).to(dtype)
+        kv_b = linear(a + "kv_b_proj.weight", dc, qh * (nhd + vhd)).reshape(
+            dc, qh, nhd + vhd)
+        lp["w_uk"] = kv_b[..., :nhd].contiguous().to(dtype)
+        lp["w_uv"] = kv_b[..., nhd:].contiguous().to(dtype)
+        lp["wo"] = linear(a + "o_proj.weight", qh * vhd, h).reshape(
+            qh, vhd, h).to(dtype)
+        lp["attn_norm"] = get(p + "input_layernorm.weight", (h,)).to(dtype)
+        lp["mlp_norm"] = get(p + "post_attention_layernorm.weight",
+                             (h,)).to(dtype)
+        if not config.layer_is_moe(i):
+            lp["w_gate"] = linear(f + "gate_proj.weight", h, m).to(dtype)
+            lp["w_up"] = linear(f + "up_proj.weight", h, m).to(dtype)
+            lp["w_down"] = linear(f + "down_proj.weight", m, h).to(dtype)
+            continue
+        lp["router"] = linear(f + "gate.weight", h, e).to(dtype)
+        if config.moe_scoring == "sigmoid":
+            lp["e_bias"] = get(f + "gate.e_score_correction_bias",
+                               (e,)).float()
+        shapes = {"gate": (em, h), "up": (em, h), "down": (h, em)}
+        for stack, key in _EXPERT_STACKS:
+            lp[stack] = torch.empty((e, *shapes[key][::-1]), dtype=dtype,
+                                    device=dev)
+        for j in range(e):
+            for stack, key in _EXPERT_STACKS:
+                lp[stack][j] = get(f"{f}experts.{j}.{key}_proj.weight",
+                                   shapes[key]).t()
+        if config.n_shared_experts:
+            sm = config.n_shared_experts * em
+            s = f + "shared_experts."
+            lp["s_gate"] = linear(s + "gate_proj.weight", h, sm).to(dtype)
+            lp["s_up"] = linear(s + "up_proj.weight", h, sm).to(dtype)
+            lp["s_down"] = linear(s + "down_proj.weight", sm, h).to(dtype)
+    leaves = [tree["embed"], tree["final_norm"], tree.get("lm_head")]
+    leaves += [t for lp in tree["layers"] for t in lp.values()]
+    return sum(t.numel() * t.element_size() for t in leaves if t is not None)
+
+
+def _deepseek_hf_tensors(model: Transformer, config: ModelConfig
+                         ) -> Iterator[tuple[str, torch.Tensor]]:
+    """(HF name, tensor) of an MLA model, the exact inverse of
+    `_load_deepseek` (the reference's `_save_deepseek` names and layouts),
+    each tensor made when the writer asks for it."""
+    h, qh, nhd = config.hidden, config.n_q_heads, config.mla_nope_head_dim
+    vhd, dc, qr = (config.mla_v_head_dim, config.mla_kv_lora_rank,
+                   config.mla_q_lora_rank)
+    inv = _rope_order(config, inverse=True)
+
+    def hf(w: torch.Tensor, n_in: int) -> torch.Tensor:
+        """Ours [in, ...out] -> HF Linear [out, in]."""
+        return w.detach().reshape(n_in, -1).t().contiguous()
+
+    yield "model.embed_tokens.weight", model.embed.detach()
+    yield "model.norm.weight", model.final_norm.detach()
+    if not config.tie_embeddings:
+        yield "lm_head.weight", hf(model.lm_head, h)
+    for i, lp in enumerate(model.layers):
+        p = f"model.layers.{i}."
+        a, f = p + "self_attn.", p + "mlp."
+        if qr:
+            yield a + "q_a_proj.weight", hf(lp["w_dq"], h)
+            yield a + "q_a_layernorm.weight", lp["q_a_norm"].detach()
+            yield a + "q_b_proj.weight", hf(
+                _reorder_rope(lp["w_uq"].detach(), nhd, inv), qr)
+        else:
+            yield a + "q_proj.weight", hf(
+                _reorder_rope(lp["wq"].detach(), nhd, inv), h)
+        kv_a = torch.cat([lp["w_dkv"].detach(), lp["w_kr"].detach()], dim=1)
+        yield a + "kv_a_proj_with_mqa.weight", hf(
+            _reorder_rope(kv_a, dc, inv), h)
+        yield a + "kv_a_layernorm.weight", lp["kv_norm"].detach()
+        yield a + "kv_b_proj.weight", hf(
+            torch.cat([lp["w_uk"].detach(), lp["w_uv"].detach()], dim=-1), dc)
+        yield a + "o_proj.weight", hf(lp["wo"], qh * vhd)
+        yield p + "input_layernorm.weight", lp["attn_norm"].detach()
+        yield p + "post_attention_layernorm.weight", lp["mlp_norm"].detach()
+        if not config.layer_is_moe(i):
+            for key in ("gate", "up", "down"):
+                leaf = lp["w_" + key]
+                yield f"{f}{key}_proj.weight", hf(leaf, leaf.shape[0])
+            continue
+        yield f + "gate.weight", hf(lp["router"], h)
+        if config.moe_scoring == "sigmoid":
+            yield (f + "gate.e_score_correction_bias",
+                   lp["e_bias"].detach().float())
+        for j in range(config.n_experts):
+            for stack, key in _EXPERT_STACKS:
+                yield (f"{f}experts.{j}.{key}_proj.weight",
+                       lp[stack][j].detach().t().contiguous())
+        if config.n_shared_experts:
+            for key in ("gate", "up", "down"):
+                leaf = lp["s_" + key]
+                yield (f"{f}shared_experts.{key}_proj.weight",
+                       hf(leaf, leaf.shape[0]))
+
+
 def hf_config_dict(config: ModelConfig) -> dict:
-    """config.json contents for an exported dense or MoE checkpoint
-    (HF-readable). Like the reference's it has no gpt-oss branch (a gpt-oss
-    config comes out Mixtral-shaped), so `save_params` refuses gpt-oss."""
+    """config.json contents for an exported dense, MoE or DeepSeek
+    checkpoint (HF-readable). Like the reference's it has no gpt-oss branch
+    (a gpt-oss config comes out Mixtral-shaped), so `save_params` refuses
+    gpt-oss."""
     if config.is_mla:
-        raise NotImplementedError("MLA checkpoints are not ported")
+        v3 = config.moe_scoring == "sigmoid" or config.mla_q_lora_rank > 0
+        return {
+            "architectures": ["DeepseekV3ForCausalLM" if v3
+                              else "DeepseekV2ForCausalLM"],
+            "model_type": "deepseek_v3" if v3 else "deepseek_v2",
+            "hidden_size": config.hidden,
+            "intermediate_size": config.mlp_hidden,
+            "max_position_embeddings": config.max_context,
+            "num_attention_heads": config.n_q_heads,
+            "num_key_value_heads": config.n_kv_heads,
+            "num_hidden_layers": config.n_layers,
+            "rms_norm_eps": config.rms_eps,
+            "rope_theta": config.rope_theta,
+            "tie_word_embeddings": config.tie_embeddings,
+            "vocab_size": config.vocab_size,
+            "torch_dtype": config.dtype,
+            "q_lora_rank": config.mla_q_lora_rank or None,
+            "kv_lora_rank": config.mla_kv_lora_rank,
+            "qk_nope_head_dim": config.mla_nope_head_dim,
+            "qk_rope_head_dim": config.mla_rope_head_dim,
+            "v_head_dim": config.mla_v_head_dim,
+            "head_dim": config.mla_rope_head_dim,
+            "n_routed_experts": config.n_experts or None,
+            "num_experts_per_tok": config.n_experts_active or None,
+            "moe_intermediate_size": config.expert_mlp_hidden or None,
+            "n_shared_experts": config.n_shared_experts or None,
+            "first_k_dense_replace": config.first_k_dense,
+            "norm_topk_prob": config.moe_norm_topk,
+            "routed_scaling_factor": config.moe_routed_scale,
+            "topk_method": "noaux_tc" if v3 else "greedy",
+            "scoring_func": config.moe_scoring,
+            "n_group": config.moe_n_group,
+            "topk_group": config.moe_topk_group,
+            "num_experts_per_token": config.n_experts_active or None,
+            "attention_bias": False,
+            "moe_layer_freq": 1,
+        }
     moe = config.n_experts > 0
     if moe:
         arch = "Qwen3MoeForCausalLM" if config.qk_norm \
@@ -696,6 +916,9 @@ def hf_config_dict(config: ModelConfig) -> dict:
 
 def _hf_tensors(model: Transformer, config: ModelConfig
                 ) -> Iterator[tuple[str, torch.Tensor]]:
+    if config.is_mla:
+        yield from _deepseek_hf_tensors(model, config)
+        return
     tree = {"embed": model.embed, "final_norm": model.final_norm,
             "lm_head": model.lm_head, "layers": model.layers}
     for entry in build_mapping(config):
@@ -721,8 +944,9 @@ def save_params(model: Transformer, config: ModelConfig, path: str, *,
     """Write the model as an HF-style checkpoint directory: config.json,
     and model.safetensors (or, with `max_shard_bytes`, numbered shards and
     model.safetensors.index.json), with HF names; a MoE model's experts
-    under the Qwen3-MoE names when it has qk_norm, else Mixtral's, as the
-    reference names them. The exact inverse of `load_params`. Each tensor
+    under the Qwen3-MoE names when it has qk_norm, else Mixtral's, and an
+    MLA model under DeepSeek's, as the reference names them. The exact
+    inverse of `load_params`. Each tensor
     is copied to the host once, as it is written. gpt-oss raises
     NotImplementedError: `hf_config_dict` cannot describe it."""
     check_supported(config)

@@ -13,7 +13,9 @@ for bit; the dense MLP leaves the JAX package keeps on a MoE layer (its
 forward never reads them) are left behind. A gpt-oss layer's leaves (`bq`,
 `bk`, `bv`, `bo`, `sinks`, `router`, `router_bias`, `e_gate_up`,
 `e_gate_up_bias`, `e_down`, `e_down_bias`) cross bit for bit as they are;
-its tree holds no dense MLP leaves.
+its tree holds no dense MLP leaves. An MLA layer's leaves (`w_dkv`, `w_kr`,
+`kv_norm`, `w_uk`, `w_uv`, `wo`, and `wq` or the q LoRA path's `w_dq`,
+`q_a_norm`, `w_uq`) cross bit for bit too, in the V2 and the V3 shape.
 
 `kv_cache_from_numpy` does the same for the reference's int8 KV pool, a
 (values, scales) pair whose lane-broadcast scale rows [L, 2, P, ps, 128]

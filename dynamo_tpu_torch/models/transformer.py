@@ -1,7 +1,7 @@
-"""GQA decoder transformers over a paged KV pool, in PyTorch: dense, MoE and
-gpt-oss.
+"""Decoder transformers over a paged KV pool, in PyTorch: dense, MoE,
+gpt-oss and MLA.
 
-Port of the dense, MoE and gpt-oss branches of
+Port of the dense, MoE, gpt-oss and MLA branches of
 `dynamo_tpu/models/transformer.py`. The weights
 live in a `Transformer` module in the JAX package's layouts (`wq [h, qh, hd]`,
 `wk/wv [h, kh, hd]`, `wo [qh, hd, h]`, `w_gate/w_up [h, m]`, `w_down [m, h]`,
@@ -9,11 +9,13 @@ live in a `Transformer` module in the JAX package's layouts (`wq [h, qh, hd]`,
 `x @ w.reshape(fan_in, -1)` with no transposes and the JAX package's params
 carry over leaf for leaf (`models/convert.py`).
 
-The paged KV pool is one tensor [layers, 2, pages, page_size, kv_heads, hd];
-page 0 is a scratch page that block tables point unused slots at. Unlike the
+The paged KV pool is one tensor [layers, kv_dims, pages, page_size,
+cache_heads, cache_head_dim]: [L, 2, P, ps, kv_heads, hd] for standard
+attention, [L, 1, P, ps, 1, dc + rhd] for MLA's latent pool; page 0 is a
+scratch page that block tables point unused slots at. Unlike the
 JAX package, whose functions return a new cache, every function here that
-writes KV (`write_kv_pages`, `write_kv_stack`, `forward`, `forward_decode`,
-`forward_spec`) updates the pool IN PLACE.
+writes KV (`write_kv_pages`, `write_kv_stack`, `write_latent_pages`,
+`forward`, `forward_decode`, `forward_spec`) updates the pool IN PLACE.
 
 Weight-only quantized projections (the JAX package's `models/quantize.py`
 leaves) are `ops.Q8Weight` ({"q8", "qs"}, W8A16) and `ops.Q4Weight`
@@ -36,8 +38,16 @@ the write-then-attend sink attention with a sliding window on even layers
 (`paged_attention_sinks_xla`, plain PyTorch: the reference runs no kernel
 for it and ignores `attention_fn`), `bo` after `wo`, and the dense-over-
 experts clipped SwiGLU (`models.moe.moe_gptoss`). The deferred-write
-`forward_decode` / `forward_spec` refuse it. MLA, LoRA and multimodal
-splicing are not ported yet and raise.
+`forward_decode` / `forward_spec` refuse it.
+
+MLA (`config.is_mla`, the DeepSeek family) also runs `forward` only:
+`mla_attention_xla` writes one latent row a token (`write_latent_pages`:
+the normed `c_kv` and the rotated shared `k_rope`), then attends with the
+absorbed weights (`q_nope . w_uk` against the gathered latents, f32 scores
+and softmax, the latent context through `w_uv`), in plain PyTorch as the
+reference computes it in plain XLA, ignoring `attention_fn`. With a q LoRA
+rank (the V3 shape) the query is `rms(x @ w_dq) @ w_uq`. LoRA and
+multimodal splicing are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -72,14 +82,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_supported(config: ModelConfig) -> None:
     """Raise for model families this port does not cover yet."""
-    missing = []
-    if config.is_mla:
-        missing.append("MLA attention")
     if config.image_token_id >= 0:
-        missing.append("multimodal embedding splice")
-    if missing:
         raise NotImplementedError(
-            f"{config.name}: {', '.join(missing)} not ported yet")
+            f"{config.name}: multimodal embedding splice not ported yet")
 
 
 def _leaf(value):
@@ -131,7 +136,11 @@ class Transformer(nn.Module):
     `bk / bv [kh, hd]`, `bo [h]`, `sinks [qh]`, `router [h, e]`,
     `router_bias [e]`, `e_gate_up [e, h, 2em]` (gate and up interleaved
     along the last axis), `e_gate_up_bias [e, 2em]`, `e_down [e, em, h]`
-    and `e_down_bias [e, h]`, and no dense MLP leaves.
+    and `e_down_bias [e, h]`, and no dense MLP leaves. An MLA layer holds
+    `w_dkv [h, dc]`, `w_kr [h, rhd]`, `kv_norm [dc]`, `w_uk [dc, qh, nhd]`,
+    `w_uv [dc, qh, vhd]` and `wo [qh, vhd, h]`, with `wq [h, qh, nhd + rhd]`
+    or, given a q LoRA rank, `w_dq [h, qr]`, `q_a_norm [qr]` and
+    `w_uq [qr, qh, nhd + rhd]`; its MLP is dense or MoE by layer.
     Inference only: nothing requires grad."""
 
     def __init__(self, config: ModelConfig, tree: dict) -> None:
@@ -168,7 +177,9 @@ def init_params(config: ModelConfig, *, device: DeviceLike = "cuda",
     `e_bias` for sigmoid scoring and the shared experts' projections, and no
     dense MLP leaves. A gpt-oss layer gets the reference's leaves at its
     scales: the biases at 0.02 of a projection's, `sinks` at fan-in 1, and
-    zero router and expert biases."""
+    zero router and expert biases. An MLA layer gets the reference's latent
+    attention leaves (the q LoRA path where the config has a rank) in place
+    of wq / wk / wv / wo."""
     check_supported(config)
     dev = resolve_device(device)
     dtype = torch_dtype(config.dtype)
@@ -184,7 +195,33 @@ def init_params(config: ModelConfig, *, device: DeviceLike = "cuda",
     def ones(n):
         return torch.ones(n, device=dev, dtype=dtype)
 
+    def mla():
+        """An MLA layer's attention and norm leaves, at the reference's
+        scales."""
+        dc, qr = config.mla_kv_lora_rank, config.mla_q_lora_rank
+        nhd, rhd = config.mla_nope_head_dim, config.mla_rope_head_dim
+        vhd = config.mla_v_head_dim
+        p = {
+            "attn_norm": ones(h),
+            "w_dkv": dense((h, dc), h),
+            "w_kr": dense((h, rhd), h),
+            "kv_norm": ones(dc),
+            "w_uk": dense((dc, qh, nhd), dc),
+            "w_uv": dense((dc, qh, vhd), dc),
+            "wo": dense((qh, vhd, h), qh * vhd),
+        }
+        if qr:
+            p["w_dq"] = dense((h, qr), h)
+            p["q_a_norm"] = ones(qr)
+            p["w_uq"] = dense((qr, qh, nhd + rhd), qr)
+        else:
+            p["wq"] = dense((h, qh, nhd + rhd), h)
+        p["mlp_norm"] = ones(h)
+        return p
+
     def layer(layer_idx):
+        if config.is_mla:
+            return mlp(mla(), layer_idx)
         p = {
             "attn_norm": ones(h),
             "wq": dense((h, qh, hd), h),
@@ -214,6 +251,11 @@ def init_params(config: ModelConfig, *, device: DeviceLike = "cuda",
                 "e_down_bias": zeros(e, h),
             })
             return p
+        return mlp(p, layer_idx)
+
+    def mlp(p, layer_idx):
+        """The dense SwiGLU's leaves, or on a MoE layer the router, the
+        expert stacks and the shared experts'."""
         if not config.layer_is_moe(layer_idx):
             p["w_gate"] = dense((h, m), h)
             p["w_up"] = dense((h, m), h)
@@ -253,8 +295,11 @@ def make_kv_cache_int8(config: ModelConfig, num_pages: int, page_size: int,
                        *, device: DeviceLike = "cuda"
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Zeroed int8 pool: (values int8 [L, 2, P, ps, kh, hd], scales bf16
-    [L, 2, P, ps]), one absmax scale per token shared by the kv heads."""
+    [L, 2, P, ps]), one absmax scale per token shared by the kv heads.
+    Standard attention only: MLA raises, as the reference asserts."""
     check_supported(config)
+    if config.is_mla:
+        raise ValueError("int8 KV targets standard-attention models")
     dev = resolve_device(device)
     values = torch.zeros(
         (config.n_layers, 2, num_pages, page_size, config.n_kv_heads,
@@ -285,12 +330,14 @@ def _kv_parts(kv_cache: KVCache):
 def make_kv_cache(config: ModelConfig, num_pages: int, page_size: int,
                   dtype: Optional[str] = None, *,
                   device: DeviceLike = "cuda") -> torch.Tensor:
-    """Zeroed pool [layers, 2, pages, page_size, kv_heads, head_dim]. Page 0
-    is the reserved scratch page."""
+    """Zeroed pool [layers, kv_dims, pages, page_size, cache_heads,
+    cache_head_dim]: [L, 2, P, ps, kv_heads, head_dim] for standard
+    attention, [L, 1, P, ps, 1, dc + rhd] for MLA's latent pool. Page 0 is
+    the reserved scratch page."""
     check_supported(config)
     return torch.zeros(
-        (config.n_layers, 2, num_pages, page_size, config.n_kv_heads,
-         config.head_dim),
+        (config.n_layers, config.kv_cache_kv_dims, num_pages, page_size,
+         config.kv_cache_heads, config.kv_cache_head_dim),
         dtype=torch_dtype(dtype or config.dtype),
         device=resolve_device(device))
 
@@ -643,6 +690,72 @@ def paged_attention_decode_xla(
                                     k_cur, v_cur)
 
 
+def write_latent_pages(
+    kv_cache: torch.Tensor,  # [L, 1, P, ps, 1, dc+rhd], updated IN PLACE
+    layer: int,
+    latent: torch.Tensor,  # [B, T, dc+rhd] c_kv ++ k_rope per token
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    positions: torch.Tensor,  # [B, T]
+    valid: torch.Tensor,  # [B, T] bool
+) -> torch.Tensor:
+    """MLA's cache write: one compressed latent row a token, in place;
+    invalid (padding) tokens go to the scratch page 0. Returns the pool."""
+    pages, offs = _page_slots(kv_cache, block_tables, positions, valid)
+    kv_cache[layer, 0, pages, offs, 0] = latent.reshape(
+        pages.shape[0], -1).to(kv_cache.dtype)
+    return kv_cache
+
+
+def mla_attention_xla(
+    x: torch.Tensor,  # [B, T, H], attention-normed
+    lp,
+    config: ModelConfig,
+    kv_cache: torch.Tensor,  # [L, 1, P, ps, 1, dc+rhd], updated IN PLACE
+    layer: int,
+    block_tables: torch.Tensor,  # [B, max_pages]
+    positions: torch.Tensor,  # [B, T]
+    kv_lens: torch.Tensor,  # [B] kv length AFTER this chunk
+    valid: torch.Tensor,  # [B, T] bool
+    rope_cos_sin: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """MLA with weight absorption, the reference's `_mla_attention_block`:
+    the chunk's latents (`rms(x @ w_dkv)` ++ the rotated `x @ w_kr`) are
+    written first; the queries' no-rope part is projected into latent space
+    (`q_nope . w_uk`), so scores and context are computed against the
+    gathered latent pages of the whole table, in f32, and no per-head K/V
+    of past tokens is ever built. The latent context goes through `w_uv`
+    in x's dtype. `rope_cos_sin` are `rope_tables` at the rope head dim
+    (computed here when not given). Returns [B, T, qh, vhd]."""
+    b = x.shape[0]
+    nhd, rhd = config.mla_nope_head_dim, config.mla_rope_head_dim
+    dc = config.mla_kv_lora_rank
+    scale = 1.0 / math.sqrt(config.mla_qk_head_dim)
+    cos, sin = rope_cos_sin or rope_tables(positions, rhd, config.rope_theta)
+    if "w_dq" in lp:  # the V3 query low-rank path
+        q = _mm(rms_norm(_mm(x, lp["w_dq"]), lp["q_a_norm"], config.rms_eps),
+                lp["w_uq"])
+    else:
+        q = _mm(x, lp["wq"])  # [B, T, qh, nhd + rhd]
+    q_nope, q_rope = q[..., :nhd], apply_rope(q[..., nhd:], cos, sin)
+    c_kv = rms_norm(_mm(x, lp["w_dkv"]), lp["kv_norm"], config.rms_eps)
+    k_rope = apply_rope(_mm(x, lp["w_kr"])[:, :, None, :], cos, sin)[:, :, 0]
+    write_latent_pages(kv_cache, layer, torch.cat([c_kv, k_rope], dim=-1),
+                       block_tables, positions, valid)
+    q_lat = torch.einsum("btqn,dqn->btqd", q_nope, lp["w_uk"])
+    ctx = block_tables.shape[1] * kv_cache.shape[3]
+    lat = kv_cache[layer, 0][block_tables.long()].reshape(b, ctx, dc + rhd)
+    ckv, kr = lat[..., :dc].float(), lat[..., dc:].float()
+    scores = (torch.einsum("btqd,bsd->btqs", q_lat.float(), ckv)
+              + torch.einsum("btqr,bsr->btqs", q_rope.float(), kr)) * scale
+    kv_pos = torch.arange(ctx, device=x.device)[None, None, :]
+    mask = ((kv_pos <= positions[..., None])
+            & (kv_pos < kv_lens.long()[:, None, None]))
+    scores = scores.masked_fill(~mask[:, :, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("btqs,bsd->btqd", probs, ckv)  # [B, T, qh, dc]
+    return torch.einsum("btqd,dqv->btqv", ctx_lat.to(x.dtype), lp["w_uv"])
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -668,12 +781,13 @@ def _forward_deferred(model, tokens, positions, kv_cache, block_tables,
     registers) through `attn_fn`; the pool is written once at the end for
     all layers, in place. Returns logits [B, T, V] f32. gpt-oss is refused:
     its sink attention runs in the unified `forward` only, as the
-    reference's runner runs it."""
+    reference's runner runs it, and so is MLA (the reference asserts)."""
     config = model.config
-    if config.is_gptoss:
+    if config.is_gptoss or config.is_mla:
+        family = "gpt-oss" if config.is_gptoss else "MLA"
         raise NotImplementedError(
-            f"{config.name}: gpt-oss decodes through the unified forward "
-            "(sink attention); it has no deferred-write path")
+            f"{config.name}: {family} decodes through the unified forward; "
+            "it has no deferred-write path")
     cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
     x = model.embed[tokens]  # [B, T, H]
     ks, vs = [], []
@@ -757,23 +871,31 @@ def forward(
     if valid is None:
         valid = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
     attention = attention_fn or paged_attention_xla
-    if config.is_gptoss:  # its branch ignores attention_fn, as the reference
+    # gpt-oss's and MLA's branches ignore attention_fn, as the reference's
+    if config.is_gptoss:
         cos, sin = rope_gptoss_tables(positions, config)
     else:
-        cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
+        rotated = (config.mla_rope_head_dim if config.is_mla
+                   else config.head_dim)
+        cos, sin = rope_tables(positions, rotated, config.rope_theta)
     x = model.embed[tokens]  # [B, T, H]
     for layer_idx, lp in enumerate(model.layers):
         h = rms_norm(x, lp["attn_norm"], config.rms_eps)
-        q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn)
-        write_kv_pages(kv_cache, layer_idx, k, v, block_tables, positions,
-                       valid)
-        if config.is_gptoss:
-            attn = paged_attention_sinks_xla(
-                q, kv_cache, layer_idx, block_tables, positions, kv_lens,
-                lp["sinks"], config.layer_sliding_window(layer_idx))
+        if config.is_mla:
+            attn = mla_attention_xla(h, lp, config, kv_cache, layer_idx,
+                                     block_tables, positions, kv_lens, valid,
+                                     (cos, sin))
         else:
-            attn = attention(q, kv_cache, layer_idx, block_tables, positions,
-                             kv_lens)
+            q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn)
+            write_kv_pages(kv_cache, layer_idx, k, v, block_tables,
+                           positions, valid)
+            if config.is_gptoss:
+                attn = paged_attention_sinks_xla(
+                    q, kv_cache, layer_idx, block_tables, positions, kv_lens,
+                    lp["sinks"], config.layer_sliding_window(layer_idx))
+            else:
+                attn = attention(q, kv_cache, layer_idx, block_tables,
+                                 positions, kv_lens)
         x = x + _attn_out(attn, lp, matmul_fn)
         x = x + _mlp(x, lp, config, matmul_fn)
     if last_idx is not None:

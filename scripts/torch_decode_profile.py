@@ -20,8 +20,8 @@ op) in turn:
   * a `torch.profiler` trace of one block: device time by kernel name, the
     attention kernels' share (the split decode body and its merge), and the
     device's busy share of the block's wall time;
-  * (gpt-oss: the unified forward graphed and eager, no kernel variants,
-    no verification step, as the runner serves it)
+  * (gpt-oss and MLA: the unified forward graphed and eager, no kernel
+    variants, no verification step, as the runner serves it)
   * the same for one speculative verification step (`decode_spec`) of
     K = 4 drafts per slot (5 positions each: the folded attention, the
     projections at M = 16 slots x 5 = 80, since the runner's 16 slots all
@@ -212,9 +212,9 @@ def main() -> None:
                     "calls_per_step": e.count / steps} for e in events[:12]])
 
     modes = {"on": (True,), "off": (False,), "both": (True, False)}
-    if cfg.is_gptoss:
+    if cfg.is_gptoss or cfg.is_mla:
         # no decode or spec kernel and no speculation: the unified forward
-        # (plain sink attention, dense-over-experts MoE), graphed or eager
+        # (plain sink or latent attention, the plain MoE), graphed or eager
         variants = [("unified", None, None, quant_matmul, g)
                     for g in modes[args.graphs]]
     else:

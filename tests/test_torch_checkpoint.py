@@ -410,19 +410,18 @@ def test_config_from_hf_matches_reference(name):
         return
     got = port.config_from_hf(cfg, name="m")
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    if not want.is_mla:  # MLA checkpoints are not ported
-        assert port.hf_config_dict(got) == ref.hf_config_dict(want)
+    assert port.hf_config_dict(got) == ref.hf_config_dict(want)
 
 
 @pytest.mark.parametrize("name", ["deepseek_v3", "deepseek_v2_lite", "gptoss"])
 def test_unported_families_raise_before_any_shard(tmp_path, name):
-    """MLA families raise before any shard is read. gpt-oss is ported: its
-    directory goes on to the shards (none here), and the loader says so
-    (test_torch_gptoss.py loads real ones)."""
+    """DeepSeek (MLA) and gpt-oss are ported: each directory goes on to the
+    shards (none here), and the loader says so (test_torch_deepseek.py and
+    test_torch_gptoss.py load real ones)."""
     (tmp_path / "config.json").write_text(json.dumps(HF_CONFIGS[name]))
     cfg = port.config_from_checkpoint(str(tmp_path))
-    want = ((FileNotFoundError, "no \\*.safetensors") if cfg.is_gptoss
-            else (NotImplementedError, "not ported"))
+    assert cfg.is_gptoss or cfg.is_mla
+    want = (FileNotFoundError, "no \\*.safetensors")
     with pytest.raises(want[0], match=want[1]):
         port.load_params(str(tmp_path), cfg, device="cpu")  # no shard here
     with pytest.raises(want[0], match=want[1]):

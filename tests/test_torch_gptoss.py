@@ -433,9 +433,9 @@ def test_worker_greedy_streams_equal_the_jax_engine(f32_params, monkeypatch):
 
 
 def test_support_and_quantization_gates():
-    """check_supported accepts gpt-oss and still refuses MLA; gpt-oss
-    refuses int8 / int4 weights (as the reference's check_quantizable) and
-    int8 KV (head_dim 64, not 128)."""
+    """check_supported accepts gpt-oss and MLA and still refuses the
+    multimodal splice; gpt-oss refuses int8 / int4 weights (as the
+    reference's check_quantizable) and int8 KV (head_dim 64, not 128)."""
     for name in ("tiny-gptoss-test", "gpt-oss-20b", "gpt-oss-120b"):
         check_supported(t_get_config(name))
         for dtype in ("int8", "int4"):
@@ -443,8 +443,9 @@ def test_support_and_quantization_gates():
                 check_quantizable(t_get_config(name), dtype)
             with pytest.raises(ValueError):
                 ref_quantizable(get_config(name), dtype=dtype)
-    with pytest.raises(NotImplementedError, match="MLA attention"):
-        check_supported(t_get_config("tiny-mla-test"))
+    check_supported(t_get_config("tiny-mla-test"))
+    with pytest.raises(NotImplementedError, match="multimodal"):
+        check_supported(t_get_config("tiny-mm-test"))
     small = dataclasses.replace(t_get_config("gpt-oss-20b"), vocab_size=64,
                                 hidden=64, n_layers=2, n_q_heads=2,
                                 n_kv_heads=1, mlp_hidden=32,

@@ -200,10 +200,11 @@ def test_params_carry_over_bit_exact():
 
 
 def test_unported_families_raise():
-    """MLA is the family still refused (gpt-oss is held in
-    test_torch_gptoss.py)."""
+    """The multimodal splice is what is still refused (gpt-oss is held in
+    test_torch_gptoss.py, MLA in test_torch_mla.py)."""
     from dynamo_tpu_torch.models import get_config as t_get_config
     from dynamo_tpu_torch.models import init_params
 
-    with pytest.raises(NotImplementedError, match="MLA attention not ported"):
-        init_params(t_get_config("tiny-mla-test"), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="multimodal embedding splice not ported"):
+        init_params(t_get_config("tiny-mm-test"), device="cpu")
