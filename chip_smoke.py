@@ -88,7 +88,24 @@ Phases, each printing one JSON line:
               it: chat requests through the template (the prompt ids the
               worker receives = encode(render(messages)), each text = the
               decode of the worker's ids) and a json_schema request guided
-              over the 128,256 ids; the directory is deleted after
+              over the 128,256 ids; the directory is deleted after the
+              coldstart phase
+  coldstart - the arrival ladder (llama3-8b at full width, one arrival
+              alive at a time; each arrival serves the standard traffic,
+              its greedy streams equal a donor's at its depth, row 1
+              launches, its five rungs and source are printed and its
+              first request's timeline carries the coldstart events):
+              checkpoint (that directory at full depth; checkpoint_digest
+              cold and memoized), service (an in-process weight service
+              the engine worker publishes to, at the depth /dev/shm holds;
+              every leaf bit-equal; started snapshot-gated: ready marker,
+              restore marker, a new instance id), object_store (a
+              filesystem store; digest and write seconds apart; the depth
+              the measured digest rate allows), peer_striped over two
+              donors and then one peer (the depth a probe pull's measured
+              rate allows; chunks per donor, deferred seconds), and the
+              compile rung (the built kernel libraries synced up to a store
+              and down into an empty directory, byte-equal)
   disagg    - disaggregated prefill/decode on that worker: it decodes, and
               a second TorchWorker in mode "prefill" on the same weight
               tensors prefills (its prefill keys captured first); both
@@ -287,10 +304,12 @@ Phases, each printing one JSON line:
               Qwen3-MoE directory written by save_params and read back by
               load_params, every tensor equal (checkpoint_moe)
   engine_gptoss - gpt-oss, once the MoE model is freed: a TorchWorker
-              serving gpt-oss-20b bf16 at full width and depth (24 layers,
-              64 q / 8 kv heads of 64, 32 experts top-4 of width 2,880;
-              41,829,514,368 B of random weights from the seed, checked to
-              the byte), bf16 KV at the default 2,048 pages (1.61 GB),
+              serving gpt-oss-20b bf16 at full width, its depth cut to
+              GPTOSS_LAYERS = 12 of 24 layers for the script's time budget
+              (64 q / 8 kv heads of 64, 32 experts top-4 of width 2,880;
+              the full preset's 41,829,514,368 B counted to the byte, the
+              cut's random weights from the seed checked to the byte),
+              bf16 KV at the default 2,048 pages,
               prewarmed; the card's free memory first. The standard traffic
               (prompts past the 128-token window): every step a graph
               replay of the unified forward (sink attention and the
@@ -311,12 +330,14 @@ Phases, each printing one JSON line:
               one, a 32-token forward on the card against the same on the
               CPU; write and load seconds
   engine_mla - DeepSeek's latent attention, once gpt-oss is freed: a
-              TorchWorker serving deepseek-v2-lite bf16 at full width and
-              depth (27 layers: one dense, then 26 of 64 routed experts
-              top-6 and 2 shared; 16 heads over a 512 + 64 latent;
-              31,412,968,448 B of random weights from the seed, checked to
-              the byte), its latent pool [27, 1, 2,048, 16, 1, 576] at
-              31,104 B a token (1.02 GB), prewarmed; the standard traffic
+              TorchWorker serving deepseek-v2-lite bf16 at full width, its
+              depth cut to MLA_LAYERS = 14 of 27 layers for the script's
+              time budget (one dense, then MoE layers of 64 routed experts
+              top-6 and 2 shared; 16 heads over a 512 + 64 latent; the
+              full preset's 31,412,968,448 B and 31,104 B a token counted
+              to the byte, the cut's random weights from the seed checked
+              to the byte), its latent pool [14, 1, 2,048, 16, 1, 576] at
+              16,128 B a token, prewarmed; the standard traffic
               with every step a graph replay of the unified forward (the
               latent attention and the experts in plain PyTorch, as the
               reference runs them: no kernel of the port launches anywhere
@@ -366,8 +387,10 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -465,12 +488,15 @@ KERNELS = {
 }
 
 
-_LAST_EMIT = ["start", time.perf_counter()]  # the hang report's landmark
+_T0 = time.perf_counter()  # each phase line's `at_s` counts from here
+_LAST_EMIT = ["start", _T0]  # the hang report's landmark
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
-    _LAST_EMIT[:] = [phase, time.perf_counter()]
+    now = time.perf_counter()
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(now - _T0, 1)}), flush=True)
+    _LAST_EMIT[:] = [phase, now]
 
 
 def _await_chain(coro) -> list:
@@ -785,6 +811,7 @@ def phase_build() -> None:
     emit("build", seconds=round(secs, 3),
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
          ptxas=ptxas)
+    return secs
 
 
 def _attention_setup(dev: torch.device, hist: list, n_layers: int,
@@ -3928,6 +3955,13 @@ def _held_streams(dev: torch.device, worker, label: str) -> dict:
     thread starts once all are in (one admission, so two workers with the
     same weights make the same calls); launches checked against the
     forwards run. Returns streams by request id and the launches."""
+    return asyncio.run(_held_wave(dev, worker, label))
+
+
+async def _held_wave(dev: torch.device, worker, label: str,
+                     prefix: str = "req") -> dict:
+    """`_held_streams` on the running loop; the requests' ids are
+    `<prefix>-<i>` (the streams stay keyed `req-<i>`)."""
     from dynamo_tpu_torch.engine import InferenceScheduler
     from dynamo_tpu_torch.ops.gumbel import gumbel_noise
 
@@ -3939,9 +3973,10 @@ def _held_streams(dev: torch.device, worker, label: str) -> dict:
     reset_runner_counts(runner)
     gumbel_noise.launches = 0
     try:
-        results = asyncio.run(_serve_wave(worker, _bodies(prompts, "req"),
-                                          hold=True))
-        torch.cuda.synchronize()
+        results = await _serve_wave(worker, _bodies(prompts, prefix),
+                                    hold=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
     finally:
         worker.scheduler.stop()
     launches = read_counts()
@@ -4092,7 +4127,7 @@ def _checkpoint_http(dev: torch.device, worker, tok, template) -> dict:
                                    for c in out["chats"]]}
 
 
-def phase_checkpoint(dev: torch.device, worker) -> dict:
+def phase_checkpoint(dev: torch.device, worker, then=None) -> dict:
     """An HF checkpoint directory, written by the port and served from disk
     (llama3-8b at full width):
 
@@ -4119,8 +4154,11 @@ def phase_checkpoint(dev: torch.device, worker) -> dict:
       rendered through the directory's template and a json_schema request
       guided over the 128,256 ids.
 
-    The directory is deleted in a `finally`. Returns the launches of rows
-    1 (the bf16 load's run), 2 and 6 (the int4 load's)."""
+    `then(path, config, streams)`, when given, runs last, before the
+    directory is deleted in a `finally`, with the directory, its config and
+    the in-memory worker's streams; the launches it returns are added.
+    Returns the launches of rows 1 (the bf16 load's run), 2 and 6 (the
+    int4 load's)."""
     from dynamo_tpu_torch.engine import RunnerConfig, TorchWorker
     from dynamo_tpu_torch.llm import guided
     from dynamo_tpu_torch.llm.chat_template import ChatTemplate
@@ -4318,10 +4356,504 @@ def phase_checkpoint(dev: torch.device, worker) -> dict:
         loaded.close()
         del loaded
         free_memory()
+        if then is not None:
+            for name, n in then(str(root), ckpt_cfg, want["streams"]).items():
+                launches[name] = launches.get(name, 0) + n
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit("checkpoint", model=cfg.name, layers_written=n_layers,
          **out, launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+# The arrival ladder: how a worker arrives (engine/coldstart.py, weights/)
+
+COLDSTART_STORE_BUDGET_S = 20.0  # the store leg's digests + bytes, both ways
+COLDSTART_PEER_BUDGET_S = 20.0  # each peer pull's relay + verify seconds
+COLDSTART_PROBE_CHUNKS = 16  # chunks (4 MiB each) of the probe pull
+COLDSTART_DIGEST_SAMPLE = 64  # chunks hashed to measure the digest rate
+COLDSTART_SHM_MARGIN = 2**30  # /dev/shm bytes left free by the service leg
+COLDSTART_COMPONENT = "coldstart"
+
+
+def _weights_key_of(cfg) -> str:
+    """The weights key of a worker of `cfg` with no model path."""
+    from dynamo_tpu_torch.engine import TorchWorker
+
+    return TorchWorker._weights_key(types.SimpleNamespace(
+        model_config=cfg, model_path=None))
+
+
+def _depth_for(cfg, model, budget_bytes: float, reason: str) -> tuple:
+    """The most layers (at least 1) whose full-width tree fits in
+    `budget_bytes`, and the printed reason when that cuts the depth."""
+    nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                            for t in ts)
+    layer = nbytes(model.layers[0].parameters())
+    other = nbytes([model.embed, model.final_norm] + (
+        [model.lm_head] if model.lm_head is not None else []))
+    n = int(max(1, min(cfg.n_layers, (budget_bytes - other) // layer)))
+    return n, (None if n == cfg.n_layers else
+               f"{reason}: {budget_bytes / 1e9:.3f} GB allows {n} of "
+               f"{cfg.n_layers} layers ({other / 1e9:.3f} GB outside them, "
+               f"{layer / 1e9:.3f} GB a layer)")
+
+
+def _tree_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in model.parameters())
+
+
+def _rungs(label: str, worker) -> dict:
+    """The closed ladder's five rungs and total, checked complete."""
+    from dynamo_tpu_torch.engine.coldstart import PHASES
+
+    rep = worker.coldstart.report()
+    check(rep["total_secs"] is not None
+          and all(rep["phases"][p] is not None for p in PHASES),
+          f"{label}: the ladder is not closed with its five rungs: {rep}")
+    return {"source": rep["source"], "total_s": rep["total_secs"],
+            **{f"{p}_s": rep["phases"][p] for p in PHASES}}
+
+
+def _ladder_on_timeline(label: str, prefix: str, ladder) -> str:
+    """The coldstart events of `ladder` sit on exactly one of the wave's
+    timelines, the first request to get a token; returns its id."""
+    from dynamo_tpu_torch.runtime.flight_recorder import get_recorder
+
+    rec = get_recorder()
+    hits = {}
+    for i in range(8):
+        tl = rec.get(f"{prefix}-{i}")
+        names = [e["event"] for e in (tl.events if tl else [])
+                 if e.get("worker") == ladder.worker]
+        if names:
+            hits[f"{prefix}-{i}"] = names
+    check(len(hits) == 1 and list(hits.values())[0] == [
+        "coldstart_phase", "coldstart_complete"],
+        f"{label}: coldstart events on the timelines {hits}")
+    return next(iter(hits))
+
+
+class _Timed:
+    """Seconds spent in one method of a class while the block runs."""
+
+    def __init__(self, owner, name: str) -> None:
+        self.owner, self.name, self.seconds = owner, name, 0.0
+
+    def __enter__(self):
+        self.raw = vars(self.owner)[self.name]  # restored as it was
+        orig = getattr(self.owner, self.name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.raw)
+
+
+async def _arrive(dev: torch.device, leg: str, make, source: str, want: dict,
+                  rt, gate=None) -> dict:
+    """One arrival: `make()` builds the worker, `prepare` walks the ladder
+    (with `rt`, so the peer rungs can pull; without it when `gate`, the
+    snapshot gate, runs between prepare and serve), `serve` registers it,
+    then the standard traffic on one admission. Its source, rungs, first
+    timeline, streams (against `want`) and row-1 launches are checked; the
+    worker is shut down and its memory freed before returning."""
+    free_memory()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    worker = make()
+    out: dict = {"construct_s": time.perf_counter() - t0}
+    try:
+        t0 = time.perf_counter()
+        await worker.prepare(None if gate is not None else rt)
+        out["prepare_s"] = time.perf_counter() - t0
+        check(worker.weights_source == source,
+              f"coldstart {leg}: weights source {worker.weights_source!r}, "
+              f"expected {source!r}")
+        if gate is not None:
+            out["gate"] = await gate(worker)
+        await worker.serve(rt)
+        prefix = f"cs_{leg}-req"
+        got = await _held_wave(dev, worker, f"coldstart {leg}", prefix)
+        out.update(_rungs(f"coldstart {leg}", worker))
+        out["ladder_timeline"] = _ladder_on_timeline(
+            f"coldstart {leg}", prefix, worker.coldstart)
+        out.update(_compare_streams(f"coldstart {leg}", got["streams"],
+                                    want))
+        out["launches"] = got["launches"]
+        check(dev.type != "cuda"
+              or got["launches"]["paged_decode_attention_pool"] > 0,
+              f"coldstart {leg}: row 1 never launched")
+        out["layers"] = worker.model_config.n_layers
+        if cuda:
+            out["device_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        await worker.shutdown()
+        del worker
+        free_memory()
+    return out
+
+
+def _leaves_equal(model, ref) -> bool:
+    mine = dict(model.named_parameters())
+    theirs = dict(ref.named_parameters())
+    return mine.keys() == theirs.keys() and all(
+        mine[k].dtype == t.dtype and torch.equal(mine[k], t)
+        for k, t in theirs.items())
+
+
+def phase_coldstart(dev: torch.device, worker, ckpt_path: str, ckpt_cfg,
+                    ckpt_want: dict, build_s: float) -> dict:
+    """The arrival ladder at llama3-8b's full width, each leg an arrival
+    that must resolve its expected `weights_source` (a rung that misses
+    fails the phase rather than serving random weights): checkpoint,
+    service (snapshot-gated), object_store, peer_striped, peer, then the
+    compile rung's sync. `worker` (the bf16 engine worker) is the donor
+    and publisher; `ckpt_path` is phase_checkpoint's directory and
+    `ckpt_want` the in-memory streams at its depth. Returns row 1's
+    launches on the arrivals' runs."""
+    from dynamo_tpu_torch.engine import RunnerConfig, TorchWorker
+    from dynamo_tpu_torch.engine import compile_cache
+    from dynamo_tpu_torch.models.checkpoint import checkpoint_digest
+    from dynamo_tpu_torch.ops import _build
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+    from dynamo_tpu_torch.runtime.metrics import WEIGHT_STREAM_DEFERRED
+    from dynamo_tpu_torch.runtime.push_router import PushRouter
+    from dynamo_tpu_torch.runtime.snapshot import SnapshotController
+    from dynamo_tpu_torch.tokens import xxh64_many
+    from dynamo_tpu_torch.weights import WeightClient, serve_in_process
+    from dynamo_tpu_torch.weights import client as client_mod
+    from dynamo_tpu_torch.weights import striped
+    from dynamo_tpu_torch.weights.client import flatten_params
+    from dynamo_tpu_torch.weights.leaves import to_bytes
+    from dynamo_tpu_torch.weights.objstore import (
+        make_store_client,
+        publish_weights_to_store,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = worker.model_config
+    model = worker.runner.model
+    work = ROOT / "build" / "coldstart"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out: dict = {"model": cfg.name}
+    launches = {"paged_decode_attention_pool": 0}
+    wants = {ckpt_cfg.n_layers: ckpt_want}
+
+    def view(n_layers: int):
+        return _view_model(model, dataclasses.replace(cfg, n_layers=n_layers))
+
+    async def want_at(n_layers: int) -> dict:
+        """Greedy streams of a worker over the first n layers (cached)."""
+        if n_layers not in wants:
+            ref = TorchWorker(dataclasses.replace(cfg, n_layers=n_layers),
+                              RunnerConfig(), params=view(n_layers),
+                              device=dev)
+            try:
+                wants[n_layers] = (await _held_wave(
+                    dev, ref, f"coldstart want@{n_layers}",
+                    f"cs_want{n_layers}-req"))["streams"]
+            finally:
+                ref.close()
+                del ref
+                free_memory()
+        return wants[n_layers]
+
+    def record(leg: str, res: dict) -> None:
+        launches["paged_decode_attention_pool"] += res["launches"][
+            "paged_decode_attention_pool"]
+        out[leg] = res
+        emit(f"coldstart_{leg}", **res)
+
+    async def legs() -> None:
+        root = tempfile.mkdtemp(prefix="chip_smoke_discovery_")
+        rt = await DistributedRuntime(RuntimeConfig(
+            discovery_backend="file", discovery_path=root,
+            tcp_host="127.0.0.1", system_enabled=False)).start()
+        try:
+            await leg_checkpoint(rt)
+            await leg_service(rt)
+            await leg_store(rt)
+            await leg_peers(rt)
+        finally:
+            await rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+
+    async def leg_checkpoint(rt) -> None:
+        t0 = time.perf_counter()
+        digest = checkpoint_digest(ckpt_path)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(checkpoint_digest(ckpt_path) == digest,
+              "coldstart: the memoized checkpoint digest differs")
+        memo_s = time.perf_counter() - t0
+        res = await _arrive(
+            dev, "checkpoint",
+            lambda: TorchWorker(model_path=ckpt_path, device=dev),
+            "checkpoint", ckpt_want, rt)
+        record("checkpoint", {"digest": digest, "digest_cold_s": cold_s,
+                              "digest_memoized_s": memo_s,
+                              "page_cache": "warm", **res})
+
+    async def leg_service(rt) -> None:
+        st = os.statvfs("/dev/shm")
+        shm_free = st.f_bavail * st.f_frsize
+        n, reason = _depth_for(cfg, model, shm_free - COLDSTART_SHM_MARGIN,
+                               "/dev/shm free bytes less a 1 GiB margin")
+        svc_cfg = dataclasses.replace(cfg, n_layers=n)
+        source_model = view(n)
+        sock = str(work / "weights.sock")
+        server = serve_in_process(sock)
+        try:
+            key = _weights_key_of(svc_cfg)
+            nbytes = _tree_bytes(source_model)
+            t0 = time.perf_counter()
+            WeightClient(sock).store(key, source_model)
+            publish_s = time.perf_counter() - t0
+            snap = SnapshotController(mode="dump",
+                                      directory=str(work / "snapshot"))
+            ids = {}
+
+            async def gate(w) -> dict:
+                snap.engine_ready()
+                check(os.path.exists(snap.ready_path)
+                      and not os.path.exists(snap.restore_path),
+                      "coldstart service: no ready marker at the dump point")
+                t0 = time.perf_counter()
+                with open(snap.restore_path, "w") as f:
+                    f.write("restore")
+                await snap.wait_for_restore(poll=0.01)
+                ids["old"] = w.instance_id
+                w.rederive_identity()
+                ids["new"] = w.instance_id
+                check(ids["new"] != ids["old"]
+                      and w.events.worker_id == ids["new"],
+                      "coldstart service: the restored worker kept its id")
+                checked = _leaves_equal(w.runner.model, source_model)
+                check(checked, "coldstart service: a leaf differs from the "
+                      "donor's")
+                return {"restore_wait_s": time.perf_counter() - t0,
+                        "old_instance": f"{ids['old']:x}",
+                        "new_instance": f"{ids['new']:x}",
+                        "leaves_bit_equal": checked}
+
+            want = await want_at(n)
+            with _Timed(client_mod, "_attach_shm") as attach:
+                res = await _arrive(
+                    dev, "service",
+                    lambda: TorchWorker(svc_cfg, RunnerConfig(), device=dev,
+                                        weight_service=sock),
+                    "service", want, rt, gate=gate)
+            snap.clear()
+        finally:
+            server.stop()
+        record("service", {
+            "shm_free_bytes": shm_free, "layers_reason": reason,
+            "bytes": nbytes, "publish_s": publish_s,
+            "publish_GB_per_s": nbytes / 1e9 / publish_s,
+            # the fetch rung attaches each segment and copies it straight
+            # to the card; the load rung builds the runner on the card
+            "attach_s": attach.seconds,
+            "host_to_card_s": res["fetch_s"] - attach.seconds,
+            "host_to_card_GB_per_s": nbytes / 1e9 / (res["fetch_s"]
+                                                      - attach.seconds),
+            **res})
+
+    async def leg_store(rt) -> None:
+        sample = to_bytes(model.embed[:COLDSTART_DIGEST_SAMPLE
+                                      * striped.STRIPE_CHUNK_BYTES
+                                      // (2 * cfg.hidden)])
+        chunks = [sample[i: i + striped.STRIPE_CHUNK_BYTES] for i in range(
+            0, len(sample), striped.STRIPE_CHUNK_BYTES)]
+        t0 = time.perf_counter()
+        xxh64_many(chunks)
+        digest_rate = len(sample) / (time.perf_counter() - t0)
+        # digests twice (publish and fetch) and the bytes once each way
+        n, reason = _depth_for(cfg, model, COLDSTART_STORE_BUDGET_S
+                               * digest_rate / 2.5,
+                               f"the {COLDSTART_STORE_BUDGET_S:.0f} s "
+                               "store budget at the measured digest rate")
+        store_cfg = dataclasses.replace(cfg, n_layers=n)
+        key = _weights_key_of(store_cfg)
+        flat = [(path, t.to("cpu")) for path, t in flatten_params(view(n))]
+        nbytes = sum(t.numel() * t.element_size() for _, t in flat)
+        store_root = str(work / "store")
+        t0 = time.perf_counter()
+        with _Timed(striped.WeightManifest, "build_from_bytes") as digest:
+            n_chunks = publish_weights_to_store(
+                make_store_client(store_root), key, flat)
+        digest_s = digest.seconds
+        write_s = time.perf_counter() - t0 - digest_s
+        del flat
+        with knobs(DYNT_WEIGHT_STORE=store_root), \
+                _Timed(striped.StripedAssembler, "add_many") as verify:
+            res = await _arrive(
+                dev, "object_store",
+                lambda: TorchWorker(store_cfg, RunnerConfig(), device=dev),
+                "object_store", await want_at(n), rt)
+        shutil.rmtree(store_root, ignore_errors=True)
+        record("object_store", {
+            "digest_rate_GB_per_s": digest_rate / 1e9,
+            "layers_reason": reason, "bytes": nbytes, "chunks": n_chunks,
+            "digest_s": digest_s, "write_s": write_s,
+            "fetch_s": res["fetch_s"] - verify.seconds,
+            "verify_s": verify.seconds, **{k: v for k, v in res.items()
+                                           if k != "fetch_s"},
+            "fetch_rung_s": res["fetch_s"]})
+
+    async def donor(rt, n: int, served: collections.Counter, name: str):
+        d = TorchWorker(dataclasses.replace(cfg, n_layers=n), RunnerConfig(),
+                        params=view(n), device=dev,
+                        component=COLDSTART_COMPONENT)
+        stream = d._stream_weights
+
+        async def counting(body, ctx=None):
+            async for frame in stream(body, ctx):
+                if "cid" in frame:
+                    served[name] += 1
+                yield frame
+
+        d._stream_weights = counting
+        d.scheduler.start()
+        await d.serve(rt)
+        return d
+
+    async def leg_peers(rt) -> None:
+        served: collections.Counter = collections.Counter()
+        # the probe: one donor at depth 1, its tree built, 16 chunks pulled
+        probe = await donor(rt, 1, served, "a")
+        keep = False
+        try:
+            t0 = time.perf_counter()
+            manifest, _ = await probe._donor_tree()
+            probe_tree_s = time.perf_counter() - t0
+            router = PushRouter(rt.namespace("dynamo").component(
+                COLDSTART_COMPONENT).endpoint("weights").client(),
+                mode="round_robin")
+            await router.client.start()
+            await router.client.wait_for_instances(1, timeout=10.0)
+            cids = list(range(min(COLDSTART_PROBE_CHUNKS,
+                                  len(manifest.chunks))))
+            t0 = time.perf_counter()
+            frames = [f async for f in router.generate(
+                {"weights_chunks": cids}, instance_id=probe.instance_id)]
+            check(all("data" in f for f in frames),
+                  f"coldstart probe: {[f for f in frames if 'data' not in f]}")
+            got = [f["data"] for f in frames]
+            relay_s = time.perf_counter() - t0
+            await router.client.close()
+            probe_bytes = sum(len(b) for b in got)
+            t0 = time.perf_counter()
+            check(all(striped.StripedAssembler(manifest).add_many(
+                list(zip(cids, got)))), "coldstart: a probe chunk is corrupt")
+            verify_s = time.perf_counter() - t0
+            relay_rate = probe_bytes / relay_s
+            verify_rate = probe_bytes / verify_s
+            per_byte = 1 / relay_rate + 1 / verify_rate
+            n, reason = _depth_for(
+                cfg, model, COLDSTART_PEER_BUDGET_S / per_byte,
+                f"the {COLDSTART_PEER_BUDGET_S:.0f} s pull budget at the "
+                "probe's relay and verify rates")
+            keep = n == 1  # the probe serves as donor a
+        finally:
+            if not keep:
+                await probe.shutdown()
+                del probe
+                free_memory()
+        probe_out = {"tree_s": probe_tree_s, "bytes": probe_bytes,
+                     "relay_GB_per_s": relay_rate / 1e9,
+                     "verify_GB_per_s": verify_rate / 1e9,
+                     "layers": n, "layers_reason": reason}
+        emit("coldstart_probe", **probe_out)
+        peer_cfg = dataclasses.replace(cfg, n_layers=n)
+        want = await want_at(n)
+        served.clear()
+        donors = [probe] if keep else [await donor(rt, n, served, "a")]
+        donors.append(await donor(rt, n, served, "b"))
+        try:
+            deferred0 = WEIGHT_STREAM_DEFERRED.labels().get()
+            t0 = time.perf_counter()
+            for d in donors:  # one at a time: they share this process
+                await d._donor_tree()
+            tree_s = time.perf_counter() - t0
+            nbytes = donors[0]._donor_cache[1].total_bytes
+            for stripe, leg in (("1", "peer_striped"), ("0", "peer")):
+                served.clear()
+                with knobs(DYNT_WEIGHT_STRIPE=stripe,
+                           DYNT_WEIGHT_STRIPE_DONORS="2"), \
+                        _Timed(striped.StripedAssembler,
+                               "add_many") as verify:
+                    res = await _arrive(
+                        dev, leg, lambda: TorchWorker(
+                            peer_cfg, RunnerConfig(), device=dev,
+                            component=COLDSTART_COMPONENT,
+                            weights_from_peer=True),
+                        leg, want, rt)
+                if leg == "peer_striped":
+                    check(served["a"] > 0 and served["b"] > 0,
+                          f"coldstart: the stripe missed a donor: {served}")
+                record(leg, {
+                    "probe": probe_out, "bytes": nbytes,
+                    "donor_tree_s": tree_s, "pull_s": res["fetch_s"],
+                    "pull_GB_per_s": nbytes / 1e9 / res["fetch_s"],
+                    "verify_s": verify.seconds,
+                    "chunks_per_donor": dict(served),
+                    "donors_deferred_s": (WEIGHT_STREAM_DEFERRED.labels()
+                                          .get() - deferred0), **res})
+        finally:
+            for d in donors:
+                await d.shutdown()
+            del donors
+            free_memory()
+
+    def leg_compile() -> None:
+        store_root = str(work / "compile_store")
+        down = work / "compile_down"
+        with knobs(DYNT_COMPILE_CACHE_STORE=store_root):
+            src = Path(compile_cache.cache_dir())
+            t0 = time.perf_counter()
+            up = compile_cache.sync_up()
+            up_s = time.perf_counter() - t0
+            with knobs(DYNT_COMPILE_CACHE_DIR=str(down)):
+                t0 = time.perf_counter()
+                pulled = compile_cache.sync_down()
+                down_s = time.perf_counter() - t0
+        libs = sorted(p.name for p in src.glob("*.so")
+                      if not p.name.endswith(".tmp.so"))
+        check(src == _build.BUILD_DIR and up == pulled and libs
+              and all((down / name).read_bytes() == (src / name).read_bytes()
+                      for name in libs),
+              f"coldstart compile: {up} up, {pulled} down, libraries {libs}")
+        res = {"entries": up, "libraries": libs, "sync_up_s": up_s,
+               "sync_down_s": down_s, "nvcc_build_s": build_s,
+               "bytes": sum((src / n).stat().st_size for n in libs)}
+        out["compile"] = res
+        emit("coldstart_compile", **res)
+
+    try:
+        asyncio.run(legs())
+        leg_compile()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("coldstart", model=cfg.name, launches=launches,
+         sources={leg: out[leg]["source"] for leg in (
+             "checkpoint", "service", "object_store", "peer_striped",
+             "peer")},
+         totals_s={leg: out[leg]["total_s"] for leg in (
+             "checkpoint", "service", "object_store", "peer_striped",
+             "peer")},
+         seconds=time.perf_counter() - t_phase)
     return launches
 
 
@@ -7250,6 +7782,7 @@ def phase_engine_moe(dev: torch.device) -> dict:
 
 GPTOSS_MODEL = "gpt-oss-20b"
 GPTOSS_WEIGHT_BYTES = 41_829_514_368  # 20,914,757,184 params in bf16
+GPTOSS_LAYERS = 12  # engine_gptoss's depth cut (of 24): the script's time budget
 GPTOSS_CKPT_LAYERS = 2  # checkpoint_gptoss's depth cut (full width)
 GPTOSS_FORWARD_TOKENS = 32  # its card-against-CPU forward
 # E2M1 magnitudes by code (codes 8-15 are their negatives)
@@ -7485,31 +8018,35 @@ def _gptoss_checkpoint(dev: torch.device, worker) -> dict:
 
 
 def phase_engine_gptoss(dev: torch.device) -> dict:
-    """gpt-oss-20b at full width and depth through TorchWorker (see the
-    module docstring's engine_gptoss). The path runs no attention or
+    """gpt-oss-20b at full width, GPTOSS_LAYERS deep, through TorchWorker
+    (see the module docstring's engine_gptoss). The path runs no attention or
     matmul kernel of the port: every count must stay 0 through the
     phase."""
     from dynamo_tpu_torch.engine import RunnerConfig
     from dynamo_tpu_torch.models import get_config
 
-    cfg = get_config(GPTOSS_MODEL)
+    full = get_config(GPTOSS_MODEL)
+    check(_gptoss_weights_bytes(full) == GPTOSS_WEIGHT_BYTES,
+          f"engine_gptoss: {_gptoss_weights_bytes(full)} B counted for "
+          f"{GPTOSS_WEIGHT_BYTES}")
+    cfg = dataclasses.replace(full, n_layers=GPTOSS_LAYERS)
     rc = RunnerConfig()
     kv_bytes = (cfg.n_layers * 2 * rc.num_pages * rc.page_size
                 * cfg.n_kv_heads * cfg.head_dim * 2)
     weights = _gptoss_weights_bytes(cfg)
-    check(weights == GPTOSS_WEIGHT_BYTES,
-          f"engine_gptoss: {weights} B counted for {GPTOSS_WEIGHT_BYTES}")
     free_b, total_b = torch.cuda.mem_get_info()
     read_floor_ms = weights / HBM_BYTES_PER_S * 1e3
     emit("engine_gptoss_memory", free_GB=free_b / 1e9,
-         total_GB=total_b / 1e9, weights_B=weights, kv_B=kv_bytes,
+         total_GB=total_b / 1e9, layers=cfg.n_layers,
+         depth_cut=f"{GPTOSS_LAYERS} of {full.n_layers} layers: the "
+         "script's time budget", weights_B=weights, kv_B=kv_bytes,
          kv_bytes_per_token=kv_bytes // (rc.num_pages * rc.page_size),
          num_pages=rc.num_pages, decode_read_floor_ms=read_floor_ms)
     check(free_b > weights + kv_bytes,
           f"engine_gptoss: {free_b / 1e9:.1f} GB free for "
           f"{(weights + kv_bytes) / 1e9:.1f} GB of weights and KV")
     t0 = time.perf_counter()
-    worker, counts, _ = phase_engine(dev, GPTOSS_MODEL, rc,
+    worker, counts, _ = phase_engine(dev, cfg, rc,
                                      label="engine_gptoss", prewarm=True)
     runner = worker.runner
     try:
@@ -7577,6 +8114,7 @@ def phase_engine_gptoss(dev: torch.device) -> dict:
 MLA_MODEL = "deepseek-v2-lite"
 MLA_WEIGHT_BYTES = 31_412_968_448  # 15,706,484,224 params in bf16
 MLA_KV_BYTES_PER_TOKEN = 31_104  # 27 layers x (512 + 64) latent x 2 B
+MLA_LAYERS = 14  # engine_mla's depth cut (of 27): the script's time budget
 MLA_CKPT_LAYERS = 2  # checkpoint_mla's depth cut: a dense layer, a MoE one
 MLA_TRANSFER_PROMPT = 700  # the transfer leg's prompt (44 pages of 16)
 MLA_TRANSFER_STEPS = 16  # greedy decode steps before and after the move
@@ -7604,6 +8142,12 @@ def _mla_weights_bytes(cfg) -> int:
               + cfg.vocab_size * h * (1 if cfg.tie_embeddings else 2) + h)
     bias = 4 * e * n_moe if cfg.moe_scoring == "sigmoid" else 0
     return 2 * params + bias
+
+
+def _mla_kv_bytes_per_token(cfg) -> int:
+    """The latent pool's bytes a token: every layer's one latent stack."""
+    return (cfg.n_layers * cfg.kv_cache_kv_dims * cfg.kv_cache_heads
+            * cfg.kv_cache_head_dim * 2)
 
 
 def _mla_transfer(dev: torch.device, worker) -> dict:
@@ -7658,7 +8202,7 @@ def _mla_transfer(dev: torch.device, worker) -> dict:
                                   runner.config.page_size, 1,
                                   cfg.kv_cache_head_dim)
           and n_bytes == pages * runner.config.page_size
-          * MLA_KV_BYTES_PER_TOKEN,
+          * _mla_kv_bytes_per_token(cfg),
           f"engine_mla_transfer: bundle {tuple(bundle.shape)}")
     got = decode(dst)
     check(got == want, f"engine_mla_transfer: greedy tokens on the moved "
@@ -7780,33 +8324,36 @@ def _mla_checkpoint(dev: torch.device, worker) -> dict:
 
 
 def phase_engine_mla(dev: torch.device) -> dict:
-    """deepseek-v2-lite at full width and depth through TorchWorker (see the
-    module docstring's engine_mla). The path runs no attention or matmul
+    """deepseek-v2-lite at full width, MLA_LAYERS deep, through TorchWorker
+    (see the module docstring's engine_mla). The path runs no attention or matmul
     kernel of the port: every count must stay 0 through the phase."""
     from dynamo_tpu_torch.engine import RunnerConfig
     from dynamo_tpu_torch.models import get_config
 
-    cfg = get_config(MLA_MODEL)
+    full = get_config(MLA_MODEL)
+    check(_mla_weights_bytes(full) == MLA_WEIGHT_BYTES
+          and _mla_kv_bytes_per_token(full) == MLA_KV_BYTES_PER_TOKEN,
+          f"engine_mla: {_mla_weights_bytes(full)} B and "
+          f"{_mla_kv_bytes_per_token(full)} B a token counted for "
+          f"{MLA_WEIGHT_BYTES} and {MLA_KV_BYTES_PER_TOKEN}")
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
     rc = RunnerConfig()
     tokens = rc.num_pages * rc.page_size
-    kv_bytes = (cfg.n_layers * cfg.kv_cache_kv_dims * tokens
-                * cfg.kv_cache_heads * cfg.kv_cache_head_dim * 2)
+    kv_bytes = _mla_kv_bytes_per_token(cfg) * tokens
     weights = _mla_weights_bytes(cfg)
-    check(weights == MLA_WEIGHT_BYTES,
-          f"engine_mla: {weights} B counted for {MLA_WEIGHT_BYTES}")
-    check(kv_bytes == MLA_KV_BYTES_PER_TOKEN * tokens,
-          f"engine_mla: {kv_bytes} B of latent pool for {tokens} tokens")
     free_b, total_b = torch.cuda.mem_get_info()
     read_floor_ms = weights / HBM_BYTES_PER_S * 1e3
     emit("engine_mla_memory", free_GB=free_b / 1e9, total_GB=total_b / 1e9,
-         weights_B=weights, kv_B=kv_bytes,
+         layers=cfg.n_layers,
+         depth_cut=f"{MLA_LAYERS} of {full.n_layers} layers: the script's "
+         "time budget", weights_B=weights, kv_B=kv_bytes,
          kv_bytes_per_token=kv_bytes // tokens,
          num_pages=rc.num_pages, decode_read_floor_ms=read_floor_ms)
     check(free_b > weights + kv_bytes,
           f"engine_mla: {free_b / 1e9:.1f} GB free for "
           f"{(weights + kv_bytes) / 1e9:.1f} GB of weights and KV")
     t0 = time.perf_counter()
-    worker, counts, _ = phase_engine(dev, MLA_MODEL, rc, label="engine_mla",
+    worker, counts, _ = phase_engine(dev, cfg, rc, label="engine_mla",
                                      prewarm=True)
     runner = worker.runner
     try:
@@ -7895,7 +8442,7 @@ def main() -> None:
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
-    phase_build()
+    build_s = phase_build()
     phase_noise(dev)
     entries = phase_kernels(dev) + phase_gemms(dev)
     launches = {}
@@ -7909,7 +8456,11 @@ def main() -> None:
         phase_prefill(dev, worker, "prefill_bf16")
         phase_graphs(dev, worker, "graphs_bf16")
         phase_serve(dev, worker, "serve_bf16")
-        for name, n in phase_checkpoint(dev, worker).items():
+        # the arrival ladder runs on phase_checkpoint's directory
+        for name, n in phase_checkpoint(
+                dev, worker,
+                then=lambda path, ckpt_cfg, streams: phase_coldstart(
+                    dev, worker, path, ckpt_cfg, streams, build_s)).items():
             launches[name] = launches.get(name, 0) + n
         disagg, prefill, aggregated = phase_disagg(dev, worker)
         for name, n in disagg.items():

@@ -233,14 +233,76 @@ _REGISTRY: dict[str, tuple[Any, Callable[[str], Any], str]] = {
         "Ceiling on a single /debug/profile capture: profiling holds buffers "
         "in the serving process, so an operator typo must not pin it for "
         "minutes"),
-    # Worker startup (the reference's runtime/snapshot.py): the port has no
-    # snapshot protocol; the knob is read only so that --mode comesh refuses
-    # "dump" with the reference's message
+    # Worker startup: the arrival ladder (engine/worker.py prepare,
+    # weights/, engine/coldstart.py, engine/compile_cache.py) and the
+    # snapshot gate (runtime/snapshot.py)
+    "DYNT_WEIGHT_SERVICE": (
+        "", str,
+        "Unix socket of the weight service (GMS analog): workers "
+        "re-attach published weights on restart instead of initializing"),
+    "DYNT_WEIGHT_STRIPE": (
+        True, is_truthy,
+        "Striped peer weight pull: a joining worker (weights_from_peer) "
+        "stripes the content-addressed chunk manifest across every "
+        "live donor in parallel, with digest verification and "
+        "resume-after-donor-death. Off falls back to the single-peer "
+        "stream"),
+    "DYNT_WEIGHT_STRIPE_DONORS": (
+        4, int,
+        "Max donors a striped weight pull fans out across (more donors "
+        "= more aggregate fetch bandwidth, but each pays its "
+        "DYNT_WEIGHT_STREAM_BW_FRAC duty cycle)"),
+    "DYNT_WEIGHT_STREAM_BW_FRAC": (
+        0.5, float,
+        "Donor-side bandwidth budget for weight streaming: the "
+        "fraction of wall time a serving donor may spend on param "
+        "gathers for a cold peer. Same pacing formula as "
+        "DYNT_OFFLOAD_BW_FRAC (defer g*(1/frac - 1) after a gather "
+        "costing g), gathers ride the scheduler's dispatch/drain gap, "
+        "so the donor's decode ITL does not regress. 1.0 disables "
+        "pacing"),
+    "DYNT_WEIGHT_STORE": (
+        "", str,
+        "Object-store root for the weight-tree rung (filesystem "
+        "path or http(s) S3/GCS-shaped endpoint with DYNT_G4_* "
+        "auth): a joining worker with no live peer fetches the "
+        "content-addressed chunk tree from here; resolved workers "
+        "publish to it best-effort off the startup critical path. "
+        "Empty disables the rung"),
+    "DYNT_COLDSTART_BUDGET_SECS": (
+        60.0, float,
+        "Pinned cold-start-to-first-token budget for a joining worker "
+        "(the arrival-side twin of DYNT_DRAIN_DEADLINE_SECS): a "
+        "completed ladder above it logs a warning naming its slowest "
+        "phase"),
     "DYNT_SNAPSHOT_MODE": (
         "off", str,
-        "The reference's worker snapshot protocol (off | dump). Not ported: "
-        "--mode comesh refuses dump, and every other mode ignores the "
-        "knob"),
+        "Worker snapshot protocol: off | dump (prepare the engine, write "
+        "the ready marker, block until the restore marker appears, then "
+        "connect with a fresh instance id — the CRIU analog). --mode "
+        "comesh refuses dump"),
+    "DYNT_SNAPSHOT_DIR": (
+        "/tmp/dynamo_tpu_snapshot", str,
+        "Directory for snapshot ready/restore marker files"),
+    # The reference's default names its JAX compilation cache. The port's
+    # compile products are the kernel libraries nvcc builds, so unset means
+    # the kernel build directory (ops/_build.BUILD_DIR, build/dynamo_tpu_torch
+    # under the checkout); set, the kernels build into and load from it
+    "DYNT_COMPILE_CACHE_DIR": (
+        "", str,
+        "Directory of the built kernel libraries (the compile cache); "
+        "empty = build/dynamo_tpu_torch under the checkout"),
+    "DYNT_COMPILE_CACHE_STORE": (
+        "", str,
+        "Object-store root (filesystem path or http(s) endpoint) the "
+        "compile cache syncs with: a joining worker pulls the built "
+        "kernel libraries down before building its engine and pushes new "
+        "ones up after warmup, so a warm-cache arrival runs no nvcc. "
+        "Empty disables the sync"),
+    "DYNT_COMPILE_CACHE_PREFIX": (
+        "compile-cache", str,
+        "Key prefix compile-cache entries live under in the "
+        "DYNT_COMPILE_CACHE_STORE object store"),
     # Resilience: deadlines, retries, breakers, migration, canaries
     # (runtime/resilience.py, runtime/health_check.py, llm/engine.py)
     "DYNT_STREAM_IDLE_TIMEOUT_SECS": (

@@ -19,6 +19,22 @@ the device leaf by leaf; a load error is fatal, never random weights), and
 the card advertises an `hf` tokenizer when the directory holds a
 `tokenizer.json`.
 
+The arrival ladder (`prepare`, as `TpuWorker.prepare`): the weights come
+from the first rung that answers — a weight service's shared memory
+(`weight_service=`), a striped pull from live peers' `weights` endpoints
+(`weights_from_peer=`), one peer, the object store (DYNT_WEIGHT_STORE), the
+checkpoint, or a random draw — checked leaf by leaf against the model's
+template, then go to the card; a thread publishes them to the service and
+the store for the next arrival. `self.coldstart` stamps `fetch`, `load`,
+`compile` (kernels built, warm-up), `register` (`serve`) and `first_token`
+(the first served token, canaries aside). Every worker serves its weights
+on the `weights` endpoint: the full stream, or the striped manifest and
+chunks from a host copy gathered once in the scheduler's gaps and paced by
+DYNT_WEIGHT_STREAM_BW_FRAC. `main` can gate startup on a snapshot
+(DYNT_SNAPSHOT_MODE=dump, `runtime/snapshot.py`): prepare, the ready
+marker, the restore marker, a fresh instance id, then the runtime and
+`serve`.
+
 `generate` is served with the reference's canary payload (a one-token
 greedy request annotated `canary`), and `main` starts a HealthCheckManager
 (DYNT_CANARY_WAIT_SECS) that probes it when idle and deregisters a worker
@@ -70,7 +86,7 @@ Every request's phases go on a flight-recorder timeline
 split. LoadMetrics carry the last step's device / host split
 (`perf/steptrace.py`), and the metrics tick publishes the step histograms,
 the host-bound verdict and the live MFU and roofline-fraction gauges. Not
-ported yet: the weights endpoint and LoRA. The card names the worker's tool
+ported yet: LoRA. The card names the worker's tool
 and reasoning parsers (`--tool-call-parser`, `--reasoning-parser`), and the
 scheduler's logits processors get the card's tokenizer, as in the
 reference.
@@ -125,8 +141,12 @@ from ..llm.protocols import (
     StopConditions,
 )
 from ..llm.tokenizer import load_tokenizer
-from ..models import ModelConfig, Transformer, get_config
-from ..models.checkpoint import config_from_checkpoint, load_params
+from ..models import ModelConfig, Transformer, get_config, init_params
+from ..models.checkpoint import (
+    checkpoint_digest,
+    config_from_checkpoint,
+    load_params,
+)
 from ..models.transformer import AttentionFn
 from ..perf.steptrace import LiveRoofline
 from ..runtime import metrics as rt_metrics
@@ -134,7 +154,9 @@ from ..runtime.component import new_instance_id
 from ..runtime.flight_recorder import current_request_id, get_recorder
 from ..runtime.metrics import DISAGG_STREAMED_PAGES
 from ..runtime.push_router import PushRouter
-from ..tokens import compute_block_hashes
+from ..tokens import compute_block_hashes, xxh64
+from ..weights.client import flatten_params
+from .coldstart import ColdStartLadder
 from .model_runner import ModelRunner, RunnerConfig
 from .drain import SERVING, DrainCoordinator, set_drain_state
 from .ici_transfer import split_devices
@@ -217,6 +239,8 @@ class TorchWorker:
         mode: str = "aggregated",
         ici_bridge=None,
         kvbm_config=None,
+        weight_service: Optional[str] = None,
+        weights_from_peer: bool = False,
     ) -> None:
         """`model` is a preset name or a ModelConfig. Without `params` the
         weights are random, drawn from `seed` on `device`. `model_path`, an
@@ -240,7 +264,18 @@ class TorchWorker:
         `kvbm_config`, a `block_manager.KvbmConfig` with host blocks, gives
         the scheduler a KvBlockManager over this runner's layout (G2 host,
         optional G3 disk and G4 object store): prompt blocks offload as
-        they register and onboard at admission."""
+        they register and onboard at admission.
+
+        The arrival ladder: `weight_service` (a weight service's unix
+        socket), `weights_from_peer` (pull from live peers serving this
+        component's `weights` endpoint) or DYNT_WEIGHT_STORE (an object
+        store) make the worker resolve its weights in `await prepare()`,
+        walking service -> striped peers -> one peer -> object store ->
+        checkpoint -> random init, and publish what it resolved to the
+        service and the store for the next arrival. Without any of them,
+        as before, the constructor loads the checkpoint or draws the
+        weights at once, and `start()` (or `prepare()`) builds the kernels
+        and warms up. Either way `self.coldstart` stamps the rungs."""
         if mode not in ("aggregated", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r} (expected aggregated, "
                              "prefill or decode)")
@@ -249,14 +284,13 @@ class TorchWorker:
         self.ici_bridge = ici_bridge
         if ici_bridge is not None and mode == "prefill":
             ici_bridge.attach_prefill(self)
+        self.model_path = model_path
         tokenizer = {"kind": "byte"}
         if model_path:
             if params is not None:
                 raise ValueError("give model_path or params, not both")
             self.model_config = config_from_checkpoint(model_path,
                                                        dtype=dtype)
-            params = load_params(model_path, self.model_config,
-                                 device=self.device)
             if os.path.exists(os.path.join(model_path, "tokenizer.json")):
                 tokenizer = {"kind": "hf", "path": model_path}
         else:
@@ -264,21 +298,16 @@ class TorchWorker:
                                  else model)
         self.runner_config = runner_config or RunnerConfig(
             page_size=env("DYNT_KV_BLOCK_SIZE"))
-        self.runner = ModelRunner(self.model_config, self.runner_config,
-                                  device=self.device, params=params,
-                                  seed=seed, attention_fn=attention_fn)
+        self._seed = seed
+        self._attention_fn = attention_fn
+        self._kvbm_config = kvbm_config
         self.runtime = None
         self.instance_id = new_instance_id()
         self.events = KvEventBuffer(self.instance_id)
+        # Built from the resolved weights: at once, or in prepare()
+        self.runner: Optional[ModelRunner] = None
         self.kvbm: Optional[KvBlockManager] = None
-        if kvbm_config is not None and kvbm_config.enabled:
-            self.kvbm = KvBlockManager(
-                kvbm_config,
-                BlockLayoutSpec.from_runner_layout(self.runner.kv_layout()),
-                pin_memory=self.device.type == "cuda")
-        self.scheduler = InferenceScheduler(
-            self.runner, on_stored=self.events.on_stored,
-            on_removed=self.events.on_removed, kvbm=self.kvbm)
+        self.scheduler: Optional[InferenceScheduler] = None
         # Parked KV transfers served by kv_pull (a prefill leg's prompt
         # pages, or a drain handoff's), expired on the event-drain tick
         self.transfers = PendingTransferTable()
@@ -315,31 +344,264 @@ class TorchWorker:
         # Routers bootstrap / gap-resync from our local indexer (the
         # frontend's manager gates its resync calls on this flag).
         self.card.runtime_config["kv_blocks_endpoint"] = True
+        self._served: list = []
+        self._tasks: list[asyncio.Task] = []
+        # The arrival ladder (engine/coldstart.py): which rung gave the
+        # weights (init | service | peer_striped | peer | object_store |
+        # checkpoint); the ladder closes at the first served token
+        self._weight_service = weight_service or None
+        self._weights_from_peer = weights_from_peer
+        self.weights_source = "init"
+        self.coldstart = ColdStartLadder(f"{self.instance_id:x}")
+        self._template: Optional[Transformer] = None
+        self._publish_task: Optional[asyncio.Task] = None
+        # Donor side of the striped pull: (weights_key, WeightManifest,
+        # per-param host bytes), built once on the first manifest or chunk
+        # request; the lock serializes pullers so the paced gather runs once
+        self._donor_cache: Optional[tuple] = None
+        self._donor_task: Optional[asyncio.Task] = None
+        self._donor_task_key: Optional[str] = None
+        self._donor_lock = asyncio.Lock()
+        if params is None and (self._weight_service or weights_from_peer
+                               or env("DYNT_WEIGHT_STORE")):
+            return  # prepare() walks the ladder
+        with self.coldstart.phase("fetch"):
+            if model_path:
+                # on the device leaf by leaf; an error is fatal, never
+                # random weights
+                params = load_params(model_path, self.model_config,
+                                     device=self.device)
+                self.weights_source = "checkpoint"
+        self.coldstart.source = self.weights_source
+        with self.coldstart.phase("load"):
+            self._build_engine(params)
+
+    def _build_engine(self, params: Optional[Transformer]) -> None:
+        """The runner over `params` (moved to the device; random when None),
+        the KVBM over its layout, and the scheduler."""
+        if params is not None and params.embed.device != self.device:
+            params = params.to(self.device)
+        self.runner = ModelRunner(self.model_config, self.runner_config,
+                                  device=self.device, params=params,
+                                  seed=self._seed,
+                                  attention_fn=self._attention_fn)
+        kvbm_config = self._kvbm_config
+        if kvbm_config is not None and kvbm_config.enabled:
+            self.kvbm = KvBlockManager(
+                kvbm_config,
+                BlockLayoutSpec.from_runner_layout(self.runner.kv_layout()),
+                pin_memory=self.device.type == "cuda")
+        self.scheduler = InferenceScheduler(
+            self.runner, on_stored=self.events.on_stored,
+            on_removed=self.events.on_removed, kvbm=self.kvbm)
         # Logits-processor factories that declare a `tokenizer` parameter
         # (guided decoding) get this model's tokenizer.
         self.scheduler.logits_tokenizer = load_tokenizer(self.card.tokenizer)
-        self._served: list = []
-        self._tasks: list[asyncio.Task] = []
 
-    def start(self) -> None:
-        """Warm the runner up (builds the kernels on the card) and start the
-        scheduler thread."""
-        self.runner.warmup()
+    def start(self, prewarm: bool = False) -> None:
+        """The compile rung: build the kernels (on the card), warm the
+        runner up (`prewarm`: capture the whole steady-state key space),
+        then start the scheduler thread."""
+        if self.runner is None:
+            raise RuntimeError("the weights are not resolved yet: "
+                               "await prepare() walks the arrival ladder")
+        with self.coldstart.phase("compile"):
+            if self.device.type == "cuda":
+                from ..ops import _build
+
+                _build.build_all()
+            (self.runner.prewarm if prewarm else self.runner.warmup)()
         self.scheduler.start()
+
+    async def prepare(self, runtime=None, prewarm: bool = False) -> None:
+        """Build the engine: walk the arrival ladder's `fetch` and `load`
+        rungs when the constructor left the weights unresolved, then the
+        `compile` rung (`start`: kernels built, warm-up, scheduler thread).
+        `runtime` (a DistributedRuntime) lets the peer rungs pull; without
+        it they are skipped, as at a snapshot's dump point, where no
+        connection may be open. With DYNT_COMPILE_CACHE_STORE the built
+        kernel libraries sync down before the build and up after it."""
+        if runtime is not None:
+            self.runtime = runtime
+        if self.runner is None:
+            with self.coldstart.phase("fetch"):
+                params, client = await self._resolve_params()
+            self.coldstart.source = self.weights_source
+            with self.coldstart.phase("load"):
+                await asyncio.to_thread(self._build_engine, params)
+            del params
+            self._publish_forward(client)
+        log.info("weights source: %s", self.weights_source)
+        cache_store = env("DYNT_COMPILE_CACHE_STORE")
+        if cache_store:
+            from .compile_cache import sync_down
+
+            t0 = time.monotonic()
+            await asyncio.to_thread(sync_down)
+            self.coldstart.mark("compile", time.monotonic() - t0)
+        await asyncio.to_thread(self.start, prewarm)
+        if cache_store:
+            from .compile_cache import sync_up
+
+            self._tasks.append(asyncio.create_task(
+                asyncio.to_thread(sync_up)))
+
+    def _weights_key(self) -> str:
+        """Arena, stream and store key: the model name and an XXH64 of the
+        whole config (any architecture change misses the old arena), then
+        the checkpoint's content digest when there is a model path. Equal
+        to the reference's for the same config and directory."""
+        cfg = self.model_config
+        key = f"{cfg.name}:{xxh64(repr(cfg).encode()):016x}"
+        if self.model_path:
+            key += f":{checkpoint_digest(self.model_path)}"
+        return key
+
+    def _params_template(self) -> Transformer:
+        """The weights' names, shapes and dtypes, on the meta device."""
+        if self._template is None:
+            self._template = init_params(self.model_config, device="meta")
+        return self._template
+
+    def _params_from_flat(self, flat, source: str) -> Optional[Transformer]:
+        """Check a fetched flat tree against the template and rebuild it
+        (its leaves where the rung put them: the host, or the card for the
+        service); None on a mismatch (the caller takes the next rung)."""
+        from ..weights.client import unflatten_like
+
+        try:
+            params = unflatten_like(self._params_template(), flat)
+        except KeyError as exc:
+            log.warning("%s weights mismatch (%s); ignoring", source, exc)
+            return None
+        self.weights_source = source
+        return params
+
+    async def _resolve_params(self) -> tuple:
+        """The arrival ladder, as the reference's: weight service (crash
+        survival) -> striped peer pull -> single-peer stream -> G4 object
+        store -> checkpoint -> init (None: the runner draws). A rung that
+        misses is logged and the next one tried. Returns (params, the
+        service client or None)."""
+        params = None
+        client = None
+        if self._weight_service:
+            from ..weights import WeightClient
+
+            client = WeightClient(self._weight_service)
+            # straight from the shared memory to the card
+            flat = await asyncio.to_thread(client.fetch, self._weights_key(),
+                                           self.device)
+            if flat is not None:
+                params = self._params_from_flat(flat, "service")
+            else:
+                log.info("weight service has no %s", self._weights_key())
+        if (params is None and self._weights_from_peer
+                and self.runtime is not None):
+            if env("DYNT_WEIGHT_STRIPE"):
+                from ..weights.striped import pull_weights_striped
+
+                flat = await pull_weights_striped(
+                    self.runtime, self.card.namespace, self.card.component,
+                    expected_key=self._weights_key(),
+                    max_donors=int(env("DYNT_WEIGHT_STRIPE_DONORS")))
+                if flat is not None:
+                    params = self._params_from_flat(flat, "peer_striped")
+            if params is None:
+                from ..weights.streaming import pull_weights
+
+                flat = await pull_weights(self.runtime, self.card.namespace,
+                                          self.card.component,
+                                          expected_key=self._weights_key())
+                if flat is not None:
+                    params = self._params_from_flat(flat, "peer")
+        if params is None and env("DYNT_WEIGHT_STORE"):
+            # No live peer serves this model: the object store is the last
+            # fast rung before the checkpoint read.
+            from ..weights.objstore import (
+                fetch_weights_from_store,
+                make_store_client,
+            )
+
+            flat = await asyncio.to_thread(
+                fetch_weights_from_store,
+                make_store_client(env("DYNT_WEIGHT_STORE")),
+                self._weights_key())
+            if flat is not None:
+                params = self._params_from_flat(flat, "object_store")
+        if params is None and self.model_path:
+            # The checkpoint: errors are fatal — a worker given a model
+            # path never falls back to random weights.
+            log.info("loading checkpoint from %s ...", self.model_path)
+            params = await asyncio.to_thread(
+                load_params, self.model_path, self.model_config,
+                device=self.device)
+            self.weights_source = "checkpoint"
+        return params, client
+
+    def _publish_forward(self, client) -> None:
+        """Publish the resolved weights to the service and the store for
+        the next arrival: best-effort, on a thread, off the startup path."""
+        store_root = env("DYNT_WEIGHT_STORE")
+        to_service = client is not None and self.weights_source != "service"
+        to_store = bool(store_root) and self.weights_source != "object_store"
+        if not (to_service or to_store):
+            return
+        key = self._weights_key()
+        model = self.runner.model
+
+        def publish() -> None:
+            try:
+                if to_service:
+                    client.store(key, model)
+            except Exception:  # noqa: BLE001 — crash survival is
+                # best-effort; serving continues without it
+                log.exception("weight publish failed")
+            if not to_store:
+                return
+            try:
+                from ..weights.objstore import (
+                    make_store_client,
+                    publish_weights_to_store,
+                    weights_prefix,
+                )
+
+                store = make_store_client(store_root)
+                if not store.exists(f"{weights_prefix(key)}/manifest.json"):
+                    publish_weights_to_store(store, key,
+                                             flatten_params(model))
+            except Exception:  # noqa: BLE001 — store convergence is
+                # best-effort; peers still serve the striped pull
+                log.exception("object-store weight publish failed")
+
+        self._publish_task = asyncio.create_task(asyncio.to_thread(publish))
+
+    def rederive_identity(self) -> None:
+        """A fresh instance identity after a snapshot restore: clones of a
+        dumped process must not share instance ids (cards would clobber, KV
+        event streams interleave). Call before serve(); nothing has been
+        published at the dump point."""
+        self.instance_id = new_instance_id()
+        self.events.worker_id = self.instance_id
+        self.events.local_index.worker_id = self.instance_id
 
     def close(self) -> None:
         """Stop the scheduler thread, then the KVBM's threads (`shutdown`
         first when serving)."""
-        self.scheduler.stop()
+        if self.scheduler is not None:
+            self.scheduler.stop()
         if self.kvbm is not None:
             self.kvbm.close()
 
-    async def serve(self, runtime) -> None:
-        """Register `generate`, `clear_kv_blocks`, `kv_blocks`, `kv_pull`
-        and `drain` on `runtime`'s request plane (a DistributedRuntime),
-        publish the card, and start publishing KV events and load metrics
-        on its event plane."""
-        self.runtime = runtime
+    async def serve(self, runtime=None) -> None:
+        """Register `generate`, `clear_kv_blocks`, `kv_blocks`, `kv_pull`,
+        `drain` and `weights` on `runtime`'s request plane (a
+        DistributedRuntime; default the one `prepare` was given), publish
+        the card, and start publishing KV events and load metrics on its
+        event plane: the ladder's `register` rung."""
+        t_register = time.monotonic()
+        if runtime is not None:
+            self.runtime = runtime
         component = (self.runtime.namespace(self.card.namespace)
                      .component(self.card.component))
         canary = PreprocessedRequest(
@@ -353,7 +615,8 @@ class TorchWorker:
                 ("clear_kv_blocks", self._clear_kv, None),
                 ("kv_blocks", self._kv_blocks, None),
                 ("kv_pull", self._kv_pull, None),
-                ("drain", self._drain_endpoint, None)):
+                ("drain", self._drain_endpoint, None),
+                ("weights", self._stream_weights, None)):
             self._served.append(await component.endpoint(name).serve_endpoint(
                 handler, instance_id=self.instance_id,
                 health_check_payload=payload))
@@ -370,6 +633,7 @@ class TorchWorker:
                 lambda: [(KV_SNAPSHOT_TOPIC,
                           self.events.local_index.dump())])
         self._tasks.append(asyncio.create_task(self._event_drain(publisher)))
+        self.coldstart.mark("register", time.monotonic() - t_register)
         log.info("torch worker serving %s (instance=%x, device=%s, mode=%s)",
                  self.card.name, self.instance_id, self.device, self.mode)
 
@@ -401,6 +665,101 @@ class TorchWorker:
 
     async def _kv_blocks(self, body, ctx=None) -> AsyncIterator[dict]:
         yield self.events.local_index.dump()
+
+    async def _donor_tree(self) -> tuple:
+        """Donor-side chunk tree for striped serving: every leaf gathered to
+        the host once (paced — see _build_donor_tree), chunked, and cached
+        for every concurrent or later puller. Single-flight: the lock only
+        guards the cache check and the build task's claim; the gather runs
+        unlocked and concurrent pullers await the same task."""
+        key = self._weights_key()
+        async with self._donor_lock:
+            cache = self._donor_cache
+            if cache is not None and cache[0] == key:
+                return cache[1], cache[2]
+            task = self._donor_task
+            if (task is None or self._donor_task_key != key
+                    or (task.done() and task.exception() is not None)):
+                task = asyncio.create_task(self._build_donor_tree(key))
+                self._donor_task = task
+                self._donor_task_key = key
+        # Shielded: one puller going away must not cancel the build the
+        # others wait on.
+        return await asyncio.shield(task)
+
+    async def _build_donor_tree(self, key: str) -> tuple:
+        """The slow half of _donor_tree. Each leaf's device-to-host copy
+        rides the scheduler's dispatch/drain gap (`run_in_gap`) and the
+        copies are duty-cycle paced by DYNT_WEIGHT_STREAM_BW_FRAC (a copy
+        costing g seconds defers the next by g*(1/frac - 1)), so seeding a
+        newcomer does not regress this donor's decode ITL."""
+        from ..runtime.metrics import WEIGHT_STREAM_DEFERRED
+        from ..weights.leaves import dtype_name, to_bytes
+        from ..weights.striped import BandwidthBudget, WeightManifest
+
+        budget = BandwidthBudget(env("DYNT_WEIGHT_STREAM_BW_FRAC"))
+        flat = []
+        for path, leaf in flatten_params(self.runner.model):
+            t0 = time.monotonic()
+            q = self.scheduler.run_in_gap(lambda t=leaf: t.to("cpu"))
+            host, exc = await asyncio.to_thread(q.get, True, 60.0)
+            if exc is not None:
+                raise exc
+            flat.append((path, dtype_name(host), list(host.shape),
+                         to_bytes(host)))
+            defer = budget.defer_after(time.monotonic() - t0)
+            if defer > 0:
+                WEIGHT_STREAM_DEFERRED.labels().inc(defer)
+                await asyncio.sleep(defer)
+        manifest = await asyncio.to_thread(WeightManifest.build_from_bytes,
+                                           flat, key)
+        bufs = [data for _, _, _, data in flat]
+        self._donor_cache = (key, manifest, bufs)
+        return manifest, bufs
+
+    async def _stream_weights(self, body, ctx=None) -> AsyncIterator[dict]:
+        """Serve this replica's weights to a cold peer. The body multiplexes
+        three shapes (the `weights/striped.py` wire protocol):
+
+          {}                           the single-peer full stream
+          {"weights_manifest": true}   striped: one manifest frame
+          {"weights_chunks": [cid..]}  striped: digest-stamped chunk frames
+
+        Every device-to-host copy and byte slice runs off the event loop, so
+        multi-GB copies never stall it mid-token-stream."""
+        from ..weights.streaming import encode_param_chunks, manifest_frame
+
+        body = body or {}
+        if body.get("weights_manifest") or "weights_chunks" in body:
+            from ..weights.striped import encode_chunk_frames
+
+            try:
+                manifest, bufs = await self._donor_tree()
+            except Exception as exc:  # noqa: BLE001 — report to the
+                # puller (it falls down the ladder), keep serving
+                log.exception("donor chunk tree build failed")
+                yield {"error": f"donor tree build failed: {exc!r}"}
+                return
+            if body.get("weights_manifest"):
+                yield manifest.to_wire()
+                return
+            frames = encode_chunk_frames(
+                manifest, bufs, [int(c) for c in body["weights_chunks"]])
+            while True:
+                frame = await asyncio.to_thread(next, frames, None)
+                if frame is None:
+                    return
+                yield frame
+        flat = flatten_params(self.runner.model)
+        yield manifest_frame(self._weights_key(), len(flat))
+        for index, (key, leaf) in enumerate(flat):
+            frames = await asyncio.to_thread(
+                lambda k=key, t=leaf: list(encode_param_chunks(
+                    [(k, t.to("cpu"))])))
+            for frame in frames:
+                frame["total_params"] = len(flat)
+                frame["index"] = index
+                yield frame
 
     def _load_metrics(self) -> LoadMetrics:
         pool = self.scheduler.pool
@@ -947,6 +1306,10 @@ class TorchWorker:
                 while True:
                     output: EngineOutput = await out_queue.get()
                     saw_error = saw_error or output.error is not None
+                    if (self.coldstart.total is None and not canary
+                            and output.error is None):
+                        # the first served token closes the arrival ladder
+                        self.coldstart.first_token()
                     if output.finish_reason is not None:
                         status = "error" if saw_error else "ok"
                         yield output.to_wire()
@@ -1045,12 +1408,23 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--kvbm-object-store", default=None,
                         help="G4 blob-store root (a directory, e.g. a "
                              "gcsfuse mountpoint, or an http(s):// URL)")
+    parser.add_argument("--weight-service", default=None,
+                        help="unix socket of a weight service (python -m "
+                             "dynamo_tpu_torch.weights): re-attach its "
+                             "published weights, else publish ours "
+                             "(default DYNT_WEIGHT_SERVICE)")
+    parser.add_argument("--weights-from-peer", action="store_true",
+                        help="pull the weights from live peers serving "
+                             "this component (striped across up to "
+                             "DYNT_WEIGHT_STRIPE_DONORS, then one peer) "
+                             "before the object store, checkpoint or init")
     return parser
 
 
 async def main(argv: Optional[list[str]] = None) -> None:
     from ..runtime import DistributedRuntime, HealthCheckManager, RuntimeConfig
     from ..runtime.signals import wait_for_shutdown_signal
+    from ..runtime.snapshot import SnapshotController
 
     args = build_arg_parser().parse_args(argv)
     component = args.component
@@ -1094,7 +1468,12 @@ async def main(argv: Optional[list[str]] = None) -> None:
             raise SystemExit(str(exc)) from exc
         await _comesh_main(args, pools)
         return
-    runtime = await DistributedRuntime(RuntimeConfig.from_env()).start()
+    # Snapshot-gated startup (runtime/snapshot.py): the engine is prepared
+    # with no runtime connection open, then the ready marker, the wait for
+    # the restore marker, a fresh identity, and only then a runtime
+    snapshot = SnapshotController()
+    runtime = (None if snapshot.enabled
+               else await DistributedRuntime(RuntimeConfig.from_env()).start())
     worker: Optional[TorchWorker] = None
     health: Optional[HealthCheckManager] = None
     try:
@@ -1110,10 +1489,20 @@ async def main(argv: Optional[list[str]] = None) -> None:
             device=device, namespace=args.namespace,
             component=component, tool_parser=args.tool_call_parser,
             reasoning_parser=args.reasoning_parser, mode=args.mode,
-            kvbm_config=kvbm_config)
-        await asyncio.to_thread(worker.runner.prewarm if args.prewarm
-                                else worker.runner.warmup)
-        worker.scheduler.start()
+            kvbm_config=kvbm_config,
+            weight_service=(args.weight_service
+                            or env("DYNT_WEIGHT_SERVICE") or None),
+            weights_from_peer=args.weights_from_peer)
+        await worker.prepare(runtime, prewarm=args.prewarm)
+        if snapshot.enabled:
+            snapshot.engine_ready()
+            await snapshot.wait_for_restore()
+            worker.rederive_identity()  # clones must not share an id
+            # The reference also records the restored snapshot in its
+            # deploy registry; the port has no registry yet.
+            log.info("snapshot restored; no registry record is written")
+            runtime = await DistributedRuntime(
+                RuntimeConfig.from_env()).start()
         await worker.serve(runtime)
         health = HealthCheckManager(
             runtime, canary_wait_time=env("DYNT_CANARY_WAIT_SECS"))
@@ -1130,7 +1519,8 @@ async def main(argv: Optional[list[str]] = None) -> None:
             await health.close()
         if worker is not None:
             await worker.shutdown()
-        await runtime.shutdown()
+        if runtime is not None:
+            await runtime.shutdown()
 
 
 async def _comesh_main(args, pools) -> None:

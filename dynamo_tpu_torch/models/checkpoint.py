@@ -1,7 +1,7 @@
 """HF checkpoint directories: config.json and safetensors shards <-> the
 port's `Transformer`.
 
-Port of `dynamo_tpu/models/checkpoint.py` but `checkpoint_digest`:
+Port of `dynamo_tpu/models/checkpoint.py`:
 
   * `config_from_hf(cfg)` / `config_from_checkpoint(dir)` — HF config.json
     -> ModelConfig, field for field as the reference builds it;
@@ -38,7 +38,10 @@ Port of `dynamo_tpu/models/checkpoint.py` but `checkpoint_digest`:
     dropped, so the process holds one tensor of a 16 GB model in host
     memory at a time;
   * `hf_config_dict(config)` / `save_params(model, config, dir)` — the
-    inverse, through the port's writer (one file, or shards with an index).
+    inverse, through the port's writer (one file, or shards with an index);
+  * `checkpoint_digest(dir)` — the reference's content fingerprint of the
+    weight files (the same windows, header and memo), on the port's XXH64,
+    so the weights keys of both packages agree on one directory.
 
 Shape conventions bridged (HF stores Linear as [out, in]; the layouts are
 einsum-ready [in, ...out] with explicit head axes):
@@ -64,11 +67,13 @@ import dataclasses
 import json
 import logging
 import os
+import time as _time
 from typing import Callable, Iterator, Optional
 
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..tokens import xxh64_many
 from .config import ModelConfig
 from .safetensors import SafeFile, save_file, write_shards
 from .transformer import Transformer, check_supported, torch_dtype
@@ -962,3 +967,74 @@ def save_params(model: Transformer, config: ModelConfig, path: str, *,
         write_shards(_hf_tensors(model, config), path, max_shard_bytes)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf_config_dict(config), f, indent=2)
+
+
+_DIGEST_CACHE: dict = {}
+
+
+def checkpoint_digest(path: str) -> str:
+    """Cheap content fingerprint of a checkpoint's weight files, equal to
+    the reference's: per safetensors file its name and size, the head
+    window, the full header, interior 4 KiB windows at most 16 MiB apart
+    (at most 64 a file) and the tail window; config.json whole. The value
+    never depends on mtimes (two hosts holding the same bytes agree), but
+    it is memoized per directory on a (name, size, mtime) signature of
+    files quiet for 2 s, so repeat calls cost a stat() sweep."""
+    root_key = os.path.realpath(
+        path if os.path.isdir(path) else os.path.dirname(path))
+    try:
+        stats = [
+            (name, os.stat(os.path.join(root_key, name)))
+            for name in sorted(os.listdir(root_key))
+            if name == "config.json" or name.endswith(".safetensors")]
+        sig = tuple((name, st.st_size, st.st_mtime_ns)
+                    for name, st in stats)
+        newest = max((st.st_mtime for _n, st in stats), default=0.0)
+        if abs(_time.time() - newest) < 2.0:
+            sig = None
+    except OSError:
+        sig = None
+    if sig is not None:
+        cached = _DIGEST_CACHE.get(root_key)
+        if cached is not None and cached[0] == sig:
+            return cached[1]
+
+    # XXH64 streamed over the pieces equals XXH64 of their concatenation
+    pieces: list[bytes] = []
+    window = 1 << 16
+    stride_window = 1 << 12
+    max_stride = 16 << 20
+    n_strides = 32
+    root = path if os.path.isdir(path) else os.path.dirname(path)
+    for fname in sorted(os.listdir(root)):
+        fpath = os.path.join(root, fname)
+        if fname == "config.json":
+            with open(fpath, "rb") as f:
+                pieces.append(f.read())
+        elif fname.endswith(".safetensors"):
+            size = os.path.getsize(fpath)
+            pieces.append(f"{fname}:{size}".encode())
+            with open(fpath, "rb") as f:
+                head = f.read(window)
+                pieces.append(head)
+                if size >= 8:
+                    hlen = int.from_bytes(head[:8], "little")
+                    if 0 < hlen <= size - 8 and hlen + 8 > window:
+                        f.seek(8)
+                        pieces.append(f.read(min(hlen, 1 << 24)))
+                if size > 2 * window:
+                    span = size - 2 * window
+                    step = max(min(max(span // n_strides, stride_window),
+                                   max_stride),
+                               span // 64)
+                    pos = window
+                    while pos < size - window:
+                        f.seek(pos)
+                        pieces.append(f.read(stride_window))
+                        pos += step
+                    f.seek(size - window)
+                    pieces.append(f.read(window))
+    digest = f"{xxh64_many([b''.join(pieces)])[0]:016x}"
+    if sig is not None:
+        _DIGEST_CACHE[root_key] = (sig, digest)
+    return digest

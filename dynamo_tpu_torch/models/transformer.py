@@ -179,16 +179,22 @@ def init_params(config: ModelConfig, *, device: DeviceLike = "cuda",
     scales: the biases at 0.02 of a projection's, `sinks` at fan-in 1, and
     zero router and expert biases. An MLA layer gets the reference's latent
     attention leaves (the q LoRA path where the config has a rank) in place
-    of wq / wk / wv / wo."""
+    of wq / wk / wv / wo. On the `meta` device nothing is drawn: the tree
+    holds the leaves' shapes and dtypes only (the weight plane's template)."""
     check_supported(config)
-    dev = resolve_device(device)
+    meta = torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     dtype = torch_dtype(config.dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if not meta:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     h, hd = config.hidden, config.head_dim
     qh, kh, m = config.n_q_heads, config.n_kv_heads, config.mlp_hidden
 
     def dense(shape, fan_in):
+        if meta:
+            return torch.empty(shape, device=dev, dtype=dtype)
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
-into `build/dynamo_tpu_torch/<name>-<hash>.so` under the checkout root, then
-loaded with `ctypes`. The hash covers the source, the shared headers
+into `build/dynamo_tpu_torch/<name>-<hash>.so` under the checkout root (or
+the directory DYNT_COMPILE_CACHE_DIR names: `build_dir()`), then loaded
+with `ctypes`. The hash covers the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source rebuilds and an unchanged
 one is reused. Nothing is compiled when the
 package is imported: the first launch builds, and `build_all` builds every
@@ -45,12 +46,20 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and found: DYNT_COMPILE_CACHE_DIR, or
+    BUILD_DIR. `engine/compile_cache.py` syncs this directory."""
+    from ..config import env
+
+    return Path(env("DYNT_COMPILE_CACHE_DIR") or BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> list[str]:
@@ -63,7 +72,7 @@ def _start(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
     proc = subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

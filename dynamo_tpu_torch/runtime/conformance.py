@@ -6,12 +6,12 @@ machines: flight-recorder stamps, drain-state transitions, breaker trips,
 streamed-transfer mutations and preemption park / resume.
 
 The machines are JSON specs in `runtime/protocols/` beside this module:
-`preemption`, `breaker`, `drain_ladder`, `flight_recorder` and
-`kv_stream_transfer`, copies of the reference's (its
-`tools/dynastate/protocols/`, which its static analyzer also checks; the
-port reads only its own copies). The reference's other specs (coldstart,
-journal, federation, observatory, weight pull) belong to modules the port
-does not have yet.
+`preemption`, `breaker`, `drain_ladder`, `flight_recorder`,
+`kv_stream_transfer`, `coldstart` and `striped_weight_pull`, copies of the
+reference's (its `tools/dynastate/protocols/`, which its static analyzer
+also checks; the port reads only its own copies). The reference's other
+specs (journal, federation, observatory) belong to modules the port does
+not have yet.
 
 Hook sites call :func:`observe` with the protocol name, a per-lifecycle
 instance key and the event. Hooks sit AFTER each site's terminal guard, so

@@ -297,6 +297,44 @@ KVBM_OFFLOAD_DEFERRED = Counter(
     "dynamo_kvbm_offload_deferred_seconds_total",
     "Seconds the offload worker spent deferring device gathers to honor "
     "the DYNT_OFFLOAD_BW_FRAC bandwidth budget")
+# Fast-start arrival plane (engine/coldstart.py, weights/striped.py): the
+# cold-start ladder a joining worker walks (fetch -> load -> compile ->
+# register -> first_token), and the striped peer weight stream behind its
+# fetch rung
+COLDSTART_PHASE_SECONDS = Gauge(
+    "dynamo_coldstart_phase_seconds",
+    "Seconds this worker's most recent cold start spent in each arrival-"
+    "ladder phase (fetch / load / compile / register / first_token)",
+    ["worker", "phase"])
+COLDSTART_TOTAL_SECONDS = Gauge(
+    "dynamo_coldstart_total_seconds",
+    "Wall seconds of this worker's most recent cold start, process "
+    "start to first served token — should sit inside "
+    "DYNT_COLDSTART_BUDGET_SECS",
+    ["worker"])
+COLDSTART_ARRIVALS = Counter(
+    "dynamo_coldstart_arrivals_total",
+    "Completed cold starts, by the weight source the arrival ladder "
+    "resolved (peer_striped / peer / service / object_store / "
+    "checkpoint / init / mock)",
+    ["source"])
+COLDSTART_LEAD_SECONDS = Gauge(
+    "dynamo_coldstart_lead_seconds",
+    "Cold-start lead time the planner used in its most recent scale-up "
+    "decision (the measured arrival-ladder total it projects demand "
+    "ahead by)")
+WEIGHT_STREAM_CHUNKS = Counter(
+    "dynamo_weight_stream_chunks_total",
+    "Striped weight-stream chunks, by outcome: served (donor side), "
+    "verified (puller digest ok), digest_mismatch (corrupt chunk "
+    "rejected — re-fetched from another donor, never served), "
+    "restriped (re-assigned after a donor died mid-stream)",
+    ["outcome"])
+WEIGHT_STREAM_DEFERRED = Counter(
+    "dynamo_weight_stream_deferred_seconds_total",
+    "Seconds weight-stream donors spent deferring param gathers to "
+    "honor the DYNT_WEIGHT_STREAM_BW_FRAC bandwidth budget (the KVBM "
+    "offload pacing, applied to the arrival plane)")
 # Disaggregated prefill (engine/worker.py): KV pages streamed to the decode
 # pool while the prefill pass was still computing
 DISAGG_STREAMED_PAGES = Counter(

@@ -1,9 +1,9 @@
 """The port's protocol-conformance monitor against the JAX package's.
 
-  * the five protocol specs the port ships (`runtime/protocols/`) are
+  * the seven protocol specs the port ships (`runtime/protocols/`) are
     JSON-equal to the reference's (`tools/dynastate/protocols/`);
   * the reference's monitor-core cases, run on both monitors: the same
-    snapshots (the loaded protocol list aside: the port loads its five);
+    snapshots (the loaded protocol list aside: the port loads its seven);
   * a hypothesis property: random event sequences over each protocol's
     events (and one the spec does not know) give both monitors the same
     snapshot;
@@ -53,7 +53,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_SPECS = ROOT / "tools" / "dynastate" / "protocols"
 PORT_SPECS = ROOT / "dynamo_tpu_torch" / "runtime" / "protocols"
 PROTOCOLS = ("preemption", "breaker", "drain_ladder", "flight_recorder",
-             "kv_stream_transfer")
+             "kv_stream_transfer", "coldstart", "striped_weight_pull")
 
 
 @pytest.fixture
@@ -72,6 +72,8 @@ def test_spec_copies_equal_the_reference(name):
 
 
 def test_the_port_ships_exactly_its_five_specs():
+    # (named when the port shipped five; it ships seven since the arrival
+    # ladder's coldstart and striped_weight_pull)
     assert sorted(p.stem for p in PORT_SPECS.glob("*.json")) == sorted(
         PROTOCOLS)
     assert ProtocolMonitor(enabled=True).snapshot()["protocols_loaded"] == (

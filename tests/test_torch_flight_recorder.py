@@ -44,9 +44,6 @@ from dynamo_tpu_torch.runtime import flight_recorder as fr
 from dynamo_tpu_torch.runtime.status import SystemStatusServer
 
 CFG = dataclasses.replace(get_config("tiny-test"), dtype="float32")
-# The reference's worker walks a cold-start ladder (not ported) whose
-# events land on its first request's timeline.
-UNPORTED_EVENTS = ("coldstart_phase", "coldstart_complete")
 RUNNER = dict(page_size=4, num_pages=64, max_batch=2, max_pages_per_seq=16,
               prefill_buckets=(8, 16, 32))
 
@@ -355,8 +352,7 @@ def _wire(protocols, rid: str, prefill_only: bool = False) -> dict:
 
 def _shape(timeline) -> tuple:
     return (timeline.status, sorted(timeline.phases),
-            sorted(timeline.device), [e["event"] for e in timeline.events
-                                      if e["event"] not in UNPORTED_EVENTS])
+            sorted(timeline.device), [e["event"] for e in timeline.events])
 
 
 def test_served_timelines_equal_the_reference(run, mem_runtime_config):
