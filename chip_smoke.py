@@ -353,6 +353,33 @@ Phases, each printing one JSON line:
               through TorchWorker(model_path=...), every tensor equal, a
               32-token forward on the card against the CPU
               (checkpoint_mla)
+  engine_lora - multi-LoRA, once MLA is freed: a TorchWorker serving
+              llama3-8b bf16 at full width and depth with four adapter
+              slots of rank 16 (the pack's 419,430,400 B checked to the
+              byte), served on a runtime; three seeded adapters written
+              by save_lora_npz (A: rank 16, all seven targets; B: rank 8,
+              zero-padded, attention; C: rank 16, MLP) and loaded through
+              the lora_load endpoint (its ms). The standard 8 requests on
+              the base model; again after the loads, bit-equal (unused
+              slots change nothing); then 2 each on base / A / B / C, half
+              greedy, every stream complete, each adapter's greedy streams
+              parting from the base ones, row 1's launches checked against
+              the forwards (the main path's counts); one request per
+              adapter through the port's frontend with model=<adapter>
+              and /v1/models listing A, B and C; a 300-token prompt's
+              prefill logits on each adapter's slot against plain
+              `forward` on merged weights W + a.b (f32, cast to bf16),
+              within 5% of max |logit|; A's unload refused while an A
+              stream is live, then done, C's file loaded as C2 into A's
+              freed slot and the mixed wave again (A's rows on the base):
+              C2's streams equal C's bit for bit, read by the graphs
+              captured before the rewrite; the fused block's wall on a
+              runner without a pack, with every slot on 0 and mixed, and
+              each one's decode forward counted in a kept CUDA graph's
+              nodes. Then mistral-7b W4A16 + int8 KV at four layers with
+              two adapters: streams complete and part from the base, rows
+              2 and 6 launched, and parity_lora_q (the kernels against
+              their plain versions on an adapter's slot)
 
 Every decode, fused block, spec step and prefill chunk (padded to its
 bucket) runs as a CUDA-graph replay (`RunnerConfig.cuda_graphs`, on by
@@ -1663,7 +1690,7 @@ def phase_engine_spec(dev: torch.device) -> dict:
 
 def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
                   label: str, kernel_fns=None, plain_fns=None,
-                  spec_drafts=None, **extra) -> dict:
+                  spec_drafts=None, lora_idx: int = 0, **extra) -> dict:
     """One greedy prompt through `runner` twice: with the runner attributes
     in `kernel_fns` (default: the decode kernel and the quantized matmul
     kernels), then with those in `plain_fns` (default: their plain
@@ -1692,7 +1719,12 @@ def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
                               "matmul_fn": quant_matmul_ref}
     saved = {k: getattr(runner, k) for k in {**kernel_fns, **plain_fns}}
     n = len(prompt)
-    first = runner.prefill_chunk(prompt, 0, table, n, (0.0, 1.0, 0, 0))
+    # `lora_idx`: every call on that adapter slot of the runner's pack
+    slot = np.asarray([lora_idx], np.int32)
+    if lora_idx:
+        extra["lora_idx"] = lora_idx
+    first = runner.prefill_chunk(prompt, 0, table, n, (0.0, 1.0, 0, 0),
+                                 lora_idx=lora_idx)
     chunk = len(spec_drafts) + 1 if spec_drafts is not None else 0
     width = bucket_table_width(
         -(-(n + max(steps, chunk)) // runner.config.page_size),
@@ -1711,7 +1743,7 @@ def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
                 np.asarray([spec_drafts], np.int32),
                 np.asarray([n], np.int32), table[None, :width],
                 np.asarray([n + 1], np.int32), np.ones(1, bool), *greedy,
-                np.zeros(1, np.int32), want_logits=True)
+                np.zeros(1, np.int32), want_logits=True, lora_idx=slot)
             spec_logits = runner.last_spec_logits[0]
         tok, out, logits = first, [], None
         for s in range(steps):
@@ -1719,7 +1751,7 @@ def greedy_parity(runner, table: np.ndarray, prompt: np.ndarray, steps: int,
                 np.asarray([tok], np.int32), np.asarray([n + s], np.int32),
                 table[None, :width], np.asarray([n + s + 1], np.int32),
                 np.ones(1, bool), *greedy, np.asarray([s], np.int32),
-                want_logits=s == 0)
+                want_logits=s == 0, lora_idx=slot)
             if s == 0:
                 logits = runner.last_decode_logits[0]
             tok = int(nxt[0])
@@ -8422,6 +8454,546 @@ def phase_engine_mla(dev: torch.device) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Multi-LoRA: the adapter slot pack on the bf16 and the quantized paths
+
+
+LORA_SLOTS = 4  # the main leg's RunnerConfig.max_loras
+LORA_RANK = 16  # its lora_rank: adapter B (rank 8) is zero-padded up to it
+LORA_B_SCALE = 0.5  # b's std x sqrt(rank): a delta ~half a projection's
+LORA_ATTN = ("wq", "wk", "wv", "wo")
+LORA_MLP = ("w_gate", "w_up", "w_down")
+# name -> (targets, rank); A, B and C on the main leg, QA and QB on the
+# quantized one
+LORA_ADAPTERS = {"A": (LORA_ATTN + LORA_MLP, 16), "B": (LORA_ATTN, 8),
+                 "C": (LORA_MLP, 16), "QA": (LORA_ATTN + LORA_MLP, 16),
+                 "QB": (LORA_ATTN, 8)}
+# the mixed wave: request i of the standard traffic on adapter i // 2
+LORA_MIX = (None, None, "A", "A", "B", "B", "C", "C")
+LORA_HTTP_TOKENS = 16  # each adapter's HTTP completion
+LORA_QLAYERS = 4  # the quantized leg's depth (phase_secondary's)
+LORA_LONG_TOKENS = 80  # the A stream live across the busy unload
+
+
+def _lora_factors(cfg, name: str, seed: int) -> dict:
+    """An adapter's seeded factors at `cfg`'s widths: per layer and target,
+    a [din, r] ~ N(0, 1/din) and b [r, dout] ~ N(0, LORA_B_SCALE^2 / r),
+    f32 (unscaled: alpha = rank, so the file's scale is 1)."""
+    from dynamo_tpu_torch.models.transformer import lora_target_dims
+
+    targets, rank = LORA_ADAPTERS[name]
+    dims = lora_target_dims(cfg)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(cfg.n_layers):
+        out[i] = {}
+        for t in targets:
+            din, dout = dims[t]
+            a = rng.standard_normal((din, rank), dtype=np.float32)
+            b = rng.standard_normal((rank, dout), dtype=np.float32)
+            out[i][t] = (a * np.float32(1 / math.sqrt(din)),
+                         b * np.float32(LORA_B_SCALE / math.sqrt(rank)))
+    return out
+
+
+def _write_adapters(cfg, names, root: str) -> dict:
+    """Each named adapter written with save_lora_npz under `root`: name ->
+    (path, factors)."""
+    from dynamo_tpu_torch.llm.lora import save_lora_npz
+
+    out = {}
+    for k, name in enumerate(names):
+        factors = _lora_factors(cfg, name, SEED + 30 + k)
+        path = os.path.join(root, f"{name}.npz")
+        save_lora_npz(path, factors, LORA_ADAPTERS[name][1],
+                      float(LORA_ADAPTERS[name][1]))
+        out[name] = (path, factors)
+    return out
+
+
+def _lora_bodies(prompts, prefix: str, names) -> list:
+    """The standard bodies (`_bodies`), request i on adapter names[i]."""
+    return [dict(body, lora_name=name) if name else body
+            for body, name in zip(_bodies(prompts, prefix), names)]
+
+
+async def _lora_wave(dev, worker, bodies, label: str) -> list:
+    """`bodies` through `generate` on a new scheduler whose thread starts
+    once all are in (one admission: two waves of the same shapes make the
+    same calls); every stream must complete. Returns the token streams."""
+    from dynamo_tpu_torch.engine import InferenceScheduler
+
+    worker.scheduler.stop()
+    worker.scheduler = InferenceScheduler(worker.runner)
+    try:
+        results = await _serve_wave(worker, bodies, hold=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        worker.scheduler.stop()
+    check(worker.scheduler.error is None,
+          f"{label}: scheduler error {worker.scheduler.error!r}")
+    for body, res in zip(bodies, results):
+        check(res["finish"] == ["length"] and len(res["tokens"]) == 64,
+              f"{label}: {body['request_id']} finished {res['finish']} "
+              f"after {len(res['tokens'])} tokens")
+    return [r["tokens"] for r in results]
+
+
+def _check_wave_launches(dev, runner, label: str) -> dict:
+    """The kernel launches since the counters were reset, against the
+    forwards the runner ran (the LoRA deltas launch no kernel of the
+    table)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counts()
+    want = expected_counts(runner, dev, decode=runner.decode_steps,
+                           prefill=runner.prefill_steps,
+                           warm=runner.graph_warm_forwards)
+    check(runner.decode_steps > 0 and launches == want,
+          f"{label}: kernel launches {launches} != expected {want}")
+    return launches
+
+
+def _differs_from(label: str, streams: list, base: list, names) -> dict:
+    """Each adapter request's first divergence from the base stream of the
+    same prompt; a greedy one must part from it."""
+    out = {}
+    for i, name in enumerate(names):
+        at = _first_divergence(streams[i], base[i])
+        out[f"{name or 'base'}-{i}"] = at
+        if name and _greedy(f"r-{i}"):
+            check(at < 64, f"{label}: greedy request {i} on adapter {name} "
+                  "streams as the base model")
+    return out
+
+
+def _merged_model(model, cfg, factors: dict):
+    """A Transformer sharing `model`'s tensors except each adapted leaf:
+    W + a . b merged in f32 on the card, cast to the model dtype."""
+    from dynamo_tpu_torch.models import Transformer
+
+    layers = []
+    for i, layer in enumerate(model.layers):
+        leaves = {k: layer[k] for k in layer.keys()}
+        for t, (a, b) in factors.get(i, {}).items():
+            w = leaves[t]
+            delta = (torch.from_numpy(a).to(w.device)
+                     @ torch.from_numpy(b).to(w.device))
+            leaves[t] = (w.float().reshape(delta.shape) + delta).to(
+                w.dtype).reshape(w.shape)
+        layers.append(leaves)
+    return Transformer(cfg, {"embed": model.embed,
+                             "final_norm": model.final_norm,
+                             "lm_head": model.lm_head, "layers": layers})
+
+
+def _merged_parity(dev, worker, adapters: dict, slots: dict) -> dict:
+    """One 300-token prompt's prefill logits from the LoRA runner (a graph
+    replay on the adapter's slot) against plain `forward` on merged
+    weights W + a . b, per adapter; within PARITY_LOGITS_REL_TOL of the
+    merged logits' max |logit|."""
+    from dynamo_tpu_torch.models import forward
+
+    runner, cfg = worker.runner, worker.model_config
+    n = 300
+    prompt = np.random.default_rng(SEED + 2).integers(1, cfg.vocab_size, n)
+    table = _pool_table(worker, n, 0)
+    out = {}
+    for name, slot in slots.items():
+        runner.prefill_chunk(prompt, 0, table, n, (0.0, 1.0, 0, 0),
+                             want_logits=True, lora_idx=slot)
+        tuned = runner.last_prefill_logits
+        merged = _merged_model(runner.model, cfg, adapters[name][1])
+        with torch.inference_mode():
+            plain = forward(
+                merged, torch.from_numpy(prompt[None]).to(dev),
+                torch.arange(n, device=dev)[None], runner.kv_cache,
+                torch.from_numpy(table[None]).to(dev),
+                torch.tensor([n], dtype=torch.int32, device=dev),
+                last_idx=torch.tensor([n - 1], device=dev))[0, 0]
+        plain = plain.float().cpu().numpy()
+        del merged
+        free_memory()
+        diff = float(np.abs(tuned - plain).max())
+        scale = float(np.abs(plain).max())
+        check(np.all(np.isfinite(tuned)), f"lora_parity: {name} non-finite")
+        check(diff <= PARITY_LOGITS_REL_TOL * scale,
+              f"lora_parity: adapter {name} logits max|d| {diff} > "
+              f"{PARITY_LOGITS_REL_TOL} x {scale}")
+        out[name] = {"slot": slot, "logits_max_abs_diff": diff,
+                     "logits_max_abs": scale, "rel": diff / scale}
+    return out
+
+
+def _graph_nodes(runner, args: dict) -> dict:
+    """The nodes (kernels, copies, sets) of one decode forward of `runner`
+    captured into a CUDA graph kept for inspection (never replayed), by
+    libcuda's cuGraphGetNodes / cuGraphNodeGetType: the launches a graphed
+    step replays. Empty on the CPU, and where torch's CUDAGraph cannot keep
+    the graph ("not measured")."""
+    import ctypes
+    import inspect
+
+    if runner.device.type != "cuda":
+        return {}
+    if "keep_graph" not in inspect.signature(torch.cuda.CUDAGraph.__new__
+                                             ).parameters:
+        return {"not_measured": "torch.cuda.CUDAGraph has no keep_graph"}
+    dev = runner.device
+    fwd = runner._decode_forward_fn()
+    x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in args.items()}
+    inputs = (x["tokens"].long(), x["positions"].long(), x["block_tables"],
+              x["kv_lens"], x["active"], x["lora_idx"].long()
+              if "lora_idx" in x else None)
+    with torch.inference_mode():
+        fwd(*inputs)  # warm: first calls outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            fwd(*inputs)
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = collections.Counter()
+    kind = ctypes.c_int(0)
+    for node in nodes:
+        libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds[kind.value] += 1
+    del graph
+    # CU_GRAPH_NODE_TYPE_KERNEL = 0, _MEMCPY = 1, _MEMSET = 2
+    return {"nodes": n.value, "kernels": kinds[0],
+            "memcpy": kinds[1], "memset": kinds[2]}
+
+
+def _lora_step_costs(dev, runner) -> dict:
+    """The fused block (k = 8) on the runner's 16 slots (8 live, as
+    `_step_timings`), graphed: a runner without a pack on the same weights,
+    then the LoRA runner with every slot on 0, then on a mix of the four
+    slots; and the launches of one decode forward of each, counted in its
+    captured graph (`_graph_nodes`)."""
+    from dynamo_tpu_torch.engine import ModelRunner, RunnerConfig
+
+    plain = ModelRunner(runner.model_config, RunnerConfig(), device=dev,
+                        params=runner.model)
+    args = _step_inputs(runner)
+    b = runner.config.max_batch
+    mixed = np.zeros(b, np.int32)
+    mixed[:len(STEP_HISTORY)] = np.arange(len(STEP_HISTORY)) % (
+        LORA_SLOTS)
+    cases = {"no_pack": (plain, {}),
+             "slot0": (runner, {"lora_idx": np.zeros(b, np.int32)}),
+             "mixed": (runner, {"lora_idx": mixed})}
+    walls, kernels = {}, {}
+    t0 = time.perf_counter()
+    for name, (r, extra) in cases.items():
+        walls[name] = _time_step(lambda r=r, e=extra: r.decode_multi(
+            **args, **e, k=BLOCK, return_device=True), BLOCK)
+    t1 = time.perf_counter()
+    for name, (r, extra) in cases.items():
+        kernels[name] = _graph_nodes(r, {**args, **extra})
+    t2 = time.perf_counter()
+    del plain
+    free_memory()
+    base = walls["no_pack"]["wall_ms"]
+    return {"decode_block_k8": walls,
+            "step_wall_ms": {k: v["wall_ms"] for k, v in walls.items()},
+            "slot0_over_no_pack_ms": walls["slot0"]["wall_ms"] - base,
+            "mixed_over_no_pack_ms": walls["mixed"]["wall_ms"] - base,
+            "graph_nodes_a_forward": kernels,
+            "nodes_added_by_the_pack": (
+                kernels["slot0"]["nodes"] - kernels["no_pack"]["nodes"]
+                if "nodes" in kernels["no_pack"] else None),
+            "timing_s": t1 - t0, "counting_s": t2 - t1}
+
+
+def _lora_quantized(dev: torch.device, root: str) -> dict:
+    """The quantized leg: mistral-7b widths at LORA_QLAYERS layers, W4A16 +
+    int8 KV, two adapters; the standard traffic on the base and then mixed
+    (every stream completes, each adapter's greedy streams part from the
+    base), row 2 and row 6 launched; phase_parity on adapter QA's slot."""
+    from dynamo_tpu_torch.engine import RunnerConfig, TorchWorker
+    from dynamo_tpu_torch.models import get_config
+
+    cfg = dataclasses.replace(get_config(QMODEL), n_layers=LORA_QLAYERS)
+    worker = TorchWorker(cfg, RunnerConfig(
+        weight_dtype="int4", kv_dtype="int8", max_loras=2,
+        lora_rank=LORA_RANK), device=dev, seed=SEED)
+    runner = worker.runner
+    try:
+        worker.start()
+        adapters = _write_adapters(cfg, ("QA", "QB"), root)
+
+        async def run() -> dict:
+            out = {"slots": {name: await worker.load_adapter(name, path)
+                             for name, (path, _) in adapters.items()}}
+            _, prompts = standard_traffic(cfg.vocab_size)
+            base = await _lora_wave(dev, worker, _bodies(prompts, "qbase"),
+                                    "engine_lora_q_base")
+            names = (None, None, "QA", "QA", "QB", "QB", "QA", "QB")
+            reset_counts()
+            reset_runner_counts(runner)
+            mixed = await _lora_wave(
+                dev, worker, _lora_bodies(prompts, "qmix", names),
+                "engine_lora_q_mixed")
+            out["launches"] = _check_wave_launches(dev, runner,
+                                                   "engine_lora_q_mixed")
+            out["divergence"] = _differs_from("engine_lora_q", mixed, base,
+                                              names)
+            return out
+
+        out = asyncio.run(run())
+        for name in ("paged_decode_attention_pool_int8", "q4_matmul_v2"):
+            check(dev.type != "cuda" or out["launches"][name] > 0,
+                  f"engine_lora_q: {name} never launched under adapters")
+        phase_parity(worker, "parity_lora_q", lora_idx=out["slots"]["QA"])
+        emit("engine_lora_q", model=cfg.name, layers=cfg.n_layers,
+             weight_dtype="int4", kv_dtype="int8",
+             pack_B=runner.lora_pack_bytes(), slots=out["slots"],
+             first_divergence_from_base=out["divergence"],
+             kernel_launches=out["launches"], **graph_report(runner))
+        return out["launches"]
+    finally:
+        worker.close()
+        del worker, runner
+        free_memory()
+
+
+def phase_engine_lora(dev: torch.device) -> dict:
+    """Multi-LoRA serving (see the module docstring's engine_lora). Returns
+    the kernel launches of the main leg's mixed wave and of the quantized
+    leg's."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import RunnerConfig, TorchWorker
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.models.transformer import lora_target_dims
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+    from dynamo_tpu_torch.runtime.push_router import PushRouter
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    worker = TorchWorker(MODEL, RunnerConfig(max_loras=LORA_SLOTS,
+                                             lora_rank=LORA_RANK),
+                         device=dev, seed=SEED)
+    runner, cfg = worker.runner, worker.model_config
+    try:
+        worker.start()
+        init_s = time.perf_counter() - t0
+        pack_b = runner.lora_pack_bytes()
+        per_slot = cfg.n_layers * LORA_RANK * sum(
+            din + dout for din, dout in lora_target_dims(cfg).values()) * 2
+        check(pack_b == (LORA_SLOTS + 1) * per_slot,
+              f"engine_lora: pack {pack_b} B, {per_slot} B a slot")
+        adapters = _write_adapters(cfg, ("A", "B", "C"), root)
+        _, prompts = standard_traffic(cfg.vocab_size)
+
+        async def run() -> dict:
+            disc = tempfile.mkdtemp(prefix="chip_smoke_discovery_")
+            rt = await DistributedRuntime(RuntimeConfig(
+                discovery_backend="file", discovery_path=disc,
+                tcp_host="127.0.0.1", system_enabled=False)).start()
+            frontend = Frontend(rt, host="127.0.0.1", port=0)
+            routers = {}
+            out = {"split_s": {}}
+            fe_up = False
+
+            def lap(name):
+                out["split_s"][name] = time.perf_counter() - t0
+            try:
+                await worker.serve(rt)
+                for ep in ("lora_load", "lora_unload", "lora_list"):
+                    router = PushRouter(rt.namespace("dynamo")
+                                        .component("backend").endpoint(ep)
+                                        .client(), mode="round_robin")
+                    await router.client.start()
+                    routers[ep] = router
+                while not all(r.available() for r in routers.values()):
+                    await asyncio.sleep(0.01)
+
+                async def call(ep, body):
+                    return [x async for x in routers[ep].generate(body)][-1]
+
+                # 1. the base wave before any load
+                lap("serve")
+                out["s0"] = await _lora_wave(
+                    dev, worker, _bodies(prompts, "req"), "engine_lora_s0")
+                lap("s0")
+                _fresh_scheduler(worker)
+                load_ms = {}
+                for name in ("A", "B", "C"):
+                    t = time.perf_counter()
+                    res = await call("lora_load", {"name": name,
+                                                   "path": adapters[name][0]})
+                    load_ms[name] = (time.perf_counter() - t) * 1e3
+                    check(res.get("ok"), f"engine_lora: load {name}: {res}")
+                    out.setdefault("slots", {})[name] = res["slot"]
+                check(out["slots"] == {"A": 1, "B": 2, "C": 3},
+                      f"engine_lora: slots {out['slots']}")
+                out["load_ms"] = load_ms
+                out["list"] = await call("lora_list", {})
+                # 2. unused slots change nothing
+                again = await _lora_wave(
+                    dev, worker, _bodies(prompts, "req"), "engine_lora_s0b")
+                check(again == out["s0"], "engine_lora: loaded adapters "
+                      "changed the base streams")
+                lap("loads_and_s0b")
+                # 3. the mixed wave (the main path: counts from 0)
+                reset_counts()
+                reset_runner_counts(runner)
+                mixed = await _lora_wave(
+                    dev, worker, _lora_bodies(prompts, "mix", LORA_MIX),
+                    "engine_lora_mixed")
+                out["launches"] = _check_wave_launches(dev, runner,
+                                                       "engine_lora_mixed")
+                out["mixed_forwards"] = {"decode": runner.decode_steps,
+                                         "prefill": runner.prefill_steps}
+                out["mixed"] = mixed
+                out["divergence"] = _differs_from(
+                    "engine_lora", mixed, out["s0"], LORA_MIX)
+                lap("mixed")
+                # 6. over HTTP: one request per adapter, /v1/models
+                _fresh_scheduler(worker)
+                await frontend.start()
+                fe_up = True
+                listed, t_list = [], time.perf_counter()
+                while not {"A", "B", "C"} <= set(listed):
+                    check(time.perf_counter() - t_list < 30,
+                          f"engine_lora: /v1/models lists {listed}")
+                    res = await _http(frontend.port, "GET", "/v1/models")
+                    models = json.loads(res["text"])["data"]
+                    listed = [m["id"] for m in models]
+                    await asyncio.sleep(0.05)
+                out["models"] = models
+                http = {}
+                for name in ("A", "B", "C"):
+                    res = await _http(frontend.port, "POST",
+                                      "/v1/completions", {
+                                          "model": name,
+                                          "prompt": [int(t)
+                                                     for t in prompts[2]],
+                                          "max_tokens": LORA_HTTP_TOKENS,
+                                          "temperature": 0.0,
+                                          "ignore_eos": True})
+                    got = _aggregate_outcome(res)
+                    check(got["finish"] == "length"
+                          and got["usage"]["completion_tokens"]
+                          == LORA_HTTP_TOKENS,
+                          f"engine_lora: HTTP on {name}: {got}")
+                    http[name] = {"status": res["status"],
+                                  "ms": (res["t_end"] - res["t0"]) * 1e3,
+                                  "usage": got["usage"]}
+                res = await _http(frontend.port, "POST", "/v1/completions",
+                                  {"model": "nope", "prompt": [1, 2],
+                                   "max_tokens": 2})
+                check(res["status"] == 404,
+                      f"engine_lora: unknown adapter answered {res}")
+                out["http"] = http
+                lap("http")
+                # 4. merged-weight parity (runner calls: scheduler stopped)
+                worker.scheduler.stop()
+                out["parity"] = _merged_parity(
+                    dev, worker, adapters, out["slots"])
+                lap("parity")
+                # 5. a slot rewritten under the captured graphs
+                _fresh_scheduler(worker)
+                sched = worker.scheduler
+                long = dict(_body("longa-0", prompts[2], 0.0, 1.0),
+                            lora_name="A")
+                # 32 + 80 tokens and the decode slack stay in 8 pages: the
+                # table width the HTTP requests captured
+                long["sampling"] = dict(long["sampling"],
+                                        max_tokens=LORA_LONG_TOKENS)
+                task = asyncio.ensure_future(_stream(worker, long))
+                while not any(s is not None and s.generated
+                              for s in sched._slots):
+                    await asyncio.sleep(0.002)
+                busy = await call("lora_unload", {"name": "A"})
+                check("busy: 1 in-flight sequence(s)" in busy.get(
+                    "error", ""), f"engine_lora: unload while busy {busy}")
+                check(len((await task)["tokens"]) == LORA_LONG_TOKENS,
+                      "engine_lora: the A stream did not complete")
+                res = await call("lora_unload", {"name": "A"})
+                check(res == {"ok": True, "name": "A"},
+                      f"engine_lora: unload A {res}")
+                res = await call("lora_load", {"name": "C2",
+                                               "path": adapters["C"][0]})
+                check(res.get("slot") == 1,
+                      f"engine_lora: C2 landed in {res}")
+                out["busy"] = busy["error"]
+                lap("busy_unload_reload")
+                swapped = tuple({"A": None, "C": "C2"}.get(n, n)
+                                for n in LORA_MIX)
+                rerun = await _lora_wave(
+                    dev, worker, _lora_bodies(prompts, "mix", swapped),
+                    "engine_lora_c2")
+                for i, name in enumerate(LORA_MIX):
+                    if name in ("B", "C", None):
+                        check(rerun[i] == mixed[i],
+                              f"engine_lora: request {i} ({name} -> "
+                              f"{swapped[i]}) parts from the mixed wave at "
+                              f"{_first_divergence(rerun[i], mixed[i])}")
+                out["a_rows_as_base"] = {
+                    i: _first_divergence(rerun[i], out["s0"][i])
+                    for i, n in enumerate(LORA_MIX) if n == "A"}
+                lap("rerun")
+            finally:
+                for router in routers.values():
+                    await router.client.close()
+                if fe_up:
+                    await frontend.close()
+                await worker.shutdown()
+                await rt.shutdown()
+                shutil.rmtree(disc, ignore_errors=True)
+            return out
+
+        out = asyncio.run(run())
+        steps = _lora_step_costs(dev, runner)
+        out["split_s"]["step_costs"] = time.perf_counter() - t0
+        check(dev.type != "cuda"
+              or out["launches"]["paged_decode_attention_pool"] > 0,
+              "engine_lora: row 1 never launched under adapters")
+        emit("engine_lora", model=cfg.name, layers=cfg.n_layers,
+             max_loras=LORA_SLOTS, lora_rank=LORA_RANK,
+             adapters={n: {"targets": list(LORA_ADAPTERS[n][0]),
+                           "rank": LORA_ADAPTERS[n][1]}
+                       for n in ("A", "B", "C")},
+             pack_B=pack_b, pack_B_a_slot=per_slot, slots=out["slots"],
+             lora_load_ms=out["load_ms"], lora_list=out["list"],
+             init_and_warmup_s=init_s, unused_slots_streams_equal=True,
+             first_divergence_from_base=out["divergence"],
+             mixed_forwards=out["mixed_forwards"],
+             kernel_launches=out["launches"], http=out["http"],
+             v1_models=out["models"], busy_unload=out["busy"],
+             c2_slot=1, c2_streams_equal_c=True,
+             a_rows_as_base_divergence_from_s0=out["a_rows_as_base"],
+             merged_parity=out["parity"],
+             tolerance_rel=PARITY_LOGITS_REL_TOL, step_costs=steps,
+             split_s=out["split_s"], **graph_report(runner))
+    finally:
+        worker.close()
+        del worker, runner
+        free_memory()
+    try:
+        q_launches = _lora_quantized(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("engine_lora_done", phase_s=time.perf_counter() - t0)
+    launches = dict(out["launches"])
+    for name, n in q_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -8548,6 +9120,12 @@ def main() -> None:
     # of the table (plain latent attention, as the reference runs it)
     free_memory()
     phase_engine_mla(dev)
+
+    # multi-LoRA: llama3-8b bf16 with four adapter slots (row 1 under
+    # adapters), then mistral-7b W4A16 + int8 KV at four layers (rows 2, 6)
+    free_memory()
+    for name, n in phase_engine_lora(dev).items():
+        launches[name] = launches.get(name, 0) + n
 
     for name in KERNELS:
         check(launches.get(name, 0) > 0,

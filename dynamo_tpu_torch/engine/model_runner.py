@@ -73,6 +73,18 @@ bundle on the scheduler thread, on the stream the graphs replay on, and
 thread; `stage_bundle` uploads a pulled bundle the same way, and
 `scatter_pages` waits on it and writes in place (the graphs captured the
 pool's storage); `kv_layout` is the reference's wire descriptor.
+
+Multi-LoRA (`RunnerConfig.max_loras` > 0): the runner holds an adapter slot
+pack (`models.transformer.init_lora_pack`, slot 0 the base model) and every
+step takes a slot per row (`lora_idx`: `decode`, `decode_multi`,
+`decode_spec`, `prefill_chunk` and each row of `prefill_chunk_batch`), so
+every forward adds its rows' deltas. `lora_idx` is a static input of each
+step graph, copied in before each replay, and not part of the key: one
+graph serves any mix of adapters, and `prewarm` captures the same keys as
+without a pack. `set_lora_slot` / `clear_lora_slot` write a slot IN PLACE
+(`copy_` / `zero_`, on the scheduler thread between steps): the graphs
+captured the pack's storage, so rebinding a tensor would leave them reading
+the old adapter.
 """
 
 from __future__ import annotations
@@ -106,8 +118,10 @@ from ..models.transformer import (
     forward,
     forward_decode,
     forward_spec,
+    init_lora_pack,
     paged_attention_xla,
     quant_matmul,
+    torch_dtype,
 )
 from ..ops.block_copy import (
     gather_kv_blocks,
@@ -147,7 +161,7 @@ STEP_INPUTS = {
     "lens": torch.int32, "active": torch.bool, "temperature": torch.float32,
     "top_p": torch.float32, "top_k": torch.int64, "seeds": torch.int64,
     "steps": torch.int64, "drafts": torch.int64, "valid": torch.bool,
-    "last_idx": torch.int64,
+    "last_idx": torch.int64, "lora_idx": torch.int64,
 }
 
 
@@ -185,6 +199,10 @@ class RunnerConfig:
     # Decode, decode_multi, decode_spec and prefill as one CUDA-graph replay
     # each (captured per key at first use); False runs them op by op.
     cuda_graphs: bool = True
+    # Multi-LoRA: adapter slots in the pack (0 = no pack) and their shared
+    # rank (a lower-rank adapter is zero-padded up to it).
+    max_loras: int = 0
+    lora_rank: int = 8
 
     @property
     def max_context(self) -> int:
@@ -249,6 +267,11 @@ class ModelRunner:
         elif kind == "int4":
             repack_params_q4(params)  # transparent v1 <-> v2 migration
         self.model = params
+        # The adapter slot pack (None without max_loras): written in place
+        self.lora_pack = (init_lora_pack(model_config, runner_config.max_loras,
+                                         runner_config.lora_rank,
+                                         device=self.device)
+                          if runner_config.max_loras > 0 else None)
         self._kv_quantized = kv_quantized
         # The side stream of the page I/O's copies (created at first use)
         self._copy_stream = None
@@ -396,6 +419,7 @@ class ModelRunner:
         sampling: tuple[float, float, int, int],  # (temp, top_p, top_k, seed)
         return_device: bool = False,
         want_logits: bool = False,
+        lora_idx: int = 0,
     ):
         """Run one prefill chunk, padded to its bucket; returns the sampled
         token id (meaningful only on the final chunk). `return_device=True`
@@ -403,10 +427,11 @@ class ModelRunner:
         a later replay of the same key leaves it alone). Otherwise the
         logprob data lands in `last_prefill_sample`. `want_logits` also
         fills `last_prefill_logits` with the raw last-row logits [V] (a key
-        of its own, "prefill_logits")."""
+        of its own, "prefill_logits"). `lora_idx` is the chunk's adapter
+        slot."""
         outs = self._prefill_group(
-            [(tokens, start_pos, block_table, kv_len_after, sampling)],
-            want_logits)
+            [(tokens, start_pos, block_table, kv_len_after, sampling,
+              lora_idx)], want_logits)
         token, lp, top_ids, top_lps = outs[:4]
         self.last_prefill_logits = (outs[4][0].cpu().numpy() if want_logits
                                     else None)
@@ -421,7 +446,8 @@ class ModelRunner:
     @torch.inference_mode()
     def prefill_chunk_batch(self, rows: list, want_samples: bool = False):
         """Several sequences' prefill chunks, rows of (tokens, start_pos,
-        block_table, kv_len_after, sampling) as `prefill_chunk` takes them:
+        block_table, kv_len_after, sampling[, lora_idx]) as `prefill_chunk`
+        takes them:
         one forward per group of `prefill_groups`. Returns the device tokens
         with row i = rows[i]: one group's [B_padded] tensor as it came out
         of the step, or the groups' rows concatenated. `want_samples=True`
@@ -477,7 +503,12 @@ class ModelRunner:
             "top_k": np.zeros(b, np.int64),
             "seeds": np.zeros(b, np.int64),
         }
-        for i, (tokens, start, table, kv_after, sampling) in enumerate(rows):
+        if self.lora_pack is not None:
+            values["lora_idx"] = np.zeros(b, np.int64)
+        for i, row in enumerate(rows):
+            tokens, start, table, kv_after, sampling = row[:5]
+            if self.lora_pack is not None and len(row) > 5:
+                values["lora_idx"][i] = row[5]
             t = len(tokens)
             values["tokens"][i, :t] = tokens
             values["positions"][i, :t] = np.arange(start, start + t)
@@ -490,12 +521,14 @@ class ModelRunner:
         self.prefill_steps += 1
         attention_fn = self.attention_fn or paged_attention_xla
         model, kv, matmul_fn = self.model, self.kv_cache, self.matmul_fn
+        lora = self.lora_pack
 
         def step(x):
             logits = forward(model, x["tokens"], x["positions"], kv,
                              x["tables"], x["lens"], valid=x["valid"],
                              attention_fn=attention_fn, matmul_fn=matmul_fn,
-                             last_idx=x["last_idx"])[:, 0, :]
+                             last_idx=x["last_idx"], lora=lora,
+                             lora_idx=x.get("lora_idx"))[:, 0, :]
             out = sample_with_logprobs(
                 logits, x["temperature"], x["top_p"], x["top_k"], x["seeds"],
                 torch.zeros_like(x["seeds"]))
@@ -519,27 +552,36 @@ class ModelRunner:
         or the model is gpt-oss or MLA (inactive slots write to scratch
         page 0)."""
         attention_fn, decode_fn, _, matmul_fn = self._functions()
-        model, kv = self.model, self.kv_cache
+        model, kv, lora = self.model, self.kv_cache, self.lora_pack
         unified = attention_fn is not None or self._unified_model
 
-        def fwd(toks, pos, tables, lens, act):
+        def fwd(toks, pos, tables, lens, act, lora_idx=None):
             if unified:
                 return forward(model, toks[:, None], pos[:, None], kv, tables,
                                lens, valid=act[:, None],
-                               attention_fn=attention_fn, matmul_fn=matmul_fn)
+                               attention_fn=attention_fn, matmul_fn=matmul_fn,
+                               lora=lora, lora_idx=lora_idx)
             return forward_decode(model, toks, pos, kv, tables, lens, act,
                                   decode_attention_fn=decode_fn,
-                                  matmul_fn=matmul_fn)
+                                  matmul_fn=matmul_fn, lora=lora,
+                                  lora_idx=lora_idx)
         return fwd
 
     def _step_values(self, tokens, positions, block_tables, kv_lens, active,
-                     temperature, top_p, top_k, seeds, steps) -> dict:
+                     temperature, top_p, top_k, seeds, steps,
+                     lora_idx=None) -> dict:
+        """A decode-kind step's inputs by name; with a slot pack, the rows'
+        adapter slots too (0, the base model, when not given)."""
         if steps is None:
             steps = np.zeros(len(positions), np.int32)
-        return {"tokens": tokens, "positions": positions,
-                "tables": block_tables, "lens": kv_lens, "active": active,
-                "temperature": temperature, "top_p": top_p, "top_k": top_k,
-                "seeds": seeds, "steps": steps}
+        values = {"tokens": tokens, "positions": positions,
+                  "tables": block_tables, "lens": kv_lens, "active": active,
+                  "temperature": temperature, "top_p": top_p, "top_k": top_k,
+                  "seeds": seeds, "steps": steps}
+        if self.lora_pack is not None:
+            values["lora_idx"] = (np.zeros(len(positions), np.int64)
+                                  if lora_idx is None else lora_idx)
+        return values
 
     def _run_step(self, method: str, variant, forwards: int, step: Step,
                   values: dict, clone: bool = True) -> tuple:
@@ -637,6 +679,7 @@ class ModelRunner:
         want_logprobs: bool = False,
         want_logits: bool = False,
         logits_slots: Optional[Sequence[int]] = None,
+        lora_idx: Optional[np.ndarray] = None,  # [B] adapter slot per row
     ) -> np.ndarray:
         """One decode step for all slots; returns sampled tokens [B] on the
         host. `want_logprobs` fills `last_decode_sample`. `want_logits`
@@ -651,7 +694,7 @@ class ModelRunner:
 
         def step(x):
             logits = fwd(x["tokens"], x["positions"], x["tables"], x["lens"],
-                         x["active"])[:, 0, :]
+                         x["active"], x.get("lora_idx"))[:, 0, :]
             samp = (x["temperature"], x["top_p"], x["top_k"], x["seeds"],
                     x["steps"])
             out = (sample_with_logprobs(logits, *samp) if want_logprobs
@@ -660,7 +703,7 @@ class ModelRunner:
 
         values = self._step_values(tokens, positions, block_tables, kv_lens,
                                    active, temperature, top_p, top_k, seeds,
-                                   steps)
+                                   steps, lora_idx)
         if want_logits:
             # Static outputs, no clone: only the asked rows leave the graph.
             out = self._run_step("decode_logits", None, 1, step, values,
@@ -691,6 +734,7 @@ class ModelRunner:
         steps: Optional[np.ndarray] = None,
         k: int = 8,
         return_device: bool = False,
+        lora_idx: Optional[np.ndarray] = None,
     ):
         """K chained decode steps with no host sync; returns tokens [K, B].
         Callers guarantee every active slot has >= k tokens of page budget
@@ -708,8 +752,8 @@ class ModelRunner:
             grow = act.to(lens.dtype)  # inactive slots keep zero history
             out = []
             for _ in range(k):
-                nxt = sample(fwd(toks, pos, tables, lens, act)[:, 0, :],
-                             *samp, sidx)
+                nxt = sample(fwd(toks, pos, tables, lens, act,
+                                 x.get("lora_idx"))[:, 0, :], *samp, sidx)
                 out.append(nxt)
                 toks = nxt.long()
                 pos, lens, sidx = pos + 1, lens + grow, sidx + 1
@@ -718,7 +762,8 @@ class ModelRunner:
         (toks_k,) = self._run_step(
             "decode_multi", k, k, step,
             self._step_values(tokens, positions, block_tables, kv_lens,
-                              active, temperature, top_p, top_k, seeds, steps))
+                              active, temperature, top_p, top_k, seeds, steps,
+                              lora_idx))
         self.last_decode_sample = (None, None, None)
         if return_device:
             return toks_k
@@ -741,6 +786,7 @@ class ModelRunner:
         want_logits: bool = False,
         return_device: bool = False,
         logits_slots: Optional[Sequence[int]] = None,
+        lora_idx: Optional[np.ndarray] = None,
     ):
         """One speculative verification step. Returns (targets [B, K+1],
         n_accept [B]); callers commit targets[b, : n_accept[b] + 1], the
@@ -753,7 +799,7 @@ class ModelRunner:
         targets have been read back."""
         t = _shape(drafts)[1] + 1
         self.spec_steps += 1
-        model, kv = self.model, self.kv_cache
+        model, kv, lora = self.model, self.kv_cache, self.lora_pack
         _, _, spec_fn, matmul_fn = self._functions()
 
         def step(x):
@@ -763,7 +809,8 @@ class ModelRunner:
             logits = forward_spec(model, chunk, pos, kv, x["tables"],
                                   x["lens"], x["active"],
                                   spec_attention_fn=spec_fn,
-                                  matmul_fn=matmul_fn)
+                                  matmul_fn=matmul_fn, lora=lora,
+                                  lora_idx=x.get("lora_idx"))
             targets, n_accept = spec_verify(
                 logits, chunk[:, 1:], x["temperature"], x["top_p"],
                 x["top_k"], x["seeds"], x["steps"])
@@ -771,7 +818,7 @@ class ModelRunner:
 
         values = self._step_values(tokens, positions, block_tables, kv_lens,
                                    active, temperature, top_p, top_k, seeds,
-                                   steps)
+                                   steps, lora_idx)
         values["drafts"] = drafts
         if want_logits:
             # Static outputs: the targets are cloned, the logits indexed to
@@ -790,6 +837,50 @@ class ModelRunner:
         if want_logits:
             self.last_spec_logits = self.last_spec_logits.numpy()
         return targets, n_accept
+
+    # -- the LoRA slot pack ----------------------------------------------------
+
+    def _check_slot(self, slot: int) -> None:
+        if self.lora_pack is None:
+            raise RuntimeError("runner built with max_loras=0")
+        if not 1 <= slot <= self.config.max_loras:
+            raise ValueError(f"bad lora slot {slot}")
+
+    @torch.inference_mode()
+    def set_lora_slot(self, slot: int, adapter) -> None:
+        """Write an adapter's factors (`llm.lora.LoraAdapter`: padded to the
+        slot rank, b scaled) into pack slot `slot`, in place; targets the
+        adapter does not give are zeroed. Run it on the scheduler thread
+        between steps (`run_in_step`), so no step reads a half-written slot:
+        the copies are queued on the stream the step graphs replay on."""
+        self._check_slot(slot)
+        dtype = torch_dtype(self.model_config.dtype)
+        for i, layer in enumerate(self.lora_pack):
+            provided = adapter.layers.get(i, {})
+            for target, entry in layer.items():
+                if target not in provided:
+                    entry["a"][slot].zero_()
+                    entry["b"][slot].zero_()
+                    continue
+                for part, value in zip(("a", "b"), provided[target]):
+                    host = torch.from_numpy(np.ascontiguousarray(value))
+                    entry[part][slot].copy_(host.to(dtype))
+
+    @torch.inference_mode()
+    def clear_lora_slot(self, slot: int) -> None:
+        """Zero pack slot `slot` in place (scheduler thread, between
+        steps)."""
+        self._check_slot(slot)
+        for layer in self.lora_pack:
+            for entry in layer.values():
+                entry["a"][slot].zero_()
+                entry["b"][slot].zero_()
+
+    def lora_pack_bytes(self) -> int:
+        """Device bytes of the slot pack (0 without one)."""
+        return sum(t.numel() * t.element_size()
+                   for layer in self.lora_pack or ()
+                   for entry in layer.values() for t in entry.values())
 
     # -- page I/O: KV transfers (llm/kv_transfer.py) --------------------------
 

@@ -75,8 +75,16 @@ committed sample's split in the stats. A sequence submitted with a
 (`runtime/flight_recorder.py`): scheduled, prefill_start, first_token, its
 prefill and decode device windows, and the drain rungs.
 
-Not ported yet (each is a later slice): LoRA and multimodal. Requests that
-need one of them finish with an error.
+Multi-LoRA: a sequence carries the adapter slot the worker resolved for it
+(`submit(lora_idx=)`, 0 the base model), and every step it joins feeds that
+slot to the runner (`_lora_idx` for decode-kind steps, each prefill row's
+own); preemption keeps it across a park and resume, and the prefix cache
+already salts block hashes by adapter (`request.kv_salt()`).
+`lora_in_flight` counts the live, waiting, incoming and parked sequences on
+a slot, so an unload cannot free a slot a parked sequence will resume on.
+
+Not ported yet (a later slice): multimodal. Such requests finish with an
+error.
 """
 
 from __future__ import annotations
@@ -196,6 +204,8 @@ class _Seq:
     # resume scatters exactly what the park gathered.
     priority_class: str = "standard"
     parked_pages: int = 0
+    # The adapter slot of the runner's LoRA pack (0: the base model)
+    lora_idx: int = 0
 
     @property
     def rank(self) -> int:
@@ -280,8 +290,6 @@ def _bundle_slice(blocks, lo: int, hi: int):
 
 def _unsupported(request: PreprocessedRequest) -> Optional[str]:
     """Why this engine cannot serve `request` yet, or None."""
-    if request.lora_name:
-        return "LoRA adapters are not ported yet"
     if request.media_hashes or request.media_embeddings is not None:
         return "multimodal requests are not ported yet"
     if request.annotations.get("embed"):
@@ -393,6 +401,7 @@ class InferenceScheduler:
         self._top_k = np.zeros(b, np.int32)
         self._seeds = np.zeros(b, np.uint32)
         self._steps = np.zeros(b, np.int32)
+        self._lora_idx = np.zeros(b, np.int32)
 
     # -- public (thread-safe) ---------------------------------------------
 
@@ -420,13 +429,15 @@ class InferenceScheduler:
         onboard_first_token: Optional[int] = None,
         resume_state: Optional[dict] = None,
         record_id: Optional[str] = None,
+        lora_idx: int = 0,
     ) -> "_SubmitHandle":
         """Queue a request. A prefill-only one (disaggregated prefill) stops
         after its prompt pass and parks its pages through `on_prefill_done`
         (and, streamed, `on_prefill_chunk`); one with `onboard_blocks`
         (pulled KV) skips prefill: with `onboard_first_token` it continues a
         remote prefill, with `resume_state` a drained peer's stream.
-        `record_id` names the flight-recorder timeline its phases stamp."""
+        `record_id` names the flight-recorder timeline its phases stamp;
+        `lora_idx` is its adapter slot (resolved by the caller)."""
         handle = _SubmitHandle(self._wake.set)
         self._incoming.put((request, emit, handle, {
             "prefill_only": prefill_only,
@@ -436,9 +447,23 @@ class InferenceScheduler:
             "onboard_first_token": onboard_first_token,
             "resume_state": resume_state,
             "record_id": record_id,
+            "lora_idx": lora_idx,
         }))
         self._wake.set()
         return handle
+
+    def lora_in_flight(self, lora_slot: int) -> int:
+        """Sequences still bound to an adapter slot: admitted, waiting,
+        just submitted, or parked by a preemption (it resumes on its slot;
+        the reference does not count parked ones). Scheduler thread only
+        (run it through `run_in_step`): the incoming queue is drained first,
+        so a submission that already resolved the adapter is counted."""
+        self._drain_incoming()
+        live = ([s for s in self._slots if s is not None] + self._waiting
+                + self._parked)
+        return sum(1 for s in live
+                   if s.lora_idx == lora_slot
+                   and not s.finished and not s.cancelled)
 
     def _queue_callback(self, q: thread_queue.Queue,
                         fn: Callable[[], object]) -> thread_queue.Queue:
@@ -1142,7 +1167,7 @@ class InferenceScheduler:
                 kv_len_after=seq.prefill_pos + chunk,
                 sampling=(sampling.temperature, sampling.top_p,
                           sampling.top_k, seq.seed),
-                return_device=not sync,
+                return_device=not sync, lora_idx=seq.lora_idx,
             )
         if sync:
             # the prompt pass's device window: first chunk dispatched ->
@@ -1178,7 +1203,7 @@ class InferenceScheduler:
             rows.append((np.asarray(seq.request.token_ids[
                 seq.prefill_pos : seq.prefill_pos + chunk], np.int32),
                 seq.prefill_pos, seq.block_table, seq.prefill_pos + chunk,
-                (s.temperature, s.top_p, s.top_k, seq.seed)))
+                (s.temperature, s.top_p, s.top_k, seq.seed), seq.lora_idx))
         want_samples = any(final and seq.request.sampling.logprobs
                            and not seq.processors
                            for final, (seq, _) in zip(finals, work))
@@ -1338,6 +1363,7 @@ class InferenceScheduler:
         self._temp[:] = 0.0
         self._top_p[:] = 1.0
         self._top_k[:] = 0
+        self._lora_idx[:] = 0
         for seq in ready:
             i = seq.slot
             self._tokens[i] = seq.last_token
@@ -1351,6 +1377,7 @@ class InferenceScheduler:
             self._top_k[i] = s.top_k
             self._seeds[i] = seq.seed
             self._steps[i] = len(seq.generated)
+            self._lora_idx[i] = seq.lora_idx
         want_logprobs = any(s.request.sampling.logprobs for s in ready)
         want_logits = any(s.processors for s in ready)
         spec = self._maybe_dispatch_spec(ready, want_logprobs, want_logits)
@@ -1385,7 +1412,7 @@ class InferenceScheduler:
                         self._kv_lens + d * block * self._active,
                         self._active, self._temp, self._top_p, self._top_k,
                         self._seeds, self._steps + d * block, k=block,
-                        return_device=True,
+                        return_device=True, lora_idx=self._lora_idx,
                     )
                     device_blocks.append(toks_dev)
             return ("blocks", device_blocks, ready, block)
@@ -1496,7 +1523,7 @@ class InferenceScheduler:
                 self._active, self._temp, self._top_p, self._top_k,
                 self._seeds, self._steps, want_logits=want_logits,
                 logits_slots=proc_slots if want_logits else None,
-                return_device=True)
+                return_device=True, lora_idx=self._lora_idx)
         logits = self.runner.last_spec_logits if want_logits else None
         return ("spec", targets, n_acc, ready, drafts, logits, proc_slots)
 
@@ -1619,7 +1646,8 @@ class InferenceScheduler:
                 self._tokens, self._positions, tables, self._kv_lens,
                 self._active, self._temp, self._top_p, self._top_k,
                 self._seeds, self._steps, want_logprobs=want_logprobs,
-                want_logits=want_logits, logits_slots=slots)
+                want_logits=want_logits, logits_slots=slots,
+                lora_idx=self._lora_idx)
         for seq in ready:
             seq.device_decode_ms += sc.device_ms
         lp_b, tid_b, tlp_b = self.runner.last_decode_sample

@@ -85,11 +85,22 @@ Every request's phases go on a flight-recorder timeline
 `kv_pull` event naming the link it took (`ici` or `dcn`) and the pull's
 split. LoadMetrics carry the last step's device / host split
 (`perf/steptrace.py`), and the metrics tick publishes the step histograms,
-the host-bound verdict and the live MFU and roofline-fraction gauges. Not
-ported yet: LoRA. The card names the worker's tool
-and reasoning parsers (`--tool-call-parser`, `--reasoning-parser`), and the
-scheduler's logits processors get the card's tokenizer, as in the
-reference.
+the host-bound verdict and the live MFU and roofline-fraction gauges. The
+card names the worker's tool and reasoning parsers (`--tool-call-parser`,
+`--reasoning-parser`), and the scheduler's logits processors get the card's
+tokenizer, as in the reference.
+
+Multi-LoRA (`RunnerConfig.max_loras` > 0, `--max-loras`, `--lora-rank`,
+`--lora NAME=PATH`): a `llm.lora.LoraManager` maps adapter names to the
+runner's slots, and `serve` registers the `lora_load`, `lora_unload` and
+`lora_list` endpoints, loads the startup adapters (after `prepare`, so a
+worker that arrived from any rung of the ladder serves them) and puts
+`runtime_config["lora"]` (slots, rank) and `["loras"]` (the loaded names)
+on the card, republished on every load and unload. A slot is written on the
+scheduler thread between steps; an unload is two-phase and refused while a
+sequence still uses the slot. `generate` resolves a request's
+`lora_name` to its slot after its last await, just before `submit`, and
+answers `adapter '<name>' not loaded here` in band when it has none.
 """
 
 from __future__ import annotations
@@ -126,6 +137,7 @@ from ..llm.kv_transfer import (
     StreamingTransfer,
     encode_block_chunks,
 )
+from ..llm.lora import LoraManager
 from ..llm.model_card import (
     CHAT,
     COMPLETIONS,
@@ -241,6 +253,7 @@ class TorchWorker:
         kvbm_config=None,
         weight_service: Optional[str] = None,
         weights_from_peer: bool = False,
+        lora_adapters: Optional[dict[str, str]] = None,  # name -> npz path
     ) -> None:
         """`model` is a preset name or a ModelConfig. Without `params` the
         weights are random, drawn from `seed` on `device`. `model_path`, an
@@ -275,7 +288,12 @@ class TorchWorker:
         service and the store for the next arrival. Without any of them,
         as before, the constructor loads the checkpoint or draws the
         weights at once, and `start()` (or `prepare()`) builds the kernels
-        and warms up. Either way `self.coldstart` stamps the rungs."""
+        and warms up. Either way `self.coldstart` stamps the rungs.
+
+        With `runner_config.max_loras` > 0 the worker serves LoRA adapters
+        (`self.loras`, a LoraManager); `lora_adapters` (name -> `.npz`
+        path) load when `serve` runs. Adapters without slots raise the
+        reference's ValueError."""
         if mode not in ("aggregated", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r} (expected aggregated, "
                              "prefill or decode)")
@@ -298,6 +316,16 @@ class TorchWorker:
                                  else model)
         self.runner_config = runner_config or RunnerConfig(
             page_size=env("DYNT_KV_BLOCK_SIZE"))
+        self.loras: Optional[LoraManager] = None
+        if self.runner_config.max_loras > 0:
+            self.loras = LoraManager(self.model_config,
+                                     self.runner_config.max_loras,
+                                     self.runner_config.lora_rank)
+        elif lora_adapters:
+            raise ValueError(
+                "LoRA adapters were given but max_loras=0 — set "
+                "--max-loras to enable adapter slots")
+        self._initial_loras = dict(lora_adapters or {})
         self._seed = seed
         self._attention_fn = attention_fn
         self._kvbm_config = kvbm_config
@@ -595,10 +623,12 @@ class TorchWorker:
 
     async def serve(self, runtime=None) -> None:
         """Register `generate`, `clear_kv_blocks`, `kv_blocks`, `kv_pull`,
-        `drain` and `weights` on `runtime`'s request plane (a
-        DistributedRuntime; default the one `prepare` was given), publish
-        the card, and start publishing KV events and load metrics on its
-        event plane: the ladder's `register` rung."""
+        `drain` and `weights` (and with adapter slots `lora_load`,
+        `lora_unload` and `lora_list`, then load the startup adapters) on
+        `runtime`'s request plane (a DistributedRuntime; default the one
+        `prepare` was given), publish the card, and start publishing KV
+        events and load metrics on its event plane: the ladder's `register`
+        rung."""
         t_register = time.monotonic()
         if runtime is not None:
             self.runtime = runtime
@@ -620,6 +650,19 @@ class TorchWorker:
             self._served.append(await component.endpoint(name).serve_endpoint(
                 handler, instance_id=self.instance_id,
                 health_check_payload=payload))
+        if self.loras is not None:
+            self.card.runtime_config["lora"] = {
+                "max_loras": self.runner_config.max_loras,
+                "rank": self.runner_config.lora_rank,
+            }
+            for name, handler in (("lora_load", self._lora_load),
+                                  ("lora_unload", self._lora_unload),
+                                  ("lora_list", self._lora_list)):
+                self._served.append(await component.endpoint(
+                    name).serve_endpoint(handler,
+                                         instance_id=self.instance_id))
+            for name, path in self._initial_loras.items():
+                await self.load_adapter(name, path)
         if getattr(self.runtime, "status_server", None) is not None:
             self.runtime.status_server.register_drain(self.drain)
         set_drain_state(self.instance_id, SERVING)
@@ -657,6 +700,73 @@ class TorchWorker:
             # still serve run_in_gap; close() then stops both.
             await asyncio.to_thread(self.kvbm.flush, 5.0)
         self.close()
+
+    # -- multi-LoRA ----------------------------------------------------------
+
+    async def load_adapter(self, name: str, path: str) -> int:
+        """Read and validate an adapter (off the event loop), write its slot
+        on the scheduler thread between steps, and republish the card.
+        Returns the slot; a failed slot write frees the name again."""
+        adapter = await asyncio.to_thread(self.loras.load, name, path)
+        q = self.scheduler.run_in_step(
+            lambda: self.runner.set_lora_slot(adapter.slot, adapter))
+        _, exc = await asyncio.to_thread(q.get)
+        if exc is not None:
+            self.loras.unload(name)
+            raise exc
+        await self._republish_loras()
+        return adapter.slot
+
+    async def _republish_loras(self) -> None:
+        """Advertise the loaded adapters on the card, so frontends route
+        `model=<adapter>` here; published once the worker serves."""
+        self.card.runtime_config["loras"] = self.loras.names()
+        if self._served and self.runtime is not None:
+            await publish_card(self.runtime, self.card, self.instance_id)
+
+    async def _lora_load(self, body: dict, ctx=None) -> AsyncIterator[dict]:
+        try:
+            name = body["name"]
+            slot = await self.load_adapter(name, body["path"])
+        except Exception as exc:  # noqa: BLE001 — reported, the endpoint
+            # keeps serving
+            yield {"error": str(exc)}
+            return
+        yield {"ok": True, "name": name, "slot": slot}
+
+    async def _lora_unload(self, body: dict, ctx=None) -> AsyncIterator[dict]:
+        """Two-phase unload: unmap the name (new requests fail fast, the
+        slot stays reserved), then on the scheduler thread refuse while any
+        sequence still uses the slot (live, waiting or parked): zeroing it,
+        or a later load reusing it, would switch weights under a stream.
+        Busy: the unload is aborted and the caller retries later."""
+        try:
+            name = body["name"]
+            adapter = self.loras.begin_unload(name)
+        except Exception as exc:  # noqa: BLE001
+            yield {"error": str(exc)}
+            return
+
+        def clear() -> None:
+            busy = self.scheduler.lora_in_flight(adapter.slot)
+            if busy:
+                raise RuntimeError(
+                    f"adapter {name!r} busy: {busy} in-flight sequence(s); "
+                    "retry after they finish")
+            self.runner.clear_lora_slot(adapter.slot)
+
+        _, exc = await asyncio.to_thread(
+            self.scheduler.run_in_step(clear).get)
+        if exc is not None:
+            self.loras.abort_unload(adapter)
+            yield {"error": str(exc)}
+            return
+        self.loras.commit_unload(adapter)
+        await self._republish_loras()
+        yield {"ok": True, "name": name}
+
+    async def _lora_list(self, body, ctx=None) -> AsyncIterator[dict]:
+        yield {"adapters": self.loras.list()}
 
     async def _clear_kv(self, body, ctx) -> AsyncIterator[dict]:
         cleared = self.scheduler.pool.clear()
@@ -1297,6 +1407,21 @@ class TorchWorker:
                     submit_kwargs.update(onboard_blocks=blocks,
                                          onboard_first_token=first_token)
                 # else: a plain submit recomputes the prefill
+            if request.lora_name:
+                # Resolve the slot after every await above: submit() runs in
+                # the same event-loop step, so lora_in_flight's drain of the
+                # incoming queue cannot miss a resolved sequence (a suspend
+                # between the two would let a concurrent unload free the
+                # slot, and a load repurpose it).
+                slot = (self.loras.slot_of(request.lora_name)
+                        if self.loras is not None else None)
+                if slot is None:
+                    yield EngineOutput(
+                        finish_reason="error",
+                        error=f"adapter {request.lora_name!r} not loaded here",
+                    ).to_wire()
+                    return
+                submit_kwargs["lora_idx"] = slot
             recorder.stamp(rec_id, "queued")
             handle = self.scheduler.submit(
                 request, emit, record_id=None if canary else rec_id,
@@ -1418,7 +1543,23 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "this component (striped across up to "
                              "DYNT_WEIGHT_STRIPE_DONORS, then one peer) "
                              "before the object store, checkpoint or init")
+    parser.add_argument("--max-loras", type=int, default=0,
+                        help="adapter slots for multi-LoRA serving (0=off)")
+    parser.add_argument("--lora-rank", type=int, default=8,
+                        help="shared slot rank (adapters with lower rank "
+                             "are zero-padded)")
+    parser.add_argument("--lora", action="append", default=[],
+                        metavar="NAME=PATH",
+                        help="adapter to load at startup (repeatable)")
     return parser
+
+
+def _lora_args(specs: list[str]) -> dict[str, str]:
+    """`--lora NAME=PATH` values as {name: path}."""
+    try:
+        return dict(spec.split("=", 1) for spec in specs)
+    except ValueError:
+        raise SystemExit(f"--lora takes NAME=PATH, got {specs!r}") from None
 
 
 async def main(argv: Optional[list[str]] = None) -> None:
@@ -1484,7 +1625,8 @@ async def main(argv: Optional[list[str]] = None) -> None:
                          max_batch=args.max_batch,
                          max_pages_per_seq=args.max_pages_per_seq,
                          weight_dtype=args.weight_dtype,
-                         kv_dtype=args.kv_dtype),
+                         kv_dtype=args.kv_dtype, max_loras=args.max_loras,
+                         lora_rank=args.lora_rank),
             model_path=args.model_path, served_name=args.served_model_name,
             device=device, namespace=args.namespace,
             component=component, tool_parser=args.tool_call_parser,
@@ -1492,7 +1634,8 @@ async def main(argv: Optional[list[str]] = None) -> None:
             kvbm_config=kvbm_config,
             weight_service=(args.weight_service
                             or env("DYNT_WEIGHT_SERVICE") or None),
-            weights_from_peer=args.weights_from_peer)
+            weights_from_peer=args.weights_from_peer,
+            lora_adapters=_lora_args(args.lora))
         await worker.prepare(runtime, prewarm=args.prewarm)
         if snapshot.enabled:
             snapshot.engine_ready()
@@ -1542,12 +1685,14 @@ async def _comesh_main(args, pools) -> None:
                       max_batch=args.max_batch,
                       max_pages_per_seq=args.max_pages_per_seq,
                       weight_dtype=args.weight_dtype,
-                      kv_dtype=args.kv_dtype)
+                      kv_dtype=args.kv_dtype, max_loras=args.max_loras,
+                      lora_rank=args.lora_rank)
     common = dict(model_path=args.model_path,
                   served_name=args.served_model_name,
                   namespace=args.namespace,
                   tool_parser=args.tool_call_parser,
-                  reasoning_parser=args.reasoning_parser, ici_bridge=bridge)
+                  reasoning_parser=args.reasoning_parser, ici_bridge=bridge,
+                  lora_adapters=_lora_args(args.lora))
     workers: list[TorchWorker] = []
     health: Optional[HealthCheckManager] = None
     try:

@@ -12,8 +12,10 @@ frontend's pipeline is
 (`PrefillRouterEngine`, the disaggregated prefill leg, is in
 `llm/prefill_router.py`), and the request's end-to-end deadline travels
 down it to the request plane. Each replay and handoff goes on the request's
-flight-recorder timeline as a `migration` event. Not ported yet: multimodal encoding, the
-session tier, the LoRA instance filter, the gateway's instance pin and the
+flight-recorder timeline as a `migration` event. Both router engines take
+the LoRA instance filter (`lora_instances`): a request naming an adapter
+goes only to instances whose cards advertise it. Not ported yet:
+multimodal encoding, the session tier, the gateway's instance pin and the
 otel spans.
 """
 
@@ -49,16 +51,29 @@ class TokenEngine:
 
 class RouterEngine(TokenEngine):
     """Dispatch to workers through a PushRouter (round_robin / random /
-    p2c)."""
+    p2c). `lora_instances(name)` (optional) gives the instance ids that
+    advertise a LoRA adapter; an adapter request routes only there (ref:
+    lora.rs: adapters are a routing constraint, not just a name)."""
 
-    def __init__(self, router: PushRouter) -> None:
+    def __init__(self, router: PushRouter, lora_instances=None) -> None:
         self.router = router
+        self._lora_instances = lora_instances
+
+    def _allowed(self, request: PreprocessedRequest) -> Optional[set]:
+        if not request.lora_name or self._lora_instances is None:
+            return None
+        allowed = self._lora_instances(request.lora_name)
+        if not allowed:
+            raise NoInstancesAvailable(
+                f"no instance has adapter {request.lora_name!r}")
+        return allowed
 
     async def generate(
         self, request: PreprocessedRequest
     ) -> AsyncIterator[EngineOutput]:
         async with contextlib.aclosing(self.router.generate(
-                request.to_wire(), deadline=request.deadline)) as stream:
+                request.to_wire(), deadline=request.deadline,
+                allowed=self._allowed(request))) as stream:
             async for item in stream:
                 yield EngineOutput.from_wire(item)
 
@@ -78,12 +93,17 @@ class KvRouterEngine(TokenEngine):
     (ref: lib/llm/src/kv_router.rs KvRouter + push_router.rs KvPushRouter).
     When the admission queue is enabled (DYNT_ROUTER_QUEUE_THRESHOLD >= 0),
     saturation parks requests in fcfs/lcfs/wspt order instead of routing
-    immediately (ref: lib/kv-router/src/scheduling/queue.rs)."""
+    immediately (ref: lib/kv-router/src/scheduling/queue.rs). With
+    `lora_instances`, an adapter request's candidates are the instances
+    that advertise the adapter, and it bypasses the admission gate as the
+    reference's does."""
 
     def __init__(self, router: PushRouter, scheduler: KvScheduler,
+                 lora_instances=None,
                  queue: Optional[SchedulerQueue] = None) -> None:
         self.router = router
         self.scheduler = scheduler
+        self._lora_instances = lora_instances
         if queue is None:
             threshold = env("DYNT_ROUTER_QUEUE_THRESHOLD")
             budget = env("DYNT_MAX_BATCHED_TOKENS")
@@ -101,6 +121,13 @@ class KvRouterEngine(TokenEngine):
     ) -> AsyncIterator[EngineOutput]:
         await self.router.client.start()
         avail = self.router.available()
+        pinned = False
+        if request.lora_name and self._lora_instances is not None:
+            has = self._lora_instances(request.lora_name)
+            avail = [i for i in avail if i in has]
+            # an adapter-constrained request bypasses the admission gate,
+            # as the reference's allowed-workers escape hatch
+            pinned = True
         if not avail:
             raise NoInstancesAvailable(self.router.client.endpoint.subject)
         block_hashes = compute_block_hashes(
@@ -114,6 +141,7 @@ class KvRouterEngine(TokenEngine):
             block_hashes=block_hashes,
             isl_tokens=len(request.token_ids),
             priority_jump=_priority_of(request),
+            pinned=pinned,
             request_id=request_id,
             deadline=request.deadline,
             priority_class=request.priority,

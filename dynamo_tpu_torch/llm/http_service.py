@@ -30,6 +30,10 @@ token, and closes it with the outcome (ok, error, cancelled, shed,
 deadline_exceeded); with DYNT_DEBUG_ENDPOINTS the frontend also serves
 /debug/requests and /debug/profile, as the status server does.
 
+A `model` names a model or a LoRA adapter a worker advertises: an adapter
+resolves, once a request, to its base model's pipeline with
+`lora_name` set, and `/v1/models` lists each adapter with its `parent`.
+
 Not ported yet: embeddings, messages, responses, images and videos; the
 per-model busy-threshold routes; sessions; tracing and audit.
 """
@@ -142,13 +146,16 @@ class HttpService:
 
     # -- helpers -----------------------------------------------------------
 
-    def _lookup(self, model: str) -> ModelEntry:
-        entry = self.manager.get(model)
+    def _lookup(self, model: str) -> tuple[ModelEntry, Optional[str]]:
+        """A model or adapter name -> (entry, lora_name), resolved once a
+        request: resolving again later could fall back to the base model
+        when the adapter is unloaded meanwhile."""
+        entry, lora = self.manager.resolve(model)
         if entry is None:
             raise HTTPError(json_response(
                 _error_body(404, f"model '{model}' not found",
                             "model_not_found"), status=404))
-        return entry
+        return entry, lora
 
     @staticmethod
     def _retry_after(entry: ModelEntry) -> dict:
@@ -252,6 +259,9 @@ class HttpService:
         data = [{"id": card.name, "object": "model", "created": 0,
                  "owned_by": "dynamo_tpu"}
                 for card in self.manager.list_models()]
+        data += [{"id": name, "object": "model", "created": 0,
+                  "owned_by": "dynamo_tpu", "parent": base}
+                 for name, base in self.manager.list_adapters()]
         return json_response({"object": "list", "data": data})
 
     async def _health(self, _request: Request) -> Response:
@@ -281,7 +291,7 @@ class HttpService:
                 _error_body(400, "request body must be a JSON object"),
                 status=400)
         model = body.get("model", "")
-        entry = self._lookup(model)
+        entry, lora = self._lookup(model)
         self._check_busy(entry)
         deadline = self._admit_deadline(request, entry)
         self._check_queue_admission(entry, deadline,
@@ -299,6 +309,7 @@ class HttpService:
             return Response(TEMPLATE_ERROR_BODY, 500)
         # after preprocessing (the token cost is known), before dispatch
         self._check_tenant_quota(entry, preprocessed)
+        preprocessed.lora_name = lora
         preprocessed.deadline = deadline
         # Tool parsing activates only when the request declares tools (the
         # reference gates on request.tools the same way); reasoning parsing

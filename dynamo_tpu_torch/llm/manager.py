@@ -28,7 +28,14 @@ model's engine is a `PrefillRouterEngine`, which sends every request to the
 prefill pool first while the pool has a live instance and falls back to
 aggregated serving when the last one goes. A draining prefill worker stops
 getting new legs. Image, encoder and embedding cards are still logged and
-dropped: those pools, LoRA adapters and the session tier are not ported.
+dropped: those pools and the session tier are not ported.
+
+LoRA adapters are served as model names: each card's
+`runtime_config["loras"]` is recorded per instance (republished on every
+load and unload, dropped with the instance), `resolve(name)` maps an adapter
+name to its base model's entry, `list_adapters` feeds `/v1/models`, and
+both router engines send an adapter request only to the instances that
+advertise it (`lora_instances`).
 """
 
 from __future__ import annotations
@@ -78,6 +85,11 @@ class ModelEntry:
     # instance ids that announced their departure (card flag or
     # LoadMetrics.draining); cleared when the instance's record goes
     draining: set[int] = dataclasses.field(default_factory=set)
+    # instance id -> the adapters its card advertises; the model's adapter
+    # set is the union, and routing checks each instance
+    # (`lora_instances`)
+    instance_loras: dict[int, list[str]] = dataclasses.field(
+        default_factory=dict)
     # Deadline-aware admission (runtime/admission.py): depth from the
     # workers' published waiting_requests, drain rate from the frontend's
     # first tokens.
@@ -86,6 +98,12 @@ class ModelEntry:
 
     def __post_init__(self) -> None:
         self.wait_estimator.pool = f"decode:{self.card.name}"
+
+    def loras(self) -> set[str]:
+        return {name for ls in self.instance_loras.values() for name in ls}
+
+    def lora_instances(self, name: str) -> set[int]:
+        return {iid for iid, ls in self.instance_loras.items() if name in ls}
 
 
 class ModelManager:
@@ -108,9 +126,28 @@ class ModelManager:
         with self._lock:
             return self._models.get(name)
 
+    def resolve(self, name: str) -> tuple[Optional[ModelEntry],
+                                          Optional[str]]:
+        """A requested model name -> (entry, lora_name): a model's own name,
+        or an adapter advertised on some model's cards, which routes to that
+        base model with the adapter applied (ref: lora.rs)."""
+        with self._lock:
+            entry = self._models.get(name)
+            if entry is not None:
+                return entry, None
+            for entry in self._models.values():
+                if name in entry.loras():
+                    return entry, name
+        return None, None
+
     def list_models(self) -> list[ModelDeploymentCard]:
         with self._lock:
             return [e.card for e in self._models.values()]
+
+    def list_adapters(self) -> list[tuple[str, str]]:
+        """(adapter name, base model name) pairs of every entry."""
+        return [(name, entry.card.name) for entry in self.entries()
+                for name in sorted(entry.loras())]
 
     def entries(self) -> list[ModelEntry]:
         with self._lock:
@@ -206,6 +243,11 @@ class ModelWatcher:
             return
         newly_seen = instance_id not in entry.instances
         entry.instances.add(instance_id)
+        # per instance (cards republish on LoRA load / unload): never the
+        # entry's card wholesale, or the last publisher would clobber the
+        # others' adapters
+        entry.instance_loras[instance_id] = list(
+            card.runtime_config.get("loras", []))
         if card.runtime_config.get("draining"):
             # The worker announced its departure on the discovery plane:
             # stop selecting it, drop its radix state, and skip the
@@ -267,6 +309,7 @@ class ModelWatcher:
             if entry.card.endpoint_subject != subject:
                 continue
             entry.instances.discard(instance_id)
+            entry.instance_loras.pop(instance_id, None)
             # Deregistration completes a drain: a restarted worker at the
             # same id starts clean (the router's mark clears on the same
             # delete).
@@ -367,21 +410,31 @@ class ModelWatcher:
                   .component(card.component).endpoint(card.endpoint)
                   .client())
         scheduler: Optional[KvScheduler] = None
+        # shared with the entry below: routing reads the watcher's live
+        # per-instance adapter lists
+        instance_loras: dict[int, list[str]] = {}
+
+        def lora_lookup(adapter: str) -> set[int]:
+            return {iid for iid, ls in instance_loras.items()
+                    if adapter in ls}
+
         if self.router_mode == "kv":
             config = dataclasses.replace(self.kv_config or KvRouterConfig(),
                                          block_size=card.kv_block_size)
             scheduler = KvScheduler(config)
             router = PushRouter(client, mode="round_robin")
-            engine: TokenEngine = KvRouterEngine(router, scheduler)
+            engine: TokenEngine = KvRouterEngine(
+                router, scheduler, lora_instances=lora_lookup)
         else:
             router = PushRouter(client, mode=self.router_mode)
-            engine = RouterEngine(router)
+            engine = RouterEngine(router, lora_instances=lora_lookup)
         name = card.name
         engine = PrefillRouterEngine(
             engine, pool_lookup=lambda: self._prefill_pools.get(name))
         engine = Migration(engine, migration_limit=env("DYNT_MIGRATION_LIMIT"))
         return ModelEntry(card=card, preprocessor=OpenAIPreprocessor(card),
-                          engine=engine, router=router, scheduler=scheduler)
+                          engine=engine, router=router, scheduler=scheduler,
+                          instance_loras=instance_loras)
 
     # -- the event plane ---------------------------------------------------
 

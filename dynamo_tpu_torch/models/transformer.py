@@ -46,8 +46,22 @@ the normed `c_kv` and the rotated shared `k_rope`), then attends with the
 absorbed weights (`q_nope . w_uk` against the gathered latents, f32 scores
 and softmax, the latent context through `w_uv`), in plain PyTorch as the
 reference computes it in plain XLA, ignoring `attention_fn`. With a q LoRA
-rank (the V3 shape) the query is `rms(x @ w_dq) @ w_uq`. LoRA and
-multimodal splicing are not ported yet and raise.
+rank (the V3 shape) the query is `rms(x @ w_dq) @ w_uq`. Multimodal
+splicing is not ported yet and raises.
+
+Multi-LoRA (`LORA_TARGETS`, `lora_target_dims`, `init_lora_pack`,
+`_lora_delta`): every forward takes an adapter slot pack (`lora`, a list of
+per-layer dicts of `{"a": [S, din, r], "b": [S, r, dout]}`, slot 0 all
+zero: the base model) and a slot per row (`lora_idx` [B]), and adds each
+target's low-rank delta right after the base projection, as the reference
+does: after `quant_matmul` on a quantized leaf, before qk_norm and the rope
+for q / k / v, after `bo` for `wo`. The deltas are the reference's plain
+products (each row's factors gathered by its slot, then two `torch.bmm`),
+so one step serves any mix of adapters. MLA takes the `wq` delta as
+`q_extra`, added to the query before its split into the no-rope and rope
+parts. gpt-oss adapts `wo` only: the reference's gpt-oss block never applies
+`wq` / `wk` / `wv` deltas, so the port's `lora_target_dims` leaves them out
+and an adapter that holds them is refused at load.
 """
 
 from __future__ import annotations
@@ -349,6 +363,69 @@ def make_kv_cache(config: ModelConfig, num_pages: int, page_size: int,
 
 
 # ---------------------------------------------------------------------------
+# Multi-LoRA (adapter slots, one step for any mix)
+# ---------------------------------------------------------------------------
+
+# Projections a LoRA adapter may target (dense path; expert weights and the
+# MLA latent projections are out of scope, as in the reference).
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+# A slot pack: per layer, target -> {"a": [S, din, r], "b": [S, r, dout]}.
+LoraPack = list[dict[str, dict[str, torch.Tensor]]]
+
+
+def lora_target_dims(config: ModelConfig) -> dict[str, tuple[int, int]]:
+    """(din, dout) of every target this model family applies; a target
+    absent here is refused at load, never silently dropped. MLA has no dense
+    wk / wv (and no dense wq with a q LoRA rank); a MoE layer has no dense
+    MLP; gpt-oss adapts `wo` only, since the reference's gpt-oss attention
+    never applies wq / wk / wv deltas."""
+    h, hd = config.hidden, config.head_dim
+    qh, kh, m = config.n_q_heads, config.n_kv_heads, config.mlp_hidden
+    if config.is_mla:
+        dims = {"wo": (qh * config.mla_v_head_dim, h)}
+        if not config.mla_q_lora_rank:
+            dims["wq"] = (h, qh * (config.mla_nope_head_dim
+                                   + config.mla_rope_head_dim))
+    elif config.is_gptoss:
+        dims = {"wo": (qh * hd, h)}
+    else:
+        dims = {"wq": (h, qh * hd), "wk": (h, kh * hd), "wv": (h, kh * hd),
+                "wo": (qh * hd, h)}
+    if not config.n_experts:
+        dims.update({"w_gate": (h, m), "w_up": (h, m), "w_down": (m, h)})
+    return dims
+
+
+def init_lora_pack(config: ModelConfig, max_loras: int, rank: int, *,
+                   device: DeviceLike = "cuda") -> LoraPack:
+    """Zeroed adapter slots in the model dtype: for every layer and
+    target, a [S, din, rank] and b [S, rank, dout] with S = max_loras + 1.
+    Slot 0 stays zero (the base model), so a row without an adapter runs
+    the same step with lora_idx 0. Slots are written in place
+    (`ModelRunner.set_lora_slot`): the step graphs captured these
+    tensors' storage."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(config.dtype)
+    s = max_loras + 1
+    dims = lora_target_dims(config)
+    return [{t: {"a": torch.zeros((s, din, rank), dtype=dtype, device=dev),
+                 "b": torch.zeros((s, rank, dout), dtype=dtype, device=dev)}
+             for t, (din, dout) in dims.items()}
+            for _ in range(config.n_layers)]
+
+
+def _lora_delta(x: torch.Tensor, entry: dict,
+                idx: torch.Tensor) -> torch.Tensor:
+    """x [B, T, din]; entry {a [S, din, r], b [S, r, dout]}; idx [B] the
+    slot of each row. Each row's factors are gathered, then two batched
+    products, as the reference's einsums: returns [B, T, dout]."""
+    idx = idx.long()
+    low = torch.bmm(x, entry["a"][idx])  # [B, T, r]
+    return torch.bmm(low, entry["b"][idx])
+
+
+# ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
 
@@ -466,34 +543,56 @@ def _mm(x: torch.Tensor, w, k: int = 1,
     return (matmul_fn or quant_matmul)(x2, w).reshape(*lead, *w.out_axes)
 
 
-def _swiglu(x: torch.Tensor, p, mm: Optional[MatmulFn] = None) -> torch.Tensor:
+def _swiglu(x: torch.Tensor, p, mm: Optional[MatmulFn] = None,
+            ll: Optional[dict] = None,
+            lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The SwiGLU MLP; with `ll` (a layer's slot pack) each projection gets
+    its rows' LoRA deltas after the base product."""
     gate = _mm(x, p["w_gate"], matmul_fn=mm)
     up = _mm(x, p["w_up"], matmul_fn=mm)
-    return _mm(F.silu(gate) * up, p["w_down"], matmul_fn=mm)
+    if ll is not None:
+        gate = gate + _lora_delta(x, ll["w_gate"], lora_idx)
+        up = up + _lora_delta(x, ll["w_up"], lora_idx)
+    act = F.silu(gate) * up
+    down = _mm(act, p["w_down"], matmul_fn=mm)
+    if ll is not None:
+        down = down + _lora_delta(act, ll["w_down"], lora_idx)
+    return down
 
 
 def _mlp(x: torch.Tensor, lp, config: ModelConfig,
-         mm: Optional[MatmulFn] = None) -> torch.Tensor:
+         mm: Optional[MatmulFn] = None, ll: Optional[dict] = None,
+         lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The block after attention, on the residual x: gpt-oss's dense-over-
     experts block, the routed experts on a layer that holds a router
-    (stacks may mix dense and MoE layers), else the dense SwiGLU."""
+    (stacks may mix dense and MoE layers), else the dense SwiGLU (with the
+    MLP targets' LoRA deltas where the pack `ll` holds them)."""
     h = rms_norm(x, lp["mlp_norm"], config.rms_eps)
     if config.is_gptoss:
         return moe_gptoss(h, lp, config)
     if "router" in lp:
         return moe(h, lp, config)
-    return _swiglu(h, lp, mm)
+    return _swiglu(h, lp, mm, ll if ll and "w_gate" in ll else None,
+                   lora_idx)
 
 
 def _qkv(h: torch.Tensor, lp, config: ModelConfig, cos: torch.Tensor,
-         sin: torch.Tensor, mm: Optional[MatmulFn] = None):
+         sin: torch.Tensor, mm: Optional[MatmulFn] = None,
+         ll: Optional[dict] = None,
+         lora_idx: Optional[torch.Tensor] = None):
     """q, k, v of the normed residual h, rotated; a layer holding biases
-    (gpt-oss) adds them in the model dtype before the rope."""
+    (gpt-oss) adds them in the model dtype before the rope, and a pack
+    holding `wq` (`ll`) adds the rows' q / k / v LoRA deltas before the
+    norms and the rope."""
     q = _mm(h, lp["wq"], matmul_fn=mm)
     k = _mm(h, lp["wk"], matmul_fn=mm)
     v = _mm(h, lp["wv"], matmul_fn=mm)
     if "bq" in lp:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    if ll and "wq" in ll:
+        q = q + _lora_delta(h, ll["wq"], lora_idx).reshape(q.shape)
+        k = k + _lora_delta(h, ll["wk"], lora_idx).reshape(k.shape)
+        v = v + _lora_delta(h, ll["wv"], lora_idx).reshape(v.shape)
     if config.qk_norm:
         q = rms_norm(q, lp["q_norm"], config.rms_eps)
         k = rms_norm(k, lp["k_norm"], config.rms_eps)
@@ -723,6 +822,7 @@ def mla_attention_xla(
     kv_lens: torch.Tensor,  # [B] kv length AFTER this chunk
     valid: torch.Tensor,  # [B, T] bool
     rope_cos_sin: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    q_extra: Optional[torch.Tensor] = None,  # [B, T, qh*(nhd+rhd)] LoRA delta
 ) -> torch.Tensor:
     """MLA with weight absorption, the reference's `_mla_attention_block`:
     the chunk's latents (`rms(x @ w_dkv)` ++ the rotated `x @ w_kr`) are
@@ -731,7 +831,9 @@ def mla_attention_xla(
     gathered latent pages of the whole table, in f32, and no per-head K/V
     of past tokens is ever built. The latent context goes through `w_uv`
     in x's dtype. `rope_cos_sin` are `rope_tables` at the rope head dim
-    (computed here when not given). Returns [B, T, qh, vhd]."""
+    (computed here when not given). `q_extra`, the rows' `wq` LoRA delta,
+    joins the query before its split into the no-rope and rope parts.
+    Returns [B, T, qh, vhd]."""
     b = x.shape[0]
     nhd, rhd = config.mla_nope_head_dim, config.mla_rope_head_dim
     dc = config.mla_kv_lora_rank
@@ -742,6 +844,8 @@ def mla_attention_xla(
                 lp["w_uq"])
     else:
         q = _mm(x, lp["wq"])  # [B, T, qh, nhd + rhd]
+    if q_extra is not None:
+        q = q + q_extra.reshape(q.shape)
     q_nope, q_rope = q[..., :nhd], apply_rope(q[..., nhd:], cos, sin)
     c_kv = rms_norm(_mm(x, lp["w_dkv"]), lp["kv_norm"], config.rms_eps)
     k_rope = apply_rope(_mm(x, lp["w_kr"])[:, :, None, :], cos, sin)[:, :, 0]
@@ -773,15 +877,27 @@ def _logits(model: Transformer, x: torch.Tensor,
     return _mm(x, model.head, matmul_fn=mm).float()
 
 
-def _attn_out(attn: torch.Tensor, lp,
-              mm: Optional[MatmulFn] = None) -> torch.Tensor:
-    """The output projection, plus `bo` on a layer that holds it."""
+def _attn_out(attn: torch.Tensor, lp, mm: Optional[MatmulFn] = None,
+              ll: Optional[dict] = None,
+              lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The output projection, plus `bo` on a layer that holds it, then the
+    rows' `wo` LoRA delta where the pack `ll` holds it."""
     out = _mm(attn, lp["wo"], k=2, matmul_fn=mm)
-    return out + lp["bo"] if "bo" in lp else out
+    if "bo" in lp:
+        out = out + lp["bo"]
+    if ll and "wo" in ll:
+        b, t = attn.shape[:2]
+        out = out + _lora_delta(attn.reshape(b, t, -1), ll["wo"], lora_idx)
+    return out
+
+
+def _layer_pack(lora: Optional[LoraPack], layer_idx: int) -> dict:
+    """One layer's slot pack (empty without adapters)."""
+    return lora[layer_idx] if lora is not None else {}
 
 
 def _forward_deferred(model, tokens, positions, kv_cache, block_tables,
-                      kv_lens, active, attn_fn, matmul_fn):
+                      kv_lens, active, attn_fn, matmul_fn, lora, lora_idx):
     """Chunk forward with DEFERRED cache writes (tokens / positions [B, T]):
     every layer attends over (pool history + the chunk's K/V held in
     registers) through `attn_fn`; the pool is written once at the end for
@@ -798,13 +914,14 @@ def _forward_deferred(model, tokens, positions, kv_cache, block_tables,
     x = model.embed[tokens]  # [B, T, H]
     ks, vs = [], []
     for layer_idx, lp in enumerate(model.layers):
+        ll = _layer_pack(lora, layer_idx)
         h = rms_norm(x, lp["attn_norm"], config.rms_eps)
-        q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn)
+        q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn, ll, lora_idx)
         attn = attn_fn(q, kv_cache, layer_idx, block_tables, kv_lens, k, v)
         ks.append(k)
         vs.append(v)
-        x = x + _attn_out(attn, lp, matmul_fn)
-        x = x + _mlp(x, lp, config, matmul_fn)
+        x = x + _attn_out(attn, lp, matmul_fn, ll, lora_idx)
+        x = x + _mlp(x, lp, config, matmul_fn, ll, lora_idx)
     write_kv_stack(kv_cache, torch.stack(ks), torch.stack(vs), block_tables,
                    positions, active[:, None].expand(positions.shape))
     return _logits(model, x, matmul_fn)
@@ -820,17 +937,20 @@ def forward_decode(
     active: torch.Tensor,  # [B] bool
     decode_attention_fn: Optional[AttentionFn] = None,
     matmul_fn: Optional[MatmulFn] = None,
+    lora: Optional[LoraPack] = None,  # init_lora_pack()
+    lora_idx: Optional[torch.Tensor] = None,  # [B] adapter slot per row
 ) -> torch.Tensor:
     """Single-token decode with DEFERRED cache writes: every layer attends
     over (pool history + current-token K/V held in registers); the pool is
     written once at the end for all layers, in place. Returns logits
     [B, 1, V] f32. `decode_attention_fn` (q, kv, layer, tables, lens, k, v)
     overrides the plain history attention (the CUDA flash-decode kernel);
-    `matmul_fn` overrides `quant_matmul` for quantized leaves."""
+    `matmul_fn` overrides `quant_matmul` for quantized leaves; `lora` and
+    `lora_idx` add each row's adapter deltas."""
     return _forward_deferred(
         model, tokens[:, None], positions[:, None], kv_cache, block_tables,
         kv_lens, active, decode_attention_fn or paged_attention_decode_xla,
-        matmul_fn)
+        matmul_fn, lora, lora_idx)
 
 
 def forward_spec(
@@ -843,6 +963,8 @@ def forward_spec(
     active: torch.Tensor,  # [B] bool
     spec_attention_fn: Optional[AttentionFn] = None,
     matmul_fn: Optional[MatmulFn] = None,
+    lora: Optional[LoraPack] = None,
+    lora_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Speculative batched verification: `forward_decode` generalized to T
     tokens per slot, so one weight-streaming pass scores all T candidate
@@ -853,7 +975,8 @@ def forward_spec(
     plain `paged_attention_spec_xla` (the folded whole-pool kernel)."""
     return _forward_deferred(
         model, tokens, positions, kv_cache, block_tables, kv_lens, active,
-        spec_attention_fn or paged_attention_spec_xla, matmul_fn)
+        spec_attention_fn or paged_attention_spec_xla, matmul_fn, lora,
+        lora_idx)
 
 
 def forward(
@@ -867,12 +990,16 @@ def forward(
     attention_fn: Optional[AttentionFn] = None,
     matmul_fn: Optional[MatmulFn] = None,
     last_idx: Optional[torch.Tensor] = None,  # [B] int64
+    lora: Optional[LoraPack] = None,  # init_lora_pack()
+    lora_idx: Optional[torch.Tensor] = None,  # [B] adapter slot per row
 ) -> torch.Tensor:
     """Unified chunk forward (prefill T > 1 or decode T = 1): each layer
     writes its K/V into the pool, then attends over the pool. Returns logits
     [B, T, V] f32, or with `last_idx` the rows x[b, last_idx[b]] only,
     [B, 1, V]: the final norm and the head then run on the sampled rows
-    alone (each row's values are the full logits' row)."""
+    alone (each row's values are the full logits' row). `lora` and
+    `lora_idx` add each row's adapter deltas (MLA's `wq` one as
+    `q_extra`)."""
     config = model.config
     if valid is None:
         valid = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
@@ -886,13 +1013,16 @@ def forward(
         cos, sin = rope_tables(positions, rotated, config.rope_theta)
     x = model.embed[tokens]  # [B, T, H]
     for layer_idx, lp in enumerate(model.layers):
+        ll = _layer_pack(lora, layer_idx)
         h = rms_norm(x, lp["attn_norm"], config.rms_eps)
         if config.is_mla:
-            attn = mla_attention_xla(h, lp, config, kv_cache, layer_idx,
-                                     block_tables, positions, kv_lens, valid,
-                                     (cos, sin))
+            attn = mla_attention_xla(
+                h, lp, config, kv_cache, layer_idx, block_tables, positions,
+                kv_lens, valid, (cos, sin),
+                q_extra=(_lora_delta(h, ll["wq"], lora_idx)
+                         if "wq" in ll else None))
         else:
-            q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn)
+            q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn, ll, lora_idx)
             write_kv_pages(kv_cache, layer_idx, k, v, block_tables,
                            positions, valid)
             if config.is_gptoss:
@@ -902,8 +1032,8 @@ def forward(
             else:
                 attn = attention(q, kv_cache, layer_idx, block_tables,
                                  positions, kv_lens)
-        x = x + _attn_out(attn, lp, matmul_fn)
-        x = x + _mlp(x, lp, config, matmul_fn)
+        x = x + _attn_out(attn, lp, matmul_fn, ll, lora_idx)
+        x = x + _mlp(x, lp, config, matmul_fn, ll, lora_idx)
     if last_idx is not None:
         x = torch.gather(x, 1, last_idx.long()[:, None, None].expand(
             -1, 1, x.shape[-1]))

@@ -107,12 +107,16 @@ class PushRouter:
                 if iid not in self._draining
                 and self.breakers.get(iid).can_attempt()]
 
-    async def _pick(self, body: Any, instance_id: Optional[int]) -> int:
+    async def _pick(self, body: Any, instance_id: Optional[int],
+                    allowed: Optional[set] = None) -> int:
         if self.mode == "direct":
             if instance_id is None:
                 raise ValueError("direct mode requires instance_id")
             return instance_id
         avail = self.available()
+        if allowed is not None:
+            # capability filter: only instances holding a LoRA adapter
+            avail = [i for i in avail if i in allowed]
         if instance_id is not None:
             # Explicit target: honoured only while it is live and its
             # breaker admits traffic, else fail fast so the caller
@@ -140,13 +144,16 @@ class PushRouter:
     async def generate(self, body: Any, instance_id: Optional[int] = None,
                        headers: Optional[dict] = None,
                        deadline: Optional[Deadline] = None,
+                       allowed: Optional[set] = None,
                        ) -> AsyncIterator[Any]:
         """Route and stream. On a transport failure before any output the
         instance's breaker records a failure and, if the retry budget
         admits it, another instance is tried after a jittered backoff; a
         failure after output is raised as ConnectionLost (migration is the
         pipeline's concern, llm/engine.py). The deadline (also read from
-        `headers`) is re-encoded onto every attempt and bounds the loop."""
+        `headers`) is re-encoded onto every attempt and bounds the loop.
+        `allowed` restricts the candidates (the instances holding a
+        request's LoRA adapter)."""
         await self.client.start()
         if deadline is None:
             deadline = Deadline.from_wire(headers)
@@ -156,7 +163,7 @@ class PushRouter:
         while True:
             if deadline is not None and deadline.expired():
                 raise DeadlineExceeded(f"deadline exceeded routing {subject}")
-            iid = await self._pick(body, instance_id)
+            iid = await self._pick(body, instance_id, allowed)
             breaker = self.breakers.get(iid)
             owns_probe = False
             if self.mode != "direct":

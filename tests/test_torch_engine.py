@@ -188,6 +188,9 @@ def test_worker_generate_wire_stream(params, run, monkeypatch):
     {"annotations": {"embed": True}},
 ], ids=["lora", "multimodal", "embed"])
 def test_unported_request_features_error_in_band(params, run, feature):
+    """Multimodal and embedding requests are not ported and error in band;
+    an adapter request on a worker without that adapter gets the
+    reference's in-band refusal."""
     worker = TorchWorker(CFG, RunnerConfig(**RUNNER), device="cpu",
                          params=params_from_numpy(params, CFG, device="cpu"))
     worker.start()
@@ -203,4 +206,6 @@ def test_unported_request_features_error_in_band(params, run, feature):
         frames = run(collect())
     finally:
         worker.close()
-    assert frames[-1]["f"] == "error" and "not ported yet" in frames[-1]["err"]
+    want = ("adapter 'adapter' not loaded here" if "lora_name" in feature
+            else "not ported yet")
+    assert frames[-1]["f"] == "error" and want in frames[-1]["err"]

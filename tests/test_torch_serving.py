@@ -570,7 +570,7 @@ def test_cli_refuses_what_is_not_ported():
                  ["--audit-sinks", "log"], ["--kserve-grpc-port", "1"]):
         with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
             build_arg_parser().parse_args(argv)
-    for argv in (["--mode", "gang"], ["--max-loras", "2"],
+    for argv in (["--mode", "gang"],
                  ["--tp", "2"], ["--kv-dtype", "fp8"],
                  ["--model-ref", "ns/model"]):
         with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
@@ -578,6 +578,8 @@ def test_cli_refuses_what_is_not_ported():
     # --mode comesh is served (engine/ici_transfer.py); --dp only parses:
     # data parallelism is refused when the worker starts
     assert worker_cli().parse_args(["--mode", "comesh"]).mode == "comesh"
+    # multi-LoRA is served (llm/lora.py): its flags parse
+    assert worker_cli().parse_args(["--max-loras", "2"]).max_loras == 2
     with pytest.raises(SystemExit, match="--dp > 1 is not ported"):
         asyncio.run(worker_main(["--dp", "2", "--device", "cpu"]))
     assert worker_cli().parse_args([]).device == "cuda"
