@@ -71,6 +71,21 @@ Phases, each printing one JSON line:
               stream, a stream cut by its client frees its pages; TTFT and
               ITL over HTTP beside direct, the frontend's and the request
               plane's CPU shares
+  serve_edge - the rest of the text edge on that worker: eager
+              `runner.embed` timed at 32, 300 and 1,500 tokens (buckets 32,
+              512, 2,048) and, at 300, held against `forward_embed` at
+              exactly 300 tokens (cosine >= 0.9999); then /v1/embeddings
+              (strings and token arrays, float and base64: unit norms,
+              base64 equal to float bit for bit, repeatable, the usage; the
+              adapter and over-context 400s), one greedy conversation
+              through /v1/chat/completions, /v1/messages and /v1/responses
+              (aggregated and streamed: six equal texts, the reference's SSE
+              event orders, stop_reason max_tokens and stop_sequence), a
+              chat stream under a macro / set-block / selectattr template
+              equal to a direct run of its rendered prompt, the busy 503,
+              /clear_kv_blocks (no prefix-cache hit after it),
+              /openapi.json and /docs; TTFT and ITL per route; row 1
+              counted
   checkpoint - that worker's weights written as an HF checkpoint
               directory (safetensors shards of at most 5 GB, the index,
               config.json, a generated Llama-3-form tokenizer.json of
@@ -180,6 +195,11 @@ Phases, each printing one JSON line:
   graphs_q  - graphs_bf16 on that runner, plus a spec step at K = 5 (M =
               16 x 6 = 96: the GEMMs' TMA prefill body inside the graph)
   serve_q   - serve_bf16 on that worker (rows 2 and 6 under HTTP)
+  serve_edge_q - W4A16 embeddings of 300 and 1,500 tokens held against
+              the plain `quant_matmul_ref` projections on the card (cosine
+              >= 0.999; row 6's prefill body at M = 512 and 2,048, 7
+              launches a layer an embedding) and one streamed /v1/messages
+              request (row 2 under decode)
   logits_q  - logits processors and structured outputs on that worker over
               HTTP, its card naming the hermes tool parser: 8 concurrent
               requests of 256-1,024 tokens (two greedy controls; penalties;
@@ -2543,7 +2563,10 @@ async def _http(port: int, method: str, path: str, body=None,
             now = time.perf_counter()
             while b"\n\n" in buf:
                 event, buf = buf.split(b"\n\n", 1)
-                events.append((now, event.decode()[len("data: "):]))
+                text = event.decode()
+                # a named event (event: ... / data: ...) is kept whole
+                events.append((now, text if text.startswith("event: ")
+                               else text[len("data: "):]))
             if cut_after_events and len(events) >= cut_after_events:
                 return {"status": status, "events": events, "t0": t0,
                         "headers": headers}
@@ -2912,6 +2935,471 @@ def phase_serve(dev: torch.device, worker, label: str) -> None:
          prefill_forwards=runner.prefill_steps, kernel_launches=out[
              "launches"], **graph_report(runner),
          seconds=time.perf_counter() - t_phase)
+
+
+# The serving edge's other routes (serve_edge / serve_edge_q)
+EDGE_TEMPLATE = (
+    "{%- macro turn(role, text) -%}<|{{ role }}|>{{ text }}<|end|>"
+    "{%- endmacro -%}"
+    "{%- set system -%}{%- for m in messages|selectattr('role', 'equalto', "
+    "'system') -%}{{ m.content }}{%- endfor -%}{%- endset -%}"
+    "{%- if system %}{{ turn('system', system) }}{% endif -%}"
+    "{%- for m in messages|rejectattr('role', 'equalto', 'system') -%}"
+    "{{ turn(m.role, m.content) }}{%- endfor -%}"
+    "{%- if add_generation_prompt %}<|assistant|>{% endif -%}")
+EDGE_STRINGS = ("héllo edge", "The quick brown fox", "jumps over the lazy dog",
+                "{{ not a template }}")
+EDGE_LENGTHS = (32, 300, 1500)  # token-array inputs (serve_edge_q: 300, 1500)
+EDGE_TOKENS = 64  # output tokens of each chat / messages / responses request
+EDGE_STREAMS = 3  # streamed requests per route, for TTFT and ITL
+MESSAGES_EVENTS = ["message_start", "content_block_start",
+                   "content_block_delta", "content_block_stop",
+                   "message_delta", "message_stop"]
+RESPONSES_EVENTS = ["response.created", "response.output_text.delta",
+                    "response.output_text.done", "response.completed"]
+
+
+def _named_events(res: dict) -> list:
+    """(arrival, event name, data) of a named-event SSE answer."""
+    check(res["status"] == 200, f"HTTP {res['status']}: {res.get('text')}")
+    out = []
+    for at, text in res["events"]:
+        name, _, data = text.partition("\n")
+        check(name.startswith("event: ") and data.startswith("data: "),
+              f"not a named SSE event: {text!r}")
+        out.append((at, name[len("event: "):],
+                    json.loads(data[len("data: "):])))
+    return out
+
+
+def _event_text(events: list, delta_event: str) -> tuple:
+    """(text, arrival stamps of its deltas) of a messages or responses
+    stream."""
+    text, stamps = [], []
+    for at, name, data in events:
+        if name == delta_event:
+            piece = (data["delta"]["text"] if name == "content_block_delta"
+                     else data["delta"])
+            text.append(piece)
+            stamps.append(at)
+    return "".join(text), stamps
+
+
+def _route_order(events: list) -> list:
+    names = [name for _, name, _ in events]
+    return [n for i, n in enumerate(names) if i == 0 or names[i - 1] != n]
+
+
+def phase_serve_edge(dev: torch.device, worker, label: str) -> dict:
+    """The rest of the text serving edge on a served runner (after
+    phase_serve; its scheduler stopped), through the port's runtime,
+    `worker.serve()` and Frontend in this process, with the card's chat
+    template set to EDGE_TEMPLATE (a macro, a {% set %} block, selectattr).
+    First, off the serving path, `runner.embed` (eager, padded to its
+    prefill bucket) timed at EDGE_LENGTHS, and held against
+    `forward_embed` at exactly 300 tokens (bf16; cosine >= 0.9999: the
+    padding mask and the pooling) or against the plain `quant_matmul_ref`
+    projections at the bucket (W4A16; cosine >= 0.999). Then, with every
+    kernel count at 0: /v1/embeddings (the four strings and the token
+    arrays, float and base64, the arrays twice; W4A16: the 300- and
+    1,500-token arrays) with unit norms, base64 equal to float bit for bit,
+    the same input twice equal bit for bit and the reference's usage; the
+    adapter-name and over-context refusals (400); one greedy conversation
+    through /v1/chat/completions, /v1/messages and /v1/responses,
+    aggregated once and streamed EDGE_STREAMS times each, each on a fresh
+    scheduler (no prefix-cache hit), every text equal,
+    the SSE event orders the reference's, stop_reason max_tokens at the
+    length limit and stop_sequence when a stop string fires (W4A16: one
+    streamed /v1/messages request); a chat stream under the edge template
+    equal to a direct run of its rendered prompt; the busy 503 at
+    threshold 0 and service again at 1; /clear_kv_blocks listing the
+    worker, after which the same prompt gets no prefix-cache hit; and
+    /openapi.json listing exactly the registered routes, /docs 200. The
+    launches are the phase's forwards' (`expected_counts`) plus, on
+    W4A16, 7 projections a layer for every embedding. Returns them."""
+    import base64
+    import tempfile
+
+    from dynamo_tpu_torch.config import env
+    from dynamo_tpu_torch.frontend import Frontend
+    from dynamo_tpu_torch.llm.chat_template import ChatTemplate
+    from dynamo_tpu_torch.llm.http_service import ROUTES
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.models.transformer import (
+        forward_embed,
+        quant_matmul_ref,
+    )
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    t_phase = time.perf_counter()
+    runner = worker.runner
+    model = worker.card.name
+    quantized = runner.config.weight_dtype != "model"
+    n_layers = worker.model_config.n_layers
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(SEED + 24)
+    lengths = EDGE_LENGTHS[1:] if quantized else EDGE_LENGTHS
+    arrays = {n: rng.integers(1, 256, n).tolist() for n in lengths}
+
+    # off the serving path: eager embedding times, and the vectors the
+    # served ones are held against (bf16: at exactly 300 tokens, all
+    # valid; W4A16: the plain projections at the bucket)
+    embed_ms, held = {}, {}
+    with torch.inference_mode():
+        for n in lengths:
+            ids = np.asarray(arrays[n], np.int32)
+            runner.embed(ids)
+            embed_ms[n] = float(np.median(
+                [_wall_ms(lambda: runner.embed(ids)) for _ in range(3)]))
+            if quantized:
+                bucket = runner._bucket_for(n)
+                tokens = torch.zeros((1, bucket), dtype=torch.long,
+                                     device=dev)
+                tokens[0, :n] = torch.tensor(arrays[n], device=dev)
+                valid = torch.arange(bucket, device=dev)[None] < n
+                held[n] = forward_embed(runner.model, tokens, valid,
+                                        matmul_fn=quant_matmul_ref)[0]
+            elif n == 300:
+                tokens = torch.tensor([arrays[n]], device=dev)
+                held[n] = forward_embed(
+                    runner.model, tokens,
+                    torch.ones_like(tokens, dtype=torch.bool))[0]
+    held = {n: v.cpu().numpy() for n, v in held.items()}
+    buckets = {n: runner._bucket_for(n) for n in lengths}
+
+    conv = [{"role": "system", "content": "edge"},
+            {"role": "user", "content": "héllo"}]
+    greedy = {"model": model, "temperature": 0.0}
+    chat_body = {**greedy, "messages": conv, "max_tokens": EDGE_TOKENS}
+    msg_body = {**greedy, "system": "edge", "max_tokens": EDGE_TOKENS,
+                "messages": [{"role": "user", "content": "héllo"}]}
+    resp_body = {**greedy, "instructions": "edge", "input": "héllo",
+                 "max_output_tokens": EDGE_TOKENS}
+    saved_template = worker.card.chat_template
+
+    async def post(port: int, path: str, body: dict) -> dict:
+        res = await _http(port, "POST", path, body)
+        check(res["status"] == 200,
+              f"{label}: {path} answered {res['status']}: "
+              f"{res.get('text', '')[:300]}")
+        return res
+
+    async def serve() -> dict:
+        root = tempfile.mkdtemp(prefix="chip_smoke_edge_")
+        cfg = RuntimeConfig(discovery_backend="file", discovery_path=root,
+                            tcp_host="127.0.0.1", system_enabled=False)
+        rt = await DistributedRuntime(cfg).start()
+        frontend = Frontend(rt, host="127.0.0.1", port=0)
+        worker.card.chat_template = EDGE_TEMPLATE
+        out: dict = {}
+        try:
+            _fresh_scheduler(worker)
+            await worker.serve(rt)
+            await frontend.start()
+            port = frontend.port
+            t_list = time.perf_counter()
+            while frontend.manager.get(model) is None:
+                check(time.perf_counter() - t_list < 30,
+                      f"{label}: the frontend never listed {model}")
+                await asyncio.sleep(0.05)
+            entry = frontend.manager.get(model)
+            # counts to zero just before the main path
+            reset_counts()
+            reset_runner_counts(runner)
+            calls0 = runner.embed_calls
+            inputs = {"tokens": [arrays[n] for n in lengths]}
+            if not quantized:
+                inputs["strings"] = list(EDGE_STRINGS)
+            emb = {}
+            for key, inp in inputs.items():
+                for enc in (("float",) if quantized else ("float", "base64")):
+                    res = await post(port, "/v1/embeddings", {
+                        "model": model, "input": inp,
+                        "encoding_format": enc})
+                    emb[key, enc] = json.loads(res["text"])
+            res = await post(port, "/v1/embeddings",
+                             {"model": model, "input": inputs["tokens"]})
+            emb["again"] = json.loads(res["text"])
+            out["embeddings"] = emb
+            if not quantized:
+                entry.instance_loras[-1] = ["edge-adapter"]
+                try:
+                    out["refused_adapter"] = await _http(
+                        port, "POST", "/v1/embeddings",
+                        {"model": "edge-adapter", "input": "x"})
+                finally:
+                    entry.instance_loras.pop(-1)
+                out["refused_long"] = await _http(
+                    port, "POST", "/v1/embeddings",
+                    {"model": model, "input": [1] * entry.card.context_length})
+            # chat, messages and responses: aggregated, then streamed
+            routes = () if quantized else (
+                ("chat", "/v1/chat/completions", chat_body),
+                ("messages", "/v1/messages", msg_body),
+                ("responses", "/v1/responses", resp_body))
+            texts, lat = {}, {}
+            for name, path, body in routes:
+                # each request on a fresh scheduler: every one computes
+                # its whole prefill (a prefix-cache hit's shorter chunk
+                # may part a greedy bf16 stream at a near tie)
+                _fresh_scheduler(worker)
+                res = await post(port, path, body)
+                data = json.loads(res["text"])
+                if name == "chat":
+                    texts[name, "aggregate"] = data["choices"][0]["message"][
+                        "content"]
+                elif name == "messages":
+                    texts[name, "aggregate"] = data["content"][0]["text"]
+                    out["messages_aggregate"] = data
+                else:
+                    texts[name, "aggregate"] = data["output"][0]["content"][
+                        0]["text"]
+                pairs = []
+                streamed = {**body, "stream": True}
+                if name == "chat":
+                    streamed["stream_options"] = {"include_usage": True}
+                for i in range(EDGE_STREAMS):
+                    _fresh_scheduler(worker)
+                    res = await post(port, path, streamed)
+                    if name == "chat":
+                        got = _sse_outcome(res)
+                        text, stamps = got["text"], got["stamps"]
+                        n_out = got["usage"]["completion_tokens"]
+                    else:
+                        events = _named_events(res)
+                        out[f"{name}_order"] = _route_order(events)
+                        text, stamps = _event_text(
+                            events, "content_block_delta"
+                            if name == "messages"
+                            else "response.output_text.delta")
+                        if name == "messages":
+                            (delta,) = [d for _, e, d in events
+                                        if e == "message_delta"]
+                            out["messages_stream_stop"] = delta
+                            n_out = delta["usage"]["output_tokens"]
+                        else:
+                            n_out = events[-1][2]["response"]["usage"][
+                                "output_tokens"]
+                    texts[name, f"stream{i}"] = text
+                    pairs.append((res["t0"], stamps, n_out))
+                lat[name] = {
+                    "ttft_ms_mean": float(np.mean(
+                        [(st[0] - t0) * 1e3 for t0, st, _ in pairs])),
+                    "itl_ms_mean": float(np.mean(
+                        [(st[-1] - st[0]) * 1e3 / max(1, n - 1)
+                         for _, st, n in pairs]))}
+            if quantized:
+                res = await post(port, "/v1/messages",
+                                 {**msg_body, "stream": True})
+                events = _named_events(res)
+                out["messages_order"] = _route_order(events)
+                texts["messages", "stream0"], stamps = _event_text(
+                    events, "content_block_delta")
+                lat["messages"] = {"ttft_ms": (stamps[0] - res["t0"]) * 1e3}
+            out["texts"], out["latency"] = texts, lat
+            if not quantized:
+                # a stop sequence that fires, aggregated and streamed
+                text = texts["chat", "aggregate"]
+                stop = text[8:11]
+                out["stop"] = stop
+                stopped = []
+                for stream in (False, True):
+                    _fresh_scheduler(worker)
+                    res = await post(port, "/v1/messages", {
+                        **msg_body, "stop_sequences": [stop],
+                        "stream": stream})
+                    if stream:
+                        events = _named_events(res)
+                        (delta,) = [d for _, e, d in events
+                                    if e == "message_delta"]
+                        stopped.append((_event_text(
+                            events, "content_block_delta")[0],
+                            delta["delta"]["stop_reason"],
+                            delta["delta"]["stop_sequence"]))
+                    else:
+                        data = json.loads(res["text"])
+                        stopped.append((data["content"][0]["text"],
+                                        data["stop_reason"],
+                                        data["stop_sequence"]))
+                out["stopped"] = stopped
+                # the edge template's chat stream against a direct run
+                edge = {**chat_body, "ignore_eos": True, "stream": True,
+                        "stream_options": {"include_usage": True}}
+                _fresh_scheduler(worker)
+                res = await post(port, "/v1/chat/completions", edge)
+                out["edge_chat"] = _sse_outcome(res)
+                prompt_ids = tok.encode(ChatTemplate(EDGE_TEMPLATE).render(
+                    messages=conv, add_generation_prompt=True))
+                _fresh_scheduler(worker)
+                direct = await _stream(worker, _body("edge-0", prompt_ids,
+                                                     0.0, 1.0))
+                out["edge_direct"] = direct["tokens"]
+                out["edge_prompt_tokens"] = len(prompt_ids)
+                # the busy threshold: 0 sheds once a load is published
+                res = await post(port, "/busy_threshold", {
+                    "model": model, "active_decode_blocks_threshold": 0.0})
+                t_load = time.perf_counter()
+                while not entry.worker_usage:
+                    check(time.perf_counter() - t_load < 30,
+                          f"{label}: no load metrics reached the frontend")
+                    await asyncio.sleep(0.05)
+                small = {**chat_body, "max_tokens": 4}
+                out["busy"] = (await _http(port, "POST",
+                                           "/v1/chat/completions", small))
+                await post(port, "/busy_threshold", {
+                    "model": model, "active_decode_blocks_threshold": 1.0})
+                out["unbusy"] = await _http(port, "POST",
+                                            "/v1/chat/completions", small)
+                # clear_kv_blocks: a prefix hit, then none after the clear
+                comp = {**greedy, "prompt": arrays[300], "max_tokens": 1}
+                computed = []
+                for clear in (False, False, True):
+                    if clear:
+                        res = await post(port, "/clear_kv_blocks", {})
+                        out["cleared"] = json.loads(res["text"])
+                    before = worker.scheduler.stats.prefill_tokens
+                    await post(port, "/v1/completions", comp)
+                    computed.append(worker.scheduler.stats.prefill_tokens
+                                    - before)
+                out["prefill_computed"] = computed
+                # the documented routes are the registered ones
+                res = await _http(port, "GET", "/openapi.json")
+                doc = json.loads(res["text"])
+                out["openapi"] = {(m, p) for p, ms in doc["paths"].items()
+                                  for m in ms}
+                debug = bool(env("DYNT_DEBUG_ENDPOINTS"))
+                out["routes"] = {(m, p) for m, p, _, _ in ROUTES
+                                 if debug or not p.startswith("/debug/")}
+                res = await _http(port, "GET", "/docs")
+                out["docs"] = (res["status"], res["headers"].get(
+                    "content-type", ""))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["launches"] = read_counts()
+            out["embed_calls"] = runner.embed_calls - calls0
+        finally:
+            worker.card.chat_template = saved_template
+            await frontend.close()
+            await worker.shutdown()
+            await rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        return out
+
+    out = asyncio.run(serve())
+    emb = out["embeddings"]
+    for key, data in emb.items():
+        for item in data["data"]:
+            vec = item["embedding"]
+            vec = (np.frombuffer(base64.b64decode(vec), "<f4")
+                   if isinstance(vec, str) else np.asarray(vec, np.float32))
+            item["vector"] = vec
+            check(vec.shape == (worker.model_config.hidden,)
+                  and np.all(np.isfinite(vec))
+                  and abs(float(np.linalg.norm(vec)) - 1.0) < 1e-3,
+                  f"{label}: embedding {key}/{item['index']} is not a "
+                  "finite unit vector")
+    token_counts = {"tokens": [len(arrays[n]) for n in lengths],
+                    "strings": [len(tok.encode(s)) for s in EDGE_STRINGS],
+                    "again": [len(arrays[n]) for n in lengths]}
+    for key, data in emb.items():
+        counts = token_counts[key[0] if isinstance(key, tuple) else key]
+        check(data["usage"] == {"prompt_tokens": sum(counts),
+                                "total_tokens": sum(counts)}
+              and len(data["data"]) == len(counts),
+              f"{label}: embeddings {key} usage {data['usage']}")
+    vectors = {k: [i["vector"] for i in d["data"]] for k, d in emb.items()}
+    for a, b in zip(vectors["tokens", "float"], vectors["again"]):
+        check(a.tobytes() == b.tobytes(),
+              f"{label}: the same input twice gave different vectors")
+    served = dict(zip(lengths, vectors["tokens", "float"]))
+    cosine = {n: float(np.dot(served[n], v)) for n, v in held.items()}
+    floor = 0.999 if quantized else 0.9999
+    check(all(c >= floor for c in cosine.values()),
+          f"{label}: embedding cosine {cosine} below {floor}")
+    if not quantized:
+        for key in ("tokens", "strings"):
+            for a, b in zip(vectors[key, "float"], vectors[key, "base64"]):
+                check(a.tobytes() == b.tobytes(),
+                      f"{label}: base64 {key} differs from float")
+        for name in ("refused_adapter", "refused_long"):
+            res = out[name]
+            check(res["status"] == 400 and json.loads(res["text"])["error"][
+                "code"] == 400, f"{label}: {name} answered {res}")
+    texts = out["texts"]
+    first = next(iter(texts.values()))
+    check(all(t == first for t in texts.values()) and first,
+          f"{label}: the routes' texts differ: {texts}")
+    check(out["messages_order"] == MESSAGES_EVENTS,
+          f"{label}: messages events {out['messages_order']}")
+    if not quantized:
+        check(out["responses_order"] == RESPONSES_EVENTS,
+              f"{label}: responses events {out['responses_order']}")
+        agg = out["messages_aggregate"]
+        full = agg["usage"]["output_tokens"] == EDGE_TOKENS
+        check(agg["stop_reason"] == ("max_tokens" if full else "end_turn")
+              and agg["stop_sequence"] is None
+              and out["messages_stream_stop"]["delta"]["stop_reason"]
+              == agg["stop_reason"],
+              f"{label}: messages stop_reason {agg['stop_reason']} at "
+              f"{agg['usage']['output_tokens']} tokens")
+        stop = out["stop"]
+        want_stop = (texts["chat", "aggregate"][
+            :texts["chat", "aggregate"].index(stop)], "stop_sequence", stop)
+        check(len(stop) == 3 and out["stopped"] == [want_stop] * 2,
+              f"{label}: stop sequence {stop!r}: {out['stopped']}")
+        edge = out["edge_chat"]
+        check(edge["text"] == tok.decode(out["edge_direct"])
+              and edge["usage"]["completion_tokens"] == EDGE_TOKENS
+              and edge["usage"]["prompt_tokens"] == out["edge_prompt_tokens"],
+              f"{label}: the edge template's chat stream differs from the "
+              "direct run of its prompt")
+        check(out["busy"]["status"] == 503
+              and json.loads(out["busy"]["text"])["error"]["type"]
+              == "overloaded" and out["unbusy"]["status"] == 200,
+              f"{label}: busy threshold: {out['busy']['status']} then "
+              f"{out['unbusy']['status']}")
+        cleared = out["cleared"]
+        computed = out["prefill_computed"]
+        check([r["instance"] for r in cleared["cleared_workers"]]
+              == [worker.instance_id] and not cleared["failed_workers"],
+              f"{label}: clear_kv_blocks answered {cleared}")
+        check(computed[1] < 300 and computed[2] == 300,
+              f"{label}: prefill tokens computed {computed} (a hit, then "
+              "none after the clear)")
+        check(out["openapi"] == out["routes"] and out["docs"][0] == 200
+              and out["docs"][1].startswith("text/html"),
+              f"{label}: /openapi.json lists {sorted(out['openapi'])}")
+    check_graphed(runner, label)
+    want = expected_counts(runner, dev, decode=runner.decode_steps,
+                           prefill=runner.prefill_steps,
+                           warm=runner.graph_warm_forwards)
+    if quantized and dev.type == "cuda":
+        want["q4_matmul_v2"] += out["embed_calls"] * 7 * n_layers
+    sent = sum(len(data["data"]) for data in emb.values())
+    check(out["embed_calls"] == sent,
+          f"{label}: {out['embed_calls']} embeddings ran, {sent} sent")
+    check(out["launches"] == want,
+          f"{label}: kernel launches {out['launches']} != expected {want}")
+    rows = (("paged_decode_attention_pool_int8", "q4_matmul_v2")
+            if quantized else ("paged_decode_attention_pool",))
+    if dev.type == "cuda":
+        check(all(out["launches"][r] > 0 for r in rows),
+              f"{label}: {rows} not all launched: {out['launches']}")
+    emit(label, model=model, weight_dtype=runner.config.weight_dtype,
+         kv_dtype=runner.config.kv_dtype,
+         embed_ms_by_tokens={str(n): embed_ms[n] for n in lengths},
+         embed_buckets={str(n): b for n, b in buckets.items()},
+         embed_cosine={str(n): c for n, c in cosine.items()},
+         embed_calls=out["embed_calls"], latency=out["latency"],
+         texts_equal=len(texts), decode_forwards=runner.decode_steps,
+         prefill_forwards=runner.prefill_steps,
+         kernel_launches=out["launches"],
+         **({} if quantized else {
+             "stop_sequence": out["stop"],
+             "prefill_computed": out["prefill_computed"],
+             "routes": len(out["routes"])}),
+         seconds=time.perf_counter() - t_phase)
+    return {r: out["launches"][r] for r in rows}
 
 
 DISAGG_RUNS = (("streamed", 1), ("serial", 0))  # DYNT_DISAGG_PIPELINE
@@ -9028,6 +9516,8 @@ def main() -> None:
         phase_prefill(dev, worker, "prefill_bf16")
         phase_graphs(dev, worker, "graphs_bf16")
         phase_serve(dev, worker, "serve_bf16")
+        for name, n in phase_serve_edge(dev, worker, "serve_edge").items():
+            launches[name] = launches.get(name, 0) + n
         # the arrival ladder runs on phase_checkpoint's directory
         for name, n in phase_checkpoint(
                 dev, worker,
@@ -9072,6 +9562,9 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + n
         phase_graphs(dev, worker, "graphs_q", spec_ks=(SPEC_K, SPEC_K + 1))
         phase_serve(dev, worker, "serve_q")
+        for name, n in phase_serve_edge(dev, worker,
+                                        "serve_edge_q").items():
+            launches[name] = launches.get(name, 0) + n
         for name, n in phase_logits_q(dev, worker).items():
             launches[name] = launches.get(name, 0) + n
         for run in range(KV_RUNS):

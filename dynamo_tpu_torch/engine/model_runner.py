@@ -16,6 +16,9 @@ host entry points the scheduler drives:
                          committed token plus k drafts scored in one
                          forward, the targets drawn with sequential
                          decode's (seed, step) keys (`sampler.spec_verify`)
+  * embed(...)         — one sequence's pooled, L2-normalized embedding
+                         (`models.transformer.forward_embed`), eager at its
+                         prefill bucket: no graph, no KV pool
 
 Decode attention goes through `ops.paged_attention_decode_pool` and the
 spec step's through `ops.paged_attention_spec_pool` (the same whole-pool
@@ -117,6 +120,7 @@ from ..models.transformer import (
     AttentionFn,
     forward,
     forward_decode,
+    forward_embed,
     forward_spec,
     init_lora_pack,
     paged_attention_xla,
@@ -303,6 +307,8 @@ class ModelRunner:
         self.decode_steps = 0
         self.spec_steps = 0
         self.prefill_steps = 0
+        # Eager embedding forwards run (`embed`; never a graph)
+        self.embed_calls = 0
         # The step graphs by key (`_run_step`), sharing one memory pool and
         # one capture stream. Captures, replays and the seconds captures
         # took; the eager forwards a capture ran before capturing (they
@@ -536,6 +542,31 @@ class ModelRunner:
 
         return self._run_step("prefill_logits" if want_logits else "prefill",
                               bucket, 1, step, values)
+
+    @torch.inference_mode()
+    def embed(self, tokens: np.ndarray) -> np.ndarray:
+        """Pooled, L2-normalized embedding of a token sequence, [H] f32
+        (`models.transformer.forward_embed`). The sequence is padded to its
+        prefill bucket, as the reference pads it, and runs eagerly on the
+        current (step) stream: no graph is captured and the KV pool is not
+        touched, so the scheduler thread may run it between steps
+        (`run_in_step`). Quantized projections launch the runner's matmul
+        kernels."""
+        t = len(tokens)
+        if t > self.config.prefill_buckets[-1]:
+            raise ValueError(
+                f"embedding input of {t} tokens exceeds the engine's max "
+                f"sequence bucket ({self.config.prefill_buckets[-1]})")
+        bucket = self._bucket_for(t)
+        tok = np.zeros((1, bucket), np.int64)
+        tok[0, :t] = tokens
+        valid = np.zeros((1, bucket), bool)
+        valid[0, :t] = True
+        self.embed_calls += 1
+        out = forward_embed(self.model, self._t(tok, torch.long),
+                            self._t(valid, torch.bool),
+                            matmul_fn=self.matmul_fn)
+        return out[0].cpu().numpy()
 
     # -- decode-kind steps ---------------------------------------------------
 

@@ -84,7 +84,8 @@ already salts block hashes by adapter (`request.kv_salt()`).
 a slot, so an unload cannot free a slot a parked sequence will resume on.
 
 Not ported yet (a later slice): multimodal. Such requests finish with an
-error.
+error. Embedding requests never reach `submit`: the worker runs them on the
+scheduler thread between steps (`run_in_step`, `ModelRunner.embed`).
 """
 
 from __future__ import annotations
@@ -292,8 +293,6 @@ def _unsupported(request: PreprocessedRequest) -> Optional[str]:
     """Why this engine cannot serve `request` yet, or None."""
     if request.media_hashes or request.media_embeddings is not None:
         return "multimodal requests are not ported yet"
-    if request.annotations.get("embed"):
-        return "embedding requests are not ported yet"
     return None
 
 

@@ -116,6 +116,8 @@ import time
 import uuid
 from typing import AsyncIterator, Optional, Union
 
+import numpy as np
+
 from ..block_manager import BlockLayoutSpec, KvBlockManager, KvbmConfig
 from ..config import env
 from ..device import DeviceLike, resolve_device
@@ -1354,6 +1356,20 @@ class TorchWorker:
     async def generate(self, body: dict, ctx=None) -> AsyncIterator[dict]:
         request = PreprocessedRequest.from_wire(body)
         current_request_id.set(request.request_id)
+        if request.annotations.get("embed"):
+            # An embedding: the trunk-only pooled forward, serialized with
+            # the engine's steps on the scheduler thread (no KV involved)
+            tokens = np.asarray(request.token_ids, np.int32)
+            q = self.scheduler.run_in_step(lambda: self.runner.embed(tokens))
+            vec, exc = await asyncio.to_thread(q.get)
+            if exc is not None:
+                yield EngineOutput(finish_reason="error",
+                                   error=str(exc)).to_wire()
+                return
+            yield EngineOutput(
+                finish_reason="stop", prompt_tokens=len(request.token_ids),
+                embedding=[float(x) for x in vec]).to_wire()
+            return
         prefill_only = (self.mode == "prefill"
                         or bool(request.annotations.get("prefill_only")))
         canary = bool(request.annotations.get("canary"))

@@ -44,7 +44,8 @@ class Frontend:
                                     router_mode=router_mode,
                                     kv_config=kv_config)
         self.http = HttpService(self.manager, host=host, port=port,
-                                busy_threshold=busy_threshold)
+                                busy_threshold=busy_threshold,
+                                runtime=runtime)
 
     @property
     def port(self) -> int:

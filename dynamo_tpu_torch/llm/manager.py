@@ -27,8 +27,9 @@ prefill and chat also registers as a model. Inside `Migration` each
 model's engine is a `PrefillRouterEngine`, which sends every request to the
 prefill pool first while the pool has a live instance and falls back to
 aggregated serving when the last one goes. A draining prefill worker stops
-getting new legs. Image, encoder and embedding cards are still logged and
-dropped: those pools and the session tier are not ported.
+getting new legs. Image and encoder cards are still logged and dropped:
+those pools and the session tier are not ported (embeddings ride the chat
+and completions models' pipelines, as in the reference).
 
 LoRA adapters are served as model names: each card's
 `runtime_config["loras"]` is recorded per instance (republished on every

@@ -301,6 +301,7 @@ class DeltaGenerator:
         self.detok = IncrementalDetokenizer(preprocessor.tokenizer)
         self.completion_tokens = 0
         self.finish_reason: Optional[str] = None
+        self.stop_sequence_hit: Optional[str] = None  # the stop that fired
         self._jail = ""  # text held back: may be a prefix of a stop string
         self._stopped = False
         self._role_sent = False
@@ -330,6 +331,7 @@ class DeltaGenerator:
             idx = buf.find(stop)
             if idx != -1 and (earliest is None or idx < earliest):
                 earliest = idx
+                self.stop_sequence_hit = stop
         if earliest is not None:
             self._jail = ""
             return buf[:earliest], True

@@ -4,6 +4,7 @@ from .transformer import (
     Transformer,
     forward,
     forward_decode,
+    forward_embed,
     forward_spec,
     init_params,
     make_kv_cache,
@@ -13,6 +14,7 @@ from .transformer import (
 
 __all__ = [
     "PRESETS", "ModelConfig", "get_config", "kv_cache_from_numpy",
-    "params_from_numpy", "Transformer", "forward", "forward_decode", "forward_spec",
+    "params_from_numpy", "Transformer", "forward", "forward_decode", "forward_embed",
+    "forward_spec",
     "init_params", "make_kv_cache", "make_kv_cache_int8", "quantize_kv",
 ]

@@ -1038,3 +1038,57 @@ def forward(
         x = torch.gather(x, 1, last_idx.long()[:, None, None].expand(
             -1, 1, x.shape[-1]))
     return _logits(model, x, matmul_fn)
+
+
+def forward_embed(
+    model: Transformer,
+    tokens: torch.Tensor,  # [B, T]
+    valid: torch.Tensor,  # [B, T] bool
+    matmul_fn: Optional[MatmulFn] = None,
+) -> torch.Tensor:
+    """Trunk-only forward for embedding requests: in-chunk causal attention
+    masked by `valid` (no KV cache touched), masked mean pooling over the
+    valid positions after the final norm, L2 normalization. Returns [B, H]
+    f32. Plain PyTorch as the reference's `forward_embed` is plain XLA
+    (dense [B, kh, g, T, T] scores, one layer at a time; padded keys take
+    -1e30 before the f32 softmax); quantized projections go through
+    `matmul_fn` (default `quant_matmul`, the dequant-GEMM kernels on the
+    card), and a layer holding a router runs the capacity-dispatched MoE.
+    MLA is refused as the reference asserts; gpt-oss is refused too: the
+    reference's loop has no sinks, biases, window or gpt-oss experts and
+    fails on its layers."""
+    config = model.config
+    if config.is_mla:
+        raise ValueError("embedding path supports standard-attention models")
+    if config.is_gptoss:
+        raise ValueError(
+            f"{config.name}: embeddings of gpt-oss models are not supported "
+            "(the embedding trunk has no sink attention, sliding window, "
+            "projection biases or gpt-oss experts)")
+    b, t = tokens.shape
+    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
+    causal = torch.ones((t, t), dtype=torch.bool,
+                        device=tokens.device).tril()
+    mask = (causal[None, :, :] & valid[:, None, :])[:, None, None]
+    group = config.n_q_heads // config.n_kv_heads
+    scale = 1.0 / math.sqrt(config.head_dim)
+    x = model.embed[tokens]  # [B, T, H]
+    for lp in model.layers:
+        h = rms_norm(x, lp["attn_norm"], config.rms_eps)
+        q, k, v = _qkv(h, lp, config, cos, sin, matmul_fn)
+        qg = q.reshape(b, t, config.n_kv_heads, group, config.head_dim)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg, k) * scale
+        scores = scores.masked_fill(~mask, -1e30)
+        weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        del scores
+        attn = torch.einsum("bkgts,bskd->btkgd", weights, v)
+        del weights
+        attn = attn.reshape(b, t, config.n_q_heads, config.head_dim)
+        x = x + _attn_out(attn, lp, matmul_fn)
+        x = x + _mlp(x, lp, config, matmul_fn)
+    x = rms_norm(x, model.final_norm, config.rms_eps).float()
+    w = valid.float()[:, :, None]
+    pooled = (x * w).sum(dim=1) / w.sum(dim=1).clamp(min=1.0)
+    return pooled / torch.linalg.vector_norm(
+        pooled, dim=-1, keepdim=True).clamp(min=1e-9)

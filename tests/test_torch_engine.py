@@ -188,9 +188,11 @@ def test_worker_generate_wire_stream(params, run, monkeypatch):
     {"annotations": {"embed": True}},
 ], ids=["lora", "multimodal", "embed"])
 def test_unported_request_features_error_in_band(params, run, feature):
-    """Multimodal and embedding requests are not ported and error in band;
-    an adapter request on a worker without that adapter gets the
-    reference's in-band refusal."""
+    """Multimodal requests are not ported and error in band; an adapter
+    request on a worker without that adapter gets the reference's in-band
+    refusal; an embedding request gets the reference's one `stop` frame
+    carrying the pooled vector (`emb`), equal to the JAX package's
+    `forward_embed` at the bucket (f32, within 1e-5)."""
     worker = TorchWorker(CFG, RunnerConfig(**RUNNER), device="cpu",
                          params=params_from_numpy(params, CFG, device="cpu"))
     worker.start()
@@ -206,6 +208,16 @@ def test_unported_request_features_error_in_band(params, run, feature):
         frames = run(collect())
     finally:
         worker.close()
+    if "annotations" in feature:
+        from dynamo_tpu.models.transformer import forward_embed
+        tok = np.zeros((1, 8), np.int32)
+        tok[0, :3] = [1, 2, 3]
+        want = np.asarray(forward_embed(params, CFG, tok,
+                                        np.arange(8)[None] < 3))[0]
+        assert len(frames) == 1 and frames[0]["f"] == "stop"
+        assert frames[0]["p"] == 3 and "err" not in frames[0]
+        np.testing.assert_allclose(frames[0]["emb"], want, atol=1e-5)
+        return
     want = ("adapter 'adapter' not loaded here" if "lora_name" in feature
             else "not ported yet")
     assert frames[-1]["f"] == "error" and want in frames[-1]["err"]

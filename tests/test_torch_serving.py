@@ -378,7 +378,10 @@ def test_routes(stacks):
         status, _, text = _request(port, "GET", path)
         assert status == 200
         assert json.loads(text) == {"status": "healthy", "models": [MODEL]}
-    assert _request(port, "GET", "/v1/embeddings")[:1] == (404,)
+    # embeddings are served (POST only); images are not ported
+    assert _request(port, "GET", "/v1/embeddings")[:1] == (405,)
+    assert _request(port, "POST", "/v1/images/generations",
+                    {"model": MODEL, "prompt": "x"})[:1] == (404,)
     assert _request(port, "GET", "/nowhere")[2] == "404: Not Found"
     assert _request(port, "GET", "/v1/completions")[0] == 405
 
@@ -471,7 +474,7 @@ def test_custom_chat_template_is_refused(stacks):
     from dynamo_tpu_torch.llm.validate import RequestError
 
     pre = OpenAIPreprocessor(ModelDeploymentCard(
-        name="m", chat_template="{% macro m() %}{% endmacro %}"))
+        name="m", chat_template="{% include 'chat.jinja' %}"))
     with pytest.raises(RequestError, match="outside the renderer's grammar"):
         pre.preprocess_chat({"messages": [{"role": "user", "content": "x"}]})
     # completions do not render the template
